@@ -6,24 +6,41 @@
 Phases (any failure raises and exits non-zero; nothing falls back):
 
 1. Print the card (``nvidia-smi``), torch/CUDA versions, and build the
-   assessment kernels B1–B4 from ``src/repro_torch/accel/csrc/assess.cu``
-   with ``nvcc`` (timed).
+   kernels with ``nvcc``, one process per source, all started together
+   (timed): B1–B4 from ``src/repro_torch/accel/csrc/assess.cu``, B5 from
+   ``csrc/bulk.cu``.
 2. Kernel phase: each kernel on the card against its plain torch version
    on CPU copies of the same inputs, exactly (NaN equal to NaN) — first on
-   :func:`adversarial_inputs` (summation-order and tie boundary cases),
-   then on a mid-run snapshot of the main-path scenario, where kernel and
-   plain version are also timed on the card with CUDA events.
+   :func:`adversarial_inputs` (summation-order, tie and padding boundary
+   cases), then on a mid-run snapshot of the main-path scenario, where
+   kernel and plain version are also timed on the card with CUDA events.
 3. Main path: the 1,000-node, 20-job scenario under ``policy="bino"`` and
    ``policy="yarn"``, each once with the default backend (torch on the
    card) and once with ``assess_backend="numpy"``. Action traces,
    attempt launches and job results must be byte-identical, and every
    kernel must have launched during the card runs; B3 must have been
    reached through both ``late_victims`` (yarn) and ``winning`` (bino).
-4. Profile: the bino card run once more under ``torch.profiler`` —
+4. Fair path: the same jobs on the ε-fair network with 40 racks, the
+   kernel shuffle engine and drain-boundary re-pricing, plus a rack
+   switch degrade — bino with assessment and the bulk solver on the card,
+   then both on numpy. Byte-identical traces, launches and results; B5
+   launched and transfers re-priced. B5 is then held against its plain
+   version on every pricing call of the card run and timed.
+5. Sweep path: the fair card run's snapshot at 120 s, 64 fault scenarios
+   of all five kinds; ``BatchedSweep.run_batched`` on the card (one
+   launch each of B1, B3 and B4 with a scenario axis) equals
+   ``run_serial`` on numpy exactly. The batched kernels are then held
+   against their plain versions and against 64 per-scenario launches,
+   and timed.
+6. Profile: the flat bino card run once more under ``torch.profiler`` —
    device time by kernel and the device's busy share of the run's wall
    time.
-5. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the
+7. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the
    result line ``{"ok": true, "device": {...}}`` last.
+
+Each path is driven with the launch counts set to 0 just before it and
+read just after; the comparisons of phases 2, 4 and 5 launch outside
+those windows.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
@@ -52,7 +69,12 @@ N_CONTAINERS = 8
 N_JOBS = 20
 JOB_GB = 25.0
 SIM_TIME_CAP = 240.0
-CAPTURE_AT = 120.0          # kernel-phase snapshot: mid-run
+CAPTURE_AT = 120.0          # kernel-phase and sweep snapshots: mid-run
+# Fair path: benchmarks/perf_net.py's rack count at 1,000 nodes,
+# max(2, n // 25); rack 3's uplink degrades to 5 % for 90 s from 60 s.
+N_RACKS = 40
+DEGRADE = dict(rack=3, at=60.0, factor=0.05, duration=90.0)
+N_SCENARIOS = 64
 
 # Card peaks for bound_ms (NVIDIA H100 SXM data sheet): HBM3 bandwidth
 # and the float64 rate outside the tensor cores.
@@ -65,9 +87,13 @@ ADVERSARIAL_SEEDS = 8
 
 def scenario(policy: str, backend, *, n_workers: int = N_WORKERS,
              n_jobs: int = N_JOBS, gb: float = JOB_GB,
-             cap: float = SIM_TIME_CAP):
+             cap: float = SIM_TIME_CAP, shuffle: str = "batch",
+             net: str = "flat", racks: int = 0, net_opts=None,
+             degrade=None):
     """One seeded run of the main-path scenario through the port's
-    public entry points; returns (sim, launches, result key, wall s)."""
+    public entry points; returns (sim, launches, result key, wall s).
+    ``net``/``racks``/``net_opts``/``shuffle`` select the network and
+    engine, ``degrade`` adds a rack switch degrade."""
     from repro_torch.sim import JobSpec, Simulation, faults
     from repro_torch.sim.mapreduce import BINO_PARAMS, SimParams
 
@@ -75,7 +101,8 @@ def scenario(policy: str, backend, *, n_workers: int = N_WORKERS,
     sim = Simulation(policy=policy, seed=0, n_workers=n_workers,
                      n_containers=N_CONTAINERS, assess_backend=backend,
                      params=dataclasses.replace(base, sim_time_cap=cap),
-                     record_actions=True)
+                     shuffle=shuffle, net=net, racks=racks,
+                     net_opts=net_opts, record_actions=True)
     launches = []
     orig = sim._start_attempt
 
@@ -90,12 +117,71 @@ def scenario(policy: str, backend, *, n_workers: int = N_WORKERS,
             for i in range(n_jobs)]
     faults.crash_busiest_node_at_map_progress(sim, jobs[0], 0.4)
     faults.lose_mof_at_map_progress(sim, jobs[1], 1.0)
+    if degrade is not None:
+        faults.rack_switch_degrade_at(sim, **degrade)
     t0 = time.perf_counter()
     results = sim.run()
     wall = time.perf_counter() - t0
     key = [(r.job_id, r.finish_time, r.n_attempts, r.n_spec_attempts,
             r.n_fetch_failures) for r in results]
     return sim, launches, key, wall
+
+
+def fair_scenario(assess, bulk, *, racks: int = N_RACKS, **kw):
+    """The main-path jobs and faults on the ε-fair network: ``racks``
+    racks, the kernel shuffle engine, drain-boundary re-pricing of
+    in-flight transfers, and a rack switch degrade; bino."""
+    return scenario("bino", assess, shuffle="kernel", net="fair",
+                    racks=racks, net_opts={"realloc": True,
+                                           "bulk_backend": bulk},
+                    degrade=DEGRADE, **kw)
+
+
+def timed_bulk(base, *args, prices=None):
+    """An instance of bulk backend class ``base`` that adds the host wall
+    time of its water-fill and pricing calls (each returns host arrays,
+    so the device work is inside) to ``.wall``, and appends every
+    non-empty pricing call's inputs to ``prices`` when given."""
+
+    class Timed(base):
+        def waterfill(self, eff, links, valid, eps):
+            t0 = time.perf_counter()
+            out = super().waterfill(eff, links, valid, eps)
+            self.wall["waterfill"] += time.perf_counter() - t0
+            return out
+
+        def price(self, share, links, valid):
+            if prices is not None and len(links):
+                prices.append((share.copy(), links.copy(), valid.copy()))
+            t0 = time.perf_counter()
+            out = super().price(share, links, valid)
+            self.wall["price"] += time.perf_counter() - t0
+            return out
+
+    bulk = Timed(*args)
+    bulk.wall = {"waterfill": 0.0, "price": 0.0}
+    return bulk
+
+
+def recording_backends(device, at: float = CAPTURE_AT):
+    """Torch assessment and bulk backends on ``device`` that record: the
+    snapshot at the first spatial pass at or after ``at``, and every
+    pricing call's inputs (the bulk backend is :func:`timed_bulk`).
+    Returns (assess, bulk, record dict)."""
+    from repro_torch.accel.bulk import TorchBulk
+    from repro_torch.accel.torch_backend import TorchBackend
+    from repro_torch.core.arrays import snapshot_state
+
+    got = {"prices": []}
+
+    class Assess(TorchBackend):
+        def spatial_hits(self, arr, now, active, neighborhoods):
+            if "state" not in got and now >= at:
+                got.update(state=snapshot_state(arr), now=now)
+            return super().spatial_hits(arr, now, active, neighborhoods)
+
+    return Assess(device), timed_bulk(TorchBulk, device,
+                                      prices=got["prices"]), got
 
 
 def capture_snapshot(cap: float = CAPTURE_AT, **kw):
@@ -207,7 +293,34 @@ def adversarial_inputs(seed: int, device, cap: int = 4096, n: int = 256,
     live = (rng.random(cap) < 0.6).astype(i32)
     reap = (t(a_state), t(tseg), t(live))
     return {"spatial": spatial, "temporal": temporal, "late": late,
-            "reap": reap}
+            "reap": reap, "price": price_inputs(rng, n, device)}
+
+
+def price_inputs(rng, n: int, device, racks: int = 8):
+    """B5's arguments padded as ``TorchBulk.price`` pads them, with
+    ``k`` just above a power of two: shares from a small set with ties
+    and values below 1.0 (the max with 1.0 decides), one-link local
+    flows, two-link intra-rack and four-link inter-rack flows, valid
+    flags off the leading slots, -1 ids under invalid flags, and
+    all-invalid pad rows."""
+    nL = 2 * n + racks
+    k = 2 ** int(rng.integers(6, 12)) + 1
+    cap = 16
+    while cap < k:
+        cap *= 2
+    share = rng.choice([0.25, 0.5, 1.0, 1.5, 3.0, 1e9], nL)
+    links = rng.integers(0, nL, (cap, 4)).astype(np.int32)
+    width = rng.choice([1, 2, 4], cap)
+    valid = np.arange(4)[None, :] < width[:, None]
+    shuffled = rng.random(cap) < 0.2            # flags off the prefix
+    valid[shuffled] = rng.permuted(valid[shuffled], axis=1)
+    valid[k:] = False
+    links[~valid & (rng.random((cap, 4)) < 0.5)] = -1
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return t(share), t(links), t(valid)
 
 
 def _as_tuple(x):
@@ -229,7 +342,9 @@ def _compare(a, b):
             if not same_nan:
                 err = float("inf")
             elif x0.numel():
-                err = max(err, float((x0 - y0).abs().max()))
+                # equal entries (infinities included) differ by 0
+                d = torch.where(x0 == y0, 0.0, (x0 - y0).abs())
+                err = max(err, float(d.max()))
         else:
             equal &= torch.equal(x, y)
             if x.numel():
@@ -256,9 +371,27 @@ def _nbytes(x) -> int:
                if isinstance(t, torch.Tensor))
 
 
+# Leading row arguments of the kernels that take a scenario axis.
+ROW_ARGS = {"spatial": 5, "late": 9, "reap": 3}
+
+
+def one_scenario(name: str, args: tuple, s: int) -> tuple:
+    """Scenario ``s``'s arguments of batched kernel ``name``: its rows of
+    the stacked row arguments, the shared arguments as they are."""
+    k = ROW_ARGS[name]
+    return tuple(a[s] for a in args[:k]) + tuple(args[k:])
+
+
 def _ops(name, args) -> float:
     """Arithmetic and comparison operations the function needs on these
     inputs (float64, so against the non-tensor-core rate)."""
+    if name.endswith("_sweep"):
+        base = name[:-len("_sweep")]
+        return sum(_ops(base, one_scenario(base, args, s))
+                   for s in range(args[0].shape[0]))
+    if name == "price":
+        # a compare per valid link and the max with 1.0 per row
+        return float(args[2].sum()) + args[1].shape[0]
     if name == "spatial":
         running, nh, jcap = args[4], args[5], args[6]
         n, k = nh.shape
@@ -280,6 +413,14 @@ def _ops(name, args) -> float:
     return 2.0 * args[0].shape[0]
 
 
+REPLACES = {
+    "spatial": "src/repro/accel/pallas_backend.py:51 _spatial_kernel",
+    "temporal": "src/repro/accel/pallas_backend.py:85 _temporal_kernel",
+    "late": "src/repro/accel/pallas_backend.py:112 _late_kernel",
+    "reap": "src/repro/accel/pallas_backend.py:191 _reap_kernel",
+}
+
+
 def kernel_phase(cap_state):
     from repro_torch.accel import kernels as K
     from repro_torch.accel import torch_backend as TB
@@ -288,18 +429,14 @@ def kernel_phase(cap_state):
            "temporal": (TB.temporal, TB.temporal_ref),
            "late": (TB.late, TB.late_ref),
            "reap": (TB.reap, TB.reap_ref)}
-    replaces = {
-        "spatial": "src/repro/accel/pallas_backend.py:51 _spatial_kernel",
-        "temporal": "src/repro/accel/pallas_backend.py:85 _temporal_kernel",
-        "late": "src/repro/accel/pallas_backend.py:112 _late_kernel",
-        "reap": "src/repro/accel/pallas_backend.py:191 _reap_kernel",
-    }
     # Boundary cases first: every kernel equal to its plain version on
     # inputs built to expose summation order and tie handling.
+    from repro_torch.accel import bulk as B
+    adv_fns = dict(fns, price=(B.price, B.price_ref))
     for seed in range(ADVERSARIAL_SEEDS):
         dev_adv = adversarial_inputs(seed, "cuda")
         cpu_adv = adversarial_inputs(seed, "cpu")
-        for name, (wrapper, plain) in fns.items():
+        for name, (wrapper, plain) in adv_fns.items():
             equal, err = _compare(wrapper(*dev_adv[name]),
                                   plain(*cpu_adv[name]))
             if not equal:
@@ -325,25 +462,33 @@ def kernel_phase(cap_state):
         if not equal:
             raise RuntimeError(f"{name}: kernel != plain version "
                                f"(max_abs_err {err})")
-        ms = _time_ms(wrapper, args)
-        plain_ms = _time_ms(plain, args)
-        in_bytes = sum(_nbytes(a) for a in args)
-        bytes_ = in_bytes + _nbytes(got)
-        ops = _ops(name, args)
-        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP64_OPS_PER_S * 1e3
-        rows[name] = {
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/accel/csrc/assess.cu",
-            "replaces": replaces[name], "launches": 0,
-            "equal": True, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "bytes": bytes_, "ops": ops,
-        }
-        print(f"kernel {name}: equal max_abs_err={err} ms={ms:.6f} "
-              f"plain_ms={plain_ms:.6f} bytes={bytes_}", flush=True)
+        rows[name] = timed_row(name, wrapper, plain, args, got, err,
+                               "src/repro_torch/accel/csrc/assess.cu",
+                               REPLACES[name])
     return rows
+
+
+def timed_row(name, wrapper, plain, args, got, err, source, replaces):
+    """The kernel's line of the ``{"kernels": ...}`` record: kernel and
+    plain version timed on the card on ``args``, and the bound for
+    them (bytes of the inputs read once and the outputs written once
+    over the memory rate, or operations over the float64 rate)."""
+    ms = _time_ms(wrapper, args)
+    plain_ms = _time_ms(plain, args)
+    bytes_ = sum(_nbytes(a) for a in args) + _nbytes(got)
+    ops = _ops(name, args)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP64_OPS_PER_S * 1e3
+    print(f"kernel {name}: equal max_abs_err={err} ms={ms:.6f} "
+          f"plain_ms={plain_ms:.6f} bytes={bytes_}", flush=True)
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": 0,
+        "equal": True, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "bytes": bytes_, "ops": ops,
+    }
 
 
 def main_path():
@@ -363,7 +508,7 @@ def main_path():
             return out
         setattr(TorchBackend, meth, counted)
 
-    total = {name: 0 for name in K.launches}
+    total = {name: 0 for name in ("spatial", "temporal", "late", "reap")}
     for policy in ("bino", "yarn"):
         K.reset_launches()
         card, c_launch, c_key, c_wall = scenario(policy, None)
@@ -402,6 +547,177 @@ def main_path():
     return total
 
 
+def fair_path():
+    """Bino on the ε-fair network, card then numpy; returns the card
+    run's launch counts and its records (pricing calls, snapshot)."""
+    from repro_torch.accel import kernels as K
+
+    from repro_torch.accel.bulk import NumpyBulk
+
+    assess, bulk, got = recording_backends("cuda")
+    K.reset_launches()
+    card, c_launch, c_key, c_wall = fair_scenario(assess, bulk)
+    counts = dict(K.launches)
+    ref_bulk = timed_bulk(NumpyBulk)
+    ref, r_launch, r_key, r_wall = fair_scenario("numpy", ref_bulk)
+    if card.action_trace != ref.action_trace:
+        raise RuntimeError("fair: action traces differ")
+    if c_launch != r_launch:
+        raise RuntimeError("fair: attempt launches differ")
+    if c_key != r_key:
+        raise RuntimeError("fair: job results differ")
+    if not card.action_trace:
+        raise RuntimeError("fair: no actions, nothing probed")
+    if counts["price"] == 0 or len(got["prices"]) != counts["price"]:
+        raise RuntimeError(f"fair: B5 launched {counts['price']} times for "
+                           f"{len(got['prices'])} pricing calls")
+    if card.shuffle.n_reallocs == 0:
+        raise RuntimeError("fair: no transfer was re-priced")
+    if "state" not in got:
+        raise RuntimeError("fair: no snapshot at the sweep time")
+    net, ref_net = card.cluster.net, ref.cluster.net
+    print(f"fair path bino ({N_WORKERS} nodes, {N_RACKS} racks): identical "
+          f"traces ({len(card.action_trace)} actions, {len(c_launch)} "
+          f"attempt launches, {len(c_key)} jobs finished); re-priced "
+          f"transfers {card.shuffle.n_reallocs}; card: water-fill calls "
+          f"{bulk.n_calls}, rounds {bulk.n_rounds}, wall "
+          f"{bulk.wall['waterfill']:.6f} s, pricing calls {bulk.n_prices}, "
+          f"wall {bulk.wall['price']:.6f} s, solver recomputes "
+          f"{net.n_recomputes}, {card.assess_ticks} assess ticks, "
+          f"assess_wall "
+          f"{card.assess_wall:.6f} s, "
+          f"{card.assess_ticks / card.assess_wall:.3f} ticks/s, wall "
+          f"{c_wall:.6f} s; numpy: solver recomputes "
+          f"{ref_net.n_recomputes}, water-fill wall "
+          f"{ref_bulk.wall['waterfill']:.6f} s, pricing wall "
+          f"{ref_bulk.wall['price']:.6f} s, re-priced "
+          f"{ref.shuffle.n_reallocs}, "
+          f"{ref.assess_ticks} ticks, assess_wall {ref.assess_wall:.6f} s, "
+          f"{ref.assess_ticks / ref.assess_wall:.3f} ticks/s, wall "
+          f"{r_wall:.6f} s; kernel launches {counts}", flush=True)
+    return counts, got
+
+
+def price_phase(prices):
+    """B5 against its plain version on every pricing call of the fair
+    card run, as ``TorchBulk.price`` pads them; timed on the largest."""
+    from repro_torch.accel import bulk as B
+
+    err, largest = 0.0, None
+    for share, links, valid in prices:
+        cpu = tuple(torch.from_numpy(x)
+                    for x in (share, *B.pad_flows(links, valid)))
+        dev = tuple(x.cuda() for x in cpu)
+        equal, e = _compare(B.price(*dev), B.price_ref(*cpu))
+        if not equal:
+            raise RuntimeError(f"price: kernel != plain version on a "
+                               f"recorded call (k {len(links)}, "
+                               f"max_abs_err {e})")
+        err = max(err, e)
+        if largest is None or dev[1].shape[0] > largest[1].shape[0]:
+            largest = dev
+    got = B.price(*largest)
+    print(f"price: kernel equal to its plain version on {len(prices)} "
+          f"recorded calls (largest cap {largest[1].shape[0]}, nL "
+          f"{largest[0].shape[0]})", flush=True)
+    return timed_row("price", B.price, B.price_ref, largest, got, err,
+                     "src/repro_torch/accel/csrc/bulk.cu",
+                     "src/repro/accel/bulk.py:252 "
+                     "PallasBulk._price_core.kernel")
+
+
+def sweep_path(state, now, device="cuda", n_scen=N_SCENARIOS,
+               racks=N_RACKS):
+    """The batched sweep on the fair run's snapshot: ``run_batched`` on
+    ``device`` against ``run_serial`` on numpy, every scenario and field
+    exactly. Returns (the sweep, launch counts of the batched call)."""
+    from repro_torch.accel import kernels as K
+    from repro_torch.accel.sweep import BatchedSweep, scenario_grid
+    from repro_torch.core.arrays import snapshot_from_state
+
+    arr = snapshot_from_state(state)
+    grid = scenario_grid(n_scen, len(arr.node_ids), seed=1, n_racks=racks)
+    kinds = sorted({sc.kind for sc in grid})
+    if len(kinds) != 5:
+        raise RuntimeError(f"sweep: scenario kinds {kinds}, expected 5")
+    sweep = BatchedSweep(arr, now).prepare(grid)
+    K.reset_launches()
+    batched = sweep.run_batched(device)
+    counts = dict(K.launches)
+    serial = sweep.run_serial()
+    for i, (b, r) in enumerate(zip(batched, serial)):
+        for field in r:
+            if not np.array_equal(np.asarray(b[field]),
+                                  np.asarray(r[field])):
+                raise RuntimeError(f"sweep: scenario {i} ({grid[i].kind}) "
+                                   f"field {field} differs from serial")
+    if len(batched) != len(serial) or len(serial) != n_scen:
+        raise RuntimeError("sweep: scenario count differs")
+    if device != "cpu":
+        want = {"spatial_sweep": 1, "late_sweep": 1, "reap_sweep": 1}
+        seen = {k: counts[k] for k in want}
+        if seen != want:
+            raise RuntimeError(f"sweep: launches {seen}, expected {want}")
+
+    def ms(fn, reps=3):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    batched_ms = ms(lambda: sweep.run_batched(device))
+    serial_ms = ms(sweep.run_serial)
+    summary = {
+        "victims": sum(int((r["late_victims"] >= 0).sum()) for r in serial),
+        "spatial_hits": sum(int(r["spatial_hits"].sum()) for r in serial),
+        "failed": sum(int(r["failed"].sum()) for r in serial),
+        "winning": sum(int(r["winning"].sum()) for r in serial),
+        "n_reap": sum(r["n_reap"] for r in serial)}
+    print(f"sweep path: {n_scen} scenarios ({', '.join(kinds)}) at "
+          f"t={now} on {arr.n} rows, {len(sweep.active)} jobs: run_batched "
+          f"equal to run_serial in every field; totals {summary}; "
+          f"batched {batched_ms:.3f} ms, serial {serial_ms:.3f} ms per "
+          f"sweep; kernel launches {counts}", flush=True)
+    return sweep, counts
+
+
+def batched_kernel_phase(sweep):
+    """B1, B3 and B4 with the scenario axis on the sweep's own inputs:
+    equal to the plain versions on CPU copies and to one N = 1 launch
+    per scenario; timed."""
+    from repro_torch.accel import torch_backend as TB
+
+    dev_args, _cols = sweep.kernel_args("cuda")
+    cpu_args, _cols = sweep.kernel_args("cpu")
+    fns = {"spatial": (TB.spatial, TB.spatial_ref),
+           "late": (TB.late, TB.late_ref),
+           "reap": (TB.reap, TB.reap_ref)}
+    rows = {}
+    for name, (wrapper, plain) in fns.items():
+        args = dev_args[name]
+        got = wrapper(*args)
+        equal, err = _compare(got, plain(*cpu_args[name]))
+        if not equal:
+            raise RuntimeError(f"{name}_sweep: kernel != plain version "
+                               f"(max_abs_err {err})")
+        n = args[0].shape[0]
+        singles = [wrapper(*one_scenario(name, args, s)) for s in range(n)]
+        if isinstance(got, tuple):
+            singles = tuple(torch.stack(x) for x in zip(*singles))
+        else:
+            singles = torch.stack(singles)
+        equal, _err = _compare(got, singles)
+        if not equal:
+            raise RuntimeError(f"{name}_sweep: batched launch != {n} "
+                               f"single-scenario launches")
+        rows[name + "_sweep"] = timed_row(
+            name + "_sweep", wrapper, plain, args, got, err,
+            "src/repro_torch/accel/csrc/assess.cu",
+            f"{REPLACES[name]} (scenario axis: the vmap of "
+            f"src/repro/accel/sweep.py:138)")
+    return rows
+
+
 def profile_bino() -> None:
     """Device time by kernel over one bino card run, and the device's
     busy share of its wall time (the sum of kernel and copy times, which
@@ -437,14 +753,22 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    lib = K.build()
-    K.library()
-    print(f"built {lib.name} in {time.perf_counter() - t0:.3f} s",
-          flush=True)
+    libs = K.build()
+    for name in libs:
+        K.library(name)
+    print(f"built {', '.join(p.name for p in libs.values())} in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
 
     cap_state = capture_snapshot()
     rows = kernel_phase(cap_state)
     launches = main_path()
+    fair_launches, fair = fair_path()
+    launches["price"] = fair_launches["price"]
+    rows["price"] = price_phase(fair["prices"])
+    sweep, sweep_launches = sweep_path(fair["state"], fair["now"])
+    launches.update((k, sweep_launches[k])
+                    for k in ("spatial_sweep", "late_sweep", "reap_sweep"))
+    rows.update(batched_kernel_phase(sweep))
     profile_bino()
     for name, row in rows.items():
         row["launches"] = launches[name]

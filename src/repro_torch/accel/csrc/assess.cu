@@ -16,6 +16,12 @@
 // Inputs arrive in canonical row order, padded to `cap` rows; pad rows are
 // already masked out of `running`/`alive`/`runatt`/`live` by the caller.
 //
+// Scenario axis (B1, B3, B4). The batched sweep stacks N perturbed copies
+// of the padded columns, (N, cap) row-major, and launches each kernel once
+// with gridDim.y = N: block (x, y) works on scenario y, offsetting its row,
+// job, scratch and output pointers by y times their per-scenario extent.
+// The per-tick path is the same launch with N = 1.
+//
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (0 on success).
 
@@ -66,7 +72,8 @@ __device__ __forceinline__ int block_slot(int flag, int* warp_counts,
 // memory in canonical order, and each (phase, node) bucket is then summed
 // by the one thread that owns it (bucket % NTHREADS), row by row in that
 // order. The neighbourhood mean and sigma are left-to-right sums over k,
-// the order np.nansum uses for k < 8. One launch covers every job.
+// the order np.nansum uses for k < 8. One launch covers every job of every
+// scenario (blockIdx.y); `nh` is shared by all scenarios.
 // ---------------------------------------------------------------------------
 __global__ void spatial_kernel(const double* __restrict__ rho,
                                const int* __restrict__ node,
@@ -85,6 +92,13 @@ __global__ void spatial_kernel(const double* __restrict__ rho,
     const int j = blockIdx.x;
     const int tid = threadIdx.x;
     const int nb = 2 * n;
+    const size_t sc = blockIdx.y;
+    rho += sc * cap;
+    node += sc * cap;
+    kind += sc * cap;
+    jls += sc * cap;
+    running += sc * cap;
+    fired += sc * gridDim.x * (size_t)nb;
 
     for (int b = tid; b < nb; b += NTHREADS) {
         sums[b] = 0.0;
@@ -243,6 +257,7 @@ __global__ void temporal_kernel(const double* __restrict__ prog,
 // np.percentile's two order statistics are selected exactly by counting
 // ranks (no sort), then interpolated with numpy's _lerp. The victim is the
 // slow candidate of largest estimated remaining time, lowest task on ties.
+// Scenarios (blockIdx.y) share the scalars now/min_runtime/q/win_factor.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ bool better(double e1, int p1, double e2, int p2) {
     return e1 > e2 || (e1 == e2 && p1 < p2);
@@ -271,9 +286,22 @@ __global__ void late_kernel(const double* __restrict__ prog,
     __shared__ int r_pos[NTHREADS];
     const int j = blockIdx.x;
     const int tid = threadIdx.x;
-    double* crho = c_rho + (size_t)j * cap;
-    double* cest = c_est + (size_t)j * cap;
-    int* cpos = c_pos + (size_t)j * cap;
+    const size_t sc = blockIdx.y;
+    prog += sc * cap;
+    start += sc * cap;
+    rate += sc * cap;
+    spec += sc * cap;
+    tseg += sc * cap;
+    jls += sc * cap;
+    running += sc * cap;
+    runatt += sc * cap;
+    order += sc * cap;
+    victim += sc * gridDim.x;
+    win += sc * gridDim.x;
+    const size_t cbase = (sc * gridDim.x + j) * (size_t)cap;
+    double* crho = c_rho + cbase;
+    double* cest = c_est + cbase;
+    int* cpos = c_pos + cbase;
     if (tid == 0) {
         s_nrows = 0;
         s_m = 0;
@@ -400,13 +428,19 @@ __global__ void late_kernel(const double* __restrict__ prog,
 // Design: two passes over the rows, one thread per row. Pass 1 sets an
 // integer flag for every task segment holding a completed live attempt
 // (any order of the stores gives the same flags); pass 2 marks the live
-// running rows of flagged segments.
+// running rows of flagged segments. Scenario y of the grid offsets rows,
+// flags and output by y * cap.
 // ---------------------------------------------------------------------------
 __global__ void reap_mark_kernel(const int* __restrict__ a_state,
                                  const int* __restrict__ tseg,
                                  const int* __restrict__ live, int cap,
                                  int* __restrict__ done) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const size_t off = blockIdx.y * (size_t)cap;
+    a_state += off;
+    tseg += off;
+    live += off;
+    done += off;
     if (i < cap && live[i] == 1 && a_state[i] == 1) {
         const int s = tseg[i];
         if (s >= 0 && s < cap) done[s] = 1;
@@ -419,6 +453,12 @@ __global__ void reap_emit_kernel(const int* __restrict__ a_state,
                                  const int* __restrict__ done,
                                  int* __restrict__ out) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const size_t off = blockIdx.y * (size_t)cap;
+    a_state += off;
+    tseg += off;
+    live += off;
+    done += off;
+    out += off;
     if (i >= cap) return;
     const int s = tseg[i];
     const bool hit = live[i] == 1 && a_state[i] == 0 && s >= 0 && s < cap
@@ -444,7 +484,7 @@ extern "C" size_t assess_temporal_smem(int n) {
 extern "C" int assess_spatial(const void* rho, const void* node,
                               const void* kind, const void* jls,
                               const void* running, const void* nh, int cap,
-                              int n, int k, int jcap, void* fired,
+                              int n, int k, int jcap, int nscen, void* fired,
                               void* stream) {
     const size_t smem = assess_spatial_smem(n);
     if (smem > kDefaultSmem) {
@@ -453,7 +493,8 @@ extern "C" int assess_spatial(const void* rho, const void* node,
             (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    spatial_kernel<<<jcap, NTHREADS, smem, (cudaStream_t)stream>>>(
+    spatial_kernel<<<dim3(jcap, nscen), NTHREADS, smem,
+                     (cudaStream_t)stream>>>(
         (const double*)rho, (const int*)node, (const int*)kind,
         (const int*)jls, (const int*)running, (const int*)nh, cap, n, k,
         (unsigned char*)fired);
@@ -482,11 +523,12 @@ extern "C" int assess_late(const void* prog, const void* start,
                            const void* rate, const void* spec,
                            const void* tseg, const void* jls,
                            const void* running, const void* runatt,
-                           const void* order, int cap, int jcap, double now,
-                           double min_runtime, double q, double win_factor,
-                           void* c_rho, void* c_est, void* c_pos,
-                           void* victim, void* win, void* stream) {
-    late_kernel<<<jcap, NTHREADS, 0, (cudaStream_t)stream>>>(
+                           const void* order, int cap, int jcap, int nscen,
+                           double now, double min_runtime, double q,
+                           double win_factor, void* c_rho, void* c_est,
+                           void* c_pos, void* victim, void* win,
+                           void* stream) {
+    late_kernel<<<dim3(jcap, nscen), NTHREADS, 0, (cudaStream_t)stream>>>(
         (const double*)prog, (const double*)start, (const double*)rate,
         (const int*)spec, (const int*)tseg, (const int*)jls,
         (const int*)running, (const int*)runatt, (const int*)order, cap,
@@ -496,12 +538,13 @@ extern "C" int assess_late(const void* prog, const void* start,
 }
 
 extern "C" int assess_reap(const void* a_state, const void* tseg,
-                           const void* live, int cap, void* done, void* out,
-                           void* stream) {
+                           const void* live, int cap, int nscen, void* done,
+                           void* out, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t e = cudaMemsetAsync(done, 0, (size_t)cap * sizeof(int), s);
+    cudaError_t e = cudaMemsetAsync(
+        done, 0, (size_t)nscen * cap * sizeof(int), s);
     if (e != cudaSuccess) return (int)e;
-    const int blocks = (cap + NTHREADS - 1) / NTHREADS;
+    const dim3 blocks((cap + NTHREADS - 1) / NTHREADS, nscen);
     reap_mark_kernel<<<blocks, NTHREADS, 0, s>>>(
         (const int*)a_state, (const int*)tseg, (const int*)live, cap,
         (int*)done);

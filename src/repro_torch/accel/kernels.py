@@ -1,18 +1,23 @@
-"""Build, load and launch the assessment kernels B1–B4.
+"""Build, load and launch the port's CUDA kernels.
 
-The four kernels live in ``csrc/assess.cu`` (CUDA C++ for ``sm_90a``, a
-plain C interface). :func:`library` compiles it with ``nvcc`` at first use
-into ``build/kernels/`` at the repository root — the file name carries a
-hash of the source and flags, so an edited source rebuilds — and loads it
-with ``ctypes``. Nothing is compiled or loaded at import: CPU-only hosts
-import this module freely.
+The assessment kernels B1–B4 live in ``csrc/assess.cu``, the ε-fair
+network's pricing kernel B5 in ``csrc/bulk.cu`` (CUDA C++ for ``sm_90a``,
+plain C interfaces). :func:`build` compiles each source with its own
+``nvcc``, all started together, into ``build/kernels/`` at the repository
+root — each file name carries a hash of its source and the flags, so an
+edited source rebuilds — and :func:`library` loads them with ``ctypes``.
+Nothing is compiled or loaded at import: CPU-only hosts import this module
+freely.
 
 Each ``launch_*`` function checks device, dtype, shape and contiguity,
 allocates its outputs and scratch with ``torch.empty``, launches on the
 current stream without synchronising, raises if the C entry point reports
-a CUDA error, and adds one to its entry of :data:`launches`. The plain
-torch versions and the device dispatch live in
-:mod:`repro_torch.accel.torch_backend`.
+a CUDA error, and adds one to its entry of :data:`launches`. B1, B3 and B4
+take an optional leading scenario axis: (cap,) row columns are one tick's
+launch (counted as ``spatial``/``late``/``reap``), (N, cap) columns are
+the batched sweep's one launch for all N scenarios (counted as
+``*_sweep``). The plain torch versions and the device dispatch live in
+:mod:`repro_torch.accel.torch_backend` and :mod:`repro_torch.accel.bulk`.
 """
 from __future__ import annotations
 
@@ -22,23 +27,27 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "assess.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"assess": CSRC / "assess.cu", "bulk": CSRC / "bulk.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 # Largest dynamic shared memory a block may take on Hopper (227 KB).
 MAX_SMEM = 232448
+# Largest gridDim.y: bounds the scenarios of one batched launch.
+MAX_SCENARIOS = 65535
 
 # Launches per kernel since the last reset_launches(): the proof that a
 # run went through the kernels.
 launches: Dict[str, int] = {"spatial": 0, "temporal": 0, "late": 0,
-                            "reap": 0}
+                            "reap": 0, "price": 0, "spatial_sweep": 0,
+                            "late_sweep": 0, "reap_sweep": 0}
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
@@ -50,40 +59,68 @@ def nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def build() -> Path:
-    """Compile ``assess.cu`` unless a library of this source and these
-    flags is already built; returns the library's path."""
+def _target(name: str) -> Path:
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"libassess-{digest[:16]}.so"
-    if not out.exists():
+        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build() -> Dict[str, Path]:
+    """Compile every source whose library (this source, these flags) is
+    not built yet — one ``nvcc`` per source, all started together;
+    returns each library's path by name. Raises if any build fails."""
+    out = {name: _target(name) for name in SOURCES}
+    todo = [(name, path) for name, path in out.items() if not path.exists()]
+    if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                       check=True)
-        os.replace(tmp, out)
+    procs = []
+    for name, path in todo:
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        procs.append((name, tmp, path, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])])))
+    failed = []
+    for name, tmp, path, proc in procs:
+        if proc.wait() != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}")
     return out
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.assess_spatial.argtypes = [P] * 6 + [I] * 4 + [P, P]
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    if name == "assess":
+        lib.assess_spatial.argtypes = [P] * 6 + [I] * 5 + [P, P]
         lib.assess_temporal.argtypes = [P] * 5 + [I] * 3 + [P, P, P]
-        lib.assess_late.argtypes = [P] * 9 + [I, I, D, D, D, D] + [P] * 6
-        lib.assess_reap.argtypes = [P] * 3 + [I, P, P, P]
+        lib.assess_late.argtypes = [P] * 9 + [I] * 3 + [D] * 4 + [P] * 6
+        lib.assess_reap.argtypes = [P] * 3 + [I, I, P, P, P]
         lib.assess_spatial_smem.argtypes = [I]
         lib.assess_temporal_smem.argtypes = [I]
-        for fn in (lib.assess_spatial, lib.assess_temporal, lib.assess_late,
-                   lib.assess_reap):
-            fn.restype = ctypes.c_int
+        fns = (lib.assess_spatial, lib.assess_temporal, lib.assess_late,
+               lib.assess_reap)
         lib.assess_spatial_smem.restype = ctypes.c_size_t
         lib.assess_temporal_smem.restype = ctypes.c_size_t
-        _lib = lib
-    return _lib
+    else:
+        lib.bulk_price.argtypes = [P] * 3 + [I, I, P, P]
+        fns = (lib.bulk_price,)
+    for fn in fns:
+        fn.restype = ctypes.c_int
+
+
+def library(name: str = "assess") -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (every library is built on the
+    first call)."""
+    if name not in _libs:
+        paths = build()
+        for lib_name, path in paths.items():
+            if lib_name not in _libs:
+                lib = ctypes.CDLL(str(path))
+                _bind(lib_name, lib)
+                _libs[lib_name] = lib
+    return _libs[name]
 
 
 # ---------------------------------------------------------------------------
@@ -101,11 +138,25 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: not contiguous")
 
 
-def _cols(device, cap, f64=(), i32=()) -> None:
+def _cols(device, rows, f64=(), i32=()) -> None:
+    """Row columns: each of shape ``rows`` — (cap,) or (N, cap)."""
     for name, t in f64:
-        _check(t, name, torch.float64, (cap,), device)
+        _check(t, name, torch.float64, rows, device)
     for name, t in i32:
-        _check(t, name, torch.int32, (cap,), device)
+        _check(t, name, torch.int32, rows, device)
+
+
+def _scenarios(t: torch.Tensor, kernel: str) -> Tuple[int, int, str]:
+    """(N, cap, launch-count key) of a (cap,) or (N, cap) row column."""
+    if t.dim() == 1:
+        return 1, t.shape[0], kernel
+    if t.dim() != 2:
+        raise ValueError(f"{kernel}: rows must be (cap,) or (N, cap), got "
+                         f"{tuple(t.shape)}")
+    if not 1 <= t.shape[0] <= MAX_SCENARIOS:
+        raise ValueError(f"{kernel}: {t.shape[0]} scenarios, expected 1 to "
+                         f"{MAX_SCENARIOS}")
+    return t.shape[0], t.shape[1], kernel + "_sweep"
 
 
 def _stream(device: torch.device) -> int:
@@ -129,22 +180,25 @@ def _smem(bytes_: int, kernel: str, n: int) -> int:
 # ---------------------------------------------------------------------------
 def launch_spatial(rho, node, kind, jls, running, nh,
                    jcap: int) -> torch.Tensor:
-    """B1: (jcap, 2, n) bool Eq. 1 hits per (job, phase, node)."""
-    dev, cap = rho.device, rho.shape[0]
+    """B1: (jcap, 2, n) bool Eq. 1 hits per (job, phase, node); with
+    (N, cap) rows, (N, jcap, 2, n) for all scenarios in one launch."""
+    dev = rho.device
+    N, cap, key = _scenarios(rho, "spatial")
     n, k = nh.shape
-    _cols(dev, cap, f64=[("rho", rho)],
+    _cols(dev, tuple(rho.shape), f64=[("rho", rho)],
           i32=[("node", node), ("kind", kind), ("jls", jls),
                ("running", running)])
     _check(nh, "nh", torch.int32, (n, k), dev)
     lib = library()
     _smem(lib.assess_spatial_smem(n), "spatial", n)
-    fired = torch.empty((jcap, 2, n), dtype=torch.bool, device=dev)
+    fired = torch.empty(tuple(rho.shape[:-1]) + (jcap, 2, n),
+                        dtype=torch.bool, device=dev)
     rc = lib.assess_spatial(
         rho.data_ptr(), node.data_ptr(), kind.data_ptr(), jls.data_ptr(),
-        running.data_ptr(), nh.data_ptr(), cap, n, k, jcap,
+        running.data_ptr(), nh.data_ptr(), cap, n, k, jcap, N,
         fired.data_ptr(), _stream(dev))
     _raise_on(rc, "spatial")
-    launches["spatial"] += 1
+    launches[key] += 1
     return fired
 
 
@@ -152,7 +206,7 @@ def launch_temporal(prog, tprog, node, jls, alive, jcap: int,
                     n: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """B2: (jcap, n) float64 ζ_now and ζ_prev sums, NaN where empty."""
     dev, cap = prog.device, prog.shape[0]
-    _cols(dev, cap, f64=[("prog", prog), ("tprog", tprog)],
+    _cols(dev, (cap,), f64=[("prog", prog), ("tprog", tprog)],
           i32=[("node", node), ("jls", jls), ("alive", alive)])
     lib = library()
     _smem(lib.assess_temporal_smem(n), "temporal", n)
@@ -170,40 +224,66 @@ def launch_temporal(prog, tprog, node, jls, alive, jcap: int,
 def launch_late(prog, start, rate, spec, tseg, jls, running, runatt, order,
                 now: float, min_runtime: float, q: float, win_factor: float,
                 jcap: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B3: (jcap,) int32 LATE victim rows (-1: none) and winning flags."""
-    dev, cap = prog.device, prog.shape[0]
-    _cols(dev, cap, f64=[("prog", prog), ("start", start), ("rate", rate)],
+    """B3: (jcap,) int32 LATE victim rows (-1: none) and winning flags;
+    with (N, cap) rows, (N, jcap) each for all scenarios in one launch."""
+    dev = prog.device
+    N, cap, key = _scenarios(prog, "late")
+    _cols(dev, tuple(prog.shape),
+          f64=[("prog", prog), ("start", start), ("rate", rate)],
           i32=[("spec", spec), ("tseg", tseg), ("jls", jls),
                ("running", running), ("runatt", runatt), ("order", order)])
     lib = library()
-    c_rho = torch.empty((jcap, cap), dtype=torch.float64, device=dev)
-    c_est = torch.empty((jcap, cap), dtype=torch.float64, device=dev)
-    c_pos = torch.empty((jcap, cap), dtype=torch.int32, device=dev)
-    victim = torch.empty(jcap, dtype=torch.int32, device=dev)
-    win = torch.empty(jcap, dtype=torch.int32, device=dev)
+    c_rho = torch.empty((N, jcap, cap), dtype=torch.float64, device=dev)
+    c_est = torch.empty((N, jcap, cap), dtype=torch.float64, device=dev)
+    c_pos = torch.empty((N, jcap, cap), dtype=torch.int32, device=dev)
+    out_shape = tuple(prog.shape[:-1]) + (jcap,)
+    victim = torch.empty(out_shape, dtype=torch.int32, device=dev)
+    win = torch.empty(out_shape, dtype=torch.int32, device=dev)
     rc = lib.assess_late(
         prog.data_ptr(), start.data_ptr(), rate.data_ptr(), spec.data_ptr(),
         tseg.data_ptr(), jls.data_ptr(), running.data_ptr(),
-        runatt.data_ptr(), order.data_ptr(), cap, jcap, float(now),
+        runatt.data_ptr(), order.data_ptr(), cap, jcap, N, float(now),
         float(min_runtime), float(q), float(win_factor), c_rho.data_ptr(),
         c_est.data_ptr(), c_pos.data_ptr(), victim.data_ptr(),
         win.data_ptr(), _stream(dev))
     _raise_on(rc, "late")
-    launches["late"] += 1
+    launches[key] += 1
     return victim, win
 
 
 def launch_reap(a_state, tseg, live) -> torch.Tensor:
-    """B4: (cap,) int32 mask of reapable running sibling attempts."""
-    dev, cap = a_state.device, a_state.shape[0]
-    _cols(dev, cap, i32=[("a_state", a_state), ("tseg", tseg),
-                         ("live", live)])
+    """B4: (cap,) int32 mask of reapable running sibling attempts; with
+    (N, cap) rows, (N, cap) for all scenarios in one call (two launches,
+    each over every scenario)."""
+    dev = a_state.device
+    N, cap, key = _scenarios(a_state, "reap")
+    _cols(dev, tuple(a_state.shape), i32=[("a_state", a_state),
+                                          ("tseg", tseg), ("live", live)])
     lib = library()
-    done = torch.empty(cap, dtype=torch.int32, device=dev)
-    out = torch.empty(cap, dtype=torch.int32, device=dev)
+    done = torch.empty(a_state.shape, dtype=torch.int32, device=dev)
+    out = torch.empty(a_state.shape, dtype=torch.int32, device=dev)
     rc = lib.assess_reap(a_state.data_ptr(), tseg.data_ptr(),
-                         live.data_ptr(), cap, done.data_ptr(),
+                         live.data_ptr(), cap, N, done.data_ptr(),
                          out.data_ptr(), _stream(dev))
     _raise_on(rc, "reap")
-    launches["reap"] += 1
+    launches[key] += 1
+    return out
+
+
+def launch_price(share, links, valid) -> torch.Tensor:
+    """B5: (cap,) float64 frozen-rate prices, ``max(min(share[links] over
+    valid links), 1.0)`` per flow row; +inf for rows with no valid link."""
+    dev = share.device
+    nL = share.shape[0] if share.dim() == 1 else -1
+    cap = links.shape[0]
+    _check(share, "share", torch.float64, (nL,), dev)
+    _check(links, "links", torch.int32, (cap, 4), dev)
+    _check(valid, "valid", torch.bool, (cap, 4), dev)
+    lib = library("bulk")
+    out = torch.empty(cap, dtype=torch.float64, device=dev)
+    rc = lib.bulk_price(share.data_ptr(), links.data_ptr(),
+                        valid.data_ptr(), cap, nL, out.data_ptr(),
+                        _stream(dev))
+    _raise_on(rc, "price")
+    launches["price"] += 1
     return out

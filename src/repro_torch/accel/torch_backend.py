@@ -23,6 +23,13 @@ NumpyBackend`'s bit for bit:
   ``np.nansum`` uses for k < 8 (the glance's default k is 4);
 - LATE's percentile repeats numpy's linear interpolation term for term;
   maxima, order statistics and flags are order-free.
+
+Scenario axis. :func:`prep` and the B1/B3/B4 wrappers also take columns
+stacked along a leading scenario axis, (N, cap): the batched sweep
+(:mod:`repro_torch.accel.sweep`) prepares N perturbed snapshots at once
+and launches each kernel once for all of them. Every op is elementwise
+or row-wise per scenario, so each scenario's result equals its own N = 1
+call bit for bit; the plain versions loop over the scenarios.
 """
 from __future__ import annotations
 
@@ -51,17 +58,20 @@ def prep(cols: dict, now: float) -> dict:
     """Canonical-order gather + the §11 elementwise projections.
 
     ``cols`` holds the padded (cap,) tensors of :data:`_UPLOAD` plus
-    ``node_speed`` and the python int ``n_rows``. Returns (cap,) tensors
-    in canonical order; pad positions gather row 0 and are masked out of
-    ``active`` by position. ``tseg`` is the global task-segment id (task
-    segments are contiguous in canonical order; ids are below ``cap``)."""
+    ``node_speed`` and the python int ``n_rows`` — or the same stacked
+    (N, cap) / (N, n) per scenario with ``n_rows`` an (N, 1) tensor; the
+    scratch columns are optional. Returns (cap,) or (N, cap) tensors in
+    canonical order; pad positions gather row 0 and are masked out of
+    ``active`` by position. ``tseg`` is the task-segment id within its
+    scenario (task segments are contiguous in canonical order; ids are
+    below ``cap``)."""
     order = cols["order"]
-    cap = order.shape[0]
+    cap = order.shape[-1]
     pos = torch.arange(cap, device=order.device)
     posv = pos < cols["n_rows"]
 
     def g(name):
-        return cols[name][order]
+        return torch.gather(cols[name], -1, order)
 
     a_state = g("a_state")
     t_state = g("t_state")
@@ -73,7 +83,7 @@ def prep(cols: dict, now: float) -> dict:
     # ProgressScore ζ, replicating ArraySnapshot.progress_at op for op.
     accrue = (a_state == 0) & ((kind == 0) | g("compute"))
     wd = g("work_done") + accrue.to(F64) * (
-        (now - g("last_sync")) * cols["node_speed"][node])
+        (now - g("last_sync")) * torch.gather(cols["node_speed"], -1, node))
     wd = torch.minimum(wd, work_total)
     comp = wd / work_total
     shuffle = g("fetched").to(F64) / g("deps").to(F64)
@@ -81,20 +91,19 @@ def prep(cols: dict, now: float) -> dict:
                        SHUFFLE_FRACTION * shuffle
                        + (1 - SHUFFLE_FRACTION) * comp)
     # job_local = -1 (inactive job) maps to 0; such rows are not active.
-    jl = cols["job_local"][g("job").long()]
+    jl = torch.gather(cols["job_local"], -1, g("job").long())
     jls = torch.where(jl >= 0, jl, 0)
     torder = g("skey") >> 20
-    prev = torch.cat([torder[:1] - 1, torder[:-1]])
-    tseg = torch.cumsum((torder != prev).long(), 0) - 1
+    prev = torch.cat([torder[..., :1] - 1, torder[..., :-1]], -1)
+    tseg = torch.cumsum((torder != prev).long(), -1) - 1
     # Each pad position is a segment of its own (ids past every live
     # segment's): no kernel walks the pad run as one long segment.
     tseg = torch.where(posv, tseg, pos)
     i32 = torch.int32
-    return {
+    out = {
         "cap": cap, "order": order, "a_state": a_state, "t_state": t_state,
         "kind": kind, "node": node, "spec": g("spec"), "start": start,
         "active": active, "prog": prog, "jls": jls, "tseg": tseg,
-        "mark": g(TMARK), "tprog": g(TPROG),
         "running": active & (a_state == 0) & (t_state == 1),
         # int32 views the kernels take
         "node32": node.to(i32), "kind32": kind.to(i32),
@@ -102,22 +111,69 @@ def prep(cols: dict, now: float) -> dict:
         "spec32": g("spec").to(i32), "order32": order.to(i32),
         "a_state32": a_state.to(i32),
     }
+    if TMARK in cols:
+        out["mark"], out["tprog"] = g(TMARK), g(TPROG)
+    return out
 
 
 def _rate(p: dict, now: float) -> torch.Tensor:
     return p["prog"] / torch.clamp_min(now - p["start"], 1e-9)
 
 
+# Each kernel's arguments from prepared columns (one tick, or stacked
+# scenarios): the backend and the batched sweep build them alike.
+def spatial_inputs(p: dict, now: float, nh: torch.Tensor, jcap: int
+                   ) -> tuple:
+    return (_rate(p, now), p["node32"], p["kind32"], p["jls32"],
+            p["running"].to(torch.int32), nh, jcap)
+
+
+def late_inputs(p: dict, now: float, min_runtime: float, q: float,
+                win_factor: float, jcap: int) -> tuple:
+    i32 = torch.int32
+    runatt = p["active"] & (p["a_state"] == 0)
+    return (p["prog"], p["start"], _rate(p, now), p["spec32"],
+            p["tseg32"], p["jls32"], p["running"].to(i32), runatt.to(i32),
+            p["order32"], now, min_runtime, q, win_factor, jcap)
+
+
+def reap_inputs(p: dict) -> tuple:
+    live = p["active"] & (p["t_state"] == 2)
+    return p["a_state32"], p["tseg32"], live.to(torch.int32)
+
+
+def failure_core(now: float, node_hb, node_marked, declared, thresholds,
+                 responsive_window: float):
+    """Eq. 4 masks (responsive, failure candidates) as torch ops, per
+    node or per (scenario, node)."""
+    silent = now - node_hb
+    resp = silent <= responsive_window
+    cand = ~resp & ~declared & ~node_marked & (silent > thresholds)
+    return resp, cand
+
+
+def _per_scenario(fn, rows: tuple, rest: tuple):
+    """A plain version over stacked (N, cap) rows: one call per scenario,
+    results stacked along a new leading axis."""
+    outs = [fn(*(r[i] for r in rows), *rest) for i in range(len(rows[0]))]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
 # ---------------------------------------------------------------------------
 # Device dispatch
 # ---------------------------------------------------------------------------
-def _on_cpu(*tensors: torch.Tensor) -> bool:
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True for CPU tensors (the plain version runs), False for CUDA
+    tensors (the kernel launches); raises for anything else — there is
+    no fallback."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return True
     if kinds == {"cuda"}:
         return False
-    raise ValueError(f"assessment tensors on mixed or unsupported devices "
+    raise ValueError(f"kernel tensors on mixed or unsupported devices "
                      f"{sorted(kinds)}")
 
 
@@ -140,7 +196,11 @@ def _bucket_add(use, seg, vals, nb) -> torch.Tensor:
 # -- B1 ---------------------------------------------------------------------
 def spatial_ref(rho, node, kind, jls, running, nh, jcap: int
                 ) -> torch.Tensor:
-    """Plain version of B1: (jcap, 2, n) Eq. 1 hits."""
+    """Plain version of B1: (jcap, 2, n) Eq. 1 hits, or (N, jcap, 2, n)
+    for (N, cap) rows."""
+    if rho.dim() == 2:
+        return _per_scenario(spatial_ref, (rho, node, kind, jls, running),
+                             (nh, jcap))
     n = nh.shape[0]
     nb = jcap * 2 * n
     use = running == 1
@@ -162,7 +222,7 @@ def spatial_ref(rho, node, kind, jls, running, nh, jcap: int
 
 
 def spatial(rho, node, kind, jls, running, nh, jcap: int) -> torch.Tensor:
-    if _on_cpu(rho, node, kind, jls, running, nh):
+    if on_cpu(rho, node, kind, jls, running, nh):
         return spatial_ref(rho, node, kind, jls, running, nh, jcap)
     return K.launch_spatial(rho, node, kind, jls, running, nh, jcap)
 
@@ -184,7 +244,7 @@ def temporal_ref(prog, tprog, node, jls, alive, jcap: int, n: int
 
 def temporal(prog, tprog, node, jls, alive, jcap: int, n: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    if _on_cpu(prog, tprog, node, jls, alive):
+    if on_cpu(prog, tprog, node, jls, alive):
         return temporal_ref(prog, tprog, node, jls, alive, jcap, n)
     return K.launch_temporal(prog, tprog, node, jls, alive, jcap, n)
 
@@ -217,7 +277,12 @@ def percentile_runs(srt, first, m, q: float) -> torch.Tensor:
 def late_ref(prog, start, rate, spec, tseg, jls, running, runatt, order,
              now: float, min_runtime: float, q: float, win_factor: float,
              jcap: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of B3: (jcap,) int32 LATE victims and winning flags."""
+    """Plain version of B3: (jcap,) int32 LATE victims and winning flags,
+    or (N, jcap) each for (N, cap) rows."""
+    if prog.dim() == 2:
+        return _per_scenario(
+            late_ref, (prog, start, rate, spec, tseg, jls, running, runatt,
+                       order), (now, min_runtime, q, win_factor, jcap))
     cap = prog.shape[0]
     dev = prog.device
     pos = torch.arange(cap, device=dev)
@@ -276,14 +341,17 @@ def late(prog, start, rate, spec, tseg, jls, running, runatt, order,
     if not 0.0 <= q <= 100.0:
         raise ValueError(f"percentile {q} outside [0, 100]")
     args = (prog, start, rate, spec, tseg, jls, running, runatt, order)
-    if _on_cpu(*args):
+    if on_cpu(*args):
         return late_ref(*args, now, min_runtime, q, win_factor, jcap)
     return K.launch_late(*args, now, min_runtime, q, win_factor, jcap)
 
 
 # -- B4 ---------------------------------------------------------------------
 def reap_ref(a_state, tseg, live) -> torch.Tensor:
-    """Plain version of B4: (cap,) int32 reapable-sibling mask."""
+    """Plain version of B4: (cap,) int32 reapable-sibling mask, or
+    (N, cap) for (N, cap) rows."""
+    if a_state.dim() == 2:
+        return _per_scenario(reap_ref, (a_state, tseg, live), ())
     cap = a_state.shape[0]
     ts = tseg.long()
     lv = live == 1
@@ -292,7 +360,7 @@ def reap_ref(a_state, tseg, live) -> torch.Tensor:
 
 
 def reap(a_state, tseg, live) -> torch.Tensor:
-    if _on_cpu(a_state, tseg, live):
+    if on_cpu(a_state, tseg, live):
         return reap_ref(a_state, tseg, live)
     return K.launch_reap(a_state, tseg, live)
 
@@ -300,6 +368,29 @@ def reap(a_state, tseg, live) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Backend
 # ---------------------------------------------------------------------------
+def neighborhood_tensor(neighborhoods: np.ndarray,
+                        device: torch.device) -> torch.Tensor:
+    """Checked (n, k) int32 neighbourhood table on ``device``."""
+    nh = np.asarray(neighborhoods)
+    n = nh.shape[0]
+    if nh.ndim != 2 or nh.size and (nh.min() < 0 or nh.max() >= n):
+        raise ValueError("neighborhoods must be (n, k) node indices")
+    return torch.from_numpy(np.ascontiguousarray(nh.astype(np.int32))).to(
+        device)
+
+
+def require_device(device: str, who: str) -> torch.device:
+    """``device`` as a torch device; raises for a CUDA device when no
+    card is present (no fallback to the CPU) and for other kinds."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' for "
+                           f"a CPU run")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{who}: unsupported device {device!r}")
+    return dev
+
+
 class TorchBackend(AssessmentBackend):
     """Assessment on a torch device. ``device="cuda"`` (the default, also
     what ``get_backend(None)`` builds) runs the CUDA kernels and raises if
@@ -308,13 +399,7 @@ class TorchBackend(AssessmentBackend):
     name = "torch"
 
     def __init__(self, device: str = "cuda") -> None:
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TorchBackend: no CUDA device; pass device='cpu' or "
-                "assess_backend='numpy' for a CPU run")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"TorchBackend: unsupported device {device!r}")
+        self.device = require_device(device, "TorchBackend")
         self._dc: Optional[DeviceColumns] = None
         self._memo: Tuple[float, Optional[tuple]] = (np.nan, None)
         # The collective queries winning() once per straggler job within
@@ -349,11 +434,7 @@ class TorchBackend(AssessmentBackend):
 
     def _nh(self, neighborhoods: np.ndarray) -> torch.Tensor:
         if self._nh_host is not neighborhoods:
-            nh = np.asarray(neighborhoods)
-            n = nh.shape[0]
-            if nh.ndim != 2 or nh.size and (nh.min() < 0 or nh.max() >= n):
-                raise ValueError("neighborhoods must be (n, k) node indices")
-            self._nh_dev = self._t(nh.astype(np.int32))
+            self._nh_dev = neighborhood_tensor(neighborhoods, self.device)
             self._nh_host = neighborhoods
         return self._nh_dev
 
@@ -361,8 +442,7 @@ class TorchBackend(AssessmentBackend):
     # -- kernels on exactly these) ---------------------------------------
     def spatial_args(self, arr, now, active, neighborhoods) -> tuple:
         p, jcap = self._prep(arr, now, active)
-        return (_rate(p, now), p["node32"], p["kind32"], p["jls32"],
-                p["running"].to(torch.int32), self._nh(neighborhoods), jcap)
+        return spatial_inputs(p, now, self._nh(neighborhoods), jcap)
 
     def temporal_args(self, arr, now, active, samp_flag, init_flag, prevk):
         """B2's arguments, plus the Eq. 2 write mask and the rows' new
@@ -390,17 +470,11 @@ class TorchBackend(AssessmentBackend):
     def late_args(self, arr, now, active, min_runtime, q,
                   win_factor) -> tuple:
         p, jcap = self._prep(arr, now, active)
-        i32 = torch.int32
-        runatt = p["active"] & (p["a_state"] == 0)
-        return (p["prog"], p["start"], _rate(p, now), p["spec32"],
-                p["tseg32"], p["jls32"], p["running"].to(i32),
-                runatt.to(i32), p["order32"], now, min_runtime, q,
-                win_factor, jcap)
+        return late_inputs(p, now, min_runtime, q, win_factor, jcap)
 
     def reap_args(self, arr, now) -> tuple:
         p, _jcap = self._prep(arr, now, arr.active_jobs())
-        live = p["active"] & (p["t_state"] == 2)
-        return p["a_state32"], p["tseg32"], live.to(torch.int32)
+        return reap_inputs(p)
 
     # ------------------------------------------------------------------
     def spatial_hits(self, arr, now, active, neighborhoods):
@@ -426,10 +500,9 @@ class TorchBackend(AssessmentBackend):
 
     def failure_masks(self, now, node_hb, node_marked, declared,
                       thresholds, responsive_window):
-        silent = now - self._t(node_hb)
-        resp = silent <= responsive_window
-        cand = ~resp & ~self._t(declared) & ~self._t(node_marked) \
-            & (silent > self._t(thresholds))
+        resp, cand = failure_core(
+            now, self._t(node_hb), self._t(node_marked), self._t(declared),
+            self._t(thresholds), responsive_window)
         return resp.cpu().numpy(), cand.cpu().numpy()
 
     def late_victims(self, arr, now, active, eligible, min_runtime,
@@ -463,6 +536,8 @@ class TorchBackend(AssessmentBackend):
 
 
 __all__ = [
-    "TorchBackend", "late", "late_ref", "percentile_runs", "prep", "reap",
-    "reap_ref", "spatial", "spatial_ref", "temporal", "temporal_ref",
+    "TorchBackend", "failure_core", "late", "late_inputs", "late_ref",
+    "neighborhood_tensor", "on_cpu", "percentile_runs", "prep", "reap",
+    "reap_inputs", "reap_ref", "require_device", "spatial",
+    "spatial_inputs", "spatial_ref", "temporal", "temporal_ref",
 ]

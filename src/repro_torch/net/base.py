@@ -7,10 +7,15 @@ counts, divided, and scheduled the transfer at that frozen rate
 :class:`~repro_torch.net.flat.FlatNetwork` — the default and the bit-exactness
 anchor — while this package makes the network *pluggable*:
 
-- ``topo`` (rack-aware, oversubscribed uplinks) and ``fair`` (batched
-  ε-fair shares re-solved per drain) are not ported yet:
-  :func:`make_network` raises for them (ROADMAP, port queue: "fair
-  network + sweep").
+- :class:`~repro_torch.net.topo.TopoNetwork` — rack-aware: nodes grouped into
+  racks, per-NIC plus per-rack-uplink capacities with configurable
+  oversubscription, same quasi-static discipline (1-rack topo is
+  byte-identical to flat);
+- :class:`~repro_torch.net.fair.FairNetwork` — batched ε-fair shares: flow
+  rates come from a max-min water-fill over columnar flow/link tables,
+  recomputed **once per BatchQueue drain** instead of per launch — the
+  opt-in fidelity trade that removes the per-flow sequential core the
+  ROADMAP measured at 1000 nodes.
 
 Every model owns the authoritative flow bookkeeping (``SimNode.
 active_flows`` plus the columnar ``node_flows``/``rack_flows``/... ride
@@ -265,15 +270,18 @@ class NetworkModel:
 
 def make_network(spec, *, racks: int = 0, **opts) -> NetworkModel:
     """Resolve a network spec: an instance passes through; ``"flat"``
-    (default) builds the seed-exact model. ``"topo"`` and ``"fair"`` are
-    not ported yet and raise."""
+    (default), ``"topo"`` and ``"fair"`` build the named model. ``racks``
+    sets the rack count for the topology-aware models (``topo`` defaults
+    to 4 racks, ``fair`` to 1)."""
     if isinstance(spec, NetworkModel):
         return spec
+    from repro_torch.net.fair import FairNetwork
     from repro_torch.net.flat import FlatNetwork
+    from repro_torch.net.topo import TopoNetwork
     if spec in (None, "flat"):
         return FlatNetwork(**opts)
-    if spec in ("topo", "fair"):
-        raise NotImplementedError(
-            f"network model {spec!r} is not ported yet (ROADMAP, port "
-            f"queue: 'fair network + sweep'); use net='flat'")
+    if spec == "topo":
+        return TopoNetwork(racks=racks or 4, **opts)
+    if spec == "fair":
+        return FairNetwork(racks=max(racks, 1), **opts)
     raise ValueError(f"unknown network model: {spec!r}")

@@ -2,8 +2,7 @@
 substrate for reproducing the paper's experiments (Figs. 1–9). The policy
 engine under test is ``repro_torch.core``; the simulator supplies YARN 2.7.1
 execution semantics (NM expiry, shuffle fetch-failure cycles, slowstart,
-container packing) and seeded fault injection. ``runner`` and
-``workload`` are not ported yet (ROADMAP).
+container packing) and seeded fault injection.
 """
 from repro_torch.sim.cluster import Cluster, SimNode
 from repro_torch.sim.dispatch import Dispatcher, LaunchRequest
@@ -16,11 +15,11 @@ from repro_torch.sim.shuffle import (
     MofRegistry,
     RescanShuffle,
 )
-from repro_torch.sim import dispatch, faults, shuffle
+from repro_torch.sim import dispatch, faults, runner, shuffle, workload
 
 __all__ = [
     "BENCHMARKS", "BINO_PARAMS", "BatchShuffle", "BenchProfile", "Cluster",
     "Dispatcher", "Engine", "EventShuffle", "JobResult", "JobSpec",
     "LaunchRequest", "MofRegistry", "RescanShuffle", "SimNode", "SimParams",
-    "Simulation", "dispatch", "faults", "shuffle",
+    "Simulation", "dispatch", "faults", "runner", "shuffle", "workload",
 ]

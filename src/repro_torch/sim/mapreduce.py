@@ -371,8 +371,11 @@ class Simulation:
     ``assess_backend`` selects the assessment-compute backend for the
     vectorized policies (None: torch on the CUDA card, the default;
     "numpy"; or a backend instance such as ``TorchBackend("cpu")`` —
-    DESIGN.md §13). ``net`` selects the network model (only "flat", the
-    seed-exact quasi-static per-NIC share, is ported — DESIGN.md §15). ``record_actions=True`` keeps the policy-action
+    DESIGN.md §13). ``net`` selects the network model ("flat" default: the
+    seed-exact quasi-static per-NIC share; "topo": rack-aware with
+    oversubscribed uplinks; "fair": batched ε-fair flows re-solved per
+    BatchQueue drain — DESIGN.md §15), with ``racks``/``net_opts``
+    parameterizing it. ``record_actions=True`` keeps the policy-action
     rail (read back lazily via the ``action_trace`` property) for those
     comparisons; ``obs=TraceRecorder(...)`` additionally wires the
     flight recorder through every subsystem emit site (DESIGN.md §18) —
@@ -392,7 +395,9 @@ class Simulation:
                  obs: Optional[TraceRecorder] = None):
         self.engine = Engine()
         # Pluggable network substrate (DESIGN.md §15): "flat" is the
-        # seed-exact default; a NetworkModel instance passes through.
+        # seed-exact default; "topo"/"fair" add rack topology and the
+        # batched ε-fair flow model. ``racks``/``net_opts`` parameterize
+        # the named models; a NetworkModel instance passes through.
         self.cluster = Cluster(
             n_workers, n_containers,
             network=make_network(net, racks=racks, **(net_opts or {})))

@@ -1191,6 +1191,14 @@ class BatchShuffle(EventShuffle):
                     slot_f = slots_f.pop()
                     if not slots_f:
                         del pair[key]
+                    if f_active is not net.f_active:
+                        # a reference path run inside this drain (fault
+                        # or tick handlers, completions re-entering
+                        # try_start) opened flows and grew the table
+                        f_active = net.f_active
+                        f_rate = net.f_rate
+                        f_si = net.f_si
+                        f_di = net.f_di
                     f_active[slot_f] = False
                     f_rate[slot_f] = 0.0
                     net.n_flows -= 1
@@ -1310,11 +1318,11 @@ class BatchShuffle(EventShuffle):
                             if x < r:
                                 r = x
                     rate = r if r > 1.0 else 1.0
-                    if nfree:
-                        slot_f = nfree.pop()
-                    else:
-                        slot_f = net._alloc()
-                        f_active = net.f_active  # grow may swap stores
+                    slot_f = nfree.pop() if nfree else net._alloc()
+                    if f_active is not net.f_active:
+                        # grown here, or by a reference path run inside
+                        # this drain (see the staged close)
+                        f_active = net.f_active
                         f_rate = net.f_rate
                         f_si = net.f_si
                         f_di = net.f_di
@@ -1680,7 +1688,7 @@ class KernelShuffle(BatchShuffle):
        (shares are frozen, so the tables are dead until end-of-drain
        anyway) and applied in one vectorized step by ``end_drain``;
        the water-fill solve itself sits behind a pluggable bulk
-       backend (not ported yet: flat networks never take this path).
+       backend (``repro_torch/accel/bulk.py``: numpy / torch).
 
     Everything else — record layout, the fused drain loop's fetch hot
     path, cancellation discipline — is inherited; the differential
@@ -1707,7 +1715,7 @@ class KernelShuffle(BatchShuffle):
         """begin_drain plus §17.4 re-allocation: when the solve actually
         ran (shares moved), re-price every live in-flight fetch with the
         batch pricing rule (``BulkBackend.price`` — one vectorized step,
-        the Pallas kernel's production call site) and slide its lane
+        kernel B5's call site on the card) and slide its lane
         record: remaining bytes at the old rate, completion at the new.
         Token-forgetting does the cancellation — the superseded record
         stale-drops at pop because ``ss.inflight`` now maps to the new

@@ -260,15 +260,14 @@ def assert_same(method, got, want, args):
         assert np.array_equal(g, w, equal_nan=g.dtype.kind == "f"), method
 
 
-def synthetic_records(seed, n_nodes=12, n_jobs=3, now=100.0):
-    """Records of every snapshot call on a random snapshot: tasks of one
-    to three attempts in mixed attempt and task states (so completed
-    tasks with running siblings exist for the reap pass), progress and
-    start times from small sets (ties), random speculative flags, node
-    speeds and Eq. 2 marks, one job finished."""
+def synthetic_snapshot(rng, n_nodes=12, n_jobs=3, now=100.0):
+    """A random reference snapshot: tasks of one to three attempts in
+    mixed attempt and task states (so completed tasks with running
+    siblings exist for the reap pass), progress and start times from
+    small sets (ties), random speculative flags and node speeds, one job
+    finished."""
     from repro.core.arrays import ArraySnapshot as RefSnapshot
     from repro.core.types import AttemptState, TaskKind, TaskState
-    rng = np.random.default_rng(seed)
     arr = RefSnapshot([f"n{i:02d}" for i in range(n_nodes)])
     arr.node_speed[:] = rng.uniform(0.2, 1.5, n_nodes)
     jobs = [arr.job_started(f"j{j}") for j in range(n_jobs)]
@@ -300,6 +299,14 @@ def synthetic_records(seed, n_nodes=12, n_jobs=3, now=100.0):
             arr.fetched[row] = int(rng.integers(0, deps + 1))
             arr.compute[row] = bool(rng.random() < 0.5)
     arr.job_finished("j0")
+    return arr
+
+
+def synthetic_records(seed, n_nodes=12, n_jobs=3, now=100.0):
+    """Records of every snapshot call on a :func:`synthetic_snapshot`
+    with random Eq. 2 marks."""
+    rng = np.random.default_rng(seed)
+    arr = synthetic_snapshot(rng, n_nodes, n_jobs, now)
     mark = arr.scratch(TMARK, np.int64, -1)
     mark[:arr.n] = rng.integers(-1, 3, arr.n)
     tprog = arr.scratch(TPROG, np.float64, np.nan)
@@ -630,7 +637,7 @@ def test_cpu_tensors_dispatch_to_plain_versions():
             p["running"].to(i32), nh, jcap)
     assert torch.equal(TB.spatial(*args), TB.spatial_ref(*args))
     assert K.launches == before, "a CPU call must not count a launch"
-    assert K._lib is None, "nothing is built on a CPU run"
+    assert not K._libs, "nothing is built on a CPU run"
 
 
 def test_wrappers_refuse_other_devices():
@@ -657,4 +664,4 @@ def test_launchers_check_arguments_before_building(bad):
                "contiguity": torch.zeros(2 * cap, dtype=torch.int32)[::2]}
     with pytest.raises((TypeError, ValueError)):
         K.launch_reap(a_state[bad], i32, i32)
-    assert K._lib is None
+    assert not K._libs

@@ -5,9 +5,11 @@ reference package.
    and loads no module of the reference package; no file of the port and
    not ``chip_smoke.py`` imports either; ``chip_smoke.py`` refuses to run
    without a card or outside a checkout.
-2. **Registry** — ``get_backend(None)`` is torch on the card and raises
-   without one; ``"numpy"`` and ``"torch"`` on the CPU resolve; the parts
-   that wait for a later slice raise instead of running.
+2. **Registry** — ``get_backend(None)`` and ``get_bulk_backend(None)``
+   are torch on the card and raise without one; ``"numpy"`` and
+   ``"torch"`` on the CPU resolve; ``make_network`` builds every network
+   model; the predictor policy, which waits for a later slice, raises
+   instead of running.
 3. **Mirror** — the ``DeviceColumns`` padding/compaction cases of
    ``tests/test_accel.py``, run on the port's snapshot, and the
    ``snapshot_state``/``snapshot_from_state`` round trip from a reference
@@ -26,6 +28,12 @@ from repro.sim import JobSpec as RefJobSpec
 from repro.sim import Simulation as RefSimulation
 from repro_torch.accel import BACKENDS, get_backend
 from repro_torch.accel.base import AssessmentBackend
+from repro_torch.accel.bulk import (
+    BULK_BACKENDS,
+    NumpyBulk,
+    TorchBulk,
+    get_bulk_backend,
+)
 from repro_torch.core.arrays import (
     ArraySnapshot,
     DeviceColumns,
@@ -33,6 +41,8 @@ from repro_torch.core.arrays import (
     snapshot_state,
 )
 from repro_torch.core.types import AttemptState, TaskKind, TaskState
+from repro_torch.net import FairNetwork, FlatNetwork, TopoNetwork, \
+    make_network
 from repro_torch.sim import Simulation
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -46,8 +56,13 @@ _ALONE = """
 import sys
 sys.modules["jax"] = None
 import repro_torch.sim
+import repro_torch.sim.runner
+import repro_torch.sim.workload
+import repro_torch.net
 import repro_torch.accel.torch_backend
 import repro_torch.accel.kernels
+import repro_torch.accel.bulk
+import repro_torch.accel.sweep
 ref = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not ref, ref
 assert "jax" not in [m for m, v in sys.modules.items() if v is not None]
@@ -120,10 +135,47 @@ def test_backend_registry():
         get_backend("pallas")
 
 
-@pytest.mark.parametrize("net", ["topo", "fair"])
-def test_unported_networks_raise(net):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation(policy="yarn", assess_backend="numpy", net=net)
+@pytest.mark.parametrize("spec,racks,cls,n_racks", [
+    ("flat", 0, FlatNetwork, 1), ("topo", 0, TopoNetwork, 4),
+    ("topo", 3, TopoNetwork, 3), ("fair", 0, FairNetwork, 1),
+    ("fair", 40, FairNetwork, 40)])
+def test_make_network_builds_every_model(spec, racks, cls, n_racks):
+    net = make_network(spec, racks=racks)
+    assert type(net) is cls and net.n_racks == n_racks
+    assert make_network(net) is net
+    sim = Simulation(policy="yarn", assess_backend="numpy", net=spec,
+                     racks=racks)
+    assert type(sim.cluster.net) is cls
+    assert len(sim.arrays.rack_factor) == n_racks
+
+
+def test_fair_network_defaults_to_the_card(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert FairNetwork()._bulk_backend_spec is None
+    # Only the kernel engine arms the bulk solver; it needs the card.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Simulation(policy="yarn", assess_backend="numpy", net="fair",
+                   shuffle="kernel")
+    sim = Simulation(policy="yarn", assess_backend="numpy", net="fair",
+                     shuffle="kernel", net_opts={"bulk_backend": "numpy"})
+    assert isinstance(sim.cluster.net._backend, NumpyBulk)
+
+
+def test_bulk_registry(monkeypatch):
+    import torch
+    assert BULK_BACKENDS == ("numpy", "torch")
+    assert isinstance(get_bulk_backend("numpy"), NumpyBulk)
+    t = TorchBulk("cpu")
+    assert t.name == "torch" and t.device.type == "cpu"
+    assert get_bulk_backend(t) is t
+    with pytest.raises(ValueError):
+        get_bulk_backend("pallas")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (TorchBulk, lambda: get_bulk_backend(None),
+                 lambda: get_bulk_backend("torch")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 def test_predictor_policy_raises():

@@ -11,6 +11,9 @@
 3. **The chip smoke's scenario** — ``chip_smoke.scenario`` at a reduced
    size matches the reference for both policies, so the script's main
    path stays runnable.
+4. **Workloads and runner** — the port's ``sim.workload`` generators
+   and ``sim.runner`` helpers give the reference's job lists and
+   results.
 
 The same harness code drives both packages: it takes the package's
 ``sim`` module.
@@ -32,11 +35,19 @@ SHUFFLES = ("rescan", "event", "batch")
 
 def run_traced(pkg, policy: str, fault: Optional[Callable] = None,
                seed: int = 1, gb: float = 2.0, mode: str = "batch",
-               assess_backend=None, extra_jobs=()):
+               assess_backend=None, extra_jobs=(), net="flat",
+               racks: int = 0, net_opts: Optional[dict] = None,
+               sim_out: Optional[list] = None):
     """One seeded run with launch instrumentation (the conftest harness,
-    for either package); returns everything the gates compare."""
+    for either package); returns everything the gates compare.
+    ``net``/``racks``/``net_opts`` select the network model; the
+    simulation is appended to ``sim_out`` when given."""
     sim = pkg.Simulation(policy=policy, seed=seed, shuffle=mode,
-                         assess_backend=assess_backend, record_actions=True)
+                         assess_backend=assess_backend, net=net,
+                         racks=racks, net_opts=net_opts,
+                         record_actions=True)
+    if sim_out is not None:
+        sim_out.append(sim)
     launches = []
     orig = sim._start_attempt
 
@@ -206,3 +217,54 @@ def test_chip_smoke_scenario_matches_reference(policy):
     ref = _ref_scenario(policy, **size)
     assert ref[0], "scenario produced no actions — not probing"
     assert_same_run(ref, (sim.action_trace, launches, key))
+
+
+# ---------------------------------------------------------------------------
+# 4. Workloads and runner (tests/test_dispatch.py's generators)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("make", [
+    lambda pkg: pkg.workload.pacman_workload(60, seed=3, start=100.0),
+    lambda pkg: pkg.workload.fleet_workload(300, seed=1),
+    lambda pkg: pkg.workload.fleet_workload(
+        12, seed=2, mean_interarrival=5.0, burst_len=60.0, idle_len=60.0),
+    lambda pkg: pkg.workload.trace_workload(
+        [(30.0, 2.0), (5.0, 1.0, "grep")], n_reduces=3),
+], ids=["pacman", "fleet", "fleet-burst", "trace"])
+def test_port_workloads_match_reference(make):
+    ref, port = make(ref_sim), make(port_sim)
+    assert len(ref) == len(port) > 0
+    for a, b in zip(ref, port):
+        assert type(b).__module__.startswith("repro_torch.")
+        assert a.__dict__ == b.__dict__
+
+
+def _result_key(results):
+    return [(r.job_id, r.finish_time, r.n_attempts, r.n_spec_attempts,
+             r.n_fetch_failures) for r in results]
+
+
+@pytest.mark.parametrize("policy", ["yarn", "bino", "clone"])
+def test_port_run_workload_matches_reference(policy):
+    def run(pkg, backend):
+        specs = pkg.workload.fleet_workload(
+            6, seed=2, mean_interarrival=5.0, burst_len=60.0,
+            idle_len=60.0)
+
+        def crash(sim):
+            pkg.faults.crash_node_at(sim, sim.cluster.node_ids[3], 40.0)
+        return pkg.runner.run_workload(policy, specs, crash, seed=1,
+                                       n_workers=12, n_containers=4,
+                                       assess_backend=backend)
+    ref = _result_key(run(ref_sim, "numpy"))
+    assert ref
+    assert _result_key(run(port_sim, TorchBackend("cpu"))) == ref
+
+
+def test_port_run_single_matches_reference():
+    def run(pkg, backend):
+        return pkg.runner.run_single(
+            "bino", pkg.JobSpec("j0", "terasort", 2.0),
+            lambda sim, job: _crash(pkg, sim, job), seed=4,
+            assess_backend=backend)
+    assert _result_key([run(port_sim, TorchBackend("cpu"))]) == \
+        _result_key([run(ref_sim, "numpy")])
