@@ -8,7 +8,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 1. Print the card (``nvidia-smi``), torch/CUDA versions, and build the
    kernels with ``nvcc``, one process per source, all started together
    (timed): B1–B4 from ``src/repro_torch/accel/csrc/assess.cu``, B5 from
-   ``csrc/bulk.cu``.
+   ``csrc/bulk.cu``, B6 from ``csrc/flash_attention.cu`` and B9 from
+   ``csrc/decode_attention.cu``.
 2. Kernel phase: each kernel on the card against its plain torch version
    on CPU copies of the same inputs, exactly (NaN equal to NaN) — first on
    :func:`adversarial_inputs` (summation-order, tie and padding boundary
@@ -35,11 +36,32 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 6. Profile: the flat bino card run once more under ``torch.profiler`` —
    device time by kernel and the device's busy share of the run's wall
    time.
-7. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the
+7. Attention kernels: B6 (flash-attention forward, from
+   ``csrc/flash_attention.cu``) and B9 (decode attention, from
+   ``csrc/decode_attention.cu``) against their plain torch versions on
+   the card, in bf16 and f32, on boundary inputs (sq < sk, ragged tiles,
+   a window, groups 1, 4 and 48, head_dim 64 and 128, valid lengths at
+   1, at tile edges ±1 and at the cache size), within the tolerances of
+   ``tests/test_kernels.py`` (bf16 2e-2, f32 2e-5; lse 2e-5); then at the
+   serving path's shapes, timed beside the plain versions and
+   ``F.scaled_dot_product_attention`` (the yardstick only: the port never
+   calls it).
+8. Serving path: Qwen3-8B at full width (36 layers, random bf16 weights
+   from a seeded generator) serves 4 prompts of 2,048 token ids through
+   ``make_prefill_step`` and 64 greedy steps of ``make_serve_step``:
+   exactly 36 B6 and 2,304 B9 launches, no plain-version call. The
+   logits of the prefill and of decode steps 1, 16 and 64 are held
+   against the port's ``forward`` with ``impl="ref"`` in float32 over
+   the same prefix; an fp8 cast of the activations must fail the same
+   tolerance. The same bf16 prefill on the oracles shows how much of the
+   error is bf16 rounding. Prints prefill ms, decode ms per step,
+   tokens/s, peak device memory, and a profile of the device time by
+   kernel.
+9. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Each path is driven with the launch counts set to 0 just before it and
-read just after; the comparisons of phases 2, 4 and 5 launch outside
+read just after; the comparisons of phases 2, 4, 5 and 7 launch outside
 those windows.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -76,10 +98,40 @@ N_RACKS = 40
 DEGRADE = dict(rack=3, at=60.0, factor=0.05, duration=90.0)
 N_SCENARIOS = 64
 
-# Card peaks for bound_ms (NVIDIA H100 SXM data sheet): HBM3 bandwidth
-# and the float64 rate outside the tensor cores.
+# Card peaks for bound_ms (NVIDIA H100 SXM data sheet): HBM3 bandwidth,
+# the float64 and float32 rates outside the tensor cores, and the dense
+# bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
+FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+
+# Serving path: Qwen3-8B at full width, 4 prompts of 2,048 tokens, a
+# 4,096-slot cache, 64 greedy decode steps; logits checked after the
+# prefill and at these decode steps.
+SERVE_ARCH = "qwen3-8b"
+SERVE_SEED = 0
+SERVE_BATCH = 4
+SERVE_PROMPT = 2048
+SERVE_MAX_LEN = 4096
+SERVE_STEPS = 64
+SERVE_CHECKS = (1, 16, 64)
+# Serving tolerance: max |port - reference| over the reference logits'
+# RMS. The port runs in bf16 (weights, activations, KV cache; f32 sums
+# inside every product and norm), the reference in f32 from the same
+# bf16 weights; bf16 keeps 8 significant bits, so each rounding moves a
+# value by up to 2^-9 of itself, and 36 layers of residual adds, norms
+# and products compound that. Measured on an H100 80GB HBM3 at 700 W
+# (PERF.md): the prefill and decode steps 1, 16, 64 at 0.099-0.119; the
+# probe below at 0.449. The limit sits between, 1.7x above the bf16 run
+# and 2.2x below the probe: the same prefill with the activations
+# entering every attention and MLP block and the head cast to fp8 (e4m3,
+# 4 significant bits) must exceed it, so the check catches a silent drop
+# to fp8.
+SERVE_TOL = 0.2
+# Attention kernels vs their plain versions (tests/test_kernels.py:21-23)
+ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+LSE_TOL = 2e-5
 
 WARMUP, REPS = 3, 50
 ADVERSARIAL_SEEDS = 8
@@ -352,18 +404,18 @@ def _compare(a, b):
     return equal, err
 
 
-def _time_ms(fn, args) -> float:
+def _time_ms(fn, args, reps: int = REPS) -> float:
     for _ in range(WARMUP):
         fn(*args)
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    for _ in range(REPS):
+    for _ in range(reps):
         fn(*args)
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / REPS
+    return t0.elapsed_time(t1) / reps
 
 
 def _nbytes(x) -> int:
@@ -739,6 +791,429 @@ def profile_bino() -> None:
                        max_name_column_width=60), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Attention kernels B6 and B9
+# ---------------------------------------------------------------------------
+# Boundary inputs: (b, sq, sk, hq, hkv, d, causal, window) for B6 and
+# (b, S, hq, hkv, d, valid lengths) for B9. No row is left without an
+# unmasked key (B6's plain version masks with -1e30, the oracle with -inf).
+FLASH_CASES = [
+    (1, 100, 300, 4, 1, 64, True, 0),      # sq < sk (q_offset 200), ragged
+    (2, 130, 130, 8, 2, 128, True, 0),     # sq not a multiple of the tile
+    (1, 200, 300, 48, 1, 128, True, 64),   # a group of 48, a window
+    (2, 64, 64, 4, 4, 64, False, 0),       # group 1, not causal
+    (1, 77, 256, 32, 8, 128, False, 40),   # a window without the band
+]
+DECODE_CASES = [
+    (5, 300, 4, 4, 64, (1, 63, 64, 65, 300)),     # group 1, tile edges
+    (4, 4096, 32, 8, 128, (1, 127, 129, 4096)),   # group 4, valid at S
+    (3, 256, 48, 1, 128, (128, 255, 256)),        # a group of 48
+]
+FLASH_SOURCE = "src/repro_torch/accel/csrc/flash_attention.cu"
+DECODE_SOURCE = "src/repro_torch/accel/csrc/decode_attention.cu"
+FLASH_REPLACES = ("src/repro/kernels/flash_attention/flash_attention.py:38 "
+                  "_fwd_kernel (pallas_call :141)")
+DECODE_REPLACES = ("src/repro/kernels/decode_attention/decode_attention.py"
+                   ":28 _decode_kernel (pallas_call :108)")
+
+
+def _randn(seed: int, dtype, *shapes):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in shapes]
+
+
+def _within(what: str, got, want, tol: float) -> float:
+    """max |got - want|; raises unless |got - want| <= tol + tol |want|
+    everywhere (NaN where both are NaN counts as equal)."""
+    got, want = got.float(), want.float()
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    diff = torch.where(both_nan, 0.0, (got - want).abs())
+    ok = bool((diff <= tol + tol * want.abs().nan_to_num()).all())
+    err = float(diff.max()) if diff.numel() else 0.0
+    if not ok or err != err:
+        raise RuntimeError(f"{what}: kernel vs plain version max_abs_err "
+                           f"{err}, tolerance {tol}")
+    return err
+
+
+def _causal_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps for one (sequence, head)."""
+    rows = torch.arange(sq)[:, None] + (sk - sq)
+    cols = torch.arange(sk)[None, :]
+    keep = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        keep &= cols <= rows
+    if window:
+        keep &= cols > rows - window
+    return int(keep.sum())
+
+
+def _attn_row(name, ms, plain_ms, library_ms, bytes_, ops, dtype, err,
+              source, replaces):
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    print(f"kernel {name}: max_abs_err={err} ms={ms:.6f} plain_ms="
+          f"{plain_ms:.6f} library_ms={library_ms:.6f} bytes={bytes_} "
+          f"ops={ops}", flush=True)
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, "bytes": bytes_, "ops": ops,
+    }
+
+
+def attention_kernel_phase():
+    """B6 and B9 against their plain versions on boundary inputs, then at
+    the serving path's shapes, timed beside the plain versions and
+    ``scaled_dot_product_attention`` (the yardstick)."""
+    import torch.nn.functional as F
+
+    from repro_torch.accel import kernels as K
+    from repro_torch.kernels.decode_attention import decode_attention as DA
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    seed = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[dtype]
+        for case in FLASH_CASES:
+            b, sq, sk, hq, hkv, d, causal, window = case
+            q, k, v = _randn(seed, dtype, (b, sq, hq, d), (b, sk, hkv, d),
+                             (b, sk, hkv, d))
+            seed += 1
+            out, lse = FA.flash_attention_fwd(q, k, v, causal=causal,
+                                              window=window)
+            pout, plse = FA.flash_attention_plain(q, k, v, causal=causal,
+                                                  window=window)
+            _within(f"flash_fwd {case} {dtype} out", out, pout, tol)
+            _within(f"flash_fwd {case} {dtype} lse", lse, plse, LSE_TOL)
+        for case in DECODE_CASES:
+            b, S, hq, hkv, d, valid = case
+            q, k, v = _randn(seed, dtype, (b, hq, d), (b, S, hkv, d),
+                             (b, S, hkv, d))
+            seed += 1
+            vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
+            _within(f"decode {case} {dtype}",
+                    DA.decode_attention_fwd(q, k, v, vl),
+                    DA.decode_attention_plain(q, k, v, vl), tol)
+    torch.cuda.synchronize()
+    print(f"attention boundary inputs: B6 ({len(FLASH_CASES)} cases) and B9 "
+          f"({len(DECODE_CASES)} cases) within tolerance of their plain "
+          f"versions in float32 and bf16", flush=True)
+
+    cfg_b, cfg_s, hq, hkv, d = (SERVE_BATCH, SERVE_PROMPT, 32, 8, 128)
+    bf16 = torch.bfloat16
+    rows = {}
+    # B6 at the prefill shape
+    q, k, v = _randn(100, bf16, (cfg_b, cfg_s, hq, d), (cfg_b, cfg_s, hkv, d),
+                     (cfg_b, cfg_s, hkv, d))
+    before = K.launches["flash_fwd"]
+    out, lse = FA.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    if K.launches["flash_fwd"] != before + 1:
+        raise RuntimeError("flash_fwd: the wrapper did not launch")
+    pout, plse = FA.flash_attention_plain(q, k, v)
+    err = _within("flash_fwd at the prefill shape", out, pout,
+                  ATTN_TOL[bf16])
+    _within("flash_fwd lse at the prefill shape", lse, plse, LSE_TOL)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa_prefill():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    lib_err = float((sdpa_prefill().transpose(1, 2).float()
+                     - out.float()).abs().max())
+    pairs = _causal_pairs(cfg_s, cfg_s, True, 0)
+    rows["flash_fwd"] = _attn_row(
+        "flash_fwd", _time_ms(FA.flash_attention_fwd, (q, k, v)),
+        _time_ms(FA.flash_attention_plain, (q, k, v), reps=5),
+        _time_ms(sdpa_prefill, ()),
+        sum(_nbytes(x) for x in (q, k, v, out, lse)),
+        4.0 * cfg_b * hq * d * pairs, bf16, err, FLASH_SOURCE,
+        FLASH_REPLACES)
+    print(f"flash_fwd vs scaled_dot_product_attention: max_abs_err "
+          f"{lib_err}", flush=True)
+    del q, k, v, out, lse, pout, plse, qt, kt, vt
+
+    # B9 at the decode shape: a 4,096-slot cache filled to 2,100
+    n = 2100
+    q, k, v = _randn(101, bf16, (cfg_b, hq, d), (cfg_b, SERVE_MAX_LEN, hkv, d),
+                     (cfg_b, SERVE_MAX_LEN, hkv, d))
+    vl = torch.full((cfg_b,), n, dtype=torch.int32, device="cuda")
+    before = K.launches["decode"]
+    out = DA.decode_attention_fwd(q, k, v, vl)
+    torch.cuda.synchronize()
+    if K.launches["decode"] != before + 1:
+        raise RuntimeError("decode: the wrapper did not launch")
+    err = _within("decode at the serving shape", out,
+                  DA.decode_attention_plain(q, k, v, vl), ATTN_TOL[bf16])
+    q4 = q[:, :, None].contiguous()
+    k4, v4 = (x[:, :n].transpose(1, 2).contiguous() for x in (k, v))
+
+    def sdpa_decode():
+        return F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True)
+
+    lib_err = float((sdpa_decode()[:, :, 0].float() - out.float())
+                    .abs().max())
+    kv_bytes = 2 * cfg_b * n * hkv * d * k.element_size()
+    rows["decode"] = _attn_row(
+        "decode", _time_ms(DA.decode_attention_fwd, (q, k, v, vl)),
+        _time_ms(DA.decode_attention_plain, (q, k, v, vl), reps=10),
+        _time_ms(sdpa_decode, ()),
+        _nbytes(q) + kv_bytes + _nbytes(vl) + _nbytes(out),
+        4.0 * cfg_b * hq * d * n, bf16, err, DECODE_SOURCE, DECODE_REPLACES)
+    print(f"decode vs scaled_dot_product_attention: max_abs_err {lib_err}",
+          flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Serving path: Qwen3-8B at full width
+# ---------------------------------------------------------------------------
+class _CountCalls:
+    """Counts calls of ``module.name`` for each (module, name) pair while
+    the ``with`` block runs; restores them after."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.calls = {}
+
+    def __enter__(self):
+        self._saved = []
+        for mod, name in self.targets:
+            orig = getattr(mod, name)
+            key = f"{mod.__name__}.{name}"
+            self.calls[key] = 0
+
+            def counted(*a, _orig=orig, _key=key, **kw):
+                self.calls[_key] += 1
+                return _orig(*a, **kw)
+            setattr(mod, name, counted)
+            self._saved.append((mod, name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self._saved:
+            setattr(mod, name, orig)
+        return False
+
+
+def _rel_err(got, ref) -> float:
+    """max |got - ref| over the RMS of ``ref``."""
+    ref = ref.float()
+    rms = float(ref.pow(2).mean().sqrt())
+    return float((got.float() - ref).abs().max()) / rms
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def serve_path(cfg=None, device="cuda"):
+    """Qwen3-8B at full width (or ``cfg``): prefill 4 x 2,048 tokens, then
+    64 greedy decode steps, through the port's serving entry points, on
+    ``device`` (a CPU run rehearses the path on the plain versions, with
+    no launch to count). Returns the launch counts of the run."""
+    from repro_torch.accel import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention as DA
+    from repro_torch.kernels.decode_attention import ref as DREF
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as FREF
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as PM
+    from repro_torch.train.loop import (TrainConfig, make_prefill_step,
+                                        make_serve_step)
+
+    # the f32 reference must be f32: no TF32 in products or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg or get_config(SERVE_ARCH)
+    on_card = torch.device(device).type == "cuda"
+    B, P = SERVE_BATCH, SERVE_PROMPT
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SERVE_SEED)
+    params = PM.init_params(cfg, gen, device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in params.parameters())
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in params.parameters())
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P))
+                               .astype(np.int32)).to(device)
+    tc = TrainConfig()
+    prefill_step = make_prefill_step(cfg, tc, max_len=SERVE_MAX_LEN)
+    serve_step = make_serve_step(cfg, tc)
+    print(f"serve: {SERVE_ARCH} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+          f"{n_params} parameters ({weight_bytes} bytes, bf16), init "
+          f"{init_s:.3f} s", flush=True)
+
+    # warm-up on a short prompt (library handles, allocator), uncounted
+    w = min(64, P // 2)
+    _l, warm = make_prefill_step(cfg, tc, max_len=w + 1)(
+        params, {"tokens": prompts[:, :w]})
+    serve_step(params, warm, prompts[:, w], torch.full(
+        (B,), w, dtype=torch.int32, device=device))
+    del warm
+    _sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    plain = _CountCalls([(FA, "flash_attention_plain"),
+                         (DA, "decode_attention_plain"),
+                         (FREF, "attention_reference"),
+                         (DREF, "decode_attention_reference")])
+    K.reset_launches()
+    with plain:
+        t0 = time.perf_counter()
+        logits0, cache = prefill_step(params, {"tokens": prompts})
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        after_prefill = dict(K.launches)
+        tok = logits0.argmax(-1).to(torch.int32)
+        inputs, checks = [tok], {}
+        pos = torch.full((B,), P, dtype=torch.int32, device=device)
+        t0 = time.perf_counter()
+        for step in range(1, SERVE_STEPS + 1):
+            logits, cache = serve_step(params, cache, tok, pos)
+            if step in SERVE_CHECKS:
+                checks[step] = logits.float()
+            tok = logits.argmax(-1).to(torch.int32)
+            inputs.append(tok)
+            pos = pos + 1
+        _sync(device)
+        decode_s = time.perf_counter() - t0
+    counts = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    L_ = cfg.n_layers if on_card else 0
+    want_prefill = {"flash_fwd": L_, "decode": 0}
+    want = {"flash_fwd": L_, "decode": L_ * SERVE_STEPS}
+    if {k: after_prefill[k] for k in want_prefill} != want_prefill:
+        raise RuntimeError(f"serve: prefill launches {after_prefill}, "
+                           f"expected {want_prefill}")
+    others = {k: c for k, c in counts.items() if k not in want and c}
+    if {k: counts[k] for k in want} != want or others:
+        raise RuntimeError(f"serve: launches {counts}, expected {want}")
+    if on_card and any(plain.calls.values()):
+        raise RuntimeError(f"serve: plain versions called on the card's "
+                           f"path: {plain.calls}")
+    print(f"serve: prefill {B} x {P} tokens {prefill_s * 1e3:.3f} ms "
+          f"({B * P / prefill_s:.1f} tokens/s); decode {SERVE_STEPS} steps "
+          f"{decode_s * 1e3 / SERVE_STEPS:.3f} ms/step "
+          f"({B * SERVE_STEPS / decode_s:.1f} tokens/s); peak device memory "
+          f"{peak} bytes; kernel launches {counts}; plain-version calls "
+          f"{plain.calls}", flush=True)
+    del cache
+
+    # Correctness: logits against the port's forward with impl="ref" in
+    # float32 over the same prefix (each layer's weights upcast as it
+    # runs; the head for the last position only).
+    seq = torch.cat([prompts] + [t[:, None] for t in inputs[:-1]], dim=1)
+    got = {"prefill": (P, logits0)}
+    got.update((f"decode step {k}", (P + k, checks[k]))
+               for k in SERVE_CHECKS)
+    errs, refs = {}, {}
+    with torch.no_grad():
+        for label, (n, port) in got.items():
+            ref = PM.forward(cfg, params, {"tokens": seq[:, :n]},
+                             impl="ref", compute_dtype=torch.float32,
+                             last_only=True)[0][:, 0]
+            if port.shape != (B, cfg.vocab_size) or \
+                    not bool(torch.isfinite(port).all()):
+                raise RuntimeError(f"serve: {label} logits not finite of "
+                                   f"shape {(B, cfg.vocab_size)}")
+            refs[label] = ref
+            errs[label] = _rel_err(port, ref)
+        # the probe: fp8 activations into every block and the head
+        orig = L.apply_norm
+
+        def fp8_norm(c, p, x):
+            y = orig(c, p, x)
+            return y.to(torch.float8_e4m3fn).to(y.dtype)
+
+        L.apply_norm = fp8_norm
+        try:
+            probe, _c = PM.prefill(cfg, params, {"tokens": prompts})
+        finally:
+            L.apply_norm = orig
+        del _c
+        fp8_err = _rel_err(probe, refs["prefill"])
+        # where the error comes from: the same bf16 prefill on the oracles
+        oracle, _c = PM.prefill(cfg, params, {"tokens": prompts},
+                                impl="ref")
+        del _c
+    print(f"serve: logits vs the f32 reference, max|diff|/rms: "
+          f"{json.dumps(errs)}; tolerance {SERVE_TOL}; fp8-activation "
+          f"probe {fp8_err}; bf16 prefill on the oracles vs the f32 "
+          f"reference {_rel_err(oracle, refs['prefill'])}, vs the "
+          f"kernels' prefill {_rel_err(logits0, oracle)}", flush=True)
+    bad = {k: e for k, e in errs.items() if not e <= SERVE_TOL}
+    if bad:
+        raise RuntimeError(f"serve: logits outside tolerance {SERVE_TOL}: "
+                           f"{bad}")
+    if not fp8_err > SERVE_TOL:
+        raise RuntimeError(f"serve: the fp8 probe ({fp8_err}) passes the "
+                           f"tolerance {SERVE_TOL}: it is too loose")
+    agree = float((refs["prefill"].argmax(-1).int() == inputs[0])
+                  .float().mean())
+    print(f"serve: greedy first token equal to the reference's argmax for "
+          f"{agree:.2f} of the batch", flush=True)
+
+    if on_card:
+        profile_serve(params, prompts, prefill_step, serve_step)
+    return counts
+
+
+def profile_serve(params, prompts, prefill_step, serve_step,
+                  steps: int = 8) -> None:
+    """Device time by kernel, and the device's busy share of the wall
+    time, for one prefill and, apart, ``steps`` decode steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B, P = prompts.shape
+    cuda = torch.autograd.DeviceType.CUDA
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = prefill_step(
+            params, {"tokens": prompts})
+
+    def decode():
+        tok = state["logits"].argmax(-1).to(torch.int32)
+        pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+        for _ in range(steps):
+            logits, state["cache"] = serve_step(params, state["cache"], tok,
+                                                pos)
+            tok = logits.argmax(-1).to(torch.int32)
+            pos = pos + 1
+
+    for label, fn in (("prefill", prefill), (f"{steps} decode steps",
+                                              decode)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        dev_us = sum(e.self_device_time_total for e in events
+                     if e.device_type == cuda)
+        print(f"profile serve {label}: wall {wall:.6f} s (profiled), device "
+              f"busy {dev_us / 1e6:.6f} s = {dev_us / 1e6 / wall:.6f} of "
+              f"wall")
+        print(events.table(sort_by="self_device_time_total", row_limit=12,
+                           max_name_column_width=60), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -770,6 +1245,9 @@ def main() -> int:
                     for k in ("spatial_sweep", "late_sweep", "reap_sweep"))
     rows.update(batched_kernel_phase(sweep))
     profile_bino()
+    rows.update(attention_kernel_phase())
+    serve_launches = serve_path()
+    launches.update((k, serve_launches[k]) for k in ("flash_fwd", "decode"))
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))

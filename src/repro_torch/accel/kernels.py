@@ -1,13 +1,17 @@
 """Build, load and launch the port's CUDA kernels.
 
 The assessment kernels B1–B4 live in ``csrc/assess.cu``, the ε-fair
-network's pricing kernel B5 in ``csrc/bulk.cu`` (CUDA C++ for ``sm_90a``,
-plain C interfaces). :func:`build` compiles each source with its own
-``nvcc``, all started together, into ``build/kernels/`` at the repository
-root — each file name carries a hash of its source and the flags, so an
-edited source rebuilds — and :func:`library` loads them with ``ctypes``.
-Nothing is compiled or loaded at import: CPU-only hosts import this module
-freely.
+network's pricing kernel B5 in ``csrc/bulk.cu``, the flash-attention
+forward B6 in ``csrc/flash_attention.cu`` and the decode attention B9 in
+``csrc/decode_attention.cu`` (CUDA C++ for ``sm_90a``, plain C
+interfaces). :func:`build` compiles each source with its own ``nvcc``,
+all started together, into ``build/kernels/`` at the repository root —
+each file name carries a hash of its source and of the flags it is built
+with, so an edited source or flag rebuilds — and :func:`library` loads
+them with ``ctypes``. B1–B5 are bit-exact against numpy and build with
+``-fmad=false``; B6 and B9 are held to tolerances and let ``nvcc`` fuse
+multiply-adds. Nothing is compiled or loaded at import: CPU-only hosts
+import this module freely.
 
 Each ``launch_*`` function checks device, dtype, shape and contiguity,
 allocates its outputs and scratch with ``torch.empty``, launches on the
@@ -32,20 +36,34 @@ from typing import Dict, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"assess": CSRC / "assess.cu", "bulk": CSRC / "bulk.cu"}
+SOURCES = {"assess": CSRC / "assess.cu", "bulk": CSRC / "bulk.cu",
+           "flash": CSRC / "flash_attention.cu",
+           "decode": CSRC / "decode_attention.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+# The bit-exact kernels keep every multiply and add rounded on its own.
+EXACT = ("-fmad=false",)
+FLAGS = {"assess": NVCC_FLAGS + EXACT, "bulk": NVCC_FLAGS + EXACT,
+         "flash": NVCC_FLAGS, "decode": NVCC_FLAGS}
 # Largest dynamic shared memory a block may take on Hopper (227 KB).
 MAX_SMEM = 232448
 # Largest gridDim.y: bounds the scenarios of one batched launch.
 MAX_SCENARIOS = 65535
+# Tile sizes of B6 and B9, which their plain versions walk too (checked
+# against the built library when it loads), and the head sizes they take.
+FLASH_BLOCK_Q = 64
+FLASH_BLOCK_K = 64
+DECODE_BLOCK_K = 64
+DECODE_MAX_GROUP = 64
+HEAD_DIMS = (16, 32, 64, 128)
 
 # Launches per kernel since the last reset_launches(): the proof that a
 # run went through the kernels.
 launches: Dict[str, int] = {"spatial": 0, "temporal": 0, "late": 0,
                             "reap": 0, "price": 0, "spatial_sweep": 0,
-                            "late_sweep": 0, "reap_sweep": 0}
+                            "late_sweep": 0, "reap_sweep": 0,
+                            "flash_fwd": 0, "decode": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -61,7 +79,7 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256(
-        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
+        SOURCES[name].read_bytes() + " ".join(FLAGS[name]).encode()
     ).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -78,7 +96,7 @@ def build() -> Dict[str, Path]:
     for name, path in todo:
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         procs.append((name, tmp, path, subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])])))
+            [nvcc(), *FLAGS[name], "-o", str(tmp), str(SOURCES[name])])))
     failed = []
     for name, tmp, path, proc in procs:
         if proc.wait() != 0:
@@ -92,6 +110,8 @@ def build() -> Dict[str, Path]:
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    F = ctypes.c_float
+    tiles = []    # (library function, the wrappers' value)
     if name == "assess":
         lib.assess_spatial.argtypes = [P] * 6 + [I] * 5 + [P, P]
         lib.assess_temporal.argtypes = [P] * 5 + [I] * 3 + [P, P, P]
@@ -103,11 +123,26 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                lib.assess_reap)
         lib.assess_spatial_smem.restype = ctypes.c_size_t
         lib.assess_temporal_smem.restype = ctypes.c_size_t
-    else:
+    elif name == "bulk":
         lib.bulk_price.argtypes = [P] * 3 + [I, I, P, P]
         fns = (lib.bulk_price,)
+    elif name == "flash":
+        lib.flash_fwd.argtypes = [P] * 5 + [I] * 8 + [F, I, P]
+        fns = (lib.flash_fwd,)
+        tiles = [(lib.flash_fwd_block_q, FLASH_BLOCK_Q),
+                 (lib.flash_fwd_block_k, FLASH_BLOCK_K)]
+    else:
+        lib.decode_attn.argtypes = [P] * 5 + [I] * 5 + [F, I, P]
+        fns = (lib.decode_attn,)
+        tiles = [(lib.decode_block_k, DECODE_BLOCK_K),
+                 (lib.decode_max_group, DECODE_MAX_GROUP)]
     for fn in fns:
         fn.restype = ctypes.c_int
+    for fn, want in tiles:
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(f"{name}: the library's tile {fn()} is not "
+                               f"the wrappers' {want}")
 
 
 def library(name: str = "assess") -> ctypes.CDLL:
@@ -286,4 +321,78 @@ def launch_price(share, links, valid) -> torch.Tensor:
                         _stream(dev))
     _raise_on(rc, "price")
     launches["price"] += 1
+    return out
+
+
+_ATTN_DTYPES = {torch.bfloat16: 1, torch.float32: 0}
+
+
+def _attn_dtype(kernel: str, *tensors) -> int:
+    dtype = tensors[0].dtype
+    if dtype not in _ATTN_DTYPES or any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"{kernel}: q, k and v must share one dtype of "
+                        f"bfloat16 or float32, got "
+                        f"{[t.dtype for t in tensors]}")
+    return _ATTN_DTYPES[dtype]
+
+
+def _aligned(kernel: str, **tensors) -> None:
+    """B6 and B9 load 16 bytes at a time."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} is not 16-byte aligned")
+
+
+def launch_flash_fwd(q, k, v, causal: bool, window: int,
+                     scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6: (out (b, sq, hq, d) in q's type, lse (b, hq, sq) float32) of
+    causal and/or windowed GQA attention, query head h on KV head
+    ``h // (hq // hkv)``, rows offset by ``sk - sq``."""
+    dev = q.device
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    is_bf16 = _attn_dtype("flash_fwd", q, k, v)
+    _check(q, "q", q.dtype, (b, sq, hq, d), dev)
+    _check(k, "k", q.dtype, (b, sk, hkv, d), dev)
+    _check(v, "v", q.dtype, (b, sk, hkv, d), dev)
+    if d not in HEAD_DIMS or hq % hkv or min(b, sq, sk) < 1:
+        raise ValueError(f"flash_fwd: head_dim {d} (one of {HEAD_DIMS}), "
+                         f"heads {hq}/{hkv}, b {b}, sq {sq}, sk {sk}")
+    _aligned("flash_fwd", q=q, k=k, v=v)
+    lib = library("flash")
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+    rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), lse.data_ptr(), b, sq, sk, hq, hkv,
+                       d, int(causal), int(window), float(scale), is_bf16,
+                       _stream(dev))
+    _raise_on(rc, "flash_fwd")
+    launches["flash_fwd"] += 1
+    return out, lse
+
+
+def launch_decode(q, k, v, valid, scale: float) -> torch.Tensor:
+    """B9: (b, hq, d) attention of one query token per sequence over the
+    first ``valid[b]`` slots of a (b, S, hkv, d) cache; NaN rows where
+    ``valid[b] <= 0``."""
+    dev = q.device
+    b, hq, d = q.shape
+    S, hkv = k.shape[1], k.shape[2]
+    is_bf16 = _attn_dtype("decode", q, k, v)
+    _check(q, "q", q.dtype, (b, hq, d), dev)
+    _check(k, "k", q.dtype, (b, S, hkv, d), dev)
+    _check(v, "v", q.dtype, (b, S, hkv, d), dev)
+    _check(valid, "valid", torch.int32, (b,), dev)
+    if d not in HEAD_DIMS or hq % hkv or hq // hkv > DECODE_MAX_GROUP:
+        raise ValueError(f"decode: head_dim {d} (one of {HEAD_DIMS}), "
+                         f"heads {hq}/{hkv} (group at most "
+                         f"{DECODE_MAX_GROUP})")
+    _aligned("decode", k=k, v=v)
+    lib = library("decode")
+    out = torch.empty_like(q)
+    rc = lib.decode_attn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         valid.data_ptr(), out.data_ptr(), b, S, hq, hkv, d,
+                         float(scale), is_bf16, _stream(dev))
+    _raise_on(rc, "decode")
+    launches["decode"] += 1
     return out

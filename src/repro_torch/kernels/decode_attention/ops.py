@@ -1,0 +1,32 @@
+"""Public decode-attention op (forward only: the serving path, no grads).
+
+``impl``: ``"kernel"`` (the default: kernel B9 on CUDA tensors, its plain
+version on CPU tensors) or ``"ref"`` (the oracle). The reference's
+``"dist"`` path (sequence-parallel decode over a sharded cache,
+``repro/kernels/decode_attention/distributed.py``) is not ported yet and
+raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.decode_attention import decode_attention as _dec
+from repro_torch.kernels.decode_attention import ref as _ref
+from repro_torch.kernels.flash_attention.ops import IMPLS, check_impl
+
+
+def decode_attention(q, k, v, kv_valid_len, *, scale: Optional[float] = None,
+                     impl: str = "kernel",
+                     block_k: int = _dec.BLOCK_K) -> torch.Tensor:
+    """q: (b, h, d) single-token queries; k/v: (b, sk, hkv, d) cache."""
+    if impl == "dist":
+        raise NotImplementedError(
+            "decode_attention: impl='dist' (sequence-parallel decode over a "
+            "sharded KV cache) is not ported yet; see ROADMAP.md Queue A")
+    if check_impl(impl, IMPLS) == "ref":
+        return _ref.decode_attention_reference(q, k, v, kv_valid_len,
+                                               scale=scale)
+    return _dec.decode_attention_fwd(q, k, v, kv_valid_len, scale=scale,
+                                     block_k=block_k)

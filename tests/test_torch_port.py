@@ -63,6 +63,12 @@ import repro_torch.accel.torch_backend
 import repro_torch.accel.kernels
 import repro_torch.accel.bulk
 import repro_torch.accel.sweep
+import repro_torch.configs
+import repro_torch.kernels.flash_attention.ops
+import repro_torch.kernels.decode_attention.ops
+import repro_torch.models
+import repro_torch.models.convert
+import repro_torch.train.loop
 ref = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not ref, ref
 assert "jax" not in [m for m, v in sys.modules.items() if v is not None]
