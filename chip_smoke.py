@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the simulator on one NVIDIA card.
+"""Drive the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -8,61 +8,86 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 1. Print the card (``nvidia-smi``), torch/CUDA versions, and build the
    kernels with ``nvcc``, one process per source, all started together
    (timed): B1–B4 from ``src/repro_torch/accel/csrc/assess.cu``, B5 from
-   ``csrc/bulk.cu``, B6 from ``csrc/flash_attention.cu`` and B9 from
-   ``csrc/decode_attention.cu``.
-2. Kernel phase: each kernel on the card against its plain torch version
-   on CPU copies of the same inputs, exactly (NaN equal to NaN) — first on
-   :func:`adversarial_inputs` (summation-order, tie and padding boundary
-   cases), then on a mid-run snapshot of the main-path scenario, where
-   kernel and plain version are also timed on the card with CUDA events.
-3. Main path: the 1,000-node, 20-job scenario under ``policy="bino"`` and
-   ``policy="yarn"``, each once with the default backend (torch on the
-   card) and once with ``assess_backend="numpy"``. Action traces,
-   attempt launches and job results must be byte-identical, and every
-   kernel must have launched during the card runs; B3 must have been
-   reached through both ``late_victims`` (yarn) and ``winning`` (bino).
-4. Fair path: the same jobs on the ε-fair network with 40 racks, the
-   kernel shuffle engine and drain-boundary re-pricing, plus a rack
-   switch degrade — bino with assessment and the bulk solver on the card,
-   then both on numpy. Byte-identical traces, launches and results; B5
-   launched and transfers re-priced. B5 is then held against its plain
+   ``csrc/bulk.cu``, B6 from ``csrc/flash_attention.cu``, B7 and B8 from
+   ``csrc/flash_attention_bwd.cu`` and B9 from ``csrc/decode_attention.cu``.
+2. Kernel phase: each of B1–B5 on the card against its plain
+   torch version on CPU copies of the same inputs, exactly (NaN equal to
+   NaN) — first on :func:`adversarial_inputs` (summation-order, tie and
+   padding boundary cases), then on a mid-run snapshot of the main-path
+   scenario, where kernel and plain version are also timed on the card
+   with CUDA events.
+3. Main path: the 1,000-node, 20-job scenario under
+   ``policy="bino"`` and ``policy="yarn"``, each once with the default
+   backend (torch on the card) and once with ``assess_backend="numpy"``.
+   Action traces, attempt launches and job results must be
+   byte-identical, and every kernel must have launched during the card
+   runs; B3 must have been reached through both ``late_victims`` (yarn)
+   and ``winning`` (bino).
+4. Fair path: the same jobs on the ε-fair network with 40
+   racks, the kernel shuffle engine and drain-boundary re-pricing, plus a
+   rack switch degrade — bino with assessment and the bulk solver on the
+   card, then both on numpy. Byte-identical traces, launches and results;
+   B5 launched and transfers re-priced. B5 is then held against its plain
    version on every pricing call of the card run and timed.
-5. Sweep path: the fair card run's snapshot at 120 s, 64 fault scenarios
-   of all five kinds; ``BatchedSweep.run_batched`` on the card (one
-   launch each of B1, B3 and B4 with a scenario axis) equals
+5. Sweep path: the fair card run's snapshot at 120 s, 64 fault
+   scenarios of all five kinds; ``BatchedSweep.run_batched`` on the card
+   (one launch each of B1, B3 and B4 with a scenario axis) equals
    ``run_serial`` on numpy exactly. The batched kernels are then held
    against their plain versions and against 64 per-scenario launches,
    and timed.
-6. Profile: the flat bino card run once more under ``torch.profiler`` —
-   device time by kernel and the device's busy share of the run's wall
-   time.
-7. Attention kernels: B6 (flash-attention forward, from
-   ``csrc/flash_attention.cu``) and B9 (decode attention, from
-   ``csrc/decode_attention.cu``) against their plain torch versions on
-   the card, in bf16 and f32, on boundary inputs (sq < sk, ragged tiles,
-   a window, groups 1, 4 and 48, head_dim 64 and 128, valid lengths at
-   1, at tile edges ±1 and at the cache size), within the tolerances of
+6. Profile: the flat bino card run once more under
+   ``torch.profiler`` — device time by kernel and the device's busy share
+   of the run's wall time.
+7. Attention kernels: B6 (flash-attention forward) and
+   B9 (decode attention) against their plain torch versions on the card,
+   in bf16 and f32, on boundary inputs (sq < sk, ragged tiles, a window,
+   groups 1, 4 and 48, head_dim 64 and 128, valid lengths at 1, at tile
+   edges ±1 and at the cache size), within the tolerances of
    ``tests/test_kernels.py`` (bf16 2e-2, f32 2e-5; lse 2e-5); then at the
    serving path's shapes, timed beside the plain versions and
    ``F.scaled_dot_product_attention`` (the yardstick only: the port never
    calls it).
-8. Serving path: Qwen3-8B at full width (36 layers, random bf16 weights
-   from a seeded generator) serves 4 prompts of 2,048 token ids through
-   ``make_prefill_step`` and 64 greedy steps of ``make_serve_step``:
-   exactly 36 B6 and 2,304 B9 launches, no plain-version call. The
-   logits of the prefill and of decode steps 1, 16 and 64 are held
-   against the port's ``forward`` with ``impl="ref"`` in float32 over
-   the same prefix; an fp8 cast of the activations must fail the same
-   tolerance. The same bf16 prefill on the oracles shows how much of the
-   error is bf16 rounding. Prints prefill ms, decode ms per step,
-   tokens/s, peak device memory, and a profile of the device time by
-   kernel.
-9. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the
-   result line ``{"ok": true, "device": {...}}`` last.
+8. Serving path: Qwen3-8B at full width (36 layers, random
+   bf16 weights from a seeded generator) serves 4 prompts of 2,048 token
+   ids through ``make_prefill_step`` and 64 greedy steps of
+   ``make_serve_step``: exactly 36 B6 and 2,304 B9 launches, no
+   plain-version call. The logits of the prefill and of decode steps 1,
+   16 and 64 are held against the port's ``forward`` with ``impl="ref"``
+   in float32 over the same prefix; an fp8 cast of the activations must
+   fail the same tolerance. The same bf16 prefill on the oracles shows
+   how much of the error is bf16 rounding. Prints prefill ms, decode ms
+   per step, tokens/s, peak device memory, and a profile of the device
+   time by kernel.
+9. Attention backward: B7 (dK, dV) and B8 (dQ) against
+   their plain versions on the card in bf16 and f32 on boundary inputs
+   (causal or not, windows, sq < sk, ragged tiles, groups 1, 4 and 8,
+   head_dim 64 and 128; bf16 2e-2, f32 2e-5), the f32 gradient of the
+   op against autograd of the oracle (1e-3); then at Qwen1.5-0.5B's layer
+   shape and Qwen3-8B's head layout, timed beside the plain versions and
+   the backward of ``scaled_dot_product_attention`` (dq, dk and dv in
+   one call; the yardstick only).
+10. Training path: Qwen1.5-0.5B at full width and depth
+   (random bf16 weights from seed 0) trained by ``TrainerRuntime`` under
+   the binocular-speculation coordinator, 4 hosts x 4 microbatches of
+   2,048 tokens: a warm-up step and 5 timed steps (wall, tokens/s, loss,
+   peak memory, the reports' detections, recoveries and executed
+   microbatches); B6, B7 and B8 each launched exactly 24 times per
+   ``grad_fn`` call, no plain-version call, B1–B4 launched on the bino
+   ticks. Step 0's loss and one microbatch's gradients are held against
+   float32 autograd through the oracles (a probe that zeroes B8's dq
+   must fail the gradient limit), and that microbatch's gradients
+   computed twice must be byte-identical. The same steps then run under
+   the pinned ``crash`` script with bino (checkpointing every 2 steps)
+   and with gang restart, and a fresh runtime resumes from the bino run's
+   last checkpoint before the end: each must end byte-identical to the
+   fault-free run, and the crash runs must show a recovery. The last
+   resumed step is profiled (device time by kernel, busy share).
+11. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
+   the result line ``{"ok": true, "device": {...}}`` last.
 
 Each path is driven with the launch counts set to 0 just before it and
-read just after; the comparisons of phases 2, 4, 5 and 7 launch outside
-those windows.
+read just after; the comparisons of phases 2, 4, 5, 7 and 9 and the
+training checks launch outside those windows.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
@@ -71,6 +96,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1214,6 +1240,524 @@ def profile_serve(params, prompts, prefill_step, serve_step,
                            max_name_column_width=60), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Attention backward kernels B7 and B8
+# ---------------------------------------------------------------------------
+# Boundary inputs: (b, sq, sk, hq, hkv, d, causal, window); every query row
+# keeps at least one key.
+BWD_CASES = [
+    (1, 100, 300, 4, 1, 64, True, 0),      # sq < sk, ragged, a group of 4
+    (2, 130, 130, 8, 8, 128, True, 0),     # group 1, sq = sk off the tile
+    (1, 200, 300, 16, 2, 128, True, 64),   # a group of 8, a window
+    (2, 64, 64, 4, 4, 64, False, 0),       # not causal
+    (1, 77, 256, 32, 8, 128, False, 40),   # a window without the band
+    (1, 96, 96, 8, 1, 64, True, 16),       # a group of 8, a narrow window
+]
+# The f32 kernels against autograd of the oracle (tests/test_kernels.py:
+# 83-90): 1e-3.
+BWD_ORACLE_TOL = 1e-3
+# Training shapes: Qwen1.5-0.5B's layer (the main path), then Qwen3-8B's
+# head layout: (b, s, hq, hkv, d), causal, bf16.
+BWD_SHAPES = {"qwen1.5-0.5b": (1, 2048, 16, 16, 64),
+              "qwen3-8b": (1, 4096, 32, 8, 128)}
+BWD_SOURCE = "src/repro_torch/accel/csrc/flash_attention_bwd.cu"
+DKV_REPLACES = ("src/repro/kernels/flash_attention/flash_attention.py:169 "
+                "_dkv_kernel (pallas_call :322)")
+DQ_REPLACES = ("src/repro/kernels/flash_attention/flash_attention.py:235 "
+               "_dq_kernel (pallas_call :361)")
+
+
+def _bwd_case(seed, dtype, b, sq, sk, hq, hkv, d, causal, window):
+    """q, k, v, dO and the forward's out and lse (B6 on the card)."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    q, k, v, do = _randn(seed, dtype, (b, sq, hq, d), (b, sk, hkv, d),
+                         (b, sk, hkv, d), (b, sq, hq, d))
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    return q, k, v, do, lse, FA.bwd_delta(out, do)
+
+
+def attention_bwd_phase():
+    """B7 and B8 against their plain versions on boundary inputs in bf16
+    and f32, the f32 gradient against autograd of the oracle, then at the
+    training shapes, timed beside the plain versions and the backward of
+    ``scaled_dot_product_attention`` (the yardstick: dq, dk and dv in one
+    call)."""
+    import torch.nn.functional as F
+
+    from repro_torch.accel import kernels as K
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ops as FOPS
+    from repro_torch.kernels.flash_attention import ref as FREF
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 oracle is f32
+    torch.backends.cudnn.allow_tf32 = False
+    seed, worst = 200, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[dtype]
+        for case in BWD_CASES:
+            args = _bwd_case(seed, dtype, *case)
+            q, k, v, do = args[:4]
+            seed += 1
+            causal, window = case[6], case[7]
+            dk, dv = K.launch_flash_dkv(*args, causal, window,
+                                        q.shape[-1] ** -0.5)
+            dq = K.launch_flash_dq(*args, causal, window, q.shape[-1] ** -0.5)
+            pdk, pdv = FA.flash_attention_dkv_plain(*args, causal=causal,
+                                                    window=window)
+            pdq = FA.flash_attention_dq_plain(*args, causal=causal,
+                                              window=window)
+            for name, got, want in (("dk", dk, pdk), ("dv", dv, pdv),
+                                    ("dq", dq, pdq)):
+                err = _within(f"flash bwd {case} {dtype} {name}", got, want,
+                              tol)
+                worst[(dtype, name)] = max(worst.get((dtype, name), 0.0),
+                                           err)
+            if dtype == torch.float32:
+                # the op's gradient against autograd of the oracle
+                leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+                got = torch.autograd.grad(FOPS.flash_attention(
+                    *leaves, causal=causal, window=window), leaves, do)
+                want = torch.autograd.grad(FREF.attention_reference(
+                    *leaves, causal=causal, window=window), leaves, do)
+                for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                    _within(f"flash bwd {case} {name} vs the oracle", g, w,
+                            BWD_ORACLE_TOL)
+    torch.cuda.synchronize()
+    errs = {f"{dtype} {name}": e for (dtype, name), e in worst.items()}
+    print(f"attention backward boundary inputs: B7 and B8 ({len(BWD_CASES)} "
+          f"cases) within tolerance of their plain versions in float32 and "
+          f"bf16 (max_abs_err {errs}), f32 within {BWD_ORACLE_TOL} of "
+          f"autograd of the oracle", flush=True)
+
+    rows, bf16 = {}, torch.bfloat16
+    for arch, (b, s, hq, hkv, d) in BWD_SHAPES.items():
+        args = _bwd_case(300, bf16, b, s, s, hq, hkv, d, True, 0)
+        q, k, v, do = args[:4]
+        scale = d ** -0.5
+        before = (K.launches["flash_dkv"], K.launches["flash_dq"])
+        dk, dv = K.launch_flash_dkv(*args, True, 0, scale)
+        dq = K.launch_flash_dq(*args, True, 0, scale)
+        torch.cuda.synchronize()
+        if (K.launches["flash_dkv"], K.launches["flash_dq"]) != \
+                (before[0] + 1, before[1] + 1):
+            raise RuntimeError("flash bwd: the wrappers did not launch")
+        pdk, pdv = FA.flash_attention_dkv_plain(*args)
+        pdq = FA.flash_attention_dq_plain(*args)
+        err_kv = max(_within(f"flash_dkv at {arch}'s shape dk", dk, pdk,
+                             ATTN_TOL[bf16]),
+                     _within(f"flash_dkv at {arch}'s shape dv", dv, pdv,
+                             ATTN_TOL[bf16]))
+        err_q = _within(f"flash_dq at {arch}'s shape", dq, pdq,
+                        ATTN_TOL[bf16])
+        del pdk, pdv, pdq
+        # the yardstick: SDPA's backward for dq, dk and dv together
+        qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_()
+                      for x in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+        do_t = do.transpose(1, 2)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
+                                       retain_graph=True)
+
+        lib_err = max(float((g.transpose(1, 2).float() - w.float()).abs()
+                            .max()) for g, w in zip(sdpa_bwd(),
+                                                    (dq, dk, dv)))
+        library_ms = _time_ms(sdpa_bwd, ())
+        pairs = _causal_pairs(s, s, True, 0)
+        flops = 2.0 * b * hq * d * pairs    # one product
+        in_bytes = sum(_nbytes(x) for x in args)
+        dkv = _attn_row(
+            "flash_dkv", _time_ms(K.launch_flash_dkv, (*args, True, 0,
+                                                       scale)),
+            _time_ms(FA.flash_attention_dkv_plain, args, reps=3),
+            library_ms, in_bytes + _nbytes((dk, dv)), 4 * flops, bf16,
+            err_kv, BWD_SOURCE, DKV_REPLACES)
+        dq_row = _attn_row(
+            "flash_dq", _time_ms(K.launch_flash_dq, (*args, True, 0, scale)),
+            _time_ms(FA.flash_attention_dq_plain, args, reps=3),
+            library_ms, in_bytes + _nbytes(dq), 3 * flops, bf16, err_q,
+            BWD_SOURCE, DQ_REPLACES)
+        print(f"flash bwd at {arch}'s layout (b {b}, s {s}, {hq}/{hkv} heads, "
+              f"d {d}, causal, bf16): B7 {dkv['ms']:.6f} ms (bound "
+              f"{dkv['bound_ms']:.6f}, {dkv['bound_by']}), B8 "
+              f"{dq_row['ms']:.6f} ms (bound {dq_row['bound_ms']:.6f}); "
+              f"B7 + B8 {dkv['ms'] + dq_row['ms']:.6f} ms against SDPA's "
+              f"backward {library_ms:.6f} ms (max_abs_err vs B7/B8 "
+              f"{lib_err})", flush=True)
+        if not rows:    # the main path's shape names the rows
+            rows = {"flash_dkv": dkv, "flash_dq": dq_row}
+        del q, k, v, do, args, dk, dv, dq, qt, kt, vt, o_lib
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Training path: Qwen1.5-0.5B at full width through the live runtime
+# ---------------------------------------------------------------------------
+# Qwen1.5-0.5B (configs/qwen1_5_0_5b.py) at full width and depth, random
+# bf16 weights from seed 0, TrainConfig() defaults; 4 hosts x 4
+# microbatches of 1 x 2,048 tokens (32,768 tokens a step) under bino with
+# compute_delay 0 and the columnar/reference differential on; one
+# warm-up step, then TRAIN_STEPS timed ones.
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_SEED = 0
+TRAIN_SEQ = 2048
+TRAIN_HOSTS = 4
+TRAIN_MB = 4
+TRAIN_STEPS = 5
+# The first step's loss and one microbatch's gradients are held against
+# float32 autograd through the oracles (impl="ref") on the same batch and
+# the same (bf16-valued) weights. The port trains in bf16 (weights,
+# activations, gradients), with float32 sums inside every product and
+# norm and a float32 loss.
+# - TRAIN_LOSS_TOL bounds |loss - reference| / |reference| of step 0;
+#   measured on an H100 80GB HBM3 at 700 W (PERF.md): 1.2e-4.
+# - TRAIN_GRAD_TOL bounds the largest ||g - ref|| / ||ref|| over the
+#   leaves; measured 0.022 (a K bias of a late layer). A probe must
+#   exceed it: the same gradients with B8's dq replaced by zeros, which
+#   zeroes every layer's wq and bq gradient (measured 1.0). The limit sits
+#   2.3x above the measurement and 20x below the probe.
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_GRAD_TOL = 0.05
+# A host thread ends at its next check after shutdown, at most one
+# microbatch's gradient away.
+HOST_EXIT_S = 120.0
+
+
+def _host_calls(trainer):
+    """Count every host's grad_fn calls, across threads."""
+    import threading
+
+    lock, count = threading.Lock(), [0]
+    for host in trainer.coord.hosts.values():
+        def counted(params, batch, _orig=host.grad_fn):
+            with lock:
+                count[0] += 1
+            return _orig(params, batch)
+        host.grad_fn = counted
+    return count
+
+
+def _param_bytes(params) -> torch.Tensor:
+    """Every parameter's bits, in tree order, as one byte tensor."""
+    from repro_torch.models import layers as L
+
+    return torch.cat([t.detach().reshape(-1).view(torch.uint8)
+                      for t in L.tree_leaves(params).values()])
+
+
+def _print_reports(label, reports, tokens):
+    for r in reports:
+        detections = sum("declared" in x or "timed out" in x
+                         for x in r.recoveries)
+        print(f"train {label}: step {r.step} wall {r.wall_s:.6f} s "
+              f"({tokens / r.wall_s:.1f} tokens/s) loss "
+              f"{r.metrics.get('loss', float('nan')):.6f} mb_executed "
+              f"{r.mb_executed}/{r.mb_needed} restarts {r.restarts} "
+              f"wedges {r.wedges} detections {detections} recoveries "
+              f"{len(r.recoveries)} {r.recoveries[:4]}", flush=True)
+
+
+def _leaf_errors(got, want):
+    """{path: ||got - want|| / ||want||}."""
+    return {k: float((got[k].float() - want[k].float()).norm()
+                     / want[k].float().norm()) for k in want}
+
+
+def _same_bits(a, b) -> bool:
+    return a.dtype == b.dtype and torch.equal(a.view(torch.uint8),
+                                              b.view(torch.uint8))
+
+
+def train_checks(cfg, params0, batches, device):
+    """On the initial weights and step 0's batches: float32 losses through
+    the oracles; microbatch 0's gradients on the kernels twice (byte
+    identity), through the oracles in float32 (the reference), and with
+    B8's dq replaced by zeros (the probe)."""
+    from repro_torch.accel import kernels as K
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as PM
+    from repro_torch.train.loop import (TrainConfig, cross_entropy_loss,
+                                        make_grad_fn)
+
+    with torch.no_grad():
+        ref_losses = [float(cross_entropy_loss(PM.forward(
+            cfg, params0, b, impl="ref", compute_dtype=torch.float32)[0],
+            b["labels"])) for b in batches]
+    grad = make_grad_fn(cfg, TrainConfig())
+    g1, _m = grad(params0, batches[0])
+    g2, _m = grad(params0, batches[0])
+    differ = [k for k in g1 if not _same_bits(g1[k], g2[k])]
+    del g2
+    # the probe: B8's dq (or its plain version's, on the CPU) set to zeros
+    target = (K, "launch_flash_dq") if device == "cuda" else \
+        (FA, "flash_attention_dq_plain")
+    orig = getattr(*target)
+    setattr(*target, lambda q, *a, **kw: torch.zeros_like(q))
+    try:
+        gp, _m = grad(params0, batches[0])
+    finally:
+        setattr(*target, orig)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    p32 = L.tree_from_leaves(params0, {k: v.detach().float() for k, v in
+                                       L.tree_leaves(params0).items()},
+                             trainable=True)
+    gref, _m = make_grad_fn(cfg32, TrainConfig(impl="ref", remat="full"))(
+        p32, batches[0])
+    del p32
+    errs, probe = _leaf_errors(g1, gref), _leaf_errors(gp, gref)
+    worst = max(errs, key=errs.get)
+    return {"ref_losses": ref_losses, "grad_err": errs[worst],
+            "grad_worst_leaf": worst, "probe_err": max(probe.values()),
+            "nondeterministic": differ}
+
+
+def train_path(cfg=None, device="cuda", steps=TRAIN_STEPS, seq=TRAIN_SEQ,
+               ckpt_root=None):
+    """Qwen1.5-0.5B at full width (or ``cfg``) trained through
+    ``TrainerRuntime`` on ``device``; checkpoints go to a temporary
+    directory under ``ckpt_root`` (default: the repository's git-ignored
+    ``build/``), removed at the end. Returns the fault-free timed steps'
+    launch counts."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 references
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(ckpt_root or ROOT / "build")
+    root.mkdir(parents=True, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_", dir=root)
+    try:
+        return _train_runs(cfg or get_config(TRAIN_ARCH), device, steps,
+                           seq, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def _train_runs(cfg, device, steps, seq, ckpt_dir):
+    """The training path on ``device`` (a CPU run rehearses it on the
+    plain versions, with no launch to count): fault-free, then under the
+    pinned crash script with bino (checkpointing into ``ckpt_dir``) and
+    gang restart, then resumed from a checkpoint."""
+    import shutil
+
+    from repro_torch.accel import kernels as K
+    from repro_torch.accel.torch_backend import TorchBackend
+    from repro_torch.data.pipeline import DataState
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as FREF
+    from repro_torch.runtime import (PINNED_SCRIPTS, ChaosController,
+                                     RuntimeConfig, TrainerRuntime)
+    from repro_torch.train.loop import TrainConfig
+
+    on_card = torch.device(device).type == "cuda"
+    tokens = TRAIN_HOSTS * TRAIN_MB * seq
+    n_steps = 1 + steps
+    assess = None if on_card else TorchBackend("cpu")
+    assess_keys = ("spatial", "temporal", "late", "reap")
+
+    def runtime(recovery="bino", script=None, horizon=0.0, ckpt_every=None,
+                **kw):
+        """``ckpt_every``: None for no checkpoints, 0 to restore only."""
+        rt = RuntimeConfig(
+            n_hosts=TRAIN_HOSTS, microbatches_per_shard=TRAIN_MB,
+            recovery=recovery, compute_delay=0.0,
+            verify_columnar=recovery == "bino", assess_backend=assess,
+            checkpoint_dir=None if ckpt_every is None else ckpt_dir,
+            checkpoint_every=ckpt_every or 0, **kw)
+        chaos = (ChaosController(PINNED_SCRIPTS[script], horizon=horizon,
+                                 seed=7) if script else None)
+        return TrainerRuntime(cfg, TrainConfig(), rt, seq_len=seq,
+                              per_shard_batch=1, seed=TRAIN_SEED,
+                              chaos=chaos, device=device)
+
+    def finish(trainer, calls):
+        """Shut the hosts down and wait for their threads to end (a losing
+        speculative attempt may still be inside its backward), then read
+        the launch counts and check them against the grad_fn calls."""
+        trainer.shutdown()
+        for host in trainer.coord.hosts.values():
+            host.join(timeout=HOST_EXIT_S)
+            if host.is_alive():
+                raise RuntimeError(f"train: host {host.host_id} still "
+                                   f"running {HOST_EXIT_S} s after shutdown")
+        counts = dict(K.launches)
+        want = cfg.n_layers * calls[0] if on_card else 0
+        flash = {k: counts[k] for k in ("flash_fwd", "flash_dkv",
+                                        "flash_dq")}
+        if flash != dict.fromkeys(flash, want):
+            raise RuntimeError(f"train: launches {flash}, expected {want} "
+                               f"each ({cfg.n_layers} x {calls[0]} grad_fn "
+                               f"calls)")
+        return counts
+
+    # -- fault-free ------------------------------------------------------
+    t = runtime()
+    print(f"train: {cfg.arch_id} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+          f"{sum(p.numel() for p in t.state['params'].parameters())} "
+          f"parameters; {TRAIN_HOSTS} hosts x {TRAIN_MB} microbatches of 1 "
+          f"x {seq} tokens ({tokens} tokens a step)", flush=True)
+    params0 = t.state["params"]
+    batches = [t.coord.batch_fn(DataState(TRAIN_SEED, s, TRAIN_HOSTS, m))
+               for s in range(TRAIN_HOSTS) for m in range(TRAIN_MB)]
+    # The counts cover the whole run, warm-up included, up to the hosts'
+    # shutdown: a losing speculative attempt may still be computing when
+    # its step ends, so no instant between steps is free of launches.
+    calls = _host_calls(t)
+    plain = _CountCalls([(FA, "flash_attention_plain"),
+                         (FA, "flash_attention_dkv_plain"),
+                         (FA, "flash_attention_dq_plain"),
+                         (FREF, "attention_reference")])
+    K.reset_launches()
+    w0 = time.perf_counter()
+    with plain:
+        warm = t.run(1)
+        _print_reports("fault-free (warm-up)", warm, tokens)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        timed = t.run(steps)
+        counts = finish(t, calls)
+    ff_wall = time.perf_counter() - w0
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    if on_card and any(plain.calls.values()):
+        raise RuntimeError(f"train: plain versions called on the card's "
+                           f"path: {plain.calls}")
+    _print_reports("fault-free", timed, tokens)
+    walls = [r.wall_s for r in timed]
+    losses = [r.metrics["loss"] for r in warm + timed]
+    print(f"train fault-free: {steps} timed steps after the warm-up, mean "
+          f"wall {sum(walls) / len(walls):.6f} s "
+          f"({tokens * len(walls) / sum(walls):.1f} tokens/s); losses "
+          f"{losses}; peak device memory {peak} bytes; "
+          f"{calls[0]} grad_fn calls (warm-up included); kernel launches "
+          f"{counts}; "
+          f"plain-version calls {plain.calls}; detections "
+          f"{t.coord.metrics.counter('detections').n}, recoveries "
+          f"{t.coord.metrics.counter('recoveries').n}, mb_executed "
+          f"{[r.mb_executed for r in warm + timed]}", flush=True)
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"train: losses not finite: {losses}")
+    final = _param_bytes(t.state["params"]).clone()
+    ff_counts = counts
+    assess_counts = {k: counts[k] for k in assess_keys}
+    del t
+
+    # -- loss, gradients, reproducibility (gates c-e) -------------------
+    checks = train_checks(cfg, params0, batches, device)
+    ref_loss = float(np.mean(checks["ref_losses"]))
+    loss_err = abs(losses[0] - ref_loss) / abs(ref_loss)
+    print(f"train checks: step 0 loss {losses[0]!r} vs float32 through the "
+          f"oracles {ref_loss!r}, relative error {loss_err} (limit "
+          f"{TRAIN_LOSS_TOL}); microbatch 0 gradients vs float32 autograd "
+          f"through the oracles: max ||g - ref|| / ||ref|| "
+          f"{checks['grad_err']} at {checks['grad_worst_leaf']} (limit "
+          f"{TRAIN_GRAD_TOL}); the probe (B8's dq zeroed) "
+          f"{checks['probe_err']}; leaves differing between two runs "
+          f"{checks['nondeterministic']}", flush=True)
+    if not loss_err <= TRAIN_LOSS_TOL:
+        raise RuntimeError(f"train: step 0 loss off by {loss_err}")
+    if not checks["grad_err"] <= TRAIN_GRAD_TOL:
+        raise RuntimeError(f"train: gradients off by {checks['grad_err']}")
+    if not checks["probe_err"] > TRAIN_GRAD_TOL:
+        raise RuntimeError(f"train: the probe ({checks['probe_err']}) "
+                           f"passes {TRAIN_GRAD_TOL}: it is too loose")
+    if checks["nondeterministic"]:
+        raise RuntimeError(f"train: gradients not reproducible: "
+                           f"{checks['nondeterministic']}")
+    del params0, batches
+
+    # -- faults: bino (checkpointing) and gang restart --------------------
+    # the crash fires at 0.2 of the horizon: a fifth into the run
+    horizon = ff_wall
+    for recovery in ("bino", "restart"):
+        K.reset_launches()
+        t = runtime(recovery, "crash", horizon,
+                    ckpt_every=2 if recovery == "bino" else None)
+        calls = _host_calls(t)
+        reports = t.run(n_steps)
+        counts = finish(t, calls)
+        for k in assess_keys:
+            assess_counts[k] += counts[k]
+        _print_reports(f"{recovery} crash", reports, tokens)
+        same = torch.equal(_param_bytes(t.state["params"]), final)
+        print(f"train {recovery} crash (horizon {horizon:.3f} s): final "
+              f"params {'byte-identical to' if same else 'DIFFER from'} "
+              f"the fault-free run; {calls[0]} grad_fn calls; step walls "
+              f"{[r.wall_s for r in reports]}; mb_executed "
+              f"{[r.mb_executed for r in reports]}; kernel launches "
+              f"{counts}", flush=True)
+        if not same:
+            raise RuntimeError(f"train: {recovery} crash run diverged")
+        if not any(r.recoveries or r.restarts for r in reports):
+            raise RuntimeError(f"train: {recovery} crash run shows no "
+                               f"recovery")
+        del t
+
+    # -- resume from the bino run's last checkpoint before the end ------
+    kept = sorted(int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+                  if d.startswith("step_") and "." not in d)
+    start = max(k for k in kept if k < n_steps)
+    for k in kept:
+        if k > start:   # as if the run had died before writing them
+            shutil.rmtree(os.path.join(ckpt_dir, f"step_{k:09d}"))
+    t = runtime(ckpt_every=0)
+    if t._start_step != start:
+        raise RuntimeError(f"train: resumed at {t._start_step}, not {start}")
+    calls = _host_calls(t)
+    K.reset_launches()
+    reports = t.run(n_steps - start - 1)
+    # the last step profiled, after a step on the fresh host threads
+    reports += profile_train(t) if on_card else t.run(1)
+    finish(t, calls)
+    same = torch.equal(_param_bytes(t.state["params"]), final)
+    print(f"train resume: restored step {start} of the bino crash run "
+          f"(checkpoints {kept}), ran steps {[r.step for r in reports]}: "
+          f"final params {'byte-identical to' if same else 'DIFFER from'} "
+          f"the fault-free run", flush=True)
+    if not same:
+        raise RuntimeError("train: the resumed run diverged")
+    del t
+    if on_card and not all(assess_counts.values()):
+        raise RuntimeError(f"train: assessment kernels never launched on "
+                           f"the bino ticks: {assess_counts}")
+    print(f"train: assessment kernel launches on the bino ticks (fault-free "
+          f"timed steps and both crash runs): {assess_counts}", flush=True)
+    if on_card:
+        torch.cuda.empty_cache()
+    return ff_counts
+
+
+def profile_train(trainer):
+    """Device time by kernel over one training step, and the device's busy
+    share of its wall time; returns the step's reports. Device activity
+    only: recording every op of four host threads on the CPU side
+    stretched a profiled step about fivefold."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        reports = trainer.run(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == cuda)
+    print(f"profile train step: wall {wall:.6f} s (profiled), device busy "
+          f"{dev_us / 1e6:.6f} s = {dev_us / 1e6 / wall:.6f} of wall")
+    print(events.table(sort_by="self_device_time_total", row_limit=20,
+                       max_name_column_width=60), flush=True)
+    return reports
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1248,6 +1792,10 @@ def main() -> int:
     rows.update(attention_kernel_phase())
     serve_launches = serve_path()
     launches.update((k, serve_launches[k]) for k in ("flash_fwd", "decode"))
+    rows.update(attention_bwd_phase())
+    train_launches = train_path()
+    launches.update((k, train_launches[k]) for k in ("flash_dkv",
+                                                     "flash_dq"))
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))

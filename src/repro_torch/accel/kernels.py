@@ -2,21 +2,26 @@
 
 The assessment kernels B1–B4 live in ``csrc/assess.cu``, the ε-fair
 network's pricing kernel B5 in ``csrc/bulk.cu``, the flash-attention
-forward B6 in ``csrc/flash_attention.cu`` and the decode attention B9 in
+forward B6 in ``csrc/flash_attention.cu``, its backward B7 (dK, dV) and
+B8 (dQ) in ``csrc/flash_attention_bwd.cu`` and the decode attention B9 in
 ``csrc/decode_attention.cu`` (CUDA C++ for ``sm_90a``, plain C
 interfaces). :func:`build` compiles each source with its own ``nvcc``,
 all started together, into ``build/kernels/`` at the repository root —
-each file name carries a hash of its source and of the flags it is built
-with, so an edited source or flag rebuilds — and :func:`library` loads
-them with ``ctypes``. B1–B5 are bit-exact against numpy and build with
-``-fmad=false``; B6 and B9 are held to tolerances and let ``nvcc`` fuse
+each file name carries a hash of its source, of the shared headers
+(``csrc/*.cuh``) and of the flags it is built with, so an edited source,
+header or flag rebuilds — and :func:`library` loads them with
+``ctypes``. B1–B5 are bit-exact against numpy and build with
+``-fmad=false``; B6–B9 are held to tolerances and let ``nvcc`` fuse
 multiply-adds. Nothing is compiled or loaded at import: CPU-only hosts
 import this module freely.
 
 Each ``launch_*`` function checks device, dtype, shape and contiguity,
 allocates its outputs and scratch with ``torch.empty``, launches on the
 current stream without synchronising, raises if the C entry point reports
-a CUDA error, and adds one to its entry of :data:`launches`. B1, B3 and B4
+a CUDA error, and adds one to its entry of :data:`launches` through
+:func:`count_launch`, under a lock: the live runtime's host threads
+launch B6–B8 at once, and ``launches[key] += 1`` is a read, an add and a
+store that a thread switch can split. B1, B3 and B4
 take an optional leading scenario axis: (cap,) row columns are one tick's
 launch (counted as ``spatial``/``late``/``reap``), (N, cap) columns are
 the batched sweep's one launch for all N scenarios (counted as
@@ -30,6 +35,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -38,6 +44,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"assess": CSRC / "assess.cu", "bulk": CSRC / "bulk.cu",
            "flash": CSRC / "flash_attention.cu",
+           "flash_bwd": CSRC / "flash_attention_bwd.cu",
            "decode": CSRC / "decode_attention.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -45,12 +52,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # The bit-exact kernels keep every multiply and add rounded on its own.
 EXACT = ("-fmad=false",)
 FLAGS = {"assess": NVCC_FLAGS + EXACT, "bulk": NVCC_FLAGS + EXACT,
-         "flash": NVCC_FLAGS, "decode": NVCC_FLAGS}
+         "flash": NVCC_FLAGS, "flash_bwd": NVCC_FLAGS,
+         "decode": NVCC_FLAGS}
 # Largest dynamic shared memory a block may take on Hopper (227 KB).
 MAX_SMEM = 232448
 # Largest gridDim.y: bounds the scenarios of one batched launch.
 MAX_SCENARIOS = 65535
-# Tile sizes of B6 and B9, which their plain versions walk too (checked
+# Tile sizes of B6–B9, which their plain versions walk too (checked
 # against the built library when it loads), and the head sizes they take.
 FLASH_BLOCK_Q = 64
 FLASH_BLOCK_K = 64
@@ -63,14 +71,24 @@ HEAD_DIMS = (16, 32, 64, 128)
 launches: Dict[str, int] = {"spatial": 0, "temporal": 0, "late": 0,
                             "reap": 0, "price": 0, "spatial_sweep": 0,
                             "late_sweep": 0, "reap_sweep": 0,
-                            "flash_fwd": 0, "decode": 0}
+                            "flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0,
+                            "decode": 0}
+_launch_lock = threading.Lock()
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_lib_lock = threading.Lock()
+
+
+def count_launch(key: str) -> None:
+    """Add one to ``launches[key]``; safe across threads."""
+    with _launch_lock:
+        launches[key] += 1
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _launch_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def nvcc() -> str:
@@ -78,8 +96,9 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        SOURCES[name].read_bytes() + " ".join(FLAGS[name]).encode()
+        SOURCES[name].read_bytes() + headers + " ".join(FLAGS[name]).encode()
     ).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -131,6 +150,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         fns = (lib.flash_fwd,)
         tiles = [(lib.flash_fwd_block_q, FLASH_BLOCK_Q),
                  (lib.flash_fwd_block_k, FLASH_BLOCK_K)]
+    elif name == "flash_bwd":
+        lib.flash_bwd_dq.argtypes = [P] * 7 + [I] * 8 + [F, I, P]
+        lib.flash_bwd_dkv.argtypes = [P] * 8 + [I] * 8 + [F, I, P]
+        fns = (lib.flash_bwd_dq, lib.flash_bwd_dkv)
+        tiles = [(lib.flash_bwd_block_q, FLASH_BLOCK_Q),
+                 (lib.flash_bwd_block_k, FLASH_BLOCK_K)]
     else:
         lib.decode_attn.argtypes = [P] * 5 + [I] * 5 + [F, I, P]
         fns = (lib.decode_attn,)
@@ -148,13 +173,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 def library(name: str = "assess") -> ctypes.CDLL:
     """The loaded kernel library ``name`` (every library is built on the
     first call)."""
-    if name not in _libs:
-        paths = build()
-        for lib_name, path in paths.items():
-            if lib_name not in _libs:
-                lib = ctypes.CDLL(str(path))
-                _bind(lib_name, lib)
-                _libs[lib_name] = lib
+    with _lib_lock:   # host threads may ask first at the same time
+        if name not in _libs:
+            paths = build()
+            for lib_name, path in paths.items():
+                if lib_name not in _libs:
+                    lib = ctypes.CDLL(str(path))
+                    _bind(lib_name, lib)
+                    _libs[lib_name] = lib
     return _libs[name]
 
 
@@ -233,7 +259,7 @@ def launch_spatial(rho, node, kind, jls, running, nh,
         running.data_ptr(), nh.data_ptr(), cap, n, k, jcap, N,
         fired.data_ptr(), _stream(dev))
     _raise_on(rc, "spatial")
-    launches[key] += 1
+    count_launch(key)
     return fired
 
 
@@ -252,7 +278,7 @@ def launch_temporal(prog, tprog, node, jls, alive, jcap: int,
         alive.data_ptr(), cap, n, jcap, zn.data_ptr(), zp.data_ptr(),
         _stream(dev))
     _raise_on(rc, "temporal")
-    launches["temporal"] += 1
+    count_launch("temporal")
     return zn, zp
 
 
@@ -282,7 +308,7 @@ def launch_late(prog, start, rate, spec, tseg, jls, running, runatt, order,
         c_est.data_ptr(), c_pos.data_ptr(), victim.data_ptr(),
         win.data_ptr(), _stream(dev))
     _raise_on(rc, "late")
-    launches[key] += 1
+    count_launch(key)
     return victim, win
 
 
@@ -301,7 +327,7 @@ def launch_reap(a_state, tseg, live) -> torch.Tensor:
                          live.data_ptr(), cap, N, done.data_ptr(),
                          out.data_ptr(), _stream(dev))
     _raise_on(rc, "reap")
-    launches[key] += 1
+    count_launch(key)
     return out
 
 
@@ -320,7 +346,7 @@ def launch_price(share, links, valid) -> torch.Tensor:
                         valid.data_ptr(), cap, nL, out.data_ptr(),
                         _stream(dev))
     _raise_on(rc, "price")
-    launches["price"] += 1
+    count_launch("price")
     return out
 
 
@@ -337,7 +363,7 @@ def _attn_dtype(kernel: str, *tensors) -> int:
 
 
 def _aligned(kernel: str, **tensors) -> None:
-    """B6 and B9 load 16 bytes at a time."""
+    """B6–B9 load 16 bytes at a time."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{kernel}: {name} is not 16-byte aligned")
@@ -367,7 +393,7 @@ def launch_flash_fwd(q, k, v, causal: bool, window: int,
                        d, int(causal), int(window), float(scale), is_bf16,
                        _stream(dev))
     _raise_on(rc, "flash_fwd")
-    launches["flash_fwd"] += 1
+    count_launch("flash_fwd")
     return out, lse
 
 
@@ -394,5 +420,63 @@ def launch_decode(q, k, v, valid, scale: float) -> torch.Tensor:
                          valid.data_ptr(), out.data_ptr(), b, S, hq, hkv, d,
                          float(scale), is_bf16, _stream(dev))
     _raise_on(rc, "decode")
-    launches["decode"] += 1
+    count_launch("decode")
     return out
+
+
+def _flash_bwd_args(kernel, q, k, v, dout, lse, delta):
+    """Checks of B7's and B8's common arguments; returns (b, sq, sk, hq,
+    hkv, d, is_bf16)."""
+    dev = q.device
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    is_bf16 = _attn_dtype(kernel, q, k, v, dout)
+    _check(q, "q", q.dtype, (b, sq, hq, d), dev)
+    _check(k, "k", q.dtype, (b, sk, hkv, d), dev)
+    _check(v, "v", q.dtype, (b, sk, hkv, d), dev)
+    _check(dout, "dout", q.dtype, (b, sq, hq, d), dev)
+    _check(lse, "lse", torch.float32, (b, hq, sq), dev)
+    _check(delta, "delta", torch.float32, (b, hq, sq), dev)
+    if d not in HEAD_DIMS or hq % hkv or min(b, sq, sk) < 1:
+        raise ValueError(f"{kernel}: head_dim {d} (one of {HEAD_DIMS}), "
+                         f"heads {hq}/{hkv}, b {b}, sq {sq}, sk {sk}")
+    _aligned(kernel, q=q, k=k, v=v, dout=dout)
+    return b, sq, sk, hq, hkv, d, is_bf16
+
+
+def launch_flash_dkv(q, k, v, dout, lse, delta, causal: bool, window: int,
+                     scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B7: (dk, dv), each (b, sk, hkv, d) in k's type: the gradient of
+    B6's attention for each KV head, summed over its query group, given
+    the forward's lse and ``delta = rowsum(dout * out)``, both (b, hq, sq)
+    float32."""
+    b, sq, sk, hq, hkv, d, is_bf16 = _flash_bwd_args(
+        "flash_dkv", q, k, v, dout, lse, delta)
+    lib = library("flash_bwd")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    rc = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, hkv,
+                           d, int(causal), int(window), float(scale),
+                           is_bf16, _stream(q.device))
+    _raise_on(rc, "flash_dkv")
+    count_launch("flash_dkv")
+    return dk, dv
+
+
+def launch_flash_dq(q, k, v, dout, lse, delta, causal: bool, window: int,
+                    scale: float) -> torch.Tensor:
+    """B8: dq (b, sq, hq, d) in q's type, with B7's arguments."""
+    b, sq, sk, hq, hkv, d, is_bf16 = _flash_bwd_args(
+        "flash_dq", q, k, v, dout, lse, delta)
+    lib = library("flash_bwd")
+    dq = torch.empty_like(q)
+    rc = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          dq.data_ptr(), b, sq, sk, hq, hkv, d, int(causal),
+                          int(window), float(scale), is_bf16,
+                          _stream(q.device))
+    _raise_on(rc, "flash_dq")
+    count_launch("flash_dq")
+    return dq

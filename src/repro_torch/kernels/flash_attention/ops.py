@@ -1,16 +1,18 @@
-"""Public attention op: impl selection.
+"""Public attention op: impl selection and the gradient's wiring.
 
 ``impl``:
-- ``"kernel"`` — :func:`flash_attention_fwd`: kernel B6 on CUDA tensors,
-  its plain torch version on CPU tensors (the default);
-- ``"ref"``    — the plain torch oracle (``ref.attention_reference``).
+- ``"kernel"`` — :class:`FlashAttention`, a ``torch.autograd.Function``
+  (the counterpart of the reference's ``custom_vjp``, ``ops.py:26-49``):
+  its forward runs :func:`flash_attention_fwd` (kernel B6 on CUDA
+  tensors, its plain version on CPU tensors) and saves q, k, v, out and
+  lse; its backward runs :func:`flash_attention_bwd` (B7 then B8 on CUDA
+  tensors, their plain versions on CPU tensors). The default.
+- ``"ref"``    — the plain torch oracle (``ref.attention_reference``),
+  differentiated by autograd: the reference for every gradient test.
 
 The reference package defaults to ``"ref"`` and selects its Pallas
 kernels with ``"pallas"``/``"auto"``; the port defaults to the kernel,
-because its main path on the card goes through its kernels. Its gradient
-waits for the backward kernels B7/B8: on CUDA, a call with an input that
-requires grad raises instead of running without one (on the CPU the
-plain version is differentiable torch).
+because its main path on the card goes through its kernels.
 """
 from __future__ import annotations
 
@@ -22,6 +24,28 @@ from repro_torch.kernels.flash_attention import flash_attention as _fa
 from repro_torch.kernels.flash_attention import ref as _ref
 
 IMPLS = ("kernel", "ref")
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention through B6 forward and B7/B8 backward (plain versions on
+    CPU tensors); the gradients are those of the kernels' arithmetic."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, block_q, block_k):
+        out, lse = _fa.flash_attention_fwd(
+            q, k, v, causal=causal, window=window, scale=scale,
+            block_q=block_q, block_k=block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, scale=scale,
+                        block_q=block_q, block_k=block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_attention_bwd(q, k, v, out, lse,
+                                             do.contiguous(), **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def check_impl(impl: str, allowed=IMPLS) -> str:
@@ -51,13 +75,5 @@ def flash_attention(
         return _ref.attention_reference(
             q, k, v, causal=causal, window=window, scale=scale,
             kv_valid_len=kv_valid_len)
-    if q.device.type != "cpu" and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention: gradients need the backward kernels B7/B8, "
-            "not ported yet (ROADMAP.md Queue B); call under "
-            "torch.no_grad() or pass impl='ref'")
-    out, _ = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                     scale=scale, block_q=block_q,
-                                     block_k=block_k)
-    return out
+    return FlashAttention.apply(q, k, v, causal, window, scale, block_q,
+                                block_k)

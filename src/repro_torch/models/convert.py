@@ -1,4 +1,5 @@
-"""Load the reference package's parameters into the port's model.
+"""Load the reference package's parameters and train states into the
+port.
 
 The reference keeps a model's weights as a nested dict whose per-layer
 leaves are stacked on a leading ``(layers, ...)`` axis; the port keeps one
@@ -17,7 +18,8 @@ import torch
 
 from repro_torch.accel.torch_backend import require_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ParamTree
+from repro_torch.models.layers import ParamTree, tree_from_leaves, \
+    tree_leaves
 from repro_torch.models.model import check_family
 
 
@@ -56,3 +58,28 @@ def from_jax_params(cfg: ModelConfig, tree: Mapping[str, Any], *,
     params["layers"] = [_tree(tree["layers"], dev, i)
                         for i in range(cfg.n_layers)]
     return ParamTree(params)
+
+
+def from_jax_train_state(cfg: ModelConfig, tree: Mapping[str, Any], *,
+                         device: Union[str, torch.device] = "cuda"
+                         ) -> dict:
+    """The reference's train state ``{"params", "opt": {"m", "v",
+    "count"}, "step"[, "ef"]}`` (numpy leaves) as the port's: trainable
+    parameters, and the moments (and the compression residual) as dicts
+    ``{path: tensor}`` in :func:`tree_leaves` order, each converted by
+    :func:`from_jax_params`."""
+    params = from_jax_params(cfg, tree["params"], device=device)
+    dev = next(params.parameters()).device
+
+    def leaves(sub):
+        return tree_leaves(from_jax_params(cfg, sub, device=dev))
+
+    state = {"params": tree_from_leaves(params, tree_leaves(params),
+                                        trainable=True),
+             "opt": {"m": leaves(tree["opt"]["m"]),
+                     "v": leaves(tree["opt"]["v"]),
+                     "count": to_tensor(tree["opt"]["count"], dev)},
+             "step": to_tensor(tree["step"], dev)}
+    if "ef" in tree:
+        state["ef"] = leaves(tree["ef"])
+    return state

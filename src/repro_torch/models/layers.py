@@ -9,7 +9,7 @@ port drops both (``parallel/`` comes with the launch-tooling slice).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,24 +26,69 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 class ParamTree(nn.Module):
     """A nested dict of weights as an ``nn.Module``: a tensor becomes a
-    parameter (frozen: serving needs no gradient), a dict a sub-tree, a
-    list an ``nn.ModuleList`` of sub-trees. ``tree["name"]`` reads an
-    entry, as the reference reads its dicts."""
+    parameter (frozen unless ``trainable``: serving needs no gradient), a
+    dict a sub-tree, a list an ``nn.ModuleList`` of sub-trees.
+    ``tree["name"]`` reads an entry, as the reference reads its dicts.
+    The parameters share the given tensors' storage."""
 
-    def __init__(self, tree: Mapping[str, Any]):
+    def __init__(self, tree: Mapping[str, Any], *, trainable: bool = False):
         super().__init__()
         for name, value in tree.items():
             if isinstance(value, torch.Tensor):
                 self.register_parameter(
-                    name, nn.Parameter(value, requires_grad=False))
+                    name, nn.Parameter(value.detach(),
+                                       requires_grad=trainable))
             elif isinstance(value, (list, tuple)):
                 self.add_module(name, nn.ModuleList(
-                    ParamTree(v) for v in value))
+                    ParamTree(v, trainable=trainable) for v in value))
             else:
-                self.add_module(name, ParamTree(value))
+                self.add_module(name, ParamTree(value, trainable=trainable))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+
+def _children(node) -> Iterator[Tuple[str, Any]]:
+    if isinstance(node, ParamTree):
+        for name in sorted((*node._parameters, *node._modules)):
+            yield name, node[name]
+    else:   # nn.ModuleList: index order
+        for i, child in enumerate(node):
+            yield str(i), child
+
+
+def tree_leaves(tree: ParamTree) -> Dict[str, torch.Tensor]:
+    """Every tensor of a :class:`ParamTree` by ``/``-joined path, in the
+    reference's flattening order: names sorted, list entries by index
+    (``layers/0/ffn/w_up``, ..., ``layers/10/...``)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, torch.Tensor):
+            out[prefix] = node
+            return
+        for name, child in _children(node):
+            walk(child, f"{prefix}/{name}" if prefix else name)
+
+    walk(tree, "")
+    return out
+
+
+def tree_from_leaves(like: ParamTree, leaves: Mapping[str, torch.Tensor],
+                     *, trainable: bool = False) -> ParamTree:
+    """A :class:`ParamTree` shaped as ``like`` whose tensors are
+    ``leaves[path]`` (paths as :func:`tree_leaves` gives them)."""
+
+    def build(node, prefix):
+        if isinstance(node, torch.Tensor):
+            return leaves[prefix]
+        items = [(name, build(child, f"{prefix}/{name}" if prefix else name))
+                 for name, child in _children(node)]
+        if isinstance(node, ParamTree):
+            return dict(items)
+        return [value for _name, value in items]
+
+    return ParamTree(build(like, ""), trainable=trainable)
 
 
 def cast_tree(p, dtype: torch.dtype):

@@ -10,8 +10,12 @@ default: attention goes through kernel B6 (prefill) and B9 (decode) on
 CUDA tensors and through their plain versions on CPU tensors.
 ``impl="ref"`` selects the oracles. The reference's ``lax.scan`` over
 stacked layers is a Python loop here, so its ``unroll`` knob has no
-counterpart; its ``remat`` and the ``param_shapes``/``param_axes`` trees
-come with the training and launch-tooling slices.
+counterpart. ``forward`` is differentiable (training builds the weights
+with ``ParamTree(..., trainable=True)``); its ``remat="full"`` recomputes
+each layer in the backward, one ``torch.utils.checkpoint`` per layer, the
+counterpart of the reference's ``nothing_saveable`` policy. The
+``"dots"`` policies and the ``param_shapes``/``param_axes`` trees wait for
+later slices and raise.
 
 Only ``family == "dense"`` is ported. The moe, ssm, hybrid, audio and vlm
 families raise until their slices (ROADMAP Queue A).
@@ -25,6 +29,8 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.accel.torch_backend import require_device
 from repro_torch.configs.base import ModelConfig
@@ -73,7 +79,10 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator],
 # ---------------------------------------------------------------------------
 def _embed(params: Params, tokens: torch.Tensor,
            dtype: torch.dtype) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(dtype)
+    # F.embedding's backward sums repeated tokens in a fixed order on the
+    # card (no atomics), so a microbatch's gradient is the same bits on
+    # every run, as the runtime's exactly-once reduce needs
+    return F.embedding(tokens.long(), params["embed"]).to(dtype)
 
 
 def _lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor
@@ -96,18 +105,35 @@ def _layer(cfg, lp, h, positions, impl, kv_out, i):
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill; training waits for the backward kernels)
+# Forward (training and prefill)
 # ---------------------------------------------------------------------------
+REMAT = ("none", "full")
+
+
+def check_remat(remat: str) -> None:
+    if remat in ("dots", "dots_no_batch"):
+        raise NotImplementedError(
+            f"remat={remat!r} is not ported yet; 'none' and 'full' are "
+            f"(see ROADMAP.md)")
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r}: expected one of {REMAT}")
+
+
 def _forward(cfg, params, tokens, impl, kv_out=None, compute_dtype=None,
-             last_only=False):
+             last_only=False, remat="none"):
     check_family(cfg)
+    check_remat(remat)
     dtype = compute_dtype or L.DTYPES[cfg.activation_dtype]
     h = _embed(params, tokens, dtype)
     positions = torch.arange(h.shape[1], device=h.device)
     for i, lp in enumerate(params["layers"]):
         if compute_dtype is not None:
             lp = L.cast_tree(lp, compute_dtype)
-        h = _layer(cfg, lp, h, positions, impl, kv_out, i)
+        if remat == "full":
+            h = checkpoint(_layer, cfg, lp, h, positions, impl, kv_out, i,
+                           use_reentrant=False)
+        else:
+            h = _layer(cfg, lp, h, positions, impl, kv_out, i)
     if last_only:
         h = h[:, -1:]
     final = params["final_norm"]
@@ -123,12 +149,14 @@ def forward(
     batch: Dict[str, Any],
     *,
     impl: str = "kernel",
+    remat: str = "none",
     collect_cache: bool = False,
     compute_dtype: Optional[torch.dtype] = None,
     last_only: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Returns (logits (b, s, v), moe_aux_loss (0: dense), caches|None);
-    caches are {'k', 'v'}, each (layers, b, s, kv_heads, hd).
+    caches are {'k', 'v'}, each (layers, b, s, kv_heads, hd). ``remat``
+    is ``"none"`` or ``"full"`` (each layer recomputed in the backward).
 
     Two options the reference lacks serve a reference run at full width:
     ``compute_dtype`` runs the activations in that type and casts each
@@ -141,7 +169,7 @@ def forward(
         kv = init_cache(cfg, tokens.shape[0], tokens.shape[1],
                         device=tokens.device)["attn"]
     logits = _forward(cfg, params, tokens, impl, kv, compute_dtype,
-                      last_only)
+                      last_only, remat)
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return logits, aux, kv
 

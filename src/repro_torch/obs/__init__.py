@@ -1,9 +1,20 @@
-"""repro_torch.obs — the flight recorder's trace schema (DESIGN.md §18).
+"""repro_torch.obs — the flight recorder's trace schema and the metrics
+plane (DESIGN.md §18).
 
-Only :mod:`repro_torch.obs.trace` is ported: the simulator's emit sites
-need its record kinds and :class:`TraceRecorder`. The metrics plane,
-exporters and scorecards wait (ROADMAP).
+Ported: :mod:`repro_torch.obs.trace` (the simulator's and the runtime's
+emit sites need its record kinds and :class:`TraceRecorder`) and
+:mod:`repro_torch.obs.metrics` (the live coordinator counts its recovery
+work in a :class:`MetricsRegistry`). The exporters and scorecards wait
+(ROADMAP).
 """
+from repro_torch.obs.metrics import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    Timer,
+    instrument_drain,
+)
 from repro_torch.obs.trace import (
     ACT_KILL,
     ACT_MARK_FAILED,
@@ -40,6 +51,8 @@ from repro_torch.obs.trace import (
 )
 
 __all__ = [
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "Timer",
+    "instrument_drain",
     "ACT_KILL", "ACT_MARK_FAILED", "ACT_SPECULATE", "END_COMPLETED",
     "END_FAILED", "END_KILLED", "FAULT_CODES", "K_ACTION", "K_ATT_END",
     "K_ATT_START", "K_BUDGET", "K_CHECKPOINT", "K_DETECT", "K_DISPATCH",

@@ -1,5 +1,8 @@
 from repro_torch.train.loop import (
     TrainConfig,
+    cross_entropy_loss,
+    make_grad_fn,
+    make_loss_fn,
     make_prefill_step,
     make_serve_step,
     make_train_step,
@@ -9,6 +12,9 @@ from repro_torch.train.loop import (
 
 __all__ = [
     "TrainConfig",
+    "cross_entropy_loss",
+    "make_grad_fn",
+    "make_loss_fn",
     "make_prefill_step",
     "make_serve_step",
     "make_train_step",

@@ -17,8 +17,9 @@ on the kernel's tiles.
    tile edges and at the cache size; NaN for a sequence with no key.
 3. **Oracles** — the port's ``ref.py`` functions equal the reference's.
 4. **Ops** — ``impl`` selection, ``kv_valid_len`` through the oracle,
-   gradients refused off the CPU, ``impl="dist"`` and the backward
-   kernels raising, argument checks.
+   devices the kernels cannot run on refused (no fallback),
+   ``impl="dist"`` raising, argument checks. The backward kernels B7/B8
+   are held in ``tests/test_torch_attention_bwd.py``.
 5. **On the card** (marked ``cuda``; they skip without one) — each CUDA
    kernel against its plain version on boundary inputs.
 """
@@ -283,16 +284,17 @@ def test_plain_versions_launch_nothing():
 
 
 def test_gradients_refused_off_the_cpu():
-    """Training waits for B7/B8: off the CPU a call that would need a
-    gradient raises instead of running without one."""
+    """Off the CPU the gradient path is the kernels' (B6 forward, B7/B8
+    backward, through ``FlashAttention``): a device they cannot run on
+    raises, with or without a gradient wanted, instead of falling back."""
     q = torch.empty((1, 4, 2, 16), device="meta", requires_grad=True)
     k = torch.empty((1, 4, 2, 16), device="meta")
-    with pytest.raises(NotImplementedError, match="B7/B8"):
+    with pytest.raises(ValueError, match="devices"):
         FOPS.flash_attention(q, k, k)
-    with torch.no_grad():     # no gradient wanted: reaches the dispatch
+    with torch.no_grad():     # no gradient wanted: the same dispatch
         with pytest.raises(ValueError, match="devices"):
             FOPS.flash_attention(q, k, k)
-    # on the CPU the plain version is differentiable torch
+    # on the CPU the op runs the plain versions, forward and backward
     x = torch.randn(1, 8, 2, 16, requires_grad=True)
     FOPS.flash_attention(x, x, x).sum().backward()
     assert x.grad is not None and torch.isfinite(x.grad).all()
@@ -303,9 +305,13 @@ def test_unported_paths_raise():
                                      (1, 8, 2, 16), (1, 8, 2, 16))
     with pytest.raises(NotImplementedError, match="dist"):
         DOPS.decode_attention(q[:, 0], k, v, torch.tensor([8]), impl="dist")
+    # the backward kernels B7/B8 are ported: on the CPU their plain
+    # versions give the gradients in the inputs' types
     out, lse = FA.flash_attention_fwd(q, k, v)
-    with pytest.raises(NotImplementedError, match="B7/B8"):
-        FA.flash_attention_bwd(q, k, v, out, lse, out)
+    grads = FA.flash_attention_bwd(q, k, v, out, lse, out)
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    assert all(g.dtype == torch.float32 and torch.isfinite(g).all()
+               for g in grads)
 
 
 def test_kernel_wrappers_check_arguments():

@@ -23,8 +23,8 @@ Configurations:
    serve-step builders, the cache written in place.
 4. **Conversion** — a bfloat16 tree loads bit for bit (``uint16`` views,
    no ``ml_dtypes`` needed); the weights keep the reference's layout.
-5. **What waits** — the non-dense families, training and the ``dist``
-   decode raise.
+5. **What waits** — the non-dense families, the dry-run's train-state
+   trees and the ``dist`` decode raise.
 6. **``chip_smoke.py``'s serving phase** on a narrow model, on the CPU.
 7. **On the card** (marked ``cuda``; skips without one) — prefill and
    decode through B6 and B9 equal the CPU run within 2e-4.
@@ -46,7 +46,7 @@ from repro_torch.models import model as PM
 from repro_torch.models.convert import from_jax_params
 from repro_torch.train.loop import (
     TrainConfig, make_prefill_step, make_serve_step, make_train_step,
-    train_state_init)
+    train_state_init, train_state_shapes)
 
 
 def _gqa4(cfg):
@@ -279,11 +279,14 @@ def test_non_dense_families_raise(arch):
 
 
 def test_training_and_dist_decode_raise(model):
+    """Training is ported (``tests/test_torch_training.py``); what waits
+    raises: the dry-run's train-state trees and the ``dist`` decode."""
     _rcfg, pcfg, _rparams, pparams = model
-    with pytest.raises(NotImplementedError, match="B7/B8"):
-        make_train_step(pcfg, TrainConfig())
-    with pytest.raises(NotImplementedError, match="B7/B8"):
-        train_state_init(pcfg, 0, TrainConfig())
+    assert callable(make_train_step(pcfg, TrainConfig()))
+    state = train_state_init(pcfg, 0, TrainConfig(), device="cpu")
+    assert int(state["step"]) == 0
+    with pytest.raises(NotImplementedError, match="dry-run"):
+        train_state_shapes(pcfg, TrainConfig())
     _, cache = PM.prefill(pcfg, pparams,
                           {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
                           max_len=6)

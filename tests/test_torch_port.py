@@ -69,6 +69,11 @@ import repro_torch.kernels.decode_attention.ops
 import repro_torch.models
 import repro_torch.models.convert
 import repro_torch.train.loop
+import repro_torch.optim
+import repro_torch.data
+import repro_torch.checkpoint
+import repro_torch.obs.metrics
+import repro_torch.runtime
 ref = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not ref, ref
 assert "jax" not in [m for m, v in sys.modules.items() if v is not None]
