@@ -3,15 +3,16 @@
 The assessment kernels B1–B4 live in ``csrc/assess.cu``, the ε-fair
 network's pricing kernel B5 in ``csrc/bulk.cu``, the flash-attention
 forward B6 in ``csrc/flash_attention.cu``, its backward B7 (dK, dV) and
-B8 (dQ) in ``csrc/flash_attention_bwd.cu`` and the decode attention B9 in
-``csrc/decode_attention.cu`` (CUDA C++ for ``sm_90a``, plain C
-interfaces). :func:`build` compiles each source with its own ``nvcc``,
-all started together, into ``build/kernels/`` at the repository root —
+B8 (dQ) in ``csrc/flash_attention_bwd.cu``, the decode attention B9 in
+``csrc/decode_attention.cu`` and the Mamba-2 SSD chunked scan B10 in
+``csrc/ssd.cu`` (CUDA C++ for ``sm_90a``, plain C interfaces).
+:func:`build` compiles each source with its own ``nvcc``, all started
+together, into ``build/kernels/`` at the repository root —
 each file name carries a hash of its source, of the shared headers
 (``csrc/*.cuh``) and of the flags it is built with, so an edited source,
 header or flag rebuilds — and :func:`library` loads them with
 ``ctypes``. B1–B5 are bit-exact against numpy and build with
-``-fmad=false``; B6–B9 are held to tolerances and let ``nvcc`` fuse
+``-fmad=false``; B6–B10 are held to tolerances and let ``nvcc`` fuse
 multiply-adds. Nothing is compiled or loaded at import: CPU-only hosts
 import this module freely.
 
@@ -45,7 +46,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"assess": CSRC / "assess.cu", "bulk": CSRC / "bulk.cu",
            "flash": CSRC / "flash_attention.cu",
            "flash_bwd": CSRC / "flash_attention_bwd.cu",
-           "decode": CSRC / "decode_attention.cu"}
+           "decode": CSRC / "decode_attention.cu", "ssd": CSRC / "ssd.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -53,7 +54,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXACT = ("-fmad=false",)
 FLAGS = {"assess": NVCC_FLAGS + EXACT, "bulk": NVCC_FLAGS + EXACT,
          "flash": NVCC_FLAGS, "flash_bwd": NVCC_FLAGS,
-         "decode": NVCC_FLAGS}
+         "decode": NVCC_FLAGS, "ssd": NVCC_FLAGS}
 # Largest dynamic shared memory a block may take on Hopper (227 KB).
 MAX_SMEM = 232448
 # Largest gridDim.y: bounds the scenarios of one batched launch.
@@ -65,6 +66,9 @@ FLASH_BLOCK_K = 64
 DECODE_BLOCK_K = 64
 DECODE_MAX_GROUP = 64
 HEAD_DIMS = (16, 32, 64, 128)
+# B10's row sub-tile, and the head sizes and state sizes it takes.
+SSD_TILE_ROWS = 64
+SSD_DIMS = (16, 32, 64, 128)
 
 # Launches per kernel since the last reset_launches(): the proof that a
 # run went through the kernels.
@@ -72,7 +76,7 @@ launches: Dict[str, int] = {"spatial": 0, "temporal": 0, "late": 0,
                             "reap": 0, "price": 0, "spatial_sweep": 0,
                             "late_sweep": 0, "reap_sweep": 0,
                             "flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0,
-                            "decode": 0}
+                            "decode": 0, "ssd": 0}
 _launch_lock = threading.Lock()
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -156,11 +160,17 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         fns = (lib.flash_bwd_dq, lib.flash_bwd_dkv)
         tiles = [(lib.flash_bwd_block_q, FLASH_BLOCK_Q),
                  (lib.flash_bwd_block_k, FLASH_BLOCK_K)]
-    else:
+    elif name == "decode":
         lib.decode_attn.argtypes = [P] * 5 + [I] * 5 + [F, I, P]
         fns = (lib.decode_attn,)
         tiles = [(lib.decode_block_k, DECODE_BLOCK_K),
                  (lib.decode_max_group, DECODE_MAX_GROUP)]
+    else:
+        lib.ssd_fwd.argtypes = [P] * 8 + [I] * 8 + [P]
+        lib.ssd_smem.argtypes = [I, I, I]
+        lib.ssd_smem.restype = ctypes.c_size_t
+        fns = (lib.ssd_fwd,)
+        tiles = [(lib.ssd_tile_rows, SSD_TILE_ROWS)]
     for fn in fns:
         fn.restype = ctypes.c_int
     for fn, want in tiles:
@@ -480,3 +490,48 @@ def launch_flash_dq(q, k, v, dout, lse, delta, causal: bool, window: int,
     _raise_on(rc, "flash_dq")
     count_launch("flash_dq")
     return dq
+
+
+def launch_ssd(x, dt, A, B, C, D, chunk: int, *,
+               out_state=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B10: (y (b, s, h, p) in x's type, final state (b, h, p, n)
+    float32) of the SSD chunked scan from a zero state, in chunks of
+    ``chunk`` rows (the last one ragged), head h on group ``h // (h //
+    g)``. x, B and C share one of bfloat16 or float32; dt, A and D are
+    float32. The state is written into ``out_state`` when one is given
+    (a contiguous float32 (b, h, p, n) tensor, e.g. a cache's slice)."""
+    dev = x.device
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if x.dtype not in _ATTN_DTYPES or B.dtype != x.dtype \
+            or C.dtype != x.dtype:
+        raise TypeError(f"ssd: x, B and C must share one dtype of bfloat16 "
+                        f"or float32, got {[x.dtype, B.dtype, C.dtype]}")
+    _check(x, "x", x.dtype, (b, s, h, p), dev)
+    _check(dt, "dt", torch.float32, (b, s, h), dev)
+    _check(A, "A", torch.float32, (h,), dev)
+    _check(B, "B", x.dtype, (b, s, g, n), dev)
+    _check(C, "C", x.dtype, (b, s, g, n), dev)
+    _check(D, "D", torch.float32, (h,), dev)
+    if p not in SSD_DIMS or n not in SSD_DIMS or g < 1 or h % g \
+            or min(b, s, chunk) < 1:
+        raise ValueError(f"ssd: head_dim {p} and d_state {n} (each one of "
+                         f"{SSD_DIMS}), heads {h} in {g} groups, b {b}, "
+                         f"s {s}, chunk {chunk}")
+    if out_state is None:
+        out_state = torch.empty((b, h, p, n), dtype=torch.float32,
+                                device=dev)
+    _check(out_state, "out_state", torch.float32, (b, h, p, n), dev)
+    lib = library("ssd")
+    smem = lib.ssd_smem(p, n, chunk)
+    if smem > MAX_SMEM:
+        raise ValueError(f"ssd: chunk {chunk} needs {smem} B of shared "
+                         f"memory, above the {MAX_SMEM} B a block may use")
+    y = torch.empty_like(x)
+    rc = lib.ssd_fwd(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                     B.data_ptr(), C.data_ptr(), D.data_ptr(), y.data_ptr(),
+                     out_state.data_ptr(), b, s, h, g, p, n, int(chunk),
+                     _ATTN_DTYPES[x.dtype], _stream(dev))
+    _raise_on(rc, "ssd")
+    count_launch("ssd")
+    return y, out_state

@@ -1,5 +1,5 @@
-"""Attention kernels of the model stack, each shipped as a triple, as in
-the reference package (``repro.kernels``):
+"""Kernels of the model stack, each shipped as a triple, as in the
+reference package (``repro.kernels``):
 
 - ``<name>.py`` -- the public kernel function: on CUDA tensors it launches
   the hand-written CUDA kernel (built from ``accel/csrc/<name>.cu`` by
@@ -11,9 +11,11 @@ the reference package (``repro.kernels``):
 - ``ref.py`` -- the plain torch oracle, a copy of the reference's
   ``ref.py``.
 
-Kernels: ``flash_attention`` (prefill: B6, the GQA flash-attention
-forward) and ``decode_attention`` (one token against the KV cache: B9).
-The flash-attention backward (B7, B8) raises until the training slice
-ports it; the Mamba-2 SSD scan (B10, ``ssd``) and the sequence-parallel
-decode (``impl="dist"``) are not ported yet (ROADMAP Queue A/B).
+Kernels: ``flash_attention`` (B6, the GQA flash-attention forward, and
+its backward B7 (dK, dV) and B8 (dQ) behind an ``autograd.Function``),
+``decode_attention`` (one token against the KV cache: B9) and ``ssd``
+(B10, the Mamba-2 SSD chunked scan of the ssm stack's prefill; its
+gradient is autograd of the oracle, as in the reference). The
+sequence-parallel decode (``decode_attention(impl="dist")``) is not
+ported yet (ROADMAP Queue A).
 """

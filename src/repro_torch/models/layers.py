@@ -126,6 +126,9 @@ class ParamFactory:
     def ones(self, shape) -> torch.Tensor:
         return torch.ones(shape, dtype=self.dtype, device=self.device)
 
+    def const(self, value: torch.Tensor) -> torch.Tensor:
+        return value.to(device=self.device, dtype=self.dtype)
+
 
 # ---------------------------------------------------------------------------
 # Norms

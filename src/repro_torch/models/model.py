@@ -1,13 +1,15 @@
-"""Model builder: the dense decoder stack of the reference's
-``repro/models/model.py``, for serving.
+"""Model builder: the dense decoder stack and the Mamba-2 (ssm) stack of
+the reference's ``repro/models/model.py``.
 
 ``init_params`` materializes a :class:`~repro_torch.models.layers.ParamTree`
 (the reference's parameter layout, one sub-tree per layer in a
 ``ModuleList`` where the reference stacks layers on a leading axis);
 ``forward``, ``prefill``, ``init_cache`` and ``decode_step`` keep the
 reference's signatures and layouts, with ``impl="kernel"`` as the port's
-default: attention goes through kernel B6 (prefill) and B9 (decode) on
-CUDA tensors and through their plain versions on CPU tensors.
+default: attention goes through kernel B6 (prefill) and B9 (decode), the
+ssm stack's chunked scan through B10 (prefill; decode is the oracle's
+single-token recurrence, as in the reference), on CUDA tensors, and
+through their plain versions on CPU tensors.
 ``impl="ref"`` selects the oracles. The reference's ``lax.scan`` over
 stacked layers is a Python loop here, so its ``unroll`` knob has no
 counterpart. ``forward`` is differentiable (training builds the weights
@@ -17,8 +19,9 @@ counterpart of the reference's ``nothing_saveable`` policy. The
 ``"dots"`` policies and the ``param_shapes``/``param_axes`` trees wait for
 later slices and raise.
 
-Only ``family == "dense"`` is ported. The moe, ssm, hybrid, audio and vlm
-families raise until their slices (ROADMAP Queue A).
+The ``dense`` (without MoE) and ``ssm`` families are ported. The moe,
+hybrid, audio and vlm families raise until their slices (ROADMAP Queue
+A).
 
 Entry points run on the CUDA card unless the caller passes a CPU device
 (``init_params(..., device="cpu")``); tensors then stay where the
@@ -35,21 +38,25 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.accel.torch_backend import require_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 
 Params = L.ParamTree
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family!r} family is not ported yet; "
-            f"only the dense stack is (see ROADMAP.md Queue A)")
+    if cfg.family == "ssm" or (cfg.family == "dense" and cfg.moe is None):
+        return
+    raise NotImplementedError(
+        f"{cfg.arch_id}: the {cfg.family!r} family is not ported yet; the "
+        f"dense and ssm stacks are (see ROADMAP.md Queue A)")
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 def _init_layer(cfg: ModelConfig, f: L.ParamFactory) -> Dict[str, Any]:
+    if cfg.family == "ssm":
+        return {"ln1": L.init_norm(cfg, f), "mixer": M.init_mamba(cfg, f)}
     return {"ln1": L.init_norm(cfg, f), "mixer": L.init_attention(cfg, f),
             "ln2": L.init_norm(cfg, f), "ffn": L.init_mlp(cfg, f)}
 
@@ -91,14 +98,23 @@ def _lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor
     return h @ w.to(h.dtype).T
 
 
-def _layer(cfg, lp, h, positions, impl, kv_out, i):
+def _layer(cfg, lp, h, positions, impl, cache_out, i):
+    """One layer; writes its cache into layer ``i`` of ``cache_out`` (the
+    stacked {'k', 'v'} or {'conv', 'state'}) when one is given."""
     x = L.apply_norm(cfg, lp["ln1"], h)
+    if cfg.family == "ssm":
+        out, _ = M.mamba_block(
+            cfg, lp["mixer"], x, impl=impl,
+            return_state=cache_out is not None,
+            out=None if cache_out is None
+            else {name: t[i] for name, t in cache_out.items()})
+        return h + out
     out, kv = L.attention_block(cfg, lp["mixer"], x, positions=positions,
                                 impl=impl)
-    if kv_out is not None:
+    if cache_out is not None:
         s = h.shape[1]
-        kv_out["k"][i, :, :s] = kv["k"]
-        kv_out["v"][i, :, :s] = kv["v"]
+        cache_out["k"][i, :, :s] = kv["k"]
+        cache_out["v"][i, :, :s] = kv["v"]
     h = h + out
     x2 = L.apply_norm(cfg, lp["ln2"], h)
     return h + L.mlp_block(cfg, lp["ffn"], x2)
@@ -119,7 +135,7 @@ def check_remat(remat: str) -> None:
         raise ValueError(f"remat {remat!r}: expected one of {REMAT}")
 
 
-def _forward(cfg, params, tokens, impl, kv_out=None, compute_dtype=None,
+def _forward(cfg, params, tokens, impl, cache_out=None, compute_dtype=None,
              last_only=False, remat="none"):
     check_family(cfg)
     check_remat(remat)
@@ -130,10 +146,10 @@ def _forward(cfg, params, tokens, impl, kv_out=None, compute_dtype=None,
         if compute_dtype is not None:
             lp = L.cast_tree(lp, compute_dtype)
         if remat == "full":
-            h = checkpoint(_layer, cfg, lp, h, positions, impl, kv_out, i,
-                           use_reentrant=False)
+            h = checkpoint(_layer, cfg, lp, h, positions, impl, cache_out,
+                           i, use_reentrant=False)
         else:
-            h = _layer(cfg, lp, h, positions, impl, kv_out, i)
+            h = _layer(cfg, lp, h, positions, impl, cache_out, i)
     if last_only:
         h = h[:, -1:]
     final = params["final_norm"]
@@ -154,9 +170,11 @@ def forward(
     compute_dtype: Optional[torch.dtype] = None,
     last_only: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Returns (logits (b, s, v), moe_aux_loss (0: dense), caches|None);
-    caches are {'k', 'v'}, each (layers, b, s, kv_heads, hd). ``remat``
-    is ``"none"`` or ``"full"`` (each layer recomputed in the backward).
+    """Returns (logits (b, s, v), moe_aux_loss (0: dense, ssm),
+    caches|None); caches are {'k', 'v'}, each (layers, b, s, kv_heads,
+    hd), or for ssm {'conv', 'state'} as :func:`init_cache` lays them out.
+    ``remat`` is ``"none"`` or ``"full"`` (each layer recomputed in the
+    backward).
 
     Two options the reference lacks serve a reference run at full width:
     ``compute_dtype`` runs the activations in that type and casts each
@@ -164,14 +182,14 @@ def forward(
     a bf16 model without an f32 copy of the weights), and ``last_only``
     computes the head for the last position only (logits (b, 1, v))."""
     tokens = batch["tokens"]
-    kv = None
+    caches = None
     if collect_cache:
-        kv = init_cache(cfg, tokens.shape[0], tokens.shape[1],
-                        device=tokens.device)["attn"]
-    logits = _forward(cfg, params, tokens, impl, kv, compute_dtype,
+        caches = _layer_caches(cfg, init_cache(
+            cfg, tokens.shape[0], tokens.shape[1], device=tokens.device))
+    logits = _forward(cfg, params, tokens, impl, caches, compute_dtype,
                       last_only, remat)
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)
-    return logits, aux, kv
+    return logits, aux, caches
 
 
 # ---------------------------------------------------------------------------
@@ -183,26 +201,40 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     """Run the prompt through the model; returns (last-token logits,
     cache).
 
-    The KV cache is allocated once at ``max_len`` and each layer writes
-    its K/V into it as it runs, where the reference stacks the layers'
-    K/V and then pads them out (``_pad_kv``): one copy of the cache, not
-    three."""
+    The cache is allocated once (a KV cache at ``max_len``; the ssm
+    stack's conv tails and states, which do not grow) and each layer
+    writes into it as it runs, where the reference stacks the layers'
+    caches and then pads a KV cache out (``_pad_kv``): one copy of the
+    cache, not three. B10 writes each layer's final state straight into
+    its slice."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache = init_cache(cfg, b, max(max_len or s, s), device=tokens.device)
-    logits = _forward(cfg, params, tokens, impl, cache["attn"])
+    logits = _forward(cfg, params, tokens, impl, _layer_caches(cfg, cache))
     return logits[:, -1], cache
+
+
+def _layer_caches(cfg: ModelConfig, cache: Dict[str, Any]) -> Dict[str, Any]:
+    """The stacked per-layer tensors of a decode cache."""
+    return cache["mamba"] if cfg.family == "ssm" else cache["attn"]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: Union[str, torch.device] = "cuda"
                ) -> Dict[str, Any]:
     """Zero-filled decode cache: {'attn': {'k', 'v'}}, each (layers,
-    batch, max_len, kv_heads, head_dim) in the activation type."""
+    batch, max_len, kv_heads, head_dim) in the activation type; for ssm
+    {'mamba': {'conv': (layers, batch, k-1, conv_dim) in the activation
+    type, 'state': (layers, batch, heads, head_dim, d_state) float32}}
+    (``max_len`` unused)."""
     check_family(cfg)
+    dtype = L.DTYPES[cfg.activation_dtype]
+    if cfg.family == "ssm":
+        layer = M.init_mamba_cache(cfg, batch, dtype, device=device)
+        return {"mamba": {name: t.new_zeros((cfg.n_layers, *t.shape))
+                          for name, t in layer.items()}}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim())
-    dtype = L.DTYPES[cfg.activation_dtype]
     return {"attn": {"k": torch.zeros(shape, dtype=dtype, device=device),
                      "v": torch.zeros(shape, dtype=dtype, device=device)}}
 
@@ -218,17 +250,21 @@ def decode_step(
     impl: str = "kernel",
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One token for every sequence in the batch. Returns (logits (b, v),
-    cache). The port writes the token's K/V into ``cache`` in place (the
-    reference returns an updated copy); the returned cache is the same
-    object."""
+    cache). The port writes the token's K/V (ssm: the conv window and the
+    state) into ``cache`` in place (the reference returns an updated
+    copy); the returned cache is the same object. ``pos`` is unused by
+    the ssm stack."""
     check_family(cfg)
     h = _embed(params, tokens, L.DTYPES[cfg.activation_dtype])[:, None]
-    kv = cache["attn"]
+    layer_caches = _layer_caches(cfg, cache)
     for i, lp in enumerate(params["layers"]):
+        lc = {name: t[i] for name, t in layer_caches.items()}
         x = L.apply_norm(cfg, lp["ln1"], h)
-        out, _ = L.attention_decode(
-            cfg, lp["mixer"], x, {"k": kv["k"][i], "v": kv["v"][i]}, pos,
-            impl=impl)
+        if cfg.family == "ssm":
+            out, _ = M.mamba_decode(cfg, lp["mixer"], x, lc)
+            h = h + out
+            continue
+        out, _ = L.attention_decode(cfg, lp["mixer"], x, lc, pos, impl=impl)
         h = h + out
         x2 = L.apply_norm(cfg, lp["ln2"], h)
         h = h + L.mlp_block(cfg, lp["ffn"], x2)

@@ -15,8 +15,11 @@ compression residual) as dicts ``{path: tensor}`` in
 the dry-run of the launch-tooling slice (ROADMAP).
 
 ``TrainConfig.impl`` defaults to ``"kernel"``: the attention kernels B6
-(forward), B7/B8 (backward) and B9 (decode) on CUDA tensors, their plain
-torch versions on CPU tensors; ``"ref"`` asks for the plain oracles. The
+(forward), B7/B8 (backward) and B9 (decode), and the ssm stack's SSD
+scan B10 (prefill and forward; its backward is autograd of the oracle),
+on CUDA tensors, their plain torch versions on CPU tensors; ``"ref"``
+asks for the plain oracles. The serving steps serve the dense and ssm
+families alike. The
 reference defaults to ``"ref"``; the port differs because its main path
 on the card must go through its kernels. The reference's ``unroll`` knob
 has no counterpart: the port's layer loop is a Python loop.
@@ -47,7 +50,7 @@ class TrainConfig:
     grad_clip_norm: float = 1.0
     microbatches: int = 1
     remat: str = "none"            # none | full (dots | dots_no_batch raise)
-    impl: str = "kernel"           # attention kernel impl: kernel | ref
+    impl: str = "kernel"           # attention/SSD kernel impl: kernel | ref
     grad_compression: bool = False  # error-feedback int8
     lr_schedule: Optional[Callable] = None
 

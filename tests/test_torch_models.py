@@ -23,8 +23,9 @@ Configurations:
    serve-step builders, the cache written in place.
 4. **Conversion** — a bfloat16 tree loads bit for bit (``uint16`` views,
    no ``ml_dtypes`` needed); the weights keep the reference's layout.
-5. **What waits** — the non-dense families, the dry-run's train-state
-   trees and the ``dist`` decode raise.
+5. **What waits** — the moe, hybrid, audio and vlm families (the ssm
+   family is held in ``tests/test_torch_mamba.py``), the dry-run's
+   train-state trees and the ``dist`` decode raise.
 6. **``chip_smoke.py``'s serving phase** on a narrow model, on the CPU.
 7. **On the card** (marked ``cuda``; skips without one) — prefill and
    decode through B6 and B9 equal the CPU run within 2e-4.
@@ -269,7 +270,8 @@ def test_init_params_layout_and_scales():
 # 5. What waits for later slices
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if get_config(a).family != "dense"])
+                                  if get_config(a).family
+                                  not in ("dense", "ssm")])
 def test_non_dense_families_raise(arch):
     cfg = reduced_config(get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
