@@ -7,10 +7,12 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 
 1. Print the card (``nvidia-smi``), torch/CUDA versions, and build the
    kernels with ``nvcc``, one process per source, all started together
-   (timed): B1–B4 from ``src/repro_torch/accel/csrc/assess.cu``, B5 from
-   ``csrc/bulk.cu``, B6 from ``csrc/flash_attention.cu``, B7 and B8 from
-   ``csrc/flash_attention_bwd.cu``, B9 from ``csrc/decode_attention.cu``
-   and B10 from ``csrc/ssd.cu``.
+   (timed, and each source's ``nvcc`` time): B1–B4 from
+   ``src/repro_torch/accel/csrc/assess.cu``, B5 from ``csrc/bulk.cu``, B6
+   from ``csrc/flash_attention.cu`` (its Hopper body for bf16 at head_dim
+   64/128 in ``csrc/flash_attention_sm90.cuh``, its SIMT body for the
+   rest), B7 and B8 from ``csrc/flash_attention_bwd.cu``, B9 from
+   ``csrc/decode_attention.cu`` and B10 from ``csrc/ssd.cu``.
 2. Kernel phase: each of B1–B5 on the card against its plain
    torch version on CPU copies of the same inputs, exactly (NaN equal to
    NaN) — first on :func:`adversarial_inputs` (summation-order, tie and
@@ -43,18 +45,23 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    B9 (decode attention) against their plain torch versions on the card,
    in bf16 and f32, on boundary inputs (sq < sk, ragged tiles, a window,
    groups 1, 4 and 48, head_dim 64 and 128, valid lengths at 1, at tile
-   edges ±1 and at the cache size), within the tolerances of
-   ``tests/test_kernels.py`` (bf16 2e-2, f32 2e-5; lse 2e-5); then at the
-   serving path's shapes, timed beside the plain versions and
-   ``F.scaled_dot_product_attention`` (the yardstick only: the port never
-   calls it).
+   edges ±1 and at the cache size; for B6's Hopper body sq, sk of 127,
+   128 and 129, a q_offset off its 128-row tile, a window crossing a
+   tile), within the tolerances of ``tests/test_kernels.py`` (bf16 2e-2,
+   f32 2e-5; lse 2e-5); every bf16 case at head_dim 64/128 counted once
+   as ``flash_fwd_tc``, no other; every B6 case launched twice gives
+   byte-identical out and lse. Then at the serving path's shapes, and B6
+   also at Qwen1.5-0.5B's layer (the training path's), timed beside the
+   plain versions and ``F.scaled_dot_product_attention`` (the yardstick
+   only: the port never calls it).
 8. Serving path: Qwen3-8B at full width (36 layers, random
    bf16 weights from a seeded generator) serves 4 prompts of 2,048 token
    ids through ``make_prefill_step`` and 64 greedy steps of
-   ``make_serve_step``: exactly 36 B6 and 2,304 B9 launches, no
-   plain-version call. The logits of the prefill and of decode steps 1,
-   16 and 64 are held against the port's ``forward`` with ``impl="ref"``
-   in float32 over the same prefix; an fp8 cast of the activations must
+   ``make_serve_step``: exactly 36 B6 launches, all on its Hopper body
+   (``flash_fwd_tc``), and 2,304 B9 launches, no plain-version call. The
+   logits of the prefill and of decode steps 1, 16 and 64 are held
+   against the port's ``forward`` with ``impl="ref"`` in float32 over the
+   same prefix; an fp8 cast of the activations must
    fail the same tolerance. The same bf16 prefill on the oracles shows
    how much of the error is bf16 rounding. Prints prefill ms, decode ms
    per step, tokens/s, peak device memory, and a profile of the device
@@ -67,20 +74,20 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    shape and Qwen3-8B's head layout, timed beside the plain versions and
    the backward of ``scaled_dot_product_attention`` (dq, dk and dv in
    one call; the yardstick only).
-10. Training path: Qwen1.5-0.5B at full width and depth
-   (random bf16 weights from seed 0) trained by ``TrainerRuntime`` under
-   the binocular-speculation coordinator, 4 hosts x 4 microbatches of
-   2,048 tokens: a warm-up step and 5 timed steps (wall, tokens/s, loss,
-   peak memory, the reports' detections, recoveries and executed
-   microbatches); B6, B7 and B8 each launched exactly 24 times per
-   ``grad_fn`` call, no plain-version call, B1–B4 launched on the bino
-   ticks. Step 0's loss and one microbatch's gradients are held against
-   float32 autograd through the oracles (a probe that zeroes B8's dq
-   must fail the gradient limit), and that microbatch's gradients
-   computed twice must be byte-identical. The same steps then run under
-   the pinned ``crash`` script with bino (checkpointing every 2 steps)
-   and with gang restart, and a fresh runtime resumes from the bino run's
-   last checkpoint before the end: each must end byte-identical to the
+10. Training path: Qwen1.5-0.5B at full width and depth (random bf16
+   weights from seed 0) trained by ``TrainerRuntime`` under the
+   binocular-speculation coordinator, 4 hosts x 4 microbatches of 2,048
+   tokens: a warm-up step and 5 timed steps (wall, tokens/s, loss, peak
+   memory, the reports' detections, recoveries and executed microbatches);
+   B6, B7 and B8 each launched exactly 24 times per ``grad_fn`` call, every
+   B6 launch on its Hopper body, no plain-version call, B1–B4 launched on
+   the bino ticks. Step 0's loss and one microbatch's gradients are held
+   against float32 autograd through the oracles (a probe that zeroes B8's
+   dq must fail the gradient limit), and that microbatch's gradients
+   computed twice must be byte-identical. The same steps then run under the
+   pinned ``crash`` script with bino (checkpointing every 2 steps) and with
+   gang restart, and a fresh runtime resumes from the bino run's last
+   checkpoint before the end: each must end byte-identical to the
    fault-free run, and the crash runs must show a recovery. The last
    resumed step is profiled (device time by kernel, busy share).
 11. SSD scan: B10 against its plain version on the card, y and final
@@ -471,6 +478,25 @@ def _time_ms(fn, args, reps: int = REPS) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def _device_ms(fn, args, reps: int = REPS) -> float:
+    """Device time per call of ``fn``: its kernels' time summed by the
+    profiler over ``reps`` calls. Free of the host's time per call, which
+    CUDA events measure instead when a call's kernels take less."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(WARMUP):
+        fn(*args)
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == cuda)
+    return us / 1e3 / reps
+
+
 def _nbytes(x) -> int:
     return sum(t.numel() * t.element_size() for t in _as_tuple(x)
                if isinstance(t, torch.Tensor))
@@ -856,13 +882,24 @@ FLASH_CASES = [
     (1, 200, 300, 48, 1, 128, True, 64),   # a group of 48, a window
     (2, 64, 64, 4, 4, 64, False, 0),       # group 1, not causal
     (1, 77, 256, 32, 8, 128, False, 40),   # a window without the band
+    # the Hopper body's 128 x 128 tile edges
+    (1, 127, 127, 8, 2, 128, True, 0),     # one row and key short
+    (1, 128, 128, 8, 2, 128, True, 0),     # exactly one tile
+    (1, 129, 129, 8, 2, 128, True, 0),     # one row and key past it
+    (1, 127, 129, 16, 16, 64, True, 0),    # the training layout, q_offset 2
+    (1, 129, 300, 48, 1, 128, True, 0),    # a group of 48, q_offset 171
+    (2, 300, 300, 16, 4, 128, True, 0),    # a group of 4, ragged
+    (1, 300, 300, 16, 16, 64, True, 100),  # a window crossing a tile
 ]
 DECODE_CASES = [
     (5, 300, 4, 4, 64, (1, 63, 64, 65, 300)),     # group 1, tile edges
     (4, 4096, 32, 8, 128, (1, 127, 129, 4096)),   # group 4, valid at S
     (3, 256, 48, 1, 128, (128, 255, 256)),        # a group of 48
 ]
-FLASH_SOURCE = "src/repro_torch/accel/csrc/flash_attention.cu"
+FLASH_SOURCE = "src/repro_torch/accel/csrc/flash_attention_sm90.cuh"
+# Qwen1.5-0.5B's attention layer, the training path's B6 shape: (b, s,
+# hq, hkv, d), causal, bf16.
+FLASH_TRAIN_SHAPE = (1, 2048, 16, 16, 64)
 DECODE_SOURCE = "src/repro_torch/accel/csrc/decode_attention.cu"
 FLASH_REPLACES = ("src/repro/kernels/flash_attention/flash_attention.py:38 "
                   "_fwd_kernel (pallas_call :141)")
@@ -939,8 +976,21 @@ def attention_kernel_phase():
             q, k, v = _randn(seed, dtype, (b, sq, hq, d), (b, sk, hkv, d),
                              (b, sk, hkv, d))
             seed += 1
+            before = dict(K.launches)
             out, lse = FA.flash_attention_fwd(q, k, v, causal=causal,
                                               window=window)
+            tc = K.flash_fwd_tc(dtype, d)
+            got = {key: K.launches[key] - before[key]
+                   for key in ("flash_fwd", "flash_fwd_tc")}
+            if got != {"flash_fwd": 1, "flash_fwd_tc": int(tc)}:
+                raise RuntimeError(f"flash_fwd {case} {dtype}: launches "
+                                   f"{got}, Hopper body expected: {tc}")
+            again = FA.flash_attention_fwd(q, k, v, causal=causal,
+                                           window=window)
+            if not (torch.equal(out, again[0]) and torch.equal(lse,
+                                                               again[1])):
+                raise RuntimeError(f"flash_fwd {case} {dtype}: two launches "
+                                   f"on the same inputs differ")
             pout, plse = FA.flash_attention_plain(q, k, v, causal=causal,
                                                   window=window)
             _within(f"flash_fwd {case} {dtype} out", out, pout, tol)
@@ -955,9 +1005,11 @@ def attention_kernel_phase():
                     DA.decode_attention_fwd(q, k, v, vl),
                     DA.decode_attention_plain(q, k, v, vl), tol)
     torch.cuda.synchronize()
-    print(f"attention boundary inputs: B6 ({len(FLASH_CASES)} cases) and B9 "
-          f"({len(DECODE_CASES)} cases) within tolerance of their plain "
-          f"versions in float32 and bf16", flush=True)
+    print(f"attention boundary inputs: B6 ({len(FLASH_CASES)} cases, each "
+          f"launched twice with byte-identical results, bf16 at head_dim "
+          f"64/128 on the Hopper body) and B9 ({len(DECODE_CASES)} cases) "
+          f"within tolerance of their plain versions in float32 and bf16",
+          flush=True)
 
     cfg_b, cfg_s, hq, hkv, d = (SERVE_BATCH, SERVE_PROMPT, 32, 8, 128)
     bf16 = torch.bfloat16
@@ -990,8 +1042,52 @@ def attention_kernel_phase():
         sum(_nbytes(x) for x in (q, k, v, out, lse)),
         4.0 * cfg_b * hq * d * pairs, bf16, err, FLASH_SOURCE,
         FLASH_REPLACES)
+    rows["flash_fwd"].update(
+        device_ms=_device_ms(FA.flash_attention_fwd, (q, k, v)),
+        library_device_ms=_device_ms(sdpa_prefill, ()))
     print(f"flash_fwd vs scaled_dot_product_attention: max_abs_err "
-          f"{lib_err}", flush=True)
+          f"{lib_err}; device time {rows['flash_fwd']['device_ms']:.6f} ms "
+          f"per call, SDPA's {rows['flash_fwd']['library_device_ms']:.6f} "
+          f"ms (profiler)", flush=True)
+    del q, k, v, out, lse, pout, plse, qt, kt, vt
+
+    # B6 at the training path's layer, beside SDPA at the same shape
+    tb, ts, thq, thkv, td = FLASH_TRAIN_SHAPE
+    q, k, v = _randn(102, bf16, (tb, ts, thq, td), (tb, ts, thkv, td),
+                     (tb, ts, thkv, td))
+    out, lse = FA.flash_attention_fwd(q, k, v)
+    pout, plse = FA.flash_attention_plain(q, k, v)
+    t_err = _within("flash_fwd at the training shape", out, pout,
+                    ATTN_TOL[bf16])
+    _within("flash_fwd lse at the training shape", lse, plse, LSE_TOL)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa_train():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    t_bytes = sum(_nbytes(x) for x in (q, k, v, out, lse))
+    t_ops = 4.0 * tb * thq * td * _causal_pairs(ts, ts, True, 0)
+    train = _attn_row(
+        "flash_fwd (training shape)",
+        _time_ms(FA.flash_attention_fwd, (q, k, v)),
+        _time_ms(FA.flash_attention_plain, (q, k, v), reps=5),
+        _time_ms(sdpa_train, ()), t_bytes, t_ops, bf16, t_err, FLASH_SOURCE,
+        FLASH_REPLACES)
+    # a call at this shape is shorter than the host's time per call: the
+    # kernels' device time, from the profiler, beside the event time
+    dev_ms = _device_ms(FA.flash_attention_fwd, (q, k, v))
+    lib_dev_ms = _device_ms(sdpa_train, ())
+    rows["flash_fwd"].update(
+        train_shape=list(FLASH_TRAIN_SHAPE), train_ms=train["ms"],
+        train_device_ms=dev_ms, train_plain_ms=train["plain_ms"],
+        train_library_ms=train["library_ms"],
+        train_library_device_ms=lib_dev_ms,
+        train_bound_ms=train["bound_ms"], train_bound_by=train["bound_by"])
+    print(f"flash_fwd at the training shape {FLASH_TRAIN_SHAPE}: device "
+          f"time {dev_ms:.6f} ms per call, SDPA's {lib_dev_ms:.6f} ms "
+          f"(profiler); event time {train['ms']:.6f} and "
+          f"{train['library_ms']:.6f} ms", flush=True)
     del q, k, v, out, lse, pout, plse, qt, kt, vt
 
     # B9 at the decode shape: a 4,096-slot cache filled to 2,100
@@ -1149,8 +1245,9 @@ def serve_path(cfg=None, device="cuda"):
     counts = dict(K.launches)
     peak = torch.cuda.max_memory_allocated() if on_card else None
     L_ = cfg.n_layers if on_card else 0
-    want_prefill = {"flash_fwd": L_, "decode": 0}
-    want = {"flash_fwd": L_, "decode": L_ * SERVE_STEPS}
+    # every B6 launch on its Hopper body (bf16, head_dim 128)
+    want_prefill = {"flash_fwd": L_, "flash_fwd_tc": L_, "decode": 0}
+    want = {"flash_fwd": L_, "flash_fwd_tc": L_, "decode": L_ * SERVE_STEPS}
     if {k: after_prefill[k] for k in want_prefill} != want_prefill:
         raise RuntimeError(f"serve: prefill launches {after_prefill}, "
                            f"expected {want_prefill}")
@@ -1618,8 +1715,9 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
                                    f"running {HOST_EXIT_S} s after shutdown")
         counts = dict(K.launches)
         want = cfg.n_layers * calls[0] if on_card else 0
-        flash = {k: counts[k] for k in ("flash_fwd", "flash_dkv",
-                                        "flash_dq")}
+        # every B6 launch on its Hopper body (bf16, head_dim 64)
+        flash = {k: counts[k] for k in ("flash_fwd", "flash_fwd_tc",
+                                        "flash_dkv", "flash_dq")}
         if flash != dict.fromkeys(flash, want):
             raise RuntimeError(f"train: launches {flash}, expected {want} "
                                f"each ({cfg.n_layers} x {calls[0]} grad_fn "
@@ -2299,8 +2397,11 @@ def main() -> int:
     libs = K.build()
     for name in libs:
         K.library(name)
+    secs = K.build_seconds
     print(f"built {', '.join(p.name for p in libs.values())} in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+          f"{time.perf_counter() - t0:.3f} s (nvcc seconds by source: "
+          f"{json.dumps({k: round(v, 3) for k, v in secs.items()})})",
+          flush=True)
 
     cap_state = capture_snapshot()
     rows = kernel_phase(cap_state)

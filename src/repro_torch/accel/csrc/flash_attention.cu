@@ -6,15 +6,24 @@
 // online softmax in float32, masked scores set to -1e30, fully masked
 // tiles skipped, the l == 0 guard, out in q's type and lse in float32.
 //
-// What bounds it on an H100: at the serving path's prefill shape
-// (b 4, sq = sk = 2048, 32 query heads over 8 KV heads, head_dim 128,
-// causal) the work is 2 b hq d sq (sq + 1) = 137.5 GFLOP against about
-// 169 MB of traffic, so the tensor-core rate (989 TFLOP/s bf16) bounds
-// it, not the memory (3.35 TB/s). This first version does not reach the
-// tensor cores: the two products are float32 FMAs from shared memory.
-// That keeps one kernel body for bf16 and f32 inputs and the f32
-// arithmetic of the reference kernel (which upcasts q, k and v before
-// both dots). wgmma with TMA-fed tiles is later work (ROADMAP).
+// Two bodies; the C entry point flash_fwd picks one from the dtype and
+// head_dim alone, never from a failure:
+//   - bf16 with head_dim 64 or 128 (every attention layer of the serving
+//     and training paths): the Hopper body of flash_attention_sm90.cuh,
+//     wgmma tensor-core products on TMA-fed tiles of 128 x 128, p rounded
+//     to bf16 before P.V (its note says why and what bounds it);
+//   - float32, and bf16 with head_dim 16 or 32: the SIMT body below,
+//     float32 FMAs on 64 x 64 tiles. It keeps the reference's f32
+//     arithmetic (q, k and v upcast before both dots, p in f32); TF32
+//     tensor cores would miss the f32 limits.
+//
+// The SIMT body. What bounds it on an H100: at the serving path's
+// prefill shape (b 4, sq = sk = 2048, 32 query heads over 8 KV heads,
+// head_dim 128, causal) the work is 2 b hq d sq (sq + 1) = 137.5 GFLOP
+// against about 169 MB of traffic, so arithmetic bounds it; this body
+// does not reach the tensor cores, so the f32 rate outside them (67
+// TFLOP/s) does: about 5.30 ms there (PERF.md), which is why bf16 at
+// head_dim 64/128 takes the Hopper body.
 //
 // Design. One block of 256 threads per (query tile of 64 rows, query
 // head, batch). The block loops over KV tiles of 64 keys staged in
@@ -37,13 +46,16 @@
 // Query head h reads KV head h / (hq / hkv), as the reference's index
 // map does (:146). A row with no unmasked key in its unskipped tiles
 // gets the mean of those tiles' V (masked scores are finite), where the
-// reference oracle gives NaN; callers avoid such rows.
+// reference oracle gives NaN; callers avoid such rows (both bodies).
 // expf/logf, not the fast intrinsics; built without -use_fast_math.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "flash_attention_sm90.cuh"
 #include "flash_tiles.cuh"
 
 namespace {
@@ -245,28 +257,42 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* out,
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window, scale, stream);
     case 32: return launch<T, 32>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
   }
+  // bf16 at head_dim 64 and 128 runs the Hopper body (flash_fwd)
+  if constexpr (std::is_same<T, float>::value) {
+    switch (d) {
+      case 64: return launch<T, 64>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window, scale, stream);
+      case 128: return launch<T, 128>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window, scale, stream);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The tile sizes, for the wrapper's checks and the plain version.
+// The tile sizes of the SIMT body and of the Hopper body, for the
+// wrapper's checks and the plain version; and which body takes the
+// inputs (1: the Hopper body).
 int flash_fwd_block_q() { return BQ; }
 int flash_fwd_block_k() { return BK; }
+int flash_fwd_tc_block_q() { return sm90::BQ; }
+int flash_fwd_tc_block_k() { return sm90::BK; }
+int flash_fwd_tc(int is_bf16, int d) { return sm90::takes(is_bf16, d); }
 
 // q (b, sq, hq, d), k/v (b, sk, hkv, d) contiguous, all bf16 (is_bf16 = 1)
 // or all float32; out (b, sq, hq, d) in their type, lse (b, hq, sq) f32.
-// d in {16, 32, 64, 128}. Returns a cudaError_t (0: launched).
+// d in {16, 32, 64, 128}. Returns a cudaError_t (0: launched), or 10000 +
+// a CUDA driver error of the Hopper body's tensor maps.
 int flash_fwd(const void* q, const void* k, const void* v, void* out,
               void* lse, int b, int sq, int sk, int hq, int hkv, int d,
               int causal, int window, float scale, int is_bf16,
               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sm90::takes(is_bf16, d))
+    return sm90::dispatch(d, q, k, v, out, lse, b, sq, sk, hq, hkv, causal,
+                          window, scale, st);
   if (is_bf16)
     return dispatch<__nv_bfloat16>(d, q, k, v, out, lse, b, sq, sk, hq, hkv,
                                    causal, window, scale, st);

@@ -1,0 +1,559 @@
+// B6's Hopper body: the GQA flash-attention forward for bf16 inputs with
+// head_dim 64 or 128, on wgmma tensor-core products over TMA-fed tiles.
+// Included by flash_attention.cu, whose C entry point flash_fwd takes this
+// body for exactly those inputs and the SIMT body for the others.
+//
+// Replaces src/repro/kernels/flash_attention/flash_attention.py:38
+// `_fwd_kernel` (its pallas_call at :141) for those inputs.
+//
+// What bounds it on an H100: at the serving path's prefill shape (b 4,
+// sq = sk = 2048, 32 query heads over 8 KV heads, head_dim 128, causal) the
+// two products are 137.5 GFLOP over the causal pairs against about 169 MB
+// of traffic, so the bf16 tensor-core rate (989 TFLOP/s), not the memory
+// (3.35 TB/s), bounds it: 0.139 ms. The SIMT body's f32 FMAs cannot pass
+// the card's 67 TFLOP/s outside the tensor cores (>= 2 ms there).
+//
+// Design (after FlashAttention-3, arXiv:2407.08608). One block of three
+// warpgroups per (128 query rows, query head, sequence): warpgroups 0 and
+// 1 are consumers of 64 query rows each (wgmma's M), warpgroup 2 the
+// producer; setmaxnreg moves registers from the producer (24 a thread) to
+// the consumers (240). One producer thread starts TMA loads
+// (cp.async.bulk.tensor) of the block's Q once and of K and V tiles of 128
+// keys into a ring of 2 stages, with an mbarrier per stage for K full, V
+// full and the stage empty again. The tensor maps are rank 4 over (d,
+// heads, s, b), so a ragged tile's rows past s read as zeros of this
+// sequence, never the next one's keys; a 128-byte swizzle box is 64 bf16
+// columns wide, so a row of 128 is two boxes, and the wgmma shared-memory
+// descriptors carry the same 128-byte swizzle. Per KV tile a consumer
+//   - runs S = Q.K^T as wgmma with both operands in shared memory (bf16 x
+//     bf16 products are exact in f32, so this is the reference's
+//     upcast-then-dot up to summation order), f32 accumulators in
+//     registers;
+//   - masks only a tile that the causal band, the window or the end of
+//     the keys crosses (masked scores -1e30, keys past sk -inf, as the
+//     SIMT body), scales, and runs the online softmax in registers: a
+//     row's max and sum are over the 4 threads that hold it (shuffles);
+//     exp2f with scale * log2(e) folded into the score, m kept in that
+//     base-2 unit and lse = m ln 2 + log(l_safe) written in f32;
+//   - rounds p to bf16 in registers and runs O += P.V as wgmma with A
+//     from registers and V from shared memory as an MN-major operand
+//     (the transpose bit: no transposed copy). Here the kernel departs
+//     from the reference on purpose: the Pallas kernel keeps p in f32
+//     (flash_attention.py:86-91); l sums the f32 p, as there.
+// A consumer waits for each product before it reads the result; the two
+// consumers' products and softmax interleave on the SM. (FA3's
+// schedule, S of tile i started beside P.V of tile i-1 with the two
+// consumers taking turns, measured slower in this kernel: PERF.md.)
+// The KV tiles that run for the block are the reference's static skips
+// (:58-63) at this body's 128 x 128 tiles, one range [lo, hi). Query rows
+// past sq are computed on TMA's zero fill and not written. Under the
+// causal band the q tiles with the most KV tiles launch first (the q tile
+// index runs backwards and slowest in blockIdx.x). No atomics and no
+// split of the keys: the same inputs give the same bits, which the
+// training path's exactly-once contract needs.
+#pragma once
+
+#include <cuda.h>   // CUtensorMap and its enums; the encoder comes from dlsym
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+constexpr int BQ = 128;          // query rows per block
+constexpr int BK = 128;          // keys per KV tile
+constexpr int STAGES = 2;        // KV tiles in flight
+constexpr int NCONS = 2;         // consumer warpgroups of 64 rows
+constexpr int NT = 128 * (NCONS + 1);
+constexpr int ROW = 128;         // bytes of one swizzled row: 64 bf16
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float MASKED = -1e30f;
+
+// Shared memory, each tile 1024-byte aligned (the 128-byte swizzle's
+// period): Q as [consumer][64-column block][64 rows][128 B], K and V as
+// [stage][64-column block][BK rows][128 B], then the mbarriers.
+template <int D>
+struct Smem {
+  static constexpr int CB = D / 64;
+  static constexpr int Q_PART = 64 * ROW;            // 64 rows of one block
+  static constexpr int KV_PART = BK * ROW;           // BK rows of one block
+  static constexpr int Q_BYTES = NCONS * CB * Q_PART;
+  static constexpr int KV_BYTES = CB * KV_PART;      // one K or V tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int ALLOC = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait that
+// lasts 10 s is a bug: trap (the launch fails) instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) break;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > 20000000000LL) {
+      asm volatile("trap;");
+    }
+  }
+}
+
+// A box of the rank-4 map (d, heads, s, b) into shared memory; completes
+// its bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptors for the 128-byte swizzle (layout type 1
+// in bits 62-63): start address >> 4 in bits 0-13, leading byte offset >> 4
+// in 16-29, stride byte offset >> 4 in 32-45. A K-major operand (Q, K):
+// 8-row groups 1024 B apart (stride), the leading offset unused. The
+// MN-major V operand of one 64-column block: 8-key groups 1024 B apart;
+// the leading offset (between 64-column blocks) is unused at N = 64 and
+// set to the same 1024 B.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D (64 x 128 f32, registers) (+)= A (64 x 16, shared) . B (16 x 128, shared),
+// both K-major; D is overwritten when scale_d is 0.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64 f32, registers) += A (64 x 16 bf16, registers) . B (16 x 64,
+// shared, MN-major: the 16-bit transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // .x = lo: low half
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, int sq, int sk, int hq,
+                      int hkv, int causal, int window, float scale, int nqt,
+                      int heads_batch) {
+  using S = Smem<D>;
+  constexpr int CB = S::CB;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + S::BAR_OFF;
+  const uint32_t bar_k = bar_q + 8, bar_v = bar_k + 8 * STAGES,
+                 bar_e = bar_v + 8 * STAGES;   // + 8 * stage
+
+  // q tiles backwards, slowest: the longest causal rows launch first
+  const int qt = nqt - 1 - static_cast<int>(blockIdx.x) / heads_batch;
+  const int hb = static_cast<int>(blockIdx.x) % heads_batch;
+  const int h = hb % hq, b = hb / hq;
+  const int hk = h / (hq / hkv);
+  const int q0 = qt * BQ, q_offset = sk - sq;
+
+  // The reference's static skips (flash_attention.py:58-63) at this
+  // body's tiles: one range [lo, hi) for the whole block.
+  const int nkt = (sk + BK - 1) / BK;
+  auto runs = [&](int kt) {
+    const int k0 = kt * BK;
+    return !(causal && k0 > q0 + q_offset + BQ - 1) &&
+           !(window && !(k0 + BK - 1 > q0 + q_offset - window));
+  };
+  int lo = 0;
+  while (lo < nkt && !runs(lo)) ++lo;
+  int hi = lo;
+  while (hi < nkt && runs(hi)) ++hi;
+  const int n_tiles = hi - lo;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_e + 8 * s, NCONS * 4);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= NCONS * 128) {
+    // ---- producer warpgroup: one thread starts every load -------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == NCONS * 128) {
+      mbar_expect_tx(bar_q, S::Q_BYTES);
+      for (int w = 0; w < NCONS; ++w)
+        for (int cb = 0; cb < CB; ++cb)
+          tma_load(base + (w * CB + cb) * S::Q_PART, &tm_q, bar_q, cb * 64,
+                   h, q0 + 64 * w, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        const int k0 = (lo + i) * BK;
+        mbar_wait(bar_e + 8 * s, ((i / STAGES) & 1) ^ 1);
+        const uint32_t k_dst = base + S::K_OFF + s * S::KV_BYTES;
+        const uint32_t v_dst = base + S::V_OFF + s * S::KV_BYTES;
+        mbar_expect_tx(bar_k + 8 * s, S::KV_BYTES);
+        for (int cb = 0; cb < CB; ++cb)
+          tma_load(k_dst + cb * S::KV_PART, &tm_k, bar_k + 8 * s, cb * 64,
+                   hk, k0, b);
+        mbar_expect_tx(bar_v + 8 * s, S::KV_BYTES);
+        for (int cb = 0; cb < CB; ++cb)
+          tma_load(v_dst + cb * S::KV_PART, &tm_v, bar_v + 8 * s, cb * 64,
+                   hk, k0, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 query rows each --------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int w = tid / 128, t = tid % 128;
+  const int warp = t / 32, lane = t % 32;
+  // this thread holds rows r and r + 8 of the warpgroup's 64, and of each
+  // 8-column group the columns c2 and c2 + 1
+  const int r = 16 * warp + lane / 4, c2 = 2 * (lane % 4);
+  const int qw0 = q0 + 64 * w;
+  const float sl2 = scale * LOG2E;
+  const uint32_t q_addr = base + w * CB * S::Q_PART;
+
+  float o[CB][32];
+#pragma unroll
+  for (int cb = 0; cb < CB; ++cb)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) o[cb][j] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float x[64];               // a tile's scores, then its p in f32
+  uint32_t pa[BK / 16][4];   // p in bf16: P.V's A operand
+
+  // Every register write lands before the wgmma.fence that precedes the
+  // products reading or writing those registers.
+  auto clear_x = [&]() {
+#pragma unroll
+    for (int j = 0; j < 64; ++j) x[j] = 0.f;
+    fence_regs(x);
+  };
+  // S = Q.K^T, started: D/16 steps of 16 columns of d; a step advances the
+  // K-major descriptors 32 B inside a swizzled row, 4 steps a block
+  auto start_qk = [&](uint32_t k_addr) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss_n128(x, desc_sw128(q_addr + (kk / 4) * S::Q_PART + off, 16),
+                    desc_sw128(k_addr + (kk / 4) * S::KV_PART + off, 16),
+                    kk > 0);
+    }
+  };
+  // O += P.V, started: BK/16 steps of 16 keys (2048 B of V rows a step),
+  // one 64-column block of d per product
+  auto start_pv = [&](uint32_t v_addr) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int cb = 0; cb < CB; ++cb)
+        wgmma_rs_n64(o[cb], pa[kk],
+                     desc_sw128(v_addr + cb * S::KV_PART + kk * 16 * ROW,
+                                1024));
+  };
+  // Tile k0's scores in x: masks (only where the band, the window or the
+  // end of the keys crosses the tile), scale, online softmax; x becomes
+  // p in f32, l sums it, and corr is what O must be rescaled by.
+  auto softmax = [&](int k0, float (&corr)[2]) {
+    // register j holds row r + 8 ((j / 2) % 2), column 8 (j / 4) + c2 +
+    // j % 2 of the tile
+    const bool edge = k0 + BK > sk ||
+                      (causal && k0 + BK - 1 > qw0 + q_offset) ||
+                      (window && k0 <= qw0 + 63 + q_offset - window);
+#pragma unroll
+    for (int j = 0; j < 64; ++j) x[j] *= sl2;   // scale after the product
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < 64; ++j) {
+        const int kp = k0 + 8 * (j / 4) + c2 + (j % 2);
+        const int qp = qw0 + r + 8 * ((j / 2) % 2) + q_offset;
+        if (kp >= sk) {
+          x[j] = -INFINITY;              // ragged tile: no key at all
+        } else if ((causal && kp > qp) || (window && kp <= qp - window)) {
+          x[j] = MASKED;                 // :81
+        }
+      }
+    }
+    float mx[2] = {m[0], m[1]}, sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 64; ++j)
+      mx[(j / 2) % 2] = fmaxf(mx[(j / 2) % 2], x[j]);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      corr[rr] = exp2f(m[rr] - mx[rr]);
+      m[rr] = mx[rr];
+    }
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      x[j] = exp2f(x[j] - m[(j / 2) % 2]);
+      sum[(j / 2) % 2] += x[j];
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) l[rr] = corr[rr] * l[rr] + sum[rr];
+  };
+  // O *= corr, and p rounded to bf16 pairs as the A operand: the
+  // accumulator's layout is the A fragment's, 16 keys a step
+  auto rescale_and_pack = [&](const float (&corr)[2]) {
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) o[cb][j] *= corr[(j / 2) % 2];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);      // row r
+      pa[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);  // row r + 8
+      pa[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);  // row r, + 8
+      pa[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);  // r + 8, + 8
+    }
+  };
+
+  mbar_wait(bar_q, 0);
+  __syncwarp();
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    const uint32_t ph = (i / STAGES) & 1;
+    float corr[2];
+    mbar_wait(bar_k + 8 * s, ph);
+    __syncwarp();
+    clear_x();
+    wgmma_fence();
+    start_qk(base + S::K_OFF + s * S::KV_BYTES);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(x);
+    softmax((lo + i) * BK, corr);
+    rescale_and_pack(corr);
+    mbar_wait(bar_v + 8 * s, ph);
+    __syncwarp();
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) fence_regs(o[cb]);
+    wgmma_fence();
+    start_pv(base + S::V_OFF + s * S::KV_BYTES);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) fence_regs(o[cb]);
+    if (lane == 0) mbar_arrive(bar_e + 8 * s);   // the stage is free
+  }
+
+  // l: this thread's share of its rows' sums, summed over the quad
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = qw0 + r + 8 * rr;
+    if (row >= sq) continue;
+    const float l_safe = l[rr] == 0.f ? 1.f : l[rr];   // :98
+    const float inv = 1.f / l_safe;
+    __nv_bfloat16* orow =
+        out + ((size_t)b * sq + row) * hq * D + (size_t)h * D;
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb)
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int j = 4 * g + 2 * rr;
+        *reinterpret_cast<uint32_t*>(orow + cb * 64 + 8 * g + c2) =
+            pack_bf16(o[cb][j] * inv, o[cb][j + 1] * inv);
+      }
+    if (lane % 4 == 0)
+      lse[((size_t)b * hq + h) * sq + row] = m[rr] * LN2 + logf(l_safe);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the CUDA driver library the process loaded (no
+// link against libcuda).
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_LAZY);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiled>(
+                                dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// A CUDA driver error e returns as 10000 + e, beside the runtime's codes.
+constexpr int DRIVER_ERROR = 10000;
+
+// The rank-4 map (d, heads, s, b) of a contiguous (b, s, heads, d) bf16
+// array, boxes of (64, 1, rows, 1) with the 128-byte swizzle; rows past s
+// read as zeros.
+inline int make_map(CUtensorMap* map, const void* ptr, int b, int s,
+                    int heads, int d, int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return DRIVER_ERROR + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)s * heads * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult rc = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : DRIVER_ERROR + (int)rc;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int b, int sq, int sk, int hq, int hkv, int causal, int window,
+           float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int rc = make_map(&mq, q, b, sq, hq, D, 64);
+  if (rc == 0) rc = make_map(&mk, k, b, sk, hkv, D, BK);
+  if (rc == 0) rc = make_map(&mv, v, b, sk, hkv, D, BK);
+  if (rc != 0) return rc;
+  auto kern = flash_fwd_sm90_kernel<D>;
+  const int smem = Smem<D>::ALLOC;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nqt = (sq + BQ - 1) / BQ;
+  kern<<<nqt * hq * b, NT, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+      sq, sk, hq, hkv, causal, window, scale, nqt, hq * b);
+  return (int)cudaGetLastError();
+}
+
+// 1 where this body takes the inputs: bf16 with head_dim 64 or 128.
+inline int takes(int is_bf16, int d) {
+  return is_bf16 && (d == 64 || d == 128);
+}
+
+inline int dispatch(int d, const void* q, const void* k, const void* v,
+                    void* out, void* lse, int b, int sq, int sk, int hq,
+                    int hkv, int causal, int window, float scale,
+                    cudaStream_t stream) {
+  if (d == 64)
+    return launch<64>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window,
+                      scale, stream);
+  return launch<128>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window,
+                     scale, stream);
+}
+
+}  // namespace sm90

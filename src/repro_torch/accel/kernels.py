@@ -13,8 +13,12 @@ each file name carries a hash of its source, of the shared headers
 header or flag rebuilds — and :func:`library` loads them with
 ``ctypes``. B1–B5 are bit-exact against numpy and build with
 ``-fmad=false``; B6–B10 are held to tolerances and let ``nvcc`` fuse
-multiply-adds. Nothing is compiled or loaded at import: CPU-only hosts
-import this module freely.
+multiply-adds. B6 has two bodies in one library: bf16 inputs with
+head_dim 64 or 128 take the Hopper body (``csrc/flash_attention_sm90.cuh``:
+wgmma products on TMA-fed 128 x 128 tiles), float32 and bf16 at head_dim
+16 or 32 the SIMT body (64 x 64 tiles); :func:`flash_fwd_tc` says which.
+Nothing is compiled or loaded at import: CPU-only hosts import this
+module freely.
 
 Each ``launch_*`` function checks device, dtype, shape and contiguity,
 allocates its outputs and scratch with ``torch.empty``, launches on the
@@ -22,7 +26,9 @@ current stream without synchronising, raises if the C entry point reports
 a CUDA error, and adds one to its entry of :data:`launches` through
 :func:`count_launch`, under a lock: the live runtime's host threads
 launch B6–B8 at once, and ``launches[key] += 1`` is a read, an add and a
-store that a thread switch can split. B1, B3 and B4
+store that a thread switch can split. Every B6 launch counts as
+``flash_fwd``, and a launch of its Hopper body also as ``flash_fwd_tc``.
+B1, B3 and B4
 take an optional leading scenario axis: (cap,) row columns are one tick's
 launch (counted as ``spatial``/``late``/``reap``), (N, cap) columns are
 the batched sweep's one launch for all N scenarios (counted as
@@ -37,6 +43,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -61,8 +68,15 @@ MAX_SMEM = 232448
 MAX_SCENARIOS = 65535
 # Tile sizes of B6–B9, which their plain versions walk too (checked
 # against the built library when it loads), and the head sizes they take.
-FLASH_BLOCK_Q = 64
-FLASH_BLOCK_K = 64
+# B6's SIMT body (float32; bf16 at head_dim 16, 32) and its Hopper body
+# (bf16 at FLASH_TC_HEAD_DIMS) have tiles of their own; B7 and B8 theirs.
+FLASH_FWD_BLOCK_Q = 64
+FLASH_FWD_BLOCK_K = 64
+FLASH_FWD_TC_BLOCK_Q = 128
+FLASH_FWD_TC_BLOCK_K = 128
+FLASH_TC_HEAD_DIMS = (64, 128)
+FLASH_BWD_BLOCK_Q = 64
+FLASH_BWD_BLOCK_K = 64
 DECODE_BLOCK_K = 64
 DECODE_MAX_GROUP = 64
 HEAD_DIMS = (16, 32, 64, 128)
@@ -75,12 +89,28 @@ SSD_DIMS = (16, 32, 64, 128)
 launches: Dict[str, int] = {"spatial": 0, "temporal": 0, "late": 0,
                             "reap": 0, "price": 0, "spatial_sweep": 0,
                             "late_sweep": 0, "reap_sweep": 0,
-                            "flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0,
+                            "flash_fwd": 0, "flash_fwd_tc": 0,
+                            "flash_dkv": 0, "flash_dq": 0,
                             "decode": 0, "ssd": 0}
 _launch_lock = threading.Lock()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
+# Seconds each source's nvcc took in the last build() that compiled it.
+build_seconds: Dict[str, float] = {}
+
+
+def flash_fwd_tc(dtype: torch.dtype, d: int) -> bool:
+    """True where B6's Hopper body takes the inputs: bf16 at head_dim 64
+    or 128. The SIMT body takes the rest."""
+    return dtype == torch.bfloat16 and d in FLASH_TC_HEAD_DIMS
+
+
+def flash_fwd_tiles(dtype: torch.dtype, d: int) -> Tuple[int, int]:
+    """(block_q, block_k) of the B6 body that takes these inputs."""
+    if flash_fwd_tc(dtype, d):
+        return FLASH_FWD_TC_BLOCK_Q, FLASH_FWD_TC_BLOCK_K
+    return FLASH_FWD_BLOCK_Q, FLASH_FWD_BLOCK_K
 
 
 def count_launch(key: str) -> None:
@@ -116,16 +146,24 @@ def build() -> Dict[str, Path]:
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
+    t0 = time.perf_counter()
     for name, path in todo:
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         procs.append((name, tmp, path, subprocess.Popen(
             [nvcc(), *FLAGS[name], "-o", str(tmp), str(SOURCES[name])])))
-    failed = []
-    for name, tmp, path, proc in procs:
-        if proc.wait() != 0:
-            failed.append(name)
-        else:
-            os.replace(tmp, path)
+    failed, running = [], list(procs)
+    while running:     # poll, so that each source's time is its own
+        for item in list(running):
+            name, tmp, path, proc = item
+            if proc.poll() is None:
+                continue
+            running.remove(item)
+            build_seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                failed.append(name)
+            else:
+                os.replace(tmp, path)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}")
     return out
@@ -151,15 +189,18 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         fns = (lib.bulk_price,)
     elif name == "flash":
         lib.flash_fwd.argtypes = [P] * 5 + [I] * 8 + [F, I, P]
-        fns = (lib.flash_fwd,)
-        tiles = [(lib.flash_fwd_block_q, FLASH_BLOCK_Q),
-                 (lib.flash_fwd_block_k, FLASH_BLOCK_K)]
+        lib.flash_fwd_tc.argtypes = [I, I]
+        fns = (lib.flash_fwd, lib.flash_fwd_tc)
+        tiles = [(lib.flash_fwd_block_q, FLASH_FWD_BLOCK_Q),
+                 (lib.flash_fwd_block_k, FLASH_FWD_BLOCK_K),
+                 (lib.flash_fwd_tc_block_q, FLASH_FWD_TC_BLOCK_Q),
+                 (lib.flash_fwd_tc_block_k, FLASH_FWD_TC_BLOCK_K)]
     elif name == "flash_bwd":
         lib.flash_bwd_dq.argtypes = [P] * 7 + [I] * 8 + [F, I, P]
         lib.flash_bwd_dkv.argtypes = [P] * 8 + [I] * 8 + [F, I, P]
         fns = (lib.flash_bwd_dq, lib.flash_bwd_dkv)
-        tiles = [(lib.flash_bwd_block_q, FLASH_BLOCK_Q),
-                 (lib.flash_bwd_block_k, FLASH_BLOCK_K)]
+        tiles = [(lib.flash_bwd_block_q, FLASH_BWD_BLOCK_Q),
+                 (lib.flash_bwd_block_k, FLASH_BWD_BLOCK_K)]
     elif name == "decode":
         lib.decode_attn.argtypes = [P] * 5 + [I] * 5 + [F, I, P]
         fns = (lib.decode_attn,)
@@ -178,6 +219,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         if fn() != want:
             raise RuntimeError(f"{name}: the library's tile {fn()} is not "
                                f"the wrappers' {want}")
+    if name == "flash":
+        for dtype, is_bf16 in _ATTN_DTYPES.items():
+            for d in HEAD_DIMS:
+                if bool(lib.flash_fwd_tc(is_bf16, d)) != flash_fwd_tc(dtype,
+                                                                      d):
+                    raise RuntimeError(f"flash: the library's body for "
+                                       f"{dtype}, head_dim {d} is not the "
+                                       f"wrappers'")
 
 
 def library(name: str = "assess") -> ctypes.CDLL:
@@ -383,7 +432,9 @@ def launch_flash_fwd(q, k, v, causal: bool, window: int,
                      scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """B6: (out (b, sq, hq, d) in q's type, lse (b, hq, sq) float32) of
     causal and/or windowed GQA attention, query head h on KV head
-    ``h // (hq // hkv)``, rows offset by ``sk - sq``."""
+    ``h // (hq // hkv)``, rows offset by ``sk - sq``. bf16 at head_dim 64
+    or 128 runs the Hopper body (counted also as ``flash_fwd_tc``), the
+    rest the SIMT body."""
     dev = q.device
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -394,7 +445,11 @@ def launch_flash_fwd(q, k, v, causal: bool, window: int,
     if d not in HEAD_DIMS or hq % hkv or min(b, sq, sk) < 1:
         raise ValueError(f"flash_fwd: head_dim {d} (one of {HEAD_DIMS}), "
                          f"heads {hq}/{hkv}, b {b}, sq {sq}, sk {sk}")
+    # The Hopper body's TMA maps take 16-byte-aligned bases (checked here)
+    # and strides in multiples of 16 bytes (contiguous bf16 rows of
+    # head_dim 64 or 128 are).
     _aligned("flash_fwd", q=q, k=k, v=v)
+    tc = flash_fwd_tc(q.dtype, d)
     lib = library("flash")
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
@@ -404,6 +459,8 @@ def launch_flash_fwd(q, k, v, causal: bool, window: int,
                        _stream(dev))
     _raise_on(rc, "flash_fwd")
     count_launch("flash_fwd")
+    if tc:
+        count_launch("flash_fwd_tc")
     return out, lse
 
 

@@ -3,22 +3,37 @@
 
 :func:`flash_attention_fwd` is the port of the reference's
 ``flash_attention_fwd`` (``repro/kernels/flash_attention/
-flash_attention.py``). On CUDA tensors it launches B6, the CUDA kernel in
-``accel/csrc/flash_attention.cu`` (one block per query tile of 64 rows,
-query head and sequence, looping over KV tiles of 64 keys); on CPU
-tensors it runs :func:`flash_attention_plain`, the same blockwise online
-softmax written in torch. Both keep the reference kernel's arithmetic:
-q, k and v upcast to float32, the scale applied after the product,
-masked scores set to -1e30 (finite, so the online softmax stays NaN-free),
-tiles fully masked by the causal band or the window skipped, and
-``l == 0`` guarded. Unlike the reference, a ragged last tile is masked
-instead of asserted away.
+flash_attention.py``). On CUDA tensors it launches B6 (``accel/csrc/
+flash_attention.cu``), on CPU tensors it runs
+:func:`flash_attention_plain`, the same blockwise online softmax written
+in torch on the same tiles. B6 has two bodies, chosen by dtype and
+head_dim alone (``kernels.flash_fwd_tc``):
+
+- bf16 at head_dim 64 or 128 (every attention layer of the serving and
+  training paths): the Hopper body, wgmma tensor-core products on
+  TMA-fed tiles (one block per 128 query rows, query head and sequence,
+  looping over KV tiles of 128 keys). It departs from the reference on
+  purpose in one place: p is rounded to bf16 before ``p @ v`` (the
+  tensor cores' operand type; the reference keeps p in float32), while l
+  sums the float32 p, as the reference does. The plain version rounds p
+  the same way for these inputs.
+- float32, and bf16 at head_dim 16 or 32: the SIMT body, float32 FMAs on
+  tiles of 64 x 64, with p in float32 throughout.
+
+Otherwise both keep the reference kernel's arithmetic: q, k and v upcast
+to float32 (exact: a bf16 product is exact in float32), the scale applied
+after the product, masked scores set to -1e30 (finite, so the online
+softmax stays NaN-free), tiles fully masked by the causal band or the
+window skipped, and ``l == 0`` guarded. Unlike the reference, a ragged
+last tile is masked instead of asserted away.
 
 The plain version is not the oracle (``ref.attention_reference``, which
 masks with ``-inf``): it exists so that the kernel is compared on the
 card with the same algorithm on the same tiles. A row with no unmasked
 key in its unskipped tiles gets the mean of those tiles' V here and NaN
-in the oracle; inputs for comparisons avoid such rows.
+in the oracle; inputs for comparisons avoid such rows. Those rows alone
+depend on the tiles: for every other row lse is the same function at
+either body's tiles, and B7/B8 read it whichever body wrote it.
 
 :func:`flash_attention_bwd` is the port of the reference's backward
 (``flash_attention.py:290``). It computes ``delta = rowsum(dO · out)``
@@ -41,21 +56,28 @@ import torch
 from repro_torch.accel import kernels as K
 from repro_torch.accel.torch_backend import on_cpu
 
-BLOCK_Q = K.FLASH_BLOCK_Q
-BLOCK_K = K.FLASH_BLOCK_K
+# B7's and B8's tiles; the forward's depend on its body
+# (``kernels.flash_fwd_tiles``).
+BWD_BLOCK_Q = K.FLASH_BWD_BLOCK_Q
+BWD_BLOCK_K = K.FLASH_BWD_BLOCK_K
 MASKED = -1e30
 
 
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: int = 0, scale: Optional[float] = None,
-    block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
+    block_q: Optional[int] = None, block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B6's plain version: (out (b, sq, h, d) in q's type, lse (b, h, sq)
     float32). Walks KV tiles of ``block_k`` for all query rows at once; a
     query row's tile (of ``block_q`` rows) decides whether a KV tile is
-    skipped, with the reference kernel's conditions."""
+    skipped, with the reference kernel's conditions. The tiles default to
+    those of the body that takes these inputs; for the Hopper body's
+    inputs p is rounded to bf16 before ``p @ v``, as that body does."""
     b, sq, hq, d = q.shape
+    if block_q is None or block_k is None:
+        block_q, block_k = K.flash_fwd_tiles(q.dtype, d)
+    round_p = K.flash_fwd_tc(q.dtype, d)
     _, sk, hkv, _ = k.shape
     if hq % hkv:
         raise ValueError(f"n_heads {hq} is not a multiple of n_kv_heads "
@@ -98,7 +120,8 @@ def flash_attention_plain(
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
         l_new = corr * l + p.sum(-1, keepdim=True)
-        acc_new = acc * corr + p @ vf[..., k0:k0 + block_k, :]
+        pv = p.to(torch.bfloat16).float() if round_p else p
+        acc_new = acc * corr + pv @ vf[..., k0:k0 + block_k, :]
         keep = run[:, None]
         m = torch.where(keep, m_new, m)
         l = torch.where(keep, l_new, l)
@@ -112,20 +135,26 @@ def flash_attention_plain(
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: int = 0, scale: Optional[float] = None,
-    block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
+    block_q: Optional[int] = None, block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (out (b, sq, h, d), lse (b, h, sq) float32): B6 on CUDA
-    tensors (its tiles are fixed at ``BLOCK_Q`` x ``BLOCK_K``), the plain
-    version on CPU tensors."""
+    tensors (its tiles are fixed per body, ``kernels.flash_fwd_tiles``),
+    the plain version on CPU tensors (on those tiles unless others are
+    given)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    tiles = K.flash_fwd_tiles(q.dtype, q.shape[-1])
+    if block_q is None or block_k is None:
+        block_q, block_k = tiles
     if on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, block_q=block_q,
                                      block_k=block_k)
-    if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
-        raise ValueError(f"flash_attention_fwd: the CUDA kernel's tiles are "
-                         f"{BLOCK_Q} x {BLOCK_K}, got {block_q} x {block_k}")
+    if (block_q, block_k) != tiles:
+        raise ValueError(f"flash_attention_fwd: the CUDA kernel's tiles for "
+                         f"{q.dtype} at head_dim {q.shape[-1]} are "
+                         f"{tiles[0]} x {tiles[1]}, got {block_q} x "
+                         f"{block_k}")
     return K.launch_flash_fwd(q, k, v, causal, window, scale)
 
 
@@ -190,8 +219,8 @@ def _bwd_inputs(q, k, v, do, lse, delta):
 
 def flash_attention_dkv_plain(
     q, k, v, do, lse, delta, *, causal: bool = True, window: int = 0,
-    scale: Optional[float] = None, block_q: int = BLOCK_Q,
-    block_k: int = BLOCK_K,
+    scale: Optional[float] = None, block_q: int = BWD_BLOCK_Q,
+    block_k: int = BWD_BLOCK_K,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B7's plain version: (dk, dv), each (b, sk, hkv, d) in k's and v's
     type. For each KV tile, walks the query tiles whose band reaches it
@@ -222,8 +251,8 @@ def flash_attention_dkv_plain(
 
 def flash_attention_dq_plain(
     q, k, v, do, lse, delta, *, causal: bool = True, window: int = 0,
-    scale: Optional[float] = None, block_q: int = BLOCK_Q,
-    block_k: int = BLOCK_K,
+    scale: Optional[float] = None, block_q: int = BWD_BLOCK_Q,
+    block_k: int = BWD_BLOCK_K,
 ) -> torch.Tensor:
     """B8's plain version: dq (b, sq, hq, d) in q's type. For each query
     tile, sums dQ += dS·K over the KV tiles in its band, in float32."""
@@ -256,12 +285,13 @@ def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
     window: int = 0, scale: Optional[float] = None,
-    block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
+    block_q: int = BWD_BLOCK_Q, block_k: int = BWD_BLOCK_K,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the attention whose forward gave ``out`` and
     ``lse``, for the output gradient ``do``: B7 then B8 on CUDA tensors
-    (tiles fixed at ``BLOCK_Q`` x ``BLOCK_K``), their plain versions on
-    CPU tensors. dq is in q's type, dk and dv in k's and v's."""
+    (tiles fixed at ``BWD_BLOCK_Q`` x ``BWD_BLOCK_K``), their plain
+    versions on CPU tensors. dq is in q's type, dk and dv in k's and
+    v's."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     args = (q, k, v, do, lse, bwd_delta(out, do))
@@ -270,8 +300,9 @@ def flash_attention_bwd(
                     block_q=block_q, block_k=block_k)
         dk, dv = flash_attention_dkv_plain(*args, **opts)
         return flash_attention_dq_plain(*args, **opts), dk, dv
-    if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
+    if (block_q, block_k) != (BWD_BLOCK_Q, BWD_BLOCK_K):
         raise ValueError(f"flash_attention_bwd: the CUDA kernels' tiles are "
-                         f"{BLOCK_Q} x {BLOCK_K}, got {block_q} x {block_k}")
+                         f"{BWD_BLOCK_Q} x {BWD_BLOCK_K}, got {block_q} x "
+                         f"{block_k}")
     dk, dv = K.launch_flash_dkv(*args, causal, window, scale)
     return K.launch_flash_dq(*args, causal, window, scale), dk, dv

@@ -4,9 +4,11 @@
 - ``"kernel"`` — :class:`FlashAttention`, a ``torch.autograd.Function``
   (the counterpart of the reference's ``custom_vjp``, ``ops.py:26-49``):
   its forward runs :func:`flash_attention_fwd` (kernel B6 on CUDA
-  tensors, its plain version on CPU tensors) and saves q, k, v, out and
-  lse; its backward runs :func:`flash_attention_bwd` (B7 then B8 on CUDA
-  tensors, their plain versions on CPU tensors). The default.
+  tensors, its plain version on CPU tensors; tiles of the body that takes
+  the inputs unless ``block_q``/``block_k`` name others) and saves q, k,
+  v, out and lse; its backward runs :func:`flash_attention_bwd` (B7 then
+  B8 on CUDA tensors, their plain versions on CPU tensors; their own
+  tiles, whatever the forward's). The default.
 - ``"ref"``    — the plain torch oracle (``ref.attention_reference``),
   differentiated by autograd: the reference for every gradient test.
 
@@ -36,8 +38,7 @@ class FlashAttention(torch.autograd.Function):
             q, k, v, causal=causal, window=window, scale=scale,
             block_q=block_q, block_k=block_k)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = dict(causal=causal, window=window, scale=scale,
-                        block_q=block_q, block_k=block_k)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
         return out
 
     @staticmethod
@@ -64,10 +65,11 @@ def flash_attention(
     scale: Optional[float] = None,
     kv_valid_len: Optional[torch.Tensor] = None,
     impl: str = "kernel",
-    block_q: int = _fa.BLOCK_Q,
-    block_k: int = _fa.BLOCK_K,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> torch.Tensor:
-    """(b, sq, h, d) × (b, sk, hkv, d)² → (b, sq, h, d)."""
+    """(b, sq, h, d) × (b, sk, hkv, d)² → (b, sq, h, d). The forward's
+    tiles default to those of the B6 body that takes the inputs."""
     impl = check_impl(impl)
     if impl == "ref" or kv_valid_len is not None:
         # the cache-masked decode path goes through the oracle (the

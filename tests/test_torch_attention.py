@@ -11,7 +11,11 @@ on the kernel's tiles.
    reference's Pallas forward in interpret mode, over the shape and dtype
    grid of ``tests/test_kernels.py`` (MHA, MQA, GQA, sq < sk, causal on
    and off, a window), plus ragged shapes the reference cannot take, at
-   its tolerances (bf16 2e-2, f32 2e-5).
+   its tolerances (bf16 2e-2, f32 2e-5). For the Hopper body's inputs
+   (bf16 at head_dim 64 and 128) the plain version rounds p to bf16
+   before ``p @ v`` and walks 128 x 128 tiles: held against the Pallas
+   kernel (p in f32) and the oracle at the same bf16 limits; which body,
+   and so which tiles, each (dtype, head_dim) takes.
 2. **B9 plain version** — against ``decode_attention_reference`` and
    ``decode_attention_pallas`` in interpret mode, valid lengths at 1, at
    tile edges and at the cache size; NaN for a sequence with no key.
@@ -21,7 +25,10 @@ on the kernel's tiles.
    ``impl="dist"`` raising, argument checks. The backward kernels B7/B8
    are held in ``tests/test_torch_attention_bwd.py``.
 5. **On the card** (marked ``cuda``; they skip without one) — each CUDA
-   kernel against its plain version on boundary inputs.
+   kernel against its plain version on boundary inputs; B6's Hopper body
+   at its tile edges, repeat launches byte-identical, and its launches
+   counted as ``flash_fwd_tc`` (f32 and head_dim 16/32 stay on the SIMT
+   body).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -134,6 +141,69 @@ def test_flash_plain_ragged_tiles(b, sq, sk, hq, hkv, d, causal):
     np.testing.assert_allclose(_np(out), _np(want), rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(_np(lse), _np(want_lse), rtol=2e-5,
                                atol=2e-5)
+
+
+# The Hopper body's inputs: bf16 at head_dim 64 and 128, p rounded to
+# bf16 before p @ v; the Pallas kernel keeps p in f32. Its grid divides:
+# blocks of 64 x 128 (the reference's divisibility), the port's 128 x 128.
+TC_SHAPES = [
+    (1, 128, 128, 2, 2, 64, True, 0),      # MHA, the training layout
+    (1, 256, 256, 4, 1, 128, True, 0),     # a group of 4, two tiles
+    (2, 128, 256, 8, 2, 64, True, 0),      # sq < sk: q_offset 128
+    (1, 256, 256, 4, 2, 128, False, 0),    # not causal
+    (1, 256, 256, 2, 2, 64, True, 96),     # a window crossing a tile
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal,window", TC_SHAPES)
+def test_flash_plain_bf16_rounded_p_matches_reference(b, sq, sk, hq, hkv,
+                                                      d, causal, window):
+    (jq, q), (jk, k), (jv, v) = _inputs(
+        20 + d + window, "bfloat16", (b, sq, hq, d), (b, sk, hkv, d),
+        (b, sk, hkv, d))
+    assert K.flash_fwd_tc(q.dtype, d)
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=causal,
+                                      window=window)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    pal, pal_lse = RFA.flash_attention_fwd(jq, jk, jv, causal=causal,
+                                           window=window, block_q=64,
+                                           block_k=128, interpret=True)
+    want, want_lse = ref_attention_lse(jq, jk, jv, causal=causal,
+                                       window=window)
+    np.testing.assert_allclose(_np(out), _np(pal), **_tol("bfloat16"))
+    np.testing.assert_allclose(_np(out), _np(want), **_tol("bfloat16"))
+    # l sums the f32 p: lse keeps the f32 limit
+    np.testing.assert_allclose(_np(lse), _np(pal_lse), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(_np(lse), _np(want_lse), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_flash_plain_rounds_p_only_for_the_hopper_body():
+    """bf16 at head_dim 64: p @ v takes bf16-rounded p, so the out differs
+    from an f32-p walk of the same tiles by rounding alone; lse is the
+    same bits (l sums the f32 p)."""
+    (_, q), (_, k), (_, v) = _inputs(21, "bfloat16", (1, 200, 4, 64),
+                                     (1, 200, 2, 64), (1, 200, 2, 64))
+    out, lse = FA.flash_attention_plain(q, k, v)
+    # the same walk with p kept in f32: the float32 copy's path
+    f_out, f_lse = FA.flash_attention_plain(q.float(), k.float(), v.float(),
+                                            block_q=128, block_k=128)
+    assert torch.equal(lse, f_lse)
+    assert not torch.equal(out.float(), f_out.to(torch.bfloat16).float())
+    torch.testing.assert_close(out.float(), f_out, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", K.HEAD_DIMS)
+def test_flash_fwd_tiles_follow_the_body(dtype, d):
+    """bf16 at head_dim 64/128 takes the Hopper body's 128 x 128 tiles,
+    every other input the SIMT body's 64 x 64; the backward's stay 64 x
+    64 whatever the forward's. The library is checked against the same
+    choice when it loads (``kernels._bind``)."""
+    tc = dtype == torch.bfloat16 and d in (64, 128)
+    assert K.flash_fwd_tc(dtype, d) == tc
+    assert K.flash_fwd_tiles(dtype, d) == ((128, 128) if tc else (64, 64))
+    assert (FA.BWD_BLOCK_Q, FA.BWD_BLOCK_K) == (64, 64)
 
 
 def test_flash_plain_walks_the_kernels_tiles():
@@ -389,3 +459,56 @@ def test_decode_kernel_matches_plain_on_card(dtype, b, sk, hq, hkv, d):
     assert K.launches["decode"] == before + 1
     want = DA.decode_attention_plain(q, k, v, valid)
     torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
+
+
+# The Hopper body (bf16 at head_dim 64/128) at its 128 x 128 tile edges.
+TC_EDGE_CASES = [
+    (1, 127, 127, 8, 2, 128, True, 0),     # one row and key short
+    (1, 128, 128, 8, 2, 128, True, 0),     # exactly one tile
+    (1, 129, 129, 8, 2, 128, True, 0),     # one row and key past it
+    (1, 127, 129, 16, 16, 64, True, 0),    # the training layout
+    (1, 129, 300, 48, 1, 128, True, 0),    # a group of 48, q_offset 171
+    (2, 300, 300, 16, 4, 128, True, 0),    # a group of 4, ragged
+    (1, 300, 300, 16, 16, 64, True, 100),  # a window crossing a tile
+    (1, 77, 256, 32, 8, 128, False, 40),   # a window without the band
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal,window", TC_EDGE_CASES)
+def test_flash_hopper_body_matches_plain_on_card(b, sq, sk, hq, hkv, d,
+                                                 causal, window):
+    _need_card()
+    q, k, v = _on_card(_inputs(14, "bfloat16", (b, sq, hq, d),
+                               (b, sk, hkv, d), (b, sk, hkv, d)))
+    K.reset_launches()
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert K.launches["flash_fwd"] == K.launches["flash_fwd_tc"] == 1
+    pout, plse = FA.flash_attention_plain(q, k, v, causal=causal,
+                                          window=window)
+    torch.testing.assert_close(out.float(), pout.float(),
+                               **_tol("bfloat16"))
+    torch.testing.assert_close(lse, plse, rtol=2e-5, atol=2e-5)
+    # no atomics, no split of the keys: the same inputs give the same bits
+    again, again_lse = FA.flash_attention_fwd(q, k, v, causal=causal,
+                                              window=window)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("float32", 64), ("float32", 128),
+                                     ("bfloat16", 16), ("bfloat16", 32)])
+def test_flash_simt_body_keeps_its_inputs_on_card(dtype, d):
+    """float32 (any head_dim) and bf16 at head_dim 16/32 stay on the SIMT
+    body: counted as ``flash_fwd`` only."""
+    _need_card()
+    q, k, v = _on_card(_inputs(15, dtype, (1, 129, 4, d), (1, 129, 2, d),
+                               (1, 129, 2, d)))
+    K.reset_launches()
+    out, lse = FA.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert K.launches["flash_fwd"] == 1 and K.launches["flash_fwd_tc"] == 0
+    pout, plse = FA.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), pout.float(), **_tol(dtype))
+    torch.testing.assert_close(lse, plse, rtol=2e-5, atol=2e-5)

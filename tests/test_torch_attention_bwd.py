@@ -20,7 +20,9 @@ kernels' skips, masks and float32 arithmetic.
    bf16 values.
 3. **The op** — ``FlashAttention`` (the ``autograd.Function``) against
    ``impl="ref"`` autograd; its dtypes; the tiles do not change the
-   gradient; nothing launches on the CPU.
+   gradient; the forward on 128 x 128 tiles (B6's Hopper body's) and the
+   backward on 64 x 64 give the oracle's out and gradients; nothing
+   launches on the CPU.
 4. **Launch counts** — several threads counting through
    ``count_launch`` lose no count.
 5. **On the card** (marked ``cuda``; skips without one) — B7 and B8
@@ -158,6 +160,38 @@ def test_op_gradient_matches_ref_impl(hq, hkv, window):
         grads.append(torch.autograd.grad(out, leaves, _t(do)))
     for g, w in zip(*grads):
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype,d,fwd_tiles", [
+    ("float32", 64, dict(block_q=128, block_k=128)),
+    ("bfloat16", 64, {}),      # the Hopper body's inputs: 128 x 128 tiles
+    ("bfloat16", 128, {}),
+])
+def test_op_split_tiles_match_oracle(dtype, d, fwd_tiles):
+    """``FlashAttention`` with the forward on 128 x 128 tiles and the
+    backward on 64 x 64 (B7/B8 read the forward's lse, the same function
+    on either tiles) gives the oracle's out and gradients: f32 within
+    2e-5 and 1e-3, bf16 within 2e-2 of the f32 oracle on the same bf16
+    values."""
+    tdt = getattr(torch, dtype)
+    q, k, v, do = (_t(x, tdt) for x in _arrays(
+        d + 3, (1, 200, 4, d), (1, 200, 2, d), (1, 200, 2, d),
+        (1, 200, 4, d)))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = FOPS.flash_attention(*leaves, window=150, **fwd_tiles)
+    got = torch.autograd.grad(out, leaves, do)
+    assert (FA.BWD_BLOCK_Q, FA.BWD_BLOCK_K) == (64, 64)
+    ref_leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    want_out = attention_reference(*ref_leaves, window=150)
+    want = torch.autograd.grad(want_out, ref_leaves, do.float())
+    out_tol = dict(rtol=2e-5, atol=2e-5) if dtype == "float32" \
+        else dict(rtol=2e-2, atol=2e-2)
+    grad_tol = GRAD_TOL if dtype == "float32" else dict(rtol=2e-2,
+                                                        atol=2e-2)
+    torch.testing.assert_close(out.float(), want_out.detach(), **out_tol)
+    for g, w in zip(got, want):
+        assert g.dtype == tdt
+        torch.testing.assert_close(g.float(), w, **grad_tol)
 
 
 def test_op_backward_runs_the_plain_versions_on_cpu(monkeypatch):
