@@ -11,8 +11,12 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    ``src/repro_torch/accel/csrc/assess.cu``, B5 from ``csrc/bulk.cu``, B6
    from ``csrc/flash_attention.cu`` (its Hopper body for bf16 at head_dim
    64/128 in ``csrc/flash_attention_sm90.cuh``, its SIMT body for the
-   rest), B7 and B8 from ``csrc/flash_attention_bwd.cu``, B9 from
-   ``csrc/decode_attention.cu`` and B10 from ``csrc/ssd.cu``.
+   rest), B7 and B8 from ``csrc/flash_attention_bwd.cu`` (their Hopper
+   bodies for bf16 at head_dim 64/128, with the GQA group sum, in
+   ``csrc/flash_attention_bwd_sm90.cuh``; the primitives both Hopper
+   headers share in ``csrc/sm90_primitives.cuh``), B9 from
+   ``csrc/decode_attention.cu`` and B10 from ``csrc/ssd.cu``; print each
+   Hopper kernel's registers and stack bytes (``cuobjdump -res-usage``).
 2. Kernel phase: each of B1–B5 on the card against its plain
    torch version on CPU copies of the same inputs, exactly (NaN equal to
    NaN) — first on :func:`adversarial_inputs` (summation-order, tie and
@@ -53,7 +57,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    byte-identical out and lse. Then at the serving path's shapes, and B6
    also at Qwen1.5-0.5B's layer (the training path's), timed beside the
    plain versions and ``F.scaled_dot_product_attention`` (the yardstick
-   only: the port never calls it).
+   only: the port never calls it), by CUDA events and, for B6 at the
+   training layer and B9, by device time (``_device_ms``).
 8. Serving path: Qwen3-8B at full width (36 layers, random
    bf16 weights from a seeded generator) serves 4 prompts of 2,048 token
    ids through ``make_prefill_step`` and 64 greedy steps of
@@ -69,27 +74,36 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 9. Attention backward: B7 (dK, dV) and B8 (dQ) against
    their plain versions on the card in bf16 and f32 on boundary inputs
    (causal or not, windows, sq < sk, ragged tiles, groups 1, 4 and 8,
-   head_dim 64 and 128; bf16 2e-2, f32 2e-5), the f32 gradient of the
-   op against autograd of the oracle (1e-3); then at Qwen1.5-0.5B's layer
-   shape and Qwen3-8B's head layout, timed beside the plain versions and
-   the backward of ``scaled_dot_product_attention`` (dq, dk and dv in
-   one call; the yardstick only).
+   head_dim 32, 64 and 128; bf16 2e-2, f32 2e-5), each launched twice
+   with byte-identical results and counted on the body its inputs take
+   (``flash_dkv_tc``/``flash_dq_tc`` for bf16 at head_dim 64/128, one
+   ``flash_dkv_group_sum`` per such B7 launch with a group above 1), the
+   f32 gradient of the op against autograd of the oracle (1e-3); then at
+   Qwen1.5-0.5B's layer shape (no group sum) and Qwen3-8B's head layout
+   (one group sum per B7 launch), launched twice byte-identical, timed
+   beside the plain versions and the backward of
+   ``scaled_dot_product_attention`` (dq, dk and dv in one call; the
+   yardstick only) by CUDA events and by device time, and the port's
+   whole backward (``bwd_delta``, B7, B8) beside that yardstick by device
+   time.
 10. Training path: Qwen1.5-0.5B at full width and depth (random bf16
    weights from seed 0) trained by ``TrainerRuntime`` under the
    binocular-speculation coordinator, 4 hosts x 4 microbatches of 2,048
    tokens: a warm-up step and 5 timed steps (wall, tokens/s, loss, peak
    memory, the reports' detections, recoveries and executed microbatches);
    B6, B7 and B8 each launched exactly 24 times per ``grad_fn`` call, every
-   B6 launch on its Hopper body, no plain-version call, B1–B4 launched on
-   the bino ticks. Step 0's loss and one microbatch's gradients are held
-   against float32 autograd through the oracles (a probe that zeroes B8's
-   dq must fail the gradient limit), and that microbatch's gradients
-   computed twice must be byte-identical. The same steps then run under the
+   launch of the three on its Hopper body, no group sum, no plain-version
+   call, B1–B4 launched on the bino ticks. Step 0's loss and one
+   microbatch's gradients are held against float32 autograd through the
+   oracles (a probe that zeroes B8's dq must fail the gradient limit),
+   and that microbatch's gradients computed twice must be
+   byte-identical. The same steps then run under the
    pinned ``crash`` script with bino (checkpointing every 2 steps) and with
    gang restart, and a fresh runtime resumes from the bino run's last
    checkpoint before the end: each must end byte-identical to the
    fault-free run, and the crash runs must show a recovery. The last
-   resumed step is profiled (device time by kernel, busy share).
+   resumed step is profiled (device time by kernel, busy share, device
+   time per ``grad_fn`` call, B6/B7/B8's shares).
 11. SSD scan: B10 against its plain version on the card, y and final
    state, in bf16 and f32, on boundary inputs (the shapes of
    ``tests/test_kernels.py``, s < chunk, ragged tails, 1, 2 and 8 groups,
@@ -479,22 +493,31 @@ def _time_ms(fn, args, reps: int = REPS) -> float:
 
 
 def _device_ms(fn, args, reps: int = REPS) -> float:
-    """Device time per call of ``fn``: its kernels' time summed by the
-    profiler over ``reps`` calls. Free of the host's time per call, which
-    CUDA events measure instead when a call's kernels take less."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time per call of ``fn``: CUDA events around ``reps`` calls
+    queued behind a sleep kernel that holds the device until the host has
+    enqueued them all, so the host's time per call (which events around
+    calls shorter than it measure instead) is off the clock; the gaps
+    between a call's kernels count. Not the profiler's kernel sum: on an
+    H100 it dropped 1 to 7 of 50 launches' records (or every launch of
+    one of a call's two kernels) at every shape timed here."""
     for _ in range(WARMUP):
         fn(*args)
     torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(*args)
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == cuda)
-    return us / 1e3 / reps
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn(*args)
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    # twice the host's time to enqueue them, in cycles of a 2 GHz clock
+    torch.cuda._sleep(int(max(2 * host_s, 1e-3) * 2e9))
+    t0.record()
+    for _ in range(reps):
+        fn(*args)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
 
 
 def _nbytes(x) -> int:
@@ -1048,7 +1071,7 @@ def attention_kernel_phase():
     print(f"flash_fwd vs scaled_dot_product_attention: max_abs_err "
           f"{lib_err}; device time {rows['flash_fwd']['device_ms']:.6f} ms "
           f"per call, SDPA's {rows['flash_fwd']['library_device_ms']:.6f} "
-          f"ms (profiler)", flush=True)
+          f"ms (events behind a sleep kernel)", flush=True)
     del q, k, v, out, lse, pout, plse, qt, kt, vt
 
     # B6 at the training path's layer, beside SDPA at the same shape
@@ -1075,7 +1098,7 @@ def attention_kernel_phase():
         _time_ms(sdpa_train, ()), t_bytes, t_ops, bf16, t_err, FLASH_SOURCE,
         FLASH_REPLACES)
     # a call at this shape is shorter than the host's time per call: the
-    # kernels' device time, from the profiler, beside the event time
+    # device time (``_device_ms``) beside the event time
     dev_ms = _device_ms(FA.flash_attention_fwd, (q, k, v))
     lib_dev_ms = _device_ms(sdpa_train, ())
     rows["flash_fwd"].update(
@@ -1086,7 +1109,7 @@ def attention_kernel_phase():
         train_bound_ms=train["bound_ms"], train_bound_by=train["bound_by"])
     print(f"flash_fwd at the training shape {FLASH_TRAIN_SHAPE}: device "
           f"time {dev_ms:.6f} ms per call, SDPA's {lib_dev_ms:.6f} ms "
-          f"(profiler); event time {train['ms']:.6f} and "
+          f"(events behind a sleep kernel); event time {train['ms']:.6f} and "
           f"{train['library_ms']:.6f} ms", flush=True)
     del q, k, v, out, lse, pout, plse, qt, kt, vt
 
@@ -1117,8 +1140,15 @@ def attention_kernel_phase():
         _time_ms(sdpa_decode, ()),
         _nbytes(q) + kv_bytes + _nbytes(vl) + _nbytes(out),
         4.0 * cfg_b * hq * d * n, bf16, err, DECODE_SOURCE, DECODE_REPLACES)
-    print(f"decode vs scaled_dot_product_attention: max_abs_err {lib_err}",
-          flush=True)
+    # a call at this shape is shorter than the host's time per call: the
+    # device time of both (``_device_ms``) beside the event times
+    rows["decode"].update(
+        device_ms=_device_ms(DA.decode_attention_fwd, (q, k, v, vl)),
+        library_device_ms=_device_ms(sdpa_decode, ()))
+    print(f"decode vs scaled_dot_product_attention: max_abs_err {lib_err}; "
+          f"device time {rows['decode']['device_ms']:.6f} ms per call, "
+          f"SDPA's {rows['decode']['library_device_ms']:.6f} ms (events "
+          f"behind a sleep kernel)", flush=True)
     return rows
 
 
@@ -1369,7 +1399,9 @@ def profile_serve(params, prompts, prefill_step, serve_step,
 # Attention backward kernels B7 and B8
 # ---------------------------------------------------------------------------
 # Boundary inputs: (b, sq, sk, hq, hkv, d, causal, window); every query row
-# keeps at least one key.
+# keeps at least one key. In bf16 every case at head_dim 64/128 runs the
+# Hopper bodies (the GQA group above 1 through the group sum), the case at
+# head_dim 32 the SIMT bodies.
 BWD_CASES = [
     (1, 100, 300, 4, 1, 64, True, 0),      # sq < sk, ragged, a group of 4
     (2, 130, 130, 8, 8, 128, True, 0),     # group 1, sq = sk off the tile
@@ -1377,6 +1409,7 @@ BWD_CASES = [
     (2, 64, 64, 4, 4, 64, False, 0),       # not causal
     (1, 77, 256, 32, 8, 128, False, 40),   # a window without the band
     (1, 96, 96, 8, 1, 64, True, 16),       # a group of 8, a narrow window
+    (1, 100, 300, 4, 1, 32, True, 0),      # head_dim 32: the SIMT bodies
 ]
 # The f32 kernels against autograd of the oracle (tests/test_kernels.py:
 # 83-90): 1e-3.
@@ -1385,15 +1418,17 @@ BWD_ORACLE_TOL = 1e-3
 # head layout: (b, s, hq, hkv, d), causal, bf16.
 BWD_SHAPES = {"qwen1.5-0.5b": (1, 2048, 16, 16, 64),
               "qwen3-8b": (1, 4096, 32, 8, 128)}
-BWD_SOURCE = "src/repro_torch/accel/csrc/flash_attention_bwd.cu"
+BWD_SOURCE = "src/repro_torch/accel/csrc/flash_attention_bwd_sm90.cuh"
 DKV_REPLACES = ("src/repro/kernels/flash_attention/flash_attention.py:169 "
                 "_dkv_kernel (pallas_call :322)")
 DQ_REPLACES = ("src/repro/kernels/flash_attention/flash_attention.py:235 "
                "_dq_kernel (pallas_call :361)")
+BWD_KEYS = ("flash_dkv", "flash_dkv_tc", "flash_dkv_group_sum", "flash_dq",
+            "flash_dq_tc")
 
 
 def _bwd_case(seed, dtype, b, sq, sk, hq, hkv, d, causal, window):
-    """q, k, v, dO and the forward's out and lse (B6 on the card)."""
+    """q, k, v, dO and the forward's lse and delta (B6 on the card)."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
 
     q, k, v, do = _randn(seed, dtype, (b, sq, hq, d), (b, sk, hkv, d),
@@ -1402,12 +1437,45 @@ def _bwd_case(seed, dtype, b, sq, sk, hq, hkv, d, causal, window):
     return q, k, v, do, lse, FA.bwd_delta(out, do)
 
 
+def _bwd_launch_twice(what, args, causal, window):
+    """B7 then B8, twice on the same inputs: raises unless the two give the
+    same bits and every launch is counted on the body the inputs take
+    (the group sum once per B7 launch of the Hopper body with a group
+    above 1). Returns (dk, dv, dq)."""
+    from repro_torch.accel import kernels as K
+
+    q, k = args[0], args[1]
+    tc = K.flash_bwd_tc(q.dtype, q.shape[-1])
+    split = tc and q.shape[2] != k.shape[2]
+    scale = q.shape[-1] ** -0.5
+    before = {key: K.launches[key] for key in BWD_KEYS}
+    runs = []
+    for _ in range(2):
+        dk, dv = K.launch_flash_dkv(*args, causal, window, scale)
+        runs.append((dk, dv, K.launch_flash_dq(*args, causal, window,
+                                               scale)))
+    torch.cuda.synchronize()
+    got = {key: K.launches[key] - before[key] for key in BWD_KEYS}
+    want = {"flash_dkv": 2, "flash_dkv_tc": 2 * tc,
+            "flash_dkv_group_sum": 2 * split, "flash_dq": 2,
+            "flash_dq_tc": 2 * tc}
+    if got != want:
+        raise RuntimeError(f"flash bwd {what}: launches {got}, expected "
+                           f"{want}")
+    if not all(torch.equal(x, y) for x, y in zip(*runs)):
+        raise RuntimeError(f"flash bwd {what}: two launches on the same "
+                           f"inputs differ")
+    return runs[0]
+
+
 def attention_bwd_phase():
     """B7 and B8 against their plain versions on boundary inputs in bf16
-    and f32, the f32 gradient against autograd of the oracle, then at the
-    training shapes, timed beside the plain versions and the backward of
-    ``scaled_dot_product_attention`` (the yardstick: dq, dk and dv in one
-    call)."""
+    and f32 (each launched twice, the same bits), the f32 gradient against
+    autograd of the oracle, then at the training shapes, timed beside the
+    plain versions and the backward of ``scaled_dot_product_attention``
+    (the yardstick: dq, dk and dv in one call) by CUDA events and by
+    device time, and the port's whole backward (``bwd_delta``, B7, B8)
+    beside that yardstick by device time."""
     import torch.nn.functional as F
 
     from repro_torch.accel import kernels as K
@@ -1425,9 +1493,8 @@ def attention_bwd_phase():
             q, k, v, do = args[:4]
             seed += 1
             causal, window = case[6], case[7]
-            dk, dv = K.launch_flash_dkv(*args, causal, window,
-                                        q.shape[-1] ** -0.5)
-            dq = K.launch_flash_dq(*args, causal, window, q.shape[-1] ** -0.5)
+            dk, dv, dq = _bwd_launch_twice(f"{case} {dtype}", args, causal,
+                                           window)
             pdk, pdv = FA.flash_attention_dkv_plain(*args, causal=causal,
                                                     window=window)
             pdq = FA.flash_attention_dq_plain(*args, causal=causal,
@@ -1451,22 +1518,25 @@ def attention_bwd_phase():
     torch.cuda.synchronize()
     errs = {f"{dtype} {name}": e for (dtype, name), e in worst.items()}
     print(f"attention backward boundary inputs: B7 and B8 ({len(BWD_CASES)} "
-          f"cases) within tolerance of their plain versions in float32 and "
-          f"bf16 (max_abs_err {errs}), f32 within {BWD_ORACLE_TOL} of "
-          f"autograd of the oracle", flush=True)
+          f"cases; bf16 at head_dim 64/128 on the Hopper bodies, the group "
+          f"sum where the group is above 1; each launched twice with "
+          f"byte-identical results) within tolerance of their plain "
+          f"versions in float32 and bf16 (max_abs_err {errs}), f32 within "
+          f"{BWD_ORACLE_TOL} of autograd of the oracle", flush=True)
 
     rows, bf16 = {}, torch.bfloat16
     for arch, (b, s, hq, hkv, d) in BWD_SHAPES.items():
         args = _bwd_case(300, bf16, b, s, s, hq, hkv, d, True, 0)
         q, k, v, do = args[:4]
         scale = d ** -0.5
-        before = (K.launches["flash_dkv"], K.launches["flash_dq"])
-        dk, dv = K.launch_flash_dkv(*args, True, 0, scale)
-        dq = K.launch_flash_dq(*args, True, 0, scale)
+        dk, dv, dq = _bwd_launch_twice(f"at {arch}'s layout", args, True, 0)
+        # B7's device memory above its inputs: dk and dv, and with a group
+        # above 1 the float32 partials the group sum reads
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        K.launch_flash_dkv(*args, True, 0, scale)
         torch.cuda.synchronize()
-        if (K.launches["flash_dkv"], K.launches["flash_dq"]) != \
-                (before[0] + 1, before[1] + 1):
-            raise RuntimeError("flash bwd: the wrappers did not launch")
+        dkv_bytes = torch.cuda.max_memory_allocated() - base
         pdk, pdv = FA.flash_attention_dkv_plain(*args)
         pdq = FA.flash_attention_dq_plain(*args)
         err_kv = max(_within(f"flash_dkv at {arch}'s shape dk", dk, pdk,
@@ -1490,13 +1560,14 @@ def attention_bwd_phase():
         lib_err = max(float((g.transpose(1, 2).float() - w.float()).abs()
                             .max()) for g, w in zip(sdpa_bwd(),
                                                     (dq, dk, dv)))
+        # the port's whole backward on its forward's out: delta, B7, B8
+        whole = (q, k, v, FA.flash_attention_fwd(q, k, v)[0], args[4], do)
         library_ms = _time_ms(sdpa_bwd, ())
         pairs = _causal_pairs(s, s, True, 0)
         flops = 2.0 * b * hq * d * pairs    # one product
         in_bytes = sum(_nbytes(x) for x in args)
         dkv = _attn_row(
-            "flash_dkv", _time_ms(K.launch_flash_dkv, (*args, True, 0,
-                                                       scale)),
+            "flash_dkv", _time_ms(K.launch_flash_dkv, (*args, True, 0, scale)),
             _time_ms(FA.flash_attention_dkv_plain, args, reps=3),
             library_ms, in_bytes + _nbytes((dk, dv)), 4 * flops, bf16,
             err_kv, BWD_SOURCE, DKV_REPLACES)
@@ -1505,16 +1576,39 @@ def attention_bwd_phase():
             _time_ms(FA.flash_attention_dq_plain, args, reps=3),
             library_ms, in_bytes + _nbytes(dq), 3 * flops, bf16, err_q,
             BWD_SOURCE, DQ_REPLACES)
+        # calls this short are timed by the host's time per call in CUDA
+        # events: the device time (``_device_ms``) beside them
+        dev = {"flash_dkv": _device_ms(K.launch_flash_dkv,
+                                       (*args, True, 0, scale)),
+               "flash_dq": _device_ms(K.launch_flash_dq,
+                                      (*args, True, 0, scale)),
+               "whole": _device_ms(FA.flash_attention_bwd, whole),
+               "library": _device_ms(sdpa_bwd, ())}
+        for row in (dkv, dq_row):
+            row.update(device_ms=dev[row["name"]],
+                       library_device_ms=dev["library"],
+                       whole_bwd_device_ms=dev["whole"])
+        dkv["peak_bytes"] = dkv_bytes
         print(f"flash bwd at {arch}'s layout (b {b}, s {s}, {hq}/{hkv} heads, "
-              f"d {d}, causal, bf16): B7 {dkv['ms']:.6f} ms (bound "
-              f"{dkv['bound_ms']:.6f}, {dkv['bound_by']}), B8 "
-              f"{dq_row['ms']:.6f} ms (bound {dq_row['bound_ms']:.6f}); "
-              f"B7 + B8 {dkv['ms'] + dq_row['ms']:.6f} ms against SDPA's "
-              f"backward {library_ms:.6f} ms (max_abs_err vs B7/B8 "
-              f"{lib_err})", flush=True)
+              f"d {d}, causal, bf16): B7 {dkv['ms']:.6f} ms (device "
+              f"{dev['flash_dkv']:.6f}; bound {dkv['bound_ms']:.6f}, "
+              f"{dkv['bound_by']}), B8 {dq_row['ms']:.6f} ms (device "
+              f"{dev['flash_dq']:.6f}; bound {dq_row['bound_ms']:.6f}); by "
+              f"device time the port's whole backward (delta, B7, B8) "
+              f"{dev['whole']:.6f} ms against SDPA's backward "
+              f"{dev['library']:.6f} ms ({dev['whole'] / dev['library']:.3f}"
+              f"x); by events SDPA's {library_ms:.6f} ms (max_abs_err vs "
+              f"B7/B8 {lib_err}); B7's peak device memory above its inputs "
+              f"{dkv_bytes} bytes", flush=True)
         if not rows:    # the main path's shape names the rows
             rows = {"flash_dkv": dkv, "flash_dq": dq_row}
-        del q, k, v, do, args, dk, dv, dq, qt, kt, vt, o_lib
+        for name, row in (("flash_dkv", dkv), ("flash_dq", dq_row)):
+            rows[name].setdefault("layouts", {})[arch] = {
+                key: row[key] for key in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms", "whole_bwd_device_ms",
+                    "peak_bytes", "max_abs_err") if key in row}
+        del q, k, v, do, args, dk, dv, dq, qt, kt, vt, o_lib, whole
     torch.cuda.empty_cache()
     return rows
 
@@ -1715,13 +1809,17 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
                                    f"running {HOST_EXIT_S} s after shutdown")
         counts = dict(K.launches)
         want = cfg.n_layers * calls[0] if on_card else 0
-        # every B6 launch on its Hopper body (bf16, head_dim 64)
+        # every B6, B7 and B8 launch on its Hopper body (bf16, head_dim
+        # 64), and with a group of 1 no group sum
         flash = {k: counts[k] for k in ("flash_fwd", "flash_fwd_tc",
-                                        "flash_dkv", "flash_dq")}
-        if flash != dict.fromkeys(flash, want):
+                                        "flash_dkv", "flash_dkv_tc",
+                                        "flash_dq", "flash_dq_tc")}
+        if flash != dict.fromkeys(flash, want) or \
+                counts["flash_dkv_group_sum"]:
             raise RuntimeError(f"train: launches {flash}, expected {want} "
                                f"each ({cfg.n_layers} x {calls[0]} grad_fn "
-                               f"calls)")
+                               f"calls); group sums "
+                               f"{counts['flash_dkv_group_sum']}, expected 0")
         return counts
 
     # -- fault-free ------------------------------------------------------
@@ -1841,7 +1939,7 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
     K.reset_launches()
     reports = t.run(n_steps - start - 1)
     # the last step profiled, after a step on the fresh host threads
-    reports += profile_train(t) if on_card else t.run(1)
+    reports += profile_train(t, calls) if on_card else t.run(1)
     finish(t, calls)
     same = torch.equal(_param_bytes(t.state["params"]), final)
     print(f"train resume: restored step {start} of the bino crash run "
@@ -1861,24 +1959,47 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
     return ff_counts
 
 
-def profile_train(trainer):
-    """Device time by kernel over one training step, and the device's busy
-    share of its wall time; returns the step's reports. Device activity
-    only: recording every op of four host threads on the CPU side
-    stretched a profiled step about fivefold."""
+# Each attention kernel of the training path: its name in the profile and
+# its launch count.
+TRAIN_ATTN_KERNELS = {"B6": ("flash_fwd_sm90_kernel", "flash_fwd"),
+                      "B7": ("flash_dkv_sm90_kernel", "flash_dkv"),
+                      "B8": ("flash_dq_sm90_kernel", "flash_dq")}
+
+
+def profile_train(trainer, calls):
+    """Device time by kernel over one training step, the device's busy
+    share of its wall time, its time per ``grad_fn`` call (``calls``
+    counts them), B6/B7/B8's shares of it and how many of their launches
+    the profiler recorded (it can drop records); returns the step's
+    reports. Device activity only: recording every op of four host
+    threads on the CPU side stretched a profiled step about fivefold."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.accel import kernels as K
+
     cuda = torch.autograd.DeviceType.CUDA
+    before = dict(K.launches)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        n0 = calls[0]
         reports = trainer.run(1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        n_calls = calls[0] - n0
     events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == cuda)
+    kernels = [e for e in events if e.device_type == cuda]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    shares, recorded = {}, {}
+    for b, (name, key) in TRAIN_ATTN_KERNELS.items():
+        mine = [e for e in kernels if name in e.key]
+        shares[b] = sum(e.self_device_time_total for e in mine) / dev_us
+        recorded[b] = (sum(e.count for e in mine),
+                       K.launches[key] - before[key])
     print(f"profile train step: wall {wall:.6f} s (profiled), device busy "
-          f"{dev_us / 1e6:.6f} s = {dev_us / 1e6 / wall:.6f} of wall")
+          f"{dev_us / 1e6:.6f} s = {dev_us / 1e6 / wall:.6f} of wall; "
+          f"{n_calls} grad_fn calls started in it, "
+          f"{dev_us / 1e3 / max(n_calls, 1):.3f} ms of device time per call; "
+          f"shares of device time {shares}; (records, launches) {recorded}")
     print(events.table(sort_by="self_device_time_total", row_limit=20,
                        max_name_column_width=60), flush=True)
     return reports
@@ -2380,6 +2501,31 @@ def ssm_serve_path(cfg=None, device="cuda"):
     return counts
 
 
+def print_resource_usage(libs) -> None:
+    """Registers and stack bytes (spills) of each Hopper kernel, as
+    ``cuobjdump -res-usage`` reads them from the built libraries."""
+    from repro_torch.accel import kernels as K
+
+    tool = Path(K.nvcc()).with_name("cuobjdump")
+    for name in ("flash", "flash_bwd"):
+        try:
+            out = subprocess.run([str(tool), "-res-usage", str(libs[name])],
+                                 check=True, capture_output=True,
+                                 text=True).stdout
+        except (OSError, subprocess.CalledProcessError) as e:
+            print(f"resources {name}: cuobjdump failed: {e}", flush=True)
+            continue
+        fn = None
+        for line in out.splitlines():
+            line = line.strip()
+            if line.startswith("Function "):
+                fn = line[len("Function "):].rstrip(":")
+            elif fn and line.startswith("REG:"):
+                if "sm90" in fn or "group_sum" in fn:
+                    print(f"resources {name}: {fn}: {line}", flush=True)
+                fn = None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2402,6 +2548,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s (nvcc seconds by source: "
           f"{json.dumps({k: round(v, 3) for k, v in secs.items()})})",
           flush=True)
+    print_resource_usage(libs)
 
     cap_state = capture_snapshot()
     rows = kernel_phase(cap_state)

@@ -13,22 +13,34 @@
 // and dK += dS^T . q, and B8 adds dQ += dS . K. Outputs are in the input
 // type: dq in q's, dk and dv in k's and v's (:342-343, :375).
 //
-// What bounds them on an H100: at the training path's shape (Qwen1.5-
-// 0.5B: b 1, sq = sk = 2048, 16 heads over 16, head_dim 64, causal, bf16)
-// B7 does four products of 2 d flops per unmasked (q, k) pair and head,
-// 17.19 GFLOP, and B8 three, 12.89 GFLOP, against about 24 and 20 MB of
-// traffic: the tensor-core rate (989 TFLOP/s bf16) bounds them, not the
-// memory (3.35 TB/s). Like B6, this first version does not reach the
-// tensor cores: every product is a float32 FMA from shared memory, one
-// kernel body for bf16 and float32 inputs with the reference's float32
-// arithmetic. wgmma with TMA-fed tiles is later work (ROADMAP).
+// Two bodies each; the C entry points flash_bwd_dq and flash_bwd_dkv pick
+// one from the dtype and head_dim alone, never from a failure:
+//   - bf16 with head_dim 64 or 128 (every attention layer of the training
+//     path, and Qwen3-8B's layout): the Hopper bodies of
+//     flash_attention_bwd_sm90.cuh, wgmma tensor-core products on TMA-fed
+//     tiles, p and dS rounded to bf16 before the products that take them
+//     (its note says why and what bounds them), the GQA group split
+//     across blocks and summed in head order by flash_dkv_group_sum;
+//   - float32, and bf16 with head_dim 16 or 32: the SIMT bodies below.
 //
-// Design. The TPU kernel carries the GQA group and the query tiles as
-// sequential grid axes with float32 scratch (:171-181, :318); here that
-// sum is a loop inside one block, so no two blocks write the same output
-// and there are no atomics: the sum order is fixed and the result is the
-// same bits on every run (the live runtime's exactly-once reduce needs a
-// microbatch computed twice, on two hosts, to give the same gradient).
+// The SIMT bodies. What bounds them on an H100: at the training path's
+// shape (Qwen1.5-0.5B: b 1, sq = sk = 2048, 16 heads over 16, head_dim
+// 64, causal) B7 does four products of 2 d flops per unmasked (q, k) pair
+// and head, 17.19 GFLOP, and B8 three, 12.89 GFLOP, against about 24 and
+// 20 MB of traffic: arithmetic bounds them. These bodies do not reach the
+// tensor cores: every product is a float32 FMA from shared memory, with
+// the reference's float32 arithmetic, so the f32 rate outside the tensor
+// cores (67 TFLOP/s) holds them: 0.919 and 0.708 ms there on an H100
+// 80GB HBM3 at 700 W (PERF.md), which is why bf16 at head_dim 64/128
+// takes the Hopper bodies.
+//
+// The SIMT bodies' design. The TPU kernel carries the GQA group and the
+// query tiles as sequential grid axes with float32 scratch (:171-181,
+// :318); here that sum is a loop inside one block, so no two blocks write
+// the same output and there are no atomics: the sum order is fixed and
+// the result is the same bits on every run (the live runtime's
+// exactly-once reduce needs a microbatch computed twice, on two hosts, to
+// give the same gradient).
 //
 // - B7: one block of 256 threads per (KV tile of 64 keys, KV head,
 //   sequence). K and V stay in shared memory; the block loops over the
@@ -55,6 +67,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention_bwd_sm90.cuh"
 #include "flash_tiles.cuh"
 
 namespace {
@@ -433,35 +446,67 @@ int dispatch_dkv(int d, const Args& a, void* dk, void* dv) {
 
 extern "C" {
 
-// The tile sizes, for the wrapper's checks and the plain versions.
+// The tile sizes, for the wrapper's checks and the plain versions: the
+// SIMT bodies' (query tile, KV tile) pairs, and the Hopper bodies' (a
+// consumer's 64 rows against a streamed tile of 64).
 int flash_bwd_block_q() { return BQ; }
 int flash_bwd_block_k() { return BK; }
+int flash_bwd_tc_block_q() { return sm90::bwd::ROWS; }
+int flash_bwd_tc_block_k() { return sm90::bwd::ROWS; }
+// 1 where the Hopper bodies take the inputs: bf16 at head_dim 64 or 128.
+int flash_bwd_tc(int is_bf16, int d) { return sm90::bwd::takes(is_bf16, d); }
 
 // q and dout (b, sq, hq, d), k/v (b, sk, hkv, d) contiguous, all bf16
 // (is_bf16 = 1) or all float32; lse and delta (b, hq, sq) float32; dq
 // (b, sq, hq, d) in their type. d in {16, 32, 64, 128}. Returns a
-// cudaError_t (0: launched).
+// cudaError_t (0: launched), or 10000 + a driver error of the Hopper
+// body's tensor maps.
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, int b, int sq, int sk, int hq, int hkv, int d,
                  int causal, int window, float scale, int is_bf16,
                  void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sm90::bwd::takes(is_bf16, d))
+    return (d == 64 ? sm90::bwd::launch_dq<64> : sm90::bwd::launch_dq<128>)(
+        q, k, v, dout, lse, delta, dq, b, sq, sk, hq, hkv, causal, window,
+        scale, st);
   const Args a{q, k, v, dout, lse, delta, b, sq, sk, hq, hkv, causal,
-               window, scale, static_cast<cudaStream_t>(stream)};
+               window, scale, st};
   return is_bf16 ? dispatch_dq<__nv_bfloat16>(d, a, dq)
                  : dispatch_dq<float>(d, a, dq);
 }
 
-// As flash_bwd_dq; dk and dv (b, sk, hkv, d) in the inputs' type.
+// As flash_bwd_dq; dk and dv (b, sk, hkv, d) in the inputs' type, except
+// where the Hopper body takes the inputs with a group above 1 (hq > hkv):
+// there dk and dv are (b, sk, hq, d) float32 partials, one per query
+// head, for flash_bwd_group_sum.
 int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dk, void* dv, int b, int sq, int sk, int hq, int hkv,
                   int d, int causal, int window, float scale, int is_bf16,
                   void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sm90::bwd::takes(is_bf16, d))
+    return (d == 64 ? sm90::bwd::launch_dkv<64>
+                    : sm90::bwd::launch_dkv<128>)(
+        q, k, v, dout, lse, delta, dk, dv, b, sq, sk, hq, hkv, causal,
+        window, scale, st);
   const Args a{q, k, v, dout, lse, delta, b, sq, sk, hq, hkv, causal,
-               window, scale, static_cast<cudaStream_t>(stream)};
+               window, scale, st};
   return is_bf16 ? dispatch_dkv<__nv_bfloat16>(d, a, dk, dv)
                  : dispatch_dkv<float>(d, a, dk, dv);
+}
+
+// The group sum of the Hopper body's partials: dk_part and dv_part
+// (rows, hq, d) float32 contiguous, rows = b sk; dk and dv (rows, hkv, d)
+// bf16, each the sum of its KV head's hq / hkv partials in head order. d
+// a multiple of 4, the arrays 16-byte aligned.
+int flash_bwd_group_sum(const void* dk_part, const void* dv_part, void* dk,
+                        void* dv, int rows, int hq, int hkv, int d,
+                        void* stream) {
+  return sm90::bwd::group_sum(dk_part, dv_part, dk, dv, rows, hq, hkv, d,
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

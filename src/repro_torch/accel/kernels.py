@@ -17,6 +17,13 @@ multiply-adds. B6 has two bodies in one library: bf16 inputs with
 head_dim 64 or 128 take the Hopper body (``csrc/flash_attention_sm90.cuh``:
 wgmma products on TMA-fed 128 x 128 tiles), float32 and bf16 at head_dim
 16 or 32 the SIMT body (64 x 64 tiles); :func:`flash_fwd_tc` says which.
+B7 and B8 have two bodies each in the same way: bf16 at head_dim 64 or
+128 the Hopper bodies (``csrc/flash_attention_bwd_sm90.cuh``, sharing
+B6's TMA and wgmma primitives in ``csrc/sm90_primitives.cuh``), the rest
+the SIMT bodies; :func:`flash_bwd_tc` says which. With a GQA group above
+1, B7's Hopper body writes f32 partials per query head and a second
+kernel of the same library, ``flash_dkv_group_sum``, adds each KV head's
+partials in head order.
 Nothing is compiled or loaded at import: CPU-only hosts import this
 module freely.
 
@@ -27,7 +34,9 @@ a CUDA error, and adds one to its entry of :data:`launches` through
 :func:`count_launch`, under a lock: the live runtime's host threads
 launch B6–B8 at once, and ``launches[key] += 1`` is a read, an add and a
 store that a thread switch can split. Every B6 launch counts as
-``flash_fwd``, and a launch of its Hopper body also as ``flash_fwd_tc``.
+``flash_fwd``, and a launch of its Hopper body also as ``flash_fwd_tc``;
+B7 and B8 in the same way (``flash_dkv``/``flash_dkv_tc``,
+``flash_dq``/``flash_dq_tc``), the group sum as ``flash_dkv_group_sum``.
 B1, B3 and B4
 take an optional leading scenario axis: (cap,) row columns are one tick's
 launch (counted as ``spatial``/``late``/``reap``), (N, cap) columns are
@@ -69,7 +78,10 @@ MAX_SCENARIOS = 65535
 # Tile sizes of B6–B9, which their plain versions walk too (checked
 # against the built library when it loads), and the head sizes they take.
 # B6's SIMT body (float32; bf16 at head_dim 16, 32) and its Hopper body
-# (bf16 at FLASH_TC_HEAD_DIMS) have tiles of their own; B7 and B8 theirs.
+# (bf16 at FLASH_TC_HEAD_DIMS) have tiles of their own; B7 and B8 theirs,
+# for each of their two bodies the (query tile, KV tile) pairs that skip
+# (the Hopper bodies' blocks hold two 64-row consumers, each pairing its
+# rows with streamed tiles of 64).
 FLASH_FWD_BLOCK_Q = 64
 FLASH_FWD_BLOCK_K = 64
 FLASH_FWD_TC_BLOCK_Q = 128
@@ -77,6 +89,8 @@ FLASH_FWD_TC_BLOCK_K = 128
 FLASH_TC_HEAD_DIMS = (64, 128)
 FLASH_BWD_BLOCK_Q = 64
 FLASH_BWD_BLOCK_K = 64
+FLASH_BWD_TC_BLOCK_Q = 64
+FLASH_BWD_TC_BLOCK_K = 64
 DECODE_BLOCK_K = 64
 DECODE_MAX_GROUP = 64
 HEAD_DIMS = (16, 32, 64, 128)
@@ -90,7 +104,9 @@ launches: Dict[str, int] = {"spatial": 0, "temporal": 0, "late": 0,
                             "reap": 0, "price": 0, "spatial_sweep": 0,
                             "late_sweep": 0, "reap_sweep": 0,
                             "flash_fwd": 0, "flash_fwd_tc": 0,
-                            "flash_dkv": 0, "flash_dq": 0,
+                            "flash_dkv": 0, "flash_dkv_tc": 0,
+                            "flash_dkv_group_sum": 0, "flash_dq": 0,
+                            "flash_dq_tc": 0,
                             "decode": 0, "ssd": 0}
 _launch_lock = threading.Lock()
 
@@ -111,6 +127,19 @@ def flash_fwd_tiles(dtype: torch.dtype, d: int) -> Tuple[int, int]:
     if flash_fwd_tc(dtype, d):
         return FLASH_FWD_TC_BLOCK_Q, FLASH_FWD_TC_BLOCK_K
     return FLASH_FWD_BLOCK_Q, FLASH_FWD_BLOCK_K
+
+
+def flash_bwd_tc(dtype: torch.dtype, d: int) -> bool:
+    """True where B7's and B8's Hopper bodies take the inputs: bf16 at
+    head_dim 64 or 128. The SIMT bodies take the rest."""
+    return dtype == torch.bfloat16 and d in FLASH_TC_HEAD_DIMS
+
+
+def flash_bwd_tiles(dtype: torch.dtype, d: int) -> Tuple[int, int]:
+    """(block_q, block_k) of the B7/B8 bodies that take these inputs."""
+    if flash_bwd_tc(dtype, d):
+        return FLASH_BWD_TC_BLOCK_Q, FLASH_BWD_TC_BLOCK_K
+    return FLASH_BWD_BLOCK_Q, FLASH_BWD_BLOCK_K
 
 
 def count_launch(key: str) -> None:
@@ -198,9 +227,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "flash_bwd":
         lib.flash_bwd_dq.argtypes = [P] * 7 + [I] * 8 + [F, I, P]
         lib.flash_bwd_dkv.argtypes = [P] * 8 + [I] * 8 + [F, I, P]
-        fns = (lib.flash_bwd_dq, lib.flash_bwd_dkv)
+        lib.flash_bwd_group_sum.argtypes = [P] * 4 + [I] * 4 + [P]
+        lib.flash_bwd_tc.argtypes = [I, I]
+        fns = (lib.flash_bwd_dq, lib.flash_bwd_dkv, lib.flash_bwd_group_sum,
+               lib.flash_bwd_tc)
         tiles = [(lib.flash_bwd_block_q, FLASH_BWD_BLOCK_Q),
-                 (lib.flash_bwd_block_k, FLASH_BWD_BLOCK_K)]
+                 (lib.flash_bwd_block_k, FLASH_BWD_BLOCK_K),
+                 (lib.flash_bwd_tc_block_q, FLASH_BWD_TC_BLOCK_Q),
+                 (lib.flash_bwd_tc_block_k, FLASH_BWD_TC_BLOCK_K)]
     elif name == "decode":
         lib.decode_attn.argtypes = [P] * 5 + [I] * 5 + [F, I, P]
         fns = (lib.decode_attn,)
@@ -219,14 +253,22 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         if fn() != want:
             raise RuntimeError(f"{name}: the library's tile {fn()} is not "
                                f"the wrappers' {want}")
-    if name == "flash":
-        for dtype, is_bf16 in _ATTN_DTYPES.items():
-            for d in HEAD_DIMS:
-                if bool(lib.flash_fwd_tc(is_bf16, d)) != flash_fwd_tc(dtype,
-                                                                      d):
-                    raise RuntimeError(f"flash: the library's body for "
-                                       f"{dtype}, head_dim {d} is not the "
-                                       f"wrappers'")
+    bodies = {"flash": ("flash_fwd_tc", flash_fwd_tc),
+              "flash_bwd": ("flash_bwd_tc", flash_bwd_tc)}
+    if name in bodies:
+        fn_name, wrappers = bodies[name]
+        check_bodies(name, getattr(lib, fn_name), wrappers)
+
+
+def check_bodies(name: str, library_fn, wrappers_fn) -> None:
+    """Raise unless the library's choice of body (``library_fn(is_bf16,
+    d)``) is the wrappers' (``wrappers_fn(dtype, d)``) for every dtype and
+    head_dim the kernels take."""
+    for dtype, is_bf16 in _ATTN_DTYPES.items():
+        for d in HEAD_DIMS:
+            if bool(library_fn(is_bf16, d)) != wrappers_fn(dtype, d):
+                raise RuntimeError(f"{name}: the library's body for {dtype}, "
+                                   f"head_dim {d} is not the wrappers'")
 
 
 def library(name: str = "assess") -> ctypes.CDLL:
@@ -516,12 +558,20 @@ def launch_flash_dkv(q, k, v, dout, lse, delta, causal: bool, window: int,
     """B7: (dk, dv), each (b, sk, hkv, d) in k's type: the gradient of
     B6's attention for each KV head, summed over its query group, given
     the forward's lse and ``delta = rowsum(dout * out)``, both (b, hq, sq)
-    float32."""
+    float32. bf16 at head_dim 64 or 128 runs the Hopper body (counted also
+    as ``flash_dkv_tc``); with a group above 1 it writes f32 partials per
+    query head, which :func:`launch_flash_dkv_group_sum` adds up."""
     b, sq, sk, hq, hkv, d, is_bf16 = _flash_bwd_args(
         "flash_dkv", q, k, v, dout, lse, delta)
+    tc = flash_bwd_tc(q.dtype, d)
+    split = tc and hq != hkv
     lib = library("flash_bwd")
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    if split:
+        dk = torch.empty((b, sk, hq, d), dtype=torch.float32, device=k.device)
+        dv = torch.empty_like(dk)
+    else:
+        dk = torch.empty_like(k)
+        dv = torch.empty_like(v)
     rc = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                            dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, hkv,
@@ -529,12 +579,43 @@ def launch_flash_dkv(q, k, v, dout, lse, delta, causal: bool, window: int,
                            is_bf16, _stream(q.device))
     _raise_on(rc, "flash_dkv")
     count_launch("flash_dkv")
+    if tc:
+        count_launch("flash_dkv_tc")
+    if split:
+        return launch_flash_dkv_group_sum(dk, dv, hkv)
+    return dk, dv
+
+
+def launch_flash_dkv_group_sum(dk_part, dv_part, hkv: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The group sum of B7's Hopper body: (dk, dv), each (b, sk, hkv, d)
+    bf16, from (b, sk, hq, d) float32 partials, one per query head; KV
+    head hk sums the partials of heads ``hk * group + g`` in order of g.
+    One launch for both."""
+    dev = dk_part.device
+    b, sk, hq, d = dk_part.shape
+    _check(dk_part, "dk_part", torch.float32, (b, sk, hq, d), dev)
+    _check(dv_part, "dv_part", torch.float32, (b, sk, hq, d), dev)
+    if hkv < 1 or hq % hkv or d % 4:
+        raise ValueError(f"flash_dkv_group_sum: heads {hq}/{hkv}, head_dim "
+                         f"{d} (a multiple of 4)")
+    _aligned("flash_dkv_group_sum", dk_part=dk_part, dv_part=dv_part)
+    lib = library("flash_bwd")
+    dk = torch.empty((b, sk, hkv, d), dtype=torch.bfloat16, device=dev)
+    dv = torch.empty_like(dk)
+    rc = lib.flash_bwd_group_sum(dk_part.data_ptr(), dv_part.data_ptr(),
+                                 dk.data_ptr(), dv.data_ptr(), b * sk, hq,
+                                 hkv, d, _stream(dev))
+    _raise_on(rc, "flash_dkv_group_sum")
+    count_launch("flash_dkv_group_sum")
     return dk, dv
 
 
 def launch_flash_dq(q, k, v, dout, lse, delta, causal: bool, window: int,
                     scale: float) -> torch.Tensor:
-    """B8: dq (b, sq, hq, d) in q's type, with B7's arguments."""
+    """B8: dq (b, sq, hq, d) in q's type, with B7's arguments. bf16 at
+    head_dim 64 or 128 runs the Hopper body (counted also as
+    ``flash_dq_tc``)."""
     b, sq, sk, hq, hkv, d, is_bf16 = _flash_bwd_args(
         "flash_dq", q, k, v, dout, lse, delta)
     lib = library("flash_bwd")
@@ -546,6 +627,8 @@ def launch_flash_dq(q, k, v, dout, lse, delta, causal: bool, window: int,
                           _stream(q.device))
     _raise_on(rc, "flash_dq")
     count_launch("flash_dq")
+    if flash_bwd_tc(q.dtype, d):
+        count_launch("flash_dq_tc")
     return dq
 
 

@@ -45,7 +45,19 @@ the same loops over (query tile, KV tile) pairs with the reference
 kernels' skips, masks (p = 0 where masked, by a ``where``) and float32
 arithmetic. Unlike the reference, ragged last tiles are masked instead of
 dropped by a floor-divided grid. The gradient does not depend on the
-tiles: a skipped pair's p is all zero.
+tiles beyond summation order: a skipped pair's p is all zero. B7 and B8
+have two bodies each, chosen as B6's (``kernels.flash_bwd_tc``):
+
+- bf16 at head_dim 64 or 128: the Hopper bodies, wgmma products on
+  TMA-fed tiles. They round p to bf16 before ``pᵀ·dO`` and dS before
+  ``dSᵀ·q`` and ``dS·K`` (the tensor cores' operand type; the reference
+  keeps both in float32), and B7 owns one query head per block: with a
+  GQA group above 1 it writes float32 partials per query head, which
+  ``flash_dkv_group_sum`` adds in head order
+  (:func:`dkv_group_sum_plain`). The plain versions round and sum the
+  same way for these inputs.
+- float32, and bf16 at head_dim 16 or 32: the SIMT bodies, float32
+  throughout, the group summed inside B7's block.
 """
 from __future__ import annotations
 
@@ -56,7 +68,8 @@ import torch
 from repro_torch.accel import kernels as K
 from repro_torch.accel.torch_backend import on_cpu
 
-# B7's and B8's tiles; the forward's depend on its body
+# B7's and B8's tiles (of their SIMT bodies; ``kernels.flash_bwd_tiles``
+# gives each body's); the forward's depend on its body
 # (``kernels.flash_fwd_tiles``).
 BWD_BLOCK_Q = K.FLASH_BWD_BLOCK_Q
 BWD_BLOCK_K = K.FLASH_BWD_BLOCK_K
@@ -217,22 +230,57 @@ def _bwd_inputs(q, k, v, do, lse, delta):
             delta.float().reshape(b, hkv, group, sq))
 
 
+def _to_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to bf16, as the Hopper bodies' operands."""
+    return x.to(torch.bfloat16).float()
+
+
+def dkv_group_sum_plain(dk_part: torch.Tensor, dv_part: torch.Tensor,
+                        hkv: int, dtype: torch.dtype = torch.bfloat16
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_dkv_group_sum``'s plain version: (dk, dv), each (b, sk,
+    hkv, d) in ``dtype``, from (b, sk, hq, d) float32 partials, one per
+    query head; KV head hk adds the partials of heads ``hk * group + g``
+    in order of g, in float32."""
+    b, sk, hq, d = dk_part.shape
+    group = hq // hkv
+
+    def total(part):
+        part = part.reshape(b, sk, hkv, group, d)
+        acc = part[:, :, :, 0]
+        for g in range(1, group):
+            acc = acc + part[:, :, :, g]
+        return acc.to(dtype).contiguous()
+
+    return total(dk_part), total(dv_part)
+
+
 def flash_attention_dkv_plain(
     q, k, v, do, lse, delta, *, causal: bool = True, window: int = 0,
-    scale: Optional[float] = None, block_q: int = BWD_BLOCK_Q,
-    block_k: int = BWD_BLOCK_K,
+    scale: Optional[float] = None, block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B7's plain version: (dk, dv), each (b, sk, hkv, d) in k's and v's
     type. For each KV tile, walks the query tiles whose band reaches it
     and sums dV += pᵀ·dO and dK += dSᵀ·q over them and over the query
-    group, in float32."""
+    group, in float32. The tiles default to those of the body that takes
+    these inputs; for the Hopper body's inputs p and dS are rounded to
+    bf16 before the products, each query head's sum is kept apart, and
+    the group's are added in head order (:func:`dkv_group_sum_plain`), as
+    that body does."""
     b, sq, hq, d = q.shape
-    sk = k.shape[1]
+    sk, hkv = k.shape[1], k.shape[2]
+    if block_q is None or block_k is None:
+        block_q, block_k = K.flash_bwd_tiles(q.dtype, d)
+    tc = K.flash_bwd_tc(q.dtype, d)
     if scale is None:
         scale = d ** -0.5
     qf, kf, vf, dof, lsef, deltaf = _bwd_inputs(q, k, v, do, lse, delta)
-    dk = torch.zeros_like(kf)
-    dv = torch.zeros_like(vf)
+    # per query head on the Hopper body: (b, hkv, group, sk, d)
+    dk = qf.new_zeros((b, hkv, hq // hkv, sk, d)) if tc else \
+        torch.zeros_like(kf)
+    dv = torch.zeros_like(dk)
+    sums = "bhgqk,bhgqd->bhgkd" if tc else "bhgqk,bhgqd->bhkd"
     for k0 in range(0, sk, block_k):
         for q0 in range(0, sq, block_q):
             if not _pair_runs(q0, k0, sk - sq, causal, window, block_q,
@@ -241,23 +289,33 @@ def flash_attention_dkv_plain(
             p, ds, qt, dot, _kt = _bwd_tile(qf, kf, vf, dof, lsef, deltaf,
                                             q0, k0, causal, window, scale,
                                             block_q, block_k)
-            dv[:, :, k0:k0 + block_k] += torch.einsum(
-                "bhgqk,bhgqd->bhkd", p, dot)
-            dk[:, :, k0:k0 + block_k] += torch.einsum(
-                "bhgqk,bhgqd->bhkd", ds, qt)
+            if tc:
+                p, ds = _to_bf16(p), _to_bf16(ds)
+            dv[..., k0:k0 + block_k, :] += torch.einsum(sums, p, dot)
+            dk[..., k0:k0 + block_k, :] += torch.einsum(sums, ds, qt)
+    if tc:   # (b, hkv, group, sk, d) -> (b, sk, hq, d) partials
+        parts = [x.permute(0, 3, 1, 2, 4).reshape(b, sk, hq, d)
+                 for x in (dk, dv)]
+        return dkv_group_sum_plain(*parts, hkv, k.dtype)
     return (dk.permute(0, 2, 1, 3).to(k.dtype).contiguous(),
             dv.permute(0, 2, 1, 3).to(v.dtype).contiguous())
 
 
 def flash_attention_dq_plain(
     q, k, v, do, lse, delta, *, causal: bool = True, window: int = 0,
-    scale: Optional[float] = None, block_q: int = BWD_BLOCK_Q,
-    block_k: int = BWD_BLOCK_K,
+    scale: Optional[float] = None, block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """B8's plain version: dq (b, sq, hq, d) in q's type. For each query
-    tile, sums dQ += dS·K over the KV tiles in its band, in float32."""
+    tile, sums dQ += dS·K over the KV tiles in its band, in float32. The
+    tiles default to those of the body that takes these inputs; for the
+    Hopper body's inputs dS is rounded to bf16 before the product, as that
+    body does."""
     b, sq, hq, d = q.shape
     sk = k.shape[1]
+    if block_q is None or block_k is None:
+        block_q, block_k = K.flash_bwd_tiles(q.dtype, d)
+    tc = K.flash_bwd_tc(q.dtype, d)
     if scale is None:
         scale = d ** -0.5
     qf, kf, vf, dof, lsef, deltaf = _bwd_inputs(q, k, v, do, lse, delta)
@@ -270,7 +328,7 @@ def flash_attention_dq_plain(
             _p, ds, _qt, _dot, kt = _bwd_tile(qf, kf, vf, dof, lsef, deltaf,
                                               q0, k0, causal, window, scale,
                                               block_q, block_k)
-            dq[..., q0:q0 + block_q, :] += ds @ kt
+            dq[..., q0:q0 + block_q, :] += (_to_bf16(ds) if tc else ds) @ kt
     return dq.reshape(b, hq, sq, d).permute(0, 2, 1, 3).to(
         q.dtype).contiguous()
 
@@ -285,24 +343,28 @@ def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
     window: int = 0, scale: Optional[float] = None,
-    block_q: int = BWD_BLOCK_Q, block_k: int = BWD_BLOCK_K,
+    block_q: Optional[int] = None, block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the attention whose forward gave ``out`` and
     ``lse``, for the output gradient ``do``: B7 then B8 on CUDA tensors
-    (tiles fixed at ``BWD_BLOCK_Q`` x ``BWD_BLOCK_K``), their plain
-    versions on CPU tensors. dq is in q's type, dk and dv in k's and
-    v's."""
+    (their tiles are fixed per body, ``kernels.flash_bwd_tiles``), their
+    plain versions on CPU tensors (on those tiles unless others are
+    given). dq is in q's type, dk and dv in k's and v's."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    tiles = K.flash_bwd_tiles(q.dtype, q.shape[-1])
+    if block_q is None or block_k is None:
+        block_q, block_k = tiles
     args = (q, k, v, do, lse, bwd_delta(out, do))
     if on_cpu(q, k, v, out, lse, do):
         opts = dict(causal=causal, window=window, scale=scale,
                     block_q=block_q, block_k=block_k)
         dk, dv = flash_attention_dkv_plain(*args, **opts)
         return flash_attention_dq_plain(*args, **opts), dk, dv
-    if (block_q, block_k) != (BWD_BLOCK_Q, BWD_BLOCK_K):
-        raise ValueError(f"flash_attention_bwd: the CUDA kernels' tiles are "
-                         f"{BWD_BLOCK_Q} x {BWD_BLOCK_K}, got {block_q} x "
+    if (block_q, block_k) != tiles:
+        raise ValueError(f"flash_attention_bwd: the CUDA kernels' tiles for "
+                         f"{q.dtype} at head_dim {q.shape[-1]} are "
+                         f"{tiles[0]} x {tiles[1]}, got {block_q} x "
                          f"{block_k}")
     dk, dv = K.launch_flash_dkv(*args, causal, window, scale)
     return K.launch_flash_dq(*args, causal, window, scale), dk, dv
