@@ -13,10 +13,13 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    64/128 in ``csrc/flash_attention_sm90.cuh``, its SIMT body for the
    rest), B7 and B8 from ``csrc/flash_attention_bwd.cu`` (their Hopper
    bodies for bf16 at head_dim 64/128, with the GQA group sum, in
-   ``csrc/flash_attention_bwd_sm90.cuh``; the primitives both Hopper
+   ``csrc/flash_attention_bwd_sm90.cuh``; the primitives the Hopper
    headers share in ``csrc/sm90_primitives.cuh``), B9 from
-   ``csrc/decode_attention.cu`` and B10 from ``csrc/ssd.cu``; print each
-   Hopper kernel's registers and stack bytes (``cuobjdump -res-usage``).
+   ``csrc/decode_attention.cu`` (its split-KV kernel and the combine) and
+   B10 from ``csrc/ssd.cu`` (its Hopper body for bf16 at head_dim and
+   d_state 64/128 in ``csrc/ssd_sm90.cuh``, its SIMT body for the rest);
+   print the registers and stack bytes of each Hopper, B9 and B10 kernel
+   (``cuobjdump -res-usage``).
 2. Kernel phase: each of B1–B5 on the card against its plain
    torch version on CPU copies of the same inputs, exactly (NaN equal to
    NaN) — first on :func:`adversarial_inputs` (summation-order, tie and
@@ -51,10 +54,15 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    groups 1, 4 and 48, head_dim 64 and 128, valid lengths at 1, at tile
    edges ±1 and at the cache size; for B6's Hopper body sq, sk of 127,
    128 and 129, a q_offset off its 128-row tile, a window crossing a
-   tile), within the tolerances of ``tests/test_kernels.py`` (bf16 2e-2,
-   f32 2e-5; lse 2e-5); every bf16 case at head_dim 64/128 counted once
-   as ``flash_fwd_tc``, no other; every B6 case launched twice gives
-   byte-identical out and lse. Then at the serving path's shapes, and B6
+   tile; for B9's split-KV body valid lengths at its 128-key split edges
+   ±1, a ragged last split, groups of 48 and 64, head_dim 16), within the
+   tolerances of ``tests/test_kernels.py`` (bf16 2e-2, f32 2e-5; lse
+   2e-5; B9's bf16 output within one bf16 unit, 2^-7 of itself, plus
+   1e-2 of its sequence's RMS, which a combine that drops the last live
+   split must fail); every bf16 case at head_dim 64/128 counted once as
+   ``flash_fwd_tc``, no other; every B9 call one split launch and one
+   combine; every B6 and B9 case launched twice gives byte-identical
+   results. Then at the serving path's shapes, and B6
    also at Qwen1.5-0.5B's layer (the training path's), timed beside the
    plain versions and ``F.scaled_dot_product_attention`` (the yardstick
    only: the port never calls it), by CUDA events and, for B6 at the
@@ -63,7 +71,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    bf16 weights from a seeded generator) serves 4 prompts of 2,048 token
    ids through ``make_prefill_step`` and 64 greedy steps of
    ``make_serve_step``: exactly 36 B6 launches, all on its Hopper body
-   (``flash_fwd_tc``), and 2,304 B9 launches, no plain-version call. The
+   (``flash_fwd_tc``), and 2,304 B9 launches, each with one combine
+   (``decode_combine``), no plain-version call. The
    logits of the prefill and of decode steps 1, 16 and 64 are held
    against the port's ``forward`` with ``impl="ref"`` in float32 over the
    same prefix; an fp8 cast of the activations must
@@ -108,16 +117,24 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    state, in bf16 and f32, on boundary inputs (the shapes of
    ``tests/test_kernels.py``, s < chunk, ragged tails, 1, 2 and 8 groups,
    head_dim 16 to 128 with d_state 128, A near 0 and decays that
-   underflow; y 2e-2 from bf16, 2e-4 in f32, the state 2e-4), the f32
-   gradient of the op (B10 forward, the oracle's autograd backward)
-   against autograd of the oracle (1e-4); then at Mamba2-2.7B's layer
-   shape, timed beside the plain version (no PyTorch call computes the
-   scan).
+   underflow; then the Hopper body's 64-row tiles, chunks of 64 to 256
+   and sequences shorter than a tile (``SSD_TC_CASES``), the float32 side
+   of the longest also against the plain walk in float64 (printed, not
+   gated); y 2e-2 from bf16, 2e-4 in f32, the state 2e-4), each case
+   launched twice with byte-identical
+   results and counted on the body it takes (``ssd_tc`` and its three
+   kernels' keys), the f32 gradient of the op (B10 forward, the oracle's
+   autograd backward) against autograd of the oracle (1e-4); then at
+   Mamba2-2.7B's layer shape on the Hopper body, launched twice
+   byte-identical, timed beside the plain version by CUDA events and by
+   device time (no PyTorch call computes the scan).
 12. SSM serving path: Mamba2-2.7B at full width and depth (64 layers,
    random bf16 weights from a seeded generator, about 2.70 B parameters)
    serves 4 prompts of 2,048 token ids through ``make_prefill_step`` and
    64 greedy steps of ``make_serve_step``: exactly 64 B10 launches in
-   the prefill, none in decode, no plain-version call. The logits of the
+   the prefill, every one on the Hopper body (``ssd_tc``, ``ssd_prep``,
+   ``ssd_state``, ``ssd_out`` 64 each), none in decode, no plain-version
+   call. The logits of the
    prefill and decode steps 1, 16, 64 and every layer's final state are
    reported against the port's f32 ``forward(impl="ref")`` (random
    weights over 64 layers amplify bf16 rounding to about the logits'
@@ -205,6 +222,13 @@ SERVE_CHECKS = (1, 16, 64)
 SERVE_TOL = 0.2
 # Attention kernels vs their plain versions (tests/test_kernels.py:21-23)
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# B9's bf16 output vs its plain version, tighter: both round a float32
+# result to bf16 once, so they differ by at most one unit in the last
+# place, 2^-7 of the value; values near 0 get 1e-2 of their sequence's
+# RMS. (ATTN_TOL's 2e-2 is about two thirds of a typical output at the
+# serving shape, whose RMS over 2,100 keys is about 0.03, and passes a
+# combine that drops a live split; this check must fail it.)
+DECODE_BF16_TOL = (2.0 ** -7, 1e-2)
 LSE_TOL = 2e-5
 
 WARMUP, REPS = 3, 50
@@ -893,6 +917,29 @@ def profile_bino() -> None:
                        max_name_column_width=60), flush=True)
 
 
+def _sub_kernels(what: str, fn, args, names, reps: int = 20) -> None:
+    """Prints the profiler's device time per launch of each kernel whose
+    name holds one of ``names``, over ``reps`` calls of ``fn`` (averages
+    over the records it keeps: it may drop some, so these split a call's
+    time between its kernels and do not time the call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    per = {}
+    for e in prof.key_averages():
+        hit = [n for n in names if n in e.key]
+        if e.device_type == cuda and hit and e.count:
+            per[hit[0]] = round(e.self_device_time_total / e.count, 3)
+    print(f"{what}: device us per launch by kernel (profiler) "
+          f"{json.dumps(per)}", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # Attention kernels B6 and B9
 # ---------------------------------------------------------------------------
@@ -918,6 +965,13 @@ DECODE_CASES = [
     (5, 300, 4, 4, 64, (1, 63, 64, 65, 300)),     # group 1, tile edges
     (4, 4096, 32, 8, 128, (1, 127, 129, 4096)),   # group 4, valid at S
     (3, 256, 48, 1, 128, (128, 255, 256)),        # a group of 48
+    # the split-KV body's 128-key splits and 32-key tiles
+    (6, 800, 32, 8, 128, (127, 128, 129, 255, 256, 257)),   # split edges
+    (4, 769, 16, 4, 64, (31, 33, 769, 5000)),     # a ragged last split,
+                                                  # valid past S
+    (3, 1024, 48, 1, 128, (1, 700, 1024)),        # a group of 48, 4 splits
+    (2, 257, 8, 2, 16, (256, 257)),               # head_dim 16
+    (2, 600, 64, 1, 32, (300, 600)),              # a group of 64
 ]
 FLASH_SOURCE = "src/repro_torch/accel/csrc/flash_attention_sm90.cuh"
 # Qwen1.5-0.5B's attention layer, the training path's B6 shape: (b, s,
@@ -948,6 +1002,25 @@ def _within(what: str, got, want, tol: float) -> float:
     if not ok or err != err:
         raise RuntimeError(f"{what}: kernel vs plain version max_abs_err "
                            f"{err}, tolerance {tol}")
+    return err
+
+
+def _within_decode(what: str, got, want) -> float:
+    """max |got - want| of B9's bf16 output (b, hq, d); raises unless
+    |got - want| <= 2^-7 |want| + 1e-2 RMS(want over its sequence)
+    everywhere (``DECODE_BF16_TOL``; NaN where both are NaN counts as
+    equal)."""
+    rel, frac = DECODE_BF16_TOL
+    got, want = got.float(), want.float()
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    diff = torch.where(both_nan, 0.0, (got - want).abs())
+    w = want.nan_to_num()
+    rms = w.pow(2).mean(dim=tuple(range(1, w.dim())), keepdim=True).sqrt()
+    ok = bool((diff <= rel * w.abs() + frac * rms).all())
+    err = float(diff.max()) if diff.numel() else 0.0
+    if not ok or err != err:
+        raise RuntimeError(f"{what}: kernel vs plain version max_abs_err "
+                           f"{err}, tolerance {rel} |ref| + {frac} RMS")
     return err
 
 
@@ -1024,15 +1097,27 @@ def attention_kernel_phase():
                              (b, S, hkv, d))
             seed += 1
             vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
-            _within(f"decode {case} {dtype}",
-                    DA.decode_attention_fwd(q, k, v, vl),
-                    DA.decode_attention_plain(q, k, v, vl), tol)
+            before = dict(K.launches)
+            out = DA.decode_attention_fwd(q, k, v, vl)
+            got = {key: K.launches[key] - before[key]
+                   for key in ("decode", "decode_combine")}
+            if got != {"decode": 1, "decode_combine": 1}:
+                raise RuntimeError(f"decode {case} {dtype}: launches {got}")
+            if not _same_bits(out, DA.decode_attention_fwd(q, k, v, vl)):
+                raise RuntimeError(f"decode {case} {dtype}: two launches "
+                                   f"on the same inputs differ")
+            want = DA.decode_attention_plain(q, k, v, vl)
+            if dtype == torch.bfloat16:
+                _within_decode(f"decode {case} {dtype}", out, want)
+            else:
+                _within(f"decode {case} {dtype}", out, want, tol)
     torch.cuda.synchronize()
     print(f"attention boundary inputs: B6 ({len(FLASH_CASES)} cases, each "
           f"launched twice with byte-identical results, bf16 at head_dim "
-          f"64/128 on the Hopper body) and B9 ({len(DECODE_CASES)} cases) "
-          f"within tolerance of their plain versions in float32 and bf16",
-          flush=True)
+          f"64/128 on the Hopper body) and B9 ({len(DECODE_CASES)} cases, "
+          f"the split kernel and its combine launched once a call, each "
+          f"call twice with byte-identical results) within tolerance of "
+          f"their plain versions in float32 and bf16", flush=True)
 
     cfg_b, cfg_s, hq, hkv, d = (SERVE_BATCH, SERVE_PROMPT, 32, 8, 128)
     bf16 = torch.bfloat16
@@ -1123,8 +1208,20 @@ def attention_kernel_phase():
     torch.cuda.synchronize()
     if K.launches["decode"] != before + 1:
         raise RuntimeError("decode: the wrapper did not launch")
-    err = _within("decode at the serving shape", out,
-                  DA.decode_attention_plain(q, k, v, vl), ATTN_TOL[bf16])
+    want = DA.decode_attention_plain(q, k, v, vl)
+    err = _within_decode("decode at the serving shape", out, want)
+    # a planted fault: a combine that skips the last live split gives the
+    # attention over the keys before that split; it must fail the check
+    cut = (vl - 1) // DA.SPLIT * DA.SPLIT
+    dropped = DA.decode_attention_plain(q, k, v, cut)
+    try:
+        _within_decode("decode, last live split dropped", dropped, want)
+    except RuntimeError as e:
+        print(f"decode probe (the last live split dropped) fails the bf16 "
+              f"check, as it must: {e}", flush=True)
+    else:
+        raise RuntimeError("decode: dropping the last live split passes "
+                           "the bf16 check")
     q4 = q[:, :, None].contiguous()
     k4, v4 = (x[:, :n].transpose(1, 2).contiguous() for x in (k, v))
 
@@ -1145,6 +1242,9 @@ def attention_kernel_phase():
     rows["decode"].update(
         device_ms=_device_ms(DA.decode_attention_fwd, (q, k, v, vl)),
         library_device_ms=_device_ms(sdpa_decode, ()))
+    _sub_kernels("decode at the serving shape", DA.decode_attention_fwd,
+                 (q, k, v, vl), ("decode_split_kernel",
+                                 "decode_combine_kernel"))
     print(f"decode vs scaled_dot_product_attention: max_abs_err {lib_err}; "
           f"device time {rows['decode']['device_ms']:.6f} ms per call, "
           f"SDPA's {rows['decode']['library_device_ms']:.6f} ms (events "
@@ -1276,8 +1376,11 @@ def serve_path(cfg=None, device="cuda"):
     peak = torch.cuda.max_memory_allocated() if on_card else None
     L_ = cfg.n_layers if on_card else 0
     # every B6 launch on its Hopper body (bf16, head_dim 128)
-    want_prefill = {"flash_fwd": L_, "flash_fwd_tc": L_, "decode": 0}
-    want = {"flash_fwd": L_, "flash_fwd_tc": L_, "decode": L_ * SERVE_STEPS}
+    # every B9 call one split-KV launch and one combine
+    want_prefill = {"flash_fwd": L_, "flash_fwd_tc": L_, "decode": 0,
+                    "decode_combine": 0}
+    want = {"flash_fwd": L_, "flash_fwd_tc": L_, "decode": L_ * SERVE_STEPS,
+            "decode_combine": L_ * SERVE_STEPS}
     if {k: after_prefill[k] for k in want_prefill} != want_prefill:
         raise RuntimeError(f"serve: prefill launches {after_prefill}, "
                            f"expected {want_prefill}")
@@ -2024,15 +2127,28 @@ SSD_CASES = [
     (2, 520, 8, 64, 1, 128, 256, "underflow"),
     (1, 77, 4, 128, 1, 128, 32, "mixed"),      # p 128, ragged
 ]
+# The Hopper body's edges (bf16 takes it, float32 the SIMT body): its
+# 64-row tiles, chunks of 64 to 256, p and n 64 or 128, and sequences of
+# one chunk rounded up to its tile (kernels.ssd_chunk).
+SSD_TC_CASES = [
+    (2, 2048, 8, 64, 1, 128, 256, "mixed"),    # the serving layout
+    (1, 257, 4, 64, 1, 128, 256, "mixed"),     # one row past a chunk
+    (1, 255, 4, 64, 2, 64, 64, "none"),        # one row short, 2 groups
+    (2, 128, 8, 128, 8, 64, 256, "mixed"),     # s < chunk, 8 groups
+    (1, 400, 4, 128, 1, 128, 192, "underflow"),  # a 192-row chunk
+    (1, 65, 2, 64, 1, 64, 64, "mixed"),        # a 1-row last chunk
+    (2, 40, 4, 64, 1, 128, 256, "mixed"),      # s < one 64-row tile
+]
 # B10 vs its plain version: y within tests/test_kernels.py:157-160's 2e-4
 # in float32 and 2e-2 from bf16 inputs (y is rounded to bf16); the final
-# state is float32 from the same float32 arithmetic either way: 2e-4.
+# state is float32 from the same arithmetic either way (the Hopper body's
+# operands it computes bf16 pairs hi + lo in both): 2e-4.
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 SSD_STATE_TOL = 2e-4
 # The op's float32 gradient (B10 forward, the oracle's autograd backward)
 # against autograd of the oracle.
 SSD_GRAD_TOL = 1e-4
-SSD_SOURCE = "src/repro_torch/accel/csrc/ssd.cu"
+SSD_SOURCE = "src/repro_torch/accel/csrc/ssd_sm90.cuh"
 SSD_REPLACES = "src/repro/kernels/ssd/ssd.py:29 _ssd_kernel (pallas_call :105)"
 
 
@@ -2073,6 +2189,25 @@ def _ssd_ops(b, s, h, p, g, n, chunk) -> float:
     return ops
 
 
+def _ssd_f64_witness(case, args, chunk, kernel, plain) -> None:
+    """Prints how far B10's float32 output and its plain version's lie
+    from the plain walk in float64 (a witness, not a gate): the share of
+    SSD_TOL's limit each uses at its worst entry."""
+    from repro_torch.kernels.ssd import ssd as SSD
+
+    wide = SSD.ssd_plain(*(t.double() for t in args), chunk=chunk)
+    tol = SSD_TOL[torch.float32]
+    parts = []
+    for name, (y, st) in (("kernel", kernel), ("plain", plain)):
+        for what, got, want in (("y", y, wide[0]), ("state", st, wide[1])):
+            diff = (got.double() - want).abs()
+            share = float((diff / (tol + tol * want.abs())).max())
+            parts.append(f"{name} {what} {float(diff.max()):.3e} "
+                         f"({share:.3f} of the limit)")
+    print(f"ssd {case} float32 against float64: {'; '.join(parts)}",
+          flush=True)
+
+
 def ssd_kernel_phase():
     """B10 against its plain version on boundary inputs, the op's float32
     gradient against autograd of the oracle, then at the serving path's
@@ -2086,18 +2221,34 @@ def ssd_kernel_phase():
     from repro_torch.kernels.ssd import ssd as SSD
 
     seed = 200
+    n_tc = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for case in SSD_CASES:
+        for case in SSD_CASES + SSD_TC_CASES:
             b, s, h, p, g, n, chunk, decay = case
             args = _ssd_inputs(seed, dtype, b, s, h, p, g, n, decay)
             seed += 1
+            before = dict(K.launches)
             y, st = SSD.ssd_fwd(*args, chunk=chunk)
+            tc = K.ssd_tc(dtype, p, n, K.ssd_chunk(dtype, p, n, s, chunk))
+            n_tc += tc
+            got = {key: K.launches[key] - before[key] for key in K.SSD_TC_KEYS}
+            want = dict.fromkeys(K.SSD_TC_KEYS, int(tc))
+            want["ssd"] = 1
+            if got != want:
+                raise RuntimeError(f"ssd {case} {dtype}: launches {got}, "
+                                   f"expected {want}")
+            y2, st2 = SSD.ssd_fwd(*args, chunk=chunk)
+            if not (_same_bits(y, y2) and _same_bits(st, st2)):
+                raise RuntimeError(f"ssd {case} {dtype}: two launches on "
+                                   f"the same inputs differ")
             py, pst = SSD.ssd_plain(*args, chunk=chunk)
             if y.dtype != dtype or st.shape != (b, h, p, n):
                 raise RuntimeError(f"ssd {case}: y {y.dtype}, state "
                                    f"{tuple(st.shape)}")
             _within(f"ssd {case} {dtype} y", y, py, SSD_TOL[dtype])
             _within(f"ssd {case} {dtype} state", st, pst, SSD_STATE_TOL)
+            if dtype == torch.float32 and s >= 2048:
+                _ssd_f64_witness(case, args, chunk, (y, st), (py, pst))
 
     # the op's gradient: B10's forward, the oracle's autograd backward
     args = [t.clone().requires_grad_(True) for t in
@@ -2113,10 +2264,11 @@ def ssd_kernel_phase():
     for name, g_, w in zip("x dt A B C D".split(), got, want):
         _within(f"ssd gradient {name}", g_, w, SSD_GRAD_TOL)
     torch.cuda.synchronize()
-    print(f"ssd boundary inputs: B10 ({len(SSD_CASES)} cases) within "
-          f"tolerance of its plain version in float32 and bf16; the op's "
-          f"float32 gradient within {SSD_GRAD_TOL} of the oracle's",
-          flush=True)
+    print(f"ssd boundary inputs: B10 ({len(SSD_CASES + SSD_TC_CASES)} "
+          f"cases in float32 and bf16, {n_tc} on the Hopper body; each "
+          f"launched twice with byte-identical results) "
+          f"within tolerance of its plain version; the op's float32 "
+          f"gradient within {SSD_GRAD_TOL} of the oracle's", flush=True)
 
     # B10 at the serving shape: Mamba2-2.7B's layer over 4 x 2,048 tokens
     cfg = _ssm_config()
@@ -2131,11 +2283,15 @@ def ssd_kernel_phase():
     args = (x, dt, A, B, C, D)
     kernel = functools.partial(SSD.ssd_fwd, chunk=chunk)
     plain = functools.partial(SSD.ssd_plain, chunk=chunk)
-    before = K.launches["ssd"]
+    before = dict(K.launches)
     y, st = kernel(*args)
     torch.cuda.synchronize()
-    if K.launches["ssd"] != before + 1:
-        raise RuntimeError("ssd: the wrapper did not launch")
+    if any(K.launches[k] != before[k] + 1 for k in K.SSD_TC_KEYS):
+        raise RuntimeError("ssd: the wrapper did not launch the Hopper "
+                           "body's three kernels")
+    y2, st2 = kernel(*args)
+    if not (_same_bits(y, y2) and _same_bits(st, st2)):
+        raise RuntimeError("ssd at the serving shape: two launches differ")
     py, pst = plain(*args)
     err = max(_within("ssd at the serving shape", y, py, SSD_TOL[bf16]),
               _within("ssd state at the serving shape", st, pst,
@@ -2145,6 +2301,12 @@ def ssd_kernel_phase():
     row = _attn_row("ssd", _time_ms(kernel, args), _time_ms(plain, args,
                                                              reps=5),
                     None, bytes_, ops, bf16, err, SSD_SOURCE, SSD_REPLACES)
+    row["device_ms"] = _device_ms(kernel, args)
+    _sub_kernels("ssd at Mamba2-2.7B's layer", kernel, args,
+                 ("ssd_prep_kernel", "ssd_state_kernel", "ssd_out_kernel"))
+    print(f"ssd at Mamba2-2.7B's layer: device time {row['device_ms']:.6f} "
+          f"ms per call (events behind a sleep kernel), {row['ms']:.6f} ms "
+          f"by events", flush=True)
     return {"ssd": row}
 
 
@@ -2390,12 +2552,13 @@ def ssm_serve_path(cfg=None, device="cuda"):
     counts = dict(K.launches)
     peak = torch.cuda.max_memory_allocated() if on_card else None
     cache_bytes = _nbytes(tuple(cache["mamba"].values()))
-    want = {"ssd": cfg.n_layers if on_card else 0}
-    if after_prefill["ssd"] != want["ssd"]:
+    # every layer's scan on the Hopper body (bf16, p 64, n 128, chunk 256)
+    want = dict.fromkeys(K.SSD_TC_KEYS, cfg.n_layers if on_card else 0)
+    if {k: after_prefill[k] for k in want} != want:
         raise RuntimeError(f"ssm serve: prefill launches {after_prefill}, "
                            f"expected {want}")
     others = {k: c for k, c in counts.items() if k not in want and c}
-    if counts["ssd"] != want["ssd"] or others:
+    if {k: counts[k] for k in want} != want or others:
         raise RuntimeError(f"ssm serve: launches {counts}, expected {want} "
                            f"in the prefill and none in decode")
     if on_card and any(plain.calls.values()):
@@ -2501,13 +2664,18 @@ def ssm_serve_path(cfg=None, device="cuda"):
     return counts
 
 
+# Name parts of the kernels whose resources the build phase prints.
+HOPPER_KERNELS = ("sm90", "group_sum", "decode_split", "decode_combine",
+                  "ssd_prep", "ssd_state", "ssd_out")
+
+
 def print_resource_usage(libs) -> None:
     """Registers and stack bytes (spills) of each Hopper kernel, as
     ``cuobjdump -res-usage`` reads them from the built libraries."""
     from repro_torch.accel import kernels as K
 
     tool = Path(K.nvcc()).with_name("cuobjdump")
-    for name in ("flash", "flash_bwd"):
+    for name in ("flash", "flash_bwd", "decode", "ssd"):
         try:
             out = subprocess.run([str(tool), "-res-usage", str(libs[name])],
                                  check=True, capture_output=True,
@@ -2521,15 +2689,90 @@ def print_resource_usage(libs) -> None:
             if line.startswith("Function "):
                 fn = line[len("Function "):].rstrip(":")
             elif fn and line.startswith("REG:"):
-                if "sm90" in fn or "group_sum" in fn:
+                if any(key in fn for key in HOPPER_KERNELS):
                     print(f"resources {name}: {fn}: {line}", flush=True)
                 fn = None
+
+
+def decode_wall() -> None:
+    """The serving path's decode alone, through the entry points every
+    slice of the port has: Qwen3-8B at full width, random bf16 weights
+    from seed 0, the 4 x 2,048-token prefill, then 64 greedy steps three
+    times over (ms a step by the host's clock), and the device time of a
+    step by the profiler over 8 more (the sum of its kernel times, as the
+    serving profile takes it: a step waits on the host, so ``_device_ms``
+    cannot time it), with B9's share. Run as ``chip_smoke.py --decode-wall
+    [SRC]`` with SRC the ``src`` directory of the port to time (this
+    checkout's by default), so that two checkouts compare in one call."""
+    from repro_torch.accel import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as PM
+    from repro_torch.train.loop import (TrainConfig, make_prefill_step,
+                                        make_serve_step)
+
+    K.build()
+    cfg = get_config(SERVE_ARCH)
+    B, P = SERVE_BATCH, SERVE_PROMPT
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SERVE_SEED)
+    params = PM.init_params(cfg, gen, device="cuda")
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P))
+                               .astype(np.int32)).cuda()
+    tc = TrainConfig()
+    serve_step = make_serve_step(cfg, tc)
+    w = 64
+    _l, warm = make_prefill_step(cfg, tc, max_len=w + 1)(
+        params, {"tokens": prompts[:, :w]})
+    serve_step(params, warm, prompts[:, w], torch.full(
+        (B,), w, dtype=torch.int32, device="cuda"))
+    del warm
+    logits, cache = make_prefill_step(cfg, tc, max_len=SERVE_MAX_LEN)(
+        params, {"tokens": prompts})
+    tok = logits.argmax(-1).to(torch.int32)
+    pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    K.reset_launches()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_STEPS):
+            logits, cache = serve_step(params, cache, tok, pos)
+            tok = logits.argmax(-1).to(torch.int32)
+            pos = pos + 1
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / SERVE_STEPS)
+    counts = {k: c for k, c in K.launches.items() if c}
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = 8
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            logits, cache = serve_step(params, cache, tok, pos)
+            tok = logits.argmax(-1).to(torch.int32)
+            pos = pos + 1
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages() if e.device_type == cuda]
+    dev = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    b9 = sum(e.self_device_time_total for e in events
+             if "decode_" in e.key) / 1e3 / steps
+    print(f"decode wall {sys.path[0]}: "
+          f"{', '.join(f'{x:.3f}' for x in walls)} ms a step (three runs of "
+          f"{SERVE_STEPS} steps); device time {dev:.3f} ms a step, B9 "
+          f"{b9:.3f} (profiler, {steps} steps); launches {counts}",
+          flush=True)
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--decode-wall"]:
+        if len(sys.argv) > 2:
+            sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        decode_wall()
+        return 0
     from repro_torch.accel import kernels as K
 
     smi = subprocess.run(
@@ -2571,9 +2814,14 @@ def main() -> int:
     gc.collect()    # the earlier models' last references
     torch.cuda.empty_cache()
     rows.update(ssd_kernel_phase())
-    launches["ssd"] = ssm_serve_path()["ssd"]
+    ssm_launches = ssm_serve_path()
+    launches["ssd"] = ssm_launches["ssd"]
     for name, row in rows.items():
         row["launches"] = launches[name]
+    # the main paths' launches of B9's combine and B10's sub-kernels
+    rows["decode"]["combine_launches"] = serve_launches["decode_combine"]
+    rows["ssd"].update((f"{k}_launches", ssm_launches[k])
+                       for k in K.SSD_TC_KEYS[1:])
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

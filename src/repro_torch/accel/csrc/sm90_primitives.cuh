@@ -1,12 +1,15 @@
-// The Hopper primitives shared by the flash-attention kernels written for
-// sm_90a: B6's forward body (flash_attention_sm90.cuh) and B7/B8's
-// backward bodies (flash_attention_bwd_sm90.cuh). Shared-memory addresses
+// The Hopper primitives shared by the kernels written for sm_90a: B6's
+// forward body (flash_attention_sm90.cuh), B7/B8's backward bodies
+// (flash_attention_bwd_sm90.cuh) and B10's Hopper body (ssd_sm90.cuh).
+// Shared-memory addresses
 // and mbarriers; TMA tile loads (cp.async.bulk.tensor) through rank-4
 // tensor maps (d, heads, s, b) with the 128-byte swizzle, encoded by
 // cuTensorMapEncodeTiled from the loaded driver library; wgmma
 // shared-memory descriptors for that swizzle, the wgmma fences and the
 // products the kernels run (m64n128k16 and m64n64k16 with both operands
-// in shared memory, m64n64k16 with A in registers and B MN-major); bf16
+// in shared memory, K-major or both MN-major, m64n64k16 with A in
+// registers and B MN-major); the proxy fence that orders the threads'
+// own shared-memory stores before the products read them; bf16
 // packing of an accumulator into an A fragment. The operand lists are
 // written out with compile-time register indices.
 #pragma once
@@ -156,6 +159,35 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64 f32, registers) (+)= A (64 x 16, shared) . B (16 x 64, shared),
+// both MN-major (the two 16-bit transpose bits set): A's 64 rows and B's 64
+// columns are each one swizzled 128-byte row, the 16 steps of the depth 16
+// rows of 128 B (descriptors as for B7's V operand).
+__device__ __forceinline__ void wgmma_ss_n64_mn(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The threads' generic-proxy stores to shared memory, ordered before later
+// async-proxy accesses (wgmma operand reads, TMA writes) of it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // D (64 x 64 f32, registers) += A (64 x 16 bf16, registers) . B (16 x 64,

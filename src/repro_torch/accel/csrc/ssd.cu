@@ -12,18 +12,25 @@
 // (b, h, p, n) float32, as the reference's wrapper transposes it
 // (ssd.py:130-132).
 //
-// What bounds it on an H100: the bytes. At the serving shape (b 4, s
-// 2,048, 80 heads of 64, one group, d_state 128, chunk 256; x, B, C bf16)
-// it must read x, dt, B, C and write y and the state, about 185 MB, 0.055
-// ms at 3.35 TB/s; its causal-pair arithmetic, about 32.5 GFLOP with C.B^T
-// counted once per group, is 0.033 ms at the bf16 tensor-core rate.
+// Two bodies. bf16 inputs with head_dim and d_state each 64 or 128 and
+// chunks of 64 to 256 rows in steps of 64 (Mamba2-2.7B's layer among
+// them) run the Hopper body of ssd_sm90.cuh through ssd_fwd_tc: three
+// kernels, every product on wgmma (its header says what bounds it and
+// how). float32 inputs and the other shapes run
+// the SIMT body below through ssd_fwd; ssd_tc says which.
 //
-// Design (simple and right first; f32 FMAs, no tensor cores). The TPU
+// SIMT body (f32 FMAs on the CUDA cores, whose 67 TFLOP/s bound it; C.B^T
+// is recomputed for every head of a group). The TPU
 // kernel carries the state in VMEM scratch across a sequential grid axis;
 // here one block of 256 threads per (batch, head) loops over the chunks in
 // order and keeps the (p x n) state in shared memory. Per chunk: dt is
-// staged and one thread takes the inclusive cumsum of dt * A in row order
-// (torch.cumsum's order); the chunk is cut into sub-tiles of R = 64 rows,
+// staged and one thread takes the inclusive cumsum of dt * A in row order,
+// each product and sum rounded on its own (no fused multiply-add), as the
+// plain version and the Hopper body take it: within a 256-row chunk a_cs
+// reaches hundreds, and exp(a_cs[l] - a_cs[s]) turns a last-bit
+// difference there into a relative error of about 1e-4 in y (a fused
+// cumsum put y 4.3e-4 from the plain version's at s = 2,048 on an H100:
+// PERF.md); the chunk is cut into sub-tiles of R = 64 rows,
 // since a 256-row chunk of B and C in float32 (128 KB each at n = 128)
 // does not fit shared memory whole. For each row tile l: C_l is staged,
 // the carried-state term computed, then for each column tile s <= l the
@@ -38,13 +45,14 @@
 // Ragged chunks: a chunk past the sequence's end is shorter; rows past s
 // load as zeros (dt = 0: the oracle's padding, the identity) and are never
 // written. Shared memory at p 64, n 128, Q 256: about 134 KB, one block
-// per SM; b * h = 320 blocks on 132 SMs. wgmma, TMA and a chunk-parallel
-// state pass are later work (ROADMAP).
+// per SM; b * h = 320 blocks on 132 SMs.
 // expf, not the fast intrinsic; built without -use_fast_math.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "ssd_sm90.cuh"   // the Hopper body
 
 namespace {
 
@@ -131,7 +139,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     if (tid == 0) {
       float run = 0.f;
       for (int i = 0; i < Q; ++i) {
-        run += sDt[i] * a_h;
+        run = __fadd_rn(run, __fmul_rn(sDt[i], a_h));
         sAcs[i] = run;
       }
     }
@@ -334,6 +342,15 @@ int dispatch(int p, int n, const void* x, const void* dt, const void* A,
 extern "C" {
 
 int ssd_tile_rows() { return R; }
+int ssd_tc_tile() { return ssd90::TQ; }
+int ssd_tc_max_chunk() { return ssd90::MAXQ; }
+
+// 1 where the Hopper body takes the inputs (ssd_fwd_tc), 0 where the SIMT
+// body does (ssd_fwd): bf16 with p, n in {64, 128} and Q a multiple of
+// 64 up to 256.
+int ssd_tc(int is_bf16, int p, int n, int Q) {
+  return ssd90::takes(is_bf16, p, n, Q);
+}
 
 // Shared memory (bytes) of one block at head_dim p, d_state n, chunk Q.
 size_t ssd_smem(int p, int n, int Q) {
@@ -354,6 +371,25 @@ int ssd_fwd(const void* x, const void* dt, const void* A, const void* B,
                                    H, G, Q, st);
   return dispatch<float>(p, n, x, dt, A, B, C, D, y, state, b, S, H, G, Q,
                          st);
+}
+
+// The Hopper body: x (b, S, H, p), B, C (b, S, G, n) contiguous bf16 with
+// 16-byte-aligned bases; dt (b, S, H), A, D (H,) float32; y in x's type,
+// state (b, H, p, n) float32. Scratch, with nc = ceil(S / Q) chunks:
+// a_cs, dtp and wts (b, H, nc, Q) float32, cb (b, nc, G, t (t + 1) / 2,
+// 4096) float32 with t = Q / 64, st_in (b, nc, H, 2, p, n) bf16. Launches
+// the three kernels in order. Returns a cudaError_t, or 10000 + a driver
+// error of the tensor maps.
+int ssd_fwd_tc(const void* x, const void* dt, const void* A, const void* B,
+               const void* C, const void* D, void* y, void* state,
+               void* a_cs, void* dtp, void* wts, void* cb, void* st_in,
+               int b, int S, int H, int G, int p, int n, int Q,
+               void* stream) {
+  if (!ssd90::takes(1, p, n, Q) || G < 1 || H % G != 0 || b < 1 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  return ssd90::dispatch(p, n, x, dt, A, B, C, D, y, state, a_cs, dtp, wts,
+                         cb, st_in, b, S, H, G, Q,
+                         static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -23,7 +23,13 @@ B6's TMA and wgmma primitives in ``csrc/sm90_primitives.cuh``), the rest
 the SIMT bodies; :func:`flash_bwd_tc` says which. With a GQA group above
 1, B7's Hopper body writes f32 partials per query head and a second
 kernel of the same library, ``flash_dkv_group_sum``, adds each KV head's
-partials in head order.
+partials in head order. B9 is split-KV for every dtype and head_dim: a
+block per ``DECODE_SPLIT`` keys of a (KV head, sequence) writes float32
+partials, and a combine kernel of the same library adds the live splits
+in split order. B10 has two bodies: bf16 with head_dim and d_state 64
+or 128 and a chunk of 64 to 256 rows in steps of 64 take the Hopper body
+(``csrc/ssd_sm90.cuh``: three kernels on wgmma), the rest the SIMT body;
+:func:`ssd_tc` says which.
 Nothing is compiled or loaded at import: CPU-only hosts import this
 module freely.
 
@@ -37,6 +43,9 @@ store that a thread switch can split. Every B6 launch counts as
 ``flash_fwd``, and a launch of its Hopper body also as ``flash_fwd_tc``;
 B7 and B8 in the same way (``flash_dkv``/``flash_dkv_tc``,
 ``flash_dq``/``flash_dq_tc``), the group sum as ``flash_dkv_group_sum``.
+A B9 call counts ``decode`` and ``decode_combine``; a B10 call ``ssd``,
+and on the Hopper body also ``ssd_tc`` and its kernels' ``ssd_prep``,
+``ssd_state``, ``ssd_out``.
 B1, B3 and B4
 take an optional leading scenario axis: (cap,) row columns are one tick's
 launch (counted as ``spatial``/``late``/``reap``), (N, cap) columns are
@@ -91,12 +100,26 @@ FLASH_BWD_BLOCK_Q = 64
 FLASH_BWD_BLOCK_K = 64
 FLASH_BWD_TC_BLOCK_Q = 64
 FLASH_BWD_TC_BLOCK_K = 64
-DECODE_BLOCK_K = 64
-DECODE_MAX_GROUP = 64
 HEAD_DIMS = (16, 32, 64, 128)
-# B10's row sub-tile, and the head sizes and state sizes it takes.
+# B9's split-KV body: a block per DECODE_SPLIT keys of one (KV head,
+# sequence), streamed in tiles of DECODE_BLOCK_K keys through a ring of
+# DECODE_STAGES tiles; it takes every dtype and head_dim above.
+DECODE_BLOCK_K = 32
+DECODE_SPLIT = 128
+DECODE_STAGES = 3
+DECODE_MAX_GROUP = 64
+# B10's SIMT body's row sub-tile, and the head sizes and state sizes it
+# takes; its Hopper body takes bf16 at head_dim and d_state in
+# SSD_TC_DIMS with chunks that are a multiple of SSD_TC_TILE up to
+# SSD_TC_MAX_CHUNK rows.
 SSD_TILE_ROWS = 64
 SSD_DIMS = (16, 32, 64, 128)
+SSD_TC_DIMS = (64, 128)
+SSD_TC_TILE = 64
+SSD_TC_MAX_CHUNK = 256
+# What one call on B10's Hopper body counts: the call, the body, and each
+# of its three kernels.
+SSD_TC_KEYS = ("ssd", "ssd_tc", "ssd_prep", "ssd_state", "ssd_out")
 
 # Launches per kernel since the last reset_launches(): the proof that a
 # run went through the kernels.
@@ -107,7 +130,9 @@ launches: Dict[str, int] = {"spatial": 0, "temporal": 0, "late": 0,
                             "flash_dkv": 0, "flash_dkv_tc": 0,
                             "flash_dkv_group_sum": 0, "flash_dq": 0,
                             "flash_dq_tc": 0,
-                            "decode": 0, "ssd": 0}
+                            "decode": 0, "decode_combine": 0,
+                            "ssd": 0, "ssd_tc": 0, "ssd_prep": 0,
+                            "ssd_state": 0, "ssd_out": 0}
 _launch_lock = threading.Lock()
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -140,6 +165,34 @@ def flash_bwd_tiles(dtype: torch.dtype, d: int) -> Tuple[int, int]:
     if flash_bwd_tc(dtype, d):
         return FLASH_BWD_TC_BLOCK_Q, FLASH_BWD_TC_BLOCK_K
     return FLASH_BWD_BLOCK_Q, FLASH_BWD_BLOCK_K
+
+
+def decode_splits(S: int) -> int:
+    """Splits of a cache of S slots: B9's grid, sized from the capacity
+    alone (the valid lengths stay on the card)."""
+    return -(-S // DECODE_SPLIT)
+
+
+def ssd_tc(dtype: torch.dtype, p: int, n: int, chunk: int) -> bool:
+    """True where B10's Hopper body takes the inputs: bf16 with head_dim
+    and d_state each 64 or 128 and a chunk (:func:`ssd_chunk`) that is a
+    multiple of 64 up to 256 rows. The SIMT body takes the rest."""
+    return (dtype == torch.bfloat16 and p in SSD_TC_DIMS
+            and n in SSD_TC_DIMS and chunk % SSD_TC_TILE == 0
+            and SSD_TC_TILE <= chunk <= SSD_TC_MAX_CHUNK)
+
+
+def ssd_chunk(dtype: torch.dtype, p: int, n: int, s: int,
+              chunk: int) -> int:
+    """The chunk B10 runs s rows in: ``min(chunk, s)``, except that a
+    sequence of one chunk (s <= chunk) runs as one chunk of s rounded up
+    to the Hopper body's 64-row tile where that lets the body take it.
+    Rows past s are zero (dt = 0, the identity), so it is the same scan."""
+    if s <= chunk:
+        rows = -(-s // SSD_TC_TILE) * SSD_TC_TILE
+        if ssd_tc(dtype, p, n, rows):
+            return rows
+    return min(chunk, s)
 
 
 def count_launch(key: str) -> None:
@@ -236,16 +289,22 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                  (lib.flash_bwd_tc_block_q, FLASH_BWD_TC_BLOCK_Q),
                  (lib.flash_bwd_tc_block_k, FLASH_BWD_TC_BLOCK_K)]
     elif name == "decode":
-        lib.decode_attn.argtypes = [P] * 5 + [I] * 5 + [F, I, P]
+        lib.decode_attn.argtypes = [P] * 8 + [I] * 5 + [F, I, P]
         fns = (lib.decode_attn,)
         tiles = [(lib.decode_block_k, DECODE_BLOCK_K),
+                 (lib.decode_split, DECODE_SPLIT),
+                 (lib.decode_stages, DECODE_STAGES),
                  (lib.decode_max_group, DECODE_MAX_GROUP)]
     else:
         lib.ssd_fwd.argtypes = [P] * 8 + [I] * 8 + [P]
+        lib.ssd_fwd_tc.argtypes = [P] * 13 + [I] * 7 + [P]
         lib.ssd_smem.argtypes = [I, I, I]
         lib.ssd_smem.restype = ctypes.c_size_t
-        fns = (lib.ssd_fwd,)
-        tiles = [(lib.ssd_tile_rows, SSD_TILE_ROWS)]
+        lib.ssd_tc.argtypes = [I] * 4
+        fns = (lib.ssd_fwd, lib.ssd_fwd_tc, lib.ssd_tc)
+        tiles = [(lib.ssd_tile_rows, SSD_TILE_ROWS),
+                 (lib.ssd_tc_tile, SSD_TC_TILE),
+                 (lib.ssd_tc_max_chunk, SSD_TC_MAX_CHUNK)]
     for fn in fns:
         fn.restype = ctypes.c_int
     for fn, want in tiles:
@@ -258,6 +317,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name in bodies:
         fn_name, wrappers = bodies[name]
         check_bodies(name, getattr(lib, fn_name), wrappers)
+    elif name == "ssd":
+        check_ssd_bodies(lib.ssd_tc)
 
 
 def check_bodies(name: str, library_fn, wrappers_fn) -> None:
@@ -269,6 +330,27 @@ def check_bodies(name: str, library_fn, wrappers_fn) -> None:
             if bool(library_fn(is_bf16, d)) != wrappers_fn(dtype, d):
                 raise RuntimeError(f"{name}: the library's body for {dtype}, "
                                    f"head_dim {d} is not the wrappers'")
+
+
+# Chunks at which B10's body choice is checked: both sides of its edges.
+SSD_CHECK_CHUNKS = (16, 32, 63, 64, 100, 128, 192, 255, 256, 320, 512)
+
+
+def check_ssd_bodies(library_fn) -> None:
+    """Raise unless B10's library picks the Hopper body
+    (``library_fn(is_bf16, p, n, chunk)``) exactly where :func:`ssd_tc`
+    does, for every dtype, head_dim and d_state it takes and chunks on
+    both sides of the body's edges."""
+    for dtype, is_bf16 in _ATTN_DTYPES.items():
+        for p in SSD_DIMS:
+            for n in SSD_DIMS:
+                for q in SSD_CHECK_CHUNKS:
+                    if bool(library_fn(is_bf16, p, n, q)) != ssd_tc(
+                            dtype, p, n, q):
+                        raise RuntimeError(
+                            f"ssd: the library's body for {dtype}, head_dim "
+                            f"{p}, d_state {n}, chunk {q} is not the "
+                            f"wrappers'")
 
 
 def library(name: str = "assess") -> ctypes.CDLL:
@@ -509,7 +591,9 @@ def launch_flash_fwd(q, k, v, causal: bool, window: int,
 def launch_decode(q, k, v, valid, scale: float) -> torch.Tensor:
     """B9: (b, hq, d) attention of one query token per sequence over the
     first ``valid[b]`` slots of a (b, S, hkv, d) cache; NaN rows where
-    ``valid[b] <= 0``."""
+    ``valid[b] <= 0``. Two launches: the split kernel (counted as
+    ``decode``) writes float32 partials per query head and split, the
+    combine (``decode_combine``) adds the live splits in split order."""
     dev = q.device
     b, hq, d = q.shape
     S, hkv = k.shape[1], k.shape[2]
@@ -518,18 +602,28 @@ def launch_decode(q, k, v, valid, scale: float) -> torch.Tensor:
     _check(k, "k", q.dtype, (b, S, hkv, d), dev)
     _check(v, "v", q.dtype, (b, S, hkv, d), dev)
     _check(valid, "valid", torch.int32, (b,), dev)
-    if d not in HEAD_DIMS or hq % hkv or hq // hkv > DECODE_MAX_GROUP:
+    if d not in HEAD_DIMS or hq % hkv or hq // hkv > DECODE_MAX_GROUP \
+            or min(b, S) < 1:
         raise ValueError(f"decode: head_dim {d} (one of {HEAD_DIMS}), "
                          f"heads {hq}/{hkv} (group at most "
-                         f"{DECODE_MAX_GROUP})")
+                         f"{DECODE_MAX_GROUP}), b {b}, S {S}")
     _aligned("decode", k=k, v=v)
     lib = library("decode")
+    splits = decode_splits(S)
     out = torch.empty_like(q)
+    # the partials, one allocation: acc (b, hq, splits, d), m and l (b, hq,
+    # splits)
+    rows = b * hq * splits
+    part = torch.empty(rows * (d + 2), dtype=torch.float32, device=dev)
+    part_acc, part_m, part_l = part.split((rows * d, rows, rows))
     rc = lib.decode_attn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         valid.data_ptr(), out.data_ptr(), b, S, hq, hkv, d,
-                         float(scale), is_bf16, _stream(dev))
+                         valid.data_ptr(), out.data_ptr(),
+                         part_acc.data_ptr(), part_m.data_ptr(),
+                         part_l.data_ptr(), b, S, hq, hkv, d, float(scale),
+                         is_bf16, _stream(dev))
     _raise_on(rc, "decode")
     count_launch("decode")
+    count_launch("decode_combine")
     return out
 
 
@@ -639,7 +733,11 @@ def launch_ssd(x, dt, A, B, C, D, chunk: int, *,
     ``chunk`` rows (the last one ragged), head h on group ``h // (h //
     g)``. x, B and C share one of bfloat16 or float32; dt, A and D are
     float32. The state is written into ``out_state`` when one is given
-    (a contiguous float32 (b, h, p, n) tensor, e.g. a cache's slice)."""
+    (a contiguous float32 (b, h, p, n) tensor, e.g. a cache's slice).
+    Inputs that :func:`ssd_tc` names run the Hopper body: three kernels
+    (counted as ``ssd_prep``, ``ssd_state``, ``ssd_out``) on scratch
+    allocated here; the call counts as ``ssd`` and ``ssd_tc``. The rest
+    run the SIMT body (``ssd``)."""
     dev = x.device
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -663,15 +761,37 @@ def launch_ssd(x, dt, A, B, C, D, chunk: int, *,
                                 device=dev)
     _check(out_state, "out_state", torch.float32, (b, h, p, n), dev)
     lib = library("ssd")
-    smem = lib.ssd_smem(p, n, chunk)
-    if smem > MAX_SMEM:
-        raise ValueError(f"ssd: chunk {chunk} needs {smem} B of shared "
-                         f"memory, above the {MAX_SMEM} B a block may use")
     y = torch.empty_like(x)
-    rc = lib.ssd_fwd(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-                     B.data_ptr(), C.data_ptr(), D.data_ptr(), y.data_ptr(),
-                     out_state.data_ptr(), b, s, h, g, p, n, int(chunk),
-                     _ATTN_DTYPES[x.dtype], _stream(dev))
+    args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), D.data_ptr(), y.data_ptr(), out_state.data_ptr())
+    if not ssd_tc(x.dtype, p, n, chunk):
+        smem = lib.ssd_smem(p, n, chunk)
+        if smem > MAX_SMEM:
+            raise ValueError(f"ssd: chunk {chunk} needs {smem} B of shared "
+                             f"memory, above the {MAX_SMEM} B a block may "
+                             f"use")
+        rc = lib.ssd_fwd(*args, b, s, h, g, p, n, int(chunk),
+                         _ATTN_DTYPES[x.dtype], _stream(dev))
+        _raise_on(rc, "ssd")
+        count_launch("ssd")
+        return y, out_state
+    # the Hopper body's tensor maps take 16-byte-aligned bases
+    _aligned("ssd", x=x, B=B, C=C)
+    nc = -(-s // chunk)
+    tiles = chunk // SSD_TC_TILE
+    f32 = dict(dtype=torch.float32, device=dev)
+    a_cs = torch.empty((b, h, nc, chunk), **f32)
+    dtp = torch.empty_like(a_cs)
+    wts = torch.empty_like(a_cs)
+    cb = torch.empty((b, nc, g, tiles * (tiles + 1) // 2,
+                      SSD_TC_TILE * SSD_TC_TILE), **f32)
+    # the state entering each chunk as a bf16 pair (hi, lo)
+    st_in = torch.empty((b, nc, h, 2, p, n), dtype=torch.bfloat16,
+                        device=dev)
+    rc = lib.ssd_fwd_tc(*args, a_cs.data_ptr(), dtp.data_ptr(),
+                        wts.data_ptr(), cb.data_ptr(), st_in.data_ptr(), b,
+                        s, h, g, p, n, int(chunk), _stream(dev))
     _raise_on(rc, "ssd")
-    count_launch("ssd")
+    for key in SSD_TC_KEYS:
+        count_launch(key)
     return y, out_state
