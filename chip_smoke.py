@@ -23,16 +23,23 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 2. Kernel phase: each of B1–B5 on the card against its plain
    torch version on CPU copies of the same inputs, exactly (NaN equal to
    NaN) — first on :func:`adversarial_inputs` (summation-order, tie and
-   padding boundary cases), then on a mid-run snapshot of the main-path
-   scenario, where kernel and plain version are also timed on the card
-   with CUDA events.
+   padding boundary cases), then B3 and B4 on :func:`boundary_inputs`
+   (task segments across B4's tile edges and over a whole tile, jobs
+   interleaved, a job of two candidates, equal ρ, q of 0 and 100, empty
+   job slots, a job above B3's shared-memory candidates, ±0.0), each
+   launched twice with the same bits and each as 64 scenarios in one
+   call equal to 64 single calls; then on a mid-run snapshot of the
+   main-path scenario, where kernel and plain version are also timed on
+   the card: by CUDA events, by device time (``_device_ms``) and by the
+   host's time to enqueue a call (``host_us``).
 3. Main path: the 1,000-node, 20-job scenario under
    ``policy="bino"`` and ``policy="yarn"``, each once with the default
    backend (torch on the card) and once with ``assess_backend="numpy"``.
    Action traces, attempt launches and job results must be
    byte-identical, and every kernel must have launched during the card
-   runs; B3 must have been reached through both ``late_victims`` (yarn)
-   and ``winning`` (bino).
+   runs (B3's job pass, ``late_jobs``, once for each of its row passes);
+   B3 must have been reached through both ``late_victims`` (yarn) and
+   ``winning`` (bino).
 4. Fair path: the same jobs on the ε-fair network with 40
    racks, the kernel shuffle engine and drain-boundary re-pricing, plus a
    rack switch degrade — bino with assessment and the bulk solver on the
@@ -41,10 +48,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    version on every pricing call of the card run and timed.
 5. Sweep path: the fair card run's snapshot at 120 s, 64 fault
    scenarios of all five kinds; ``BatchedSweep.run_batched`` on the card
-   (one launch each of B1, B3 and B4 with a scenario axis) equals
+   (one call each of B1, B3 and B4 with a scenario axis) equals
    ``run_serial`` on numpy exactly. The batched kernels are then held
    against their plain versions and against 64 per-scenario launches,
-   and timed.
+   and timed as in phase 2.
 6. Profile: the flat bino card run once more under
    ``torch.profiler`` — device time by kernel and the device's busy share
    of the run's wall time.
@@ -155,6 +162,13 @@ training and serving checks, launch outside those windows.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
+
+Three modes time one part against another checkout, so that two versions
+compare in one call on one card: ``--decode-wall [SRC]`` (the Qwen3-8B
+decode), ``--sim-wall [SRC]`` (the flat main path's ticks/s and the
+device's busy share) through the port under SRC, and ``--assess-parent
+PATH`` (B3 and B4 of an earlier ``assess.cu`` at PATH against this
+checkout's, in turns, at the main path's snapshot).
 """
 from __future__ import annotations
 
@@ -446,6 +460,114 @@ def adversarial_inputs(seed: int, device, cap: int = 4096, n: int = 256,
             "reap": reap, "price": price_inputs(rng, n, device)}
 
 
+# B3's and B4's boundary cases (boundary_inputs); each also runs as 64
+# scenarios (seeds 0 to 63) through one batched launch.
+BOUNDARY_CASES = ("tile_edge", "whole_tile", "interleaved", "m2",
+                  "equal_rho", "q0", "q100", "empty_slots", "many_cands",
+                  "signed_zero")
+BOUNDARY_CAP = 4096
+
+
+def _runs(rng, cap: int, sizes=(1, 4), forced=()) -> np.ndarray:
+    """Task-segment ids of ``cap`` canonical rows: runs of random length
+    in ``[sizes)``, except that each (a, b) in ``forced`` is one run."""
+    starts = set(np.cumsum(rng.integers(*sizes, cap))[:-1].tolist()) | {0}
+    for a, b in forced:
+        starts -= set(range(a + 1, b))
+        starts |= {a, b}
+    starts = np.array(sorted(x for x in starts if x < cap))
+    return (np.searchsorted(starts, np.arange(cap), side="right") - 1)
+
+
+def boundary_inputs(case: str, seed: int, device, now: float = 100.0):
+    """B3's and B4's arguments for one of :data:`BOUNDARY_CASES`, random
+    parts drawn from ``seed`` as in :func:`adversarial_inputs`:
+
+    - tile_edge: task segments straddling B4's 1,024-row tile edges, the
+      completed attempt on one side and running siblings on the other,
+      and one with no completed attempt;
+    - whole_tile: segments that cover a whole tile, their completed
+      attempt in the tile before or after;
+    - interleaved: every segment's job differs from its neighbour's;
+    - m2: a job with exactly two candidate tasks;
+    - equal_rho: every candidate's ρ one of two values (ties throughout);
+    - q0, q100: the percentile at its ends;
+    - empty_slots: jobs in 3 of 32 slots;
+    - many_cands: a job with 3,000 candidate tasks, above the
+      candidates B3 keeps in shared memory;
+    - signed_zero: progress of -0.0 and +0.0 (ρ of both signs)."""
+    rng = np.random.default_rng(seed)
+    i32 = np.int32
+    cap, jcap, q = BOUNDARY_CAP, 8, 25.0
+    forced = []
+    if case == "tile_edge":
+        forced = [(1020, 1030), (2040, 2050), (3070, 3080)]
+    elif case == "whole_tile":
+        forced = [(1000, 2060), (3000, cap)]
+    tseg = _runs(rng, cap, (1, 2) if case == "many_cands" else (1, 4),
+                 forced)
+    nseg = int(tseg[-1]) + 1
+    jcap = {"empty_slots": 32, "many_cands": 4}.get(case, jcap)
+    seg_job = rng.integers(0, jcap, nseg)
+    prog_set = [0.0, 0.1, 0.25, 0.5, 0.75, 1.0]
+    start_set = [0.0, 20.0, 50.0, 85.0, 95.0]
+    if case == "interleaved":
+        seg_job = np.arange(nseg) % jcap
+    elif case == "m2":
+        seg_job = np.where(seg_job == 3, 4, seg_job)
+        seg_job[rng.choice(nseg, 2, replace=False)] = 3
+    elif case == "equal_rho":
+        prog_set, start_set, q = [0.25, 0.5], [0.0], 60.0
+    elif case in ("q0", "q100"):
+        q = 0.0 if case == "q0" else 100.0
+    elif case == "empty_slots":
+        seg_job = rng.choice([0, 5, 31], nseg)
+    elif case == "many_cands":
+        seg_job[:3000] = 1
+    elif case == "signed_zero":
+        prog_set, q = [-0.0, 0.0, 0.25, 0.5, 0.75], 50.0
+    jls = seg_job[tseg].astype(i32)
+    prog = rng.choice(prog_set, cap)
+    start = rng.choice(start_set, cap)
+    spec = (rng.random(cap) < 0.25).astype(i32)
+    running = (rng.random(cap) < 0.7).astype(i32)
+    if case == "m2":                  # both of job 3's tasks are candidates
+        rows = jls == 3
+        running[rows], spec[rows], start[rows] = 1, 0, 0.0
+    if case == "many_cands":
+        rows = jls == 1
+        running[rows], spec[rows] = 1, 0
+        start[rows] = rng.choice([0.0, 20.0, 50.0], int(rows.sum()))
+    runatt = np.maximum(running, rng.random(cap) < 0.1).astype(i32)
+    rate = prog / np.maximum(now - start, 1e-9)
+    order = rng.permutation(cap).astype(i32)
+    a_state = rng.choice(4, cap, p=[0.5, 0.3, 0.1, 0.1]).astype(i32)
+    live = (rng.random(cap) < 0.6).astype(i32)
+    for a, b in forced:               # one completed attempt per segment
+        a_state[a:b], live[a:b] = 0, 1
+    if case == "tile_edge":
+        a_state[1021] = a_state[2049] = 1
+    elif case == "whole_tile":
+        a_state[2059] = a_state[3000] = 1
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    tseg = tseg.astype(i32)
+    return {"late": (t(prog), t(start), t(rate), t(spec), t(tseg), t(jls),
+                     t(running), t(runatt), t(order), now, 10.0, q, 1.0,
+                     jcap),
+            "reap": (t(a_state), t(tseg), t(live))}
+
+
+def stack_scenarios(name: str, cases) -> tuple:
+    """One batched argument tuple from per-scenario tuples of kernel
+    ``name`` that share their non-row arguments."""
+    k = ROW_ARGS[name]
+    return (tuple(torch.stack([c[i] for c in cases]) for i in range(k))
+            + tuple(cases[0][k:]))
+
+
 def price_inputs(rng, n: int, device, racks: int = 8):
     """B5's arguments padded as ``TorchBulk.price`` pads them, with
     ``k`` just above a power of two: shares from a small set with ties
@@ -524,6 +646,13 @@ def _device_ms(fn, args, reps: int = REPS) -> float:
     between a call's kernels count. Not the profiler's kernel sum: on an
     H100 it dropped 1 to 7 of 50 launches' records (or every launch of
     one of a call's two kernels) at every shape timed here."""
+    return _device_host(fn, args, reps)[0]
+
+
+def _device_host(fn, args, reps: int = REPS):
+    """(:func:`_device_ms`, the host's time in microseconds to enqueue
+    one call: the host clock around ``reps`` calls that do not wait for
+    the device, before the device time is taken)."""
     for _ in range(WARMUP):
         fn(*args)
     torch.cuda.synchronize()
@@ -541,7 +670,7 @@ def _device_ms(fn, args, reps: int = REPS) -> float:
         fn(*args)
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return t0.elapsed_time(t1) / reps, host_s / reps * 1e6
 
 
 def _nbytes(x) -> int:
@@ -578,16 +707,13 @@ def _ops(name, args) -> float:
         alive, jcap, n = args[4], args[5], args[6]
         return 3 * float(alive.sum()) + jcap * n
     if name == "late":
-        # per row: a max and two rate maxima; per job: the rank count over
-        # its m candidate tasks (2 m^2 comparisons), m taken from the tasks
-        # with running attempts, an upper bound of the candidates.
-        tseg, jls, running = args[4], args[5], args[6]
-        cap = tseg.shape[0]
-        run = running.bool()
-        key = jls.long()[run] * cap + tseg.long()[run]
-        segs = torch.unique(key)
-        m = torch.bincount(segs // cap)
-        return 4.0 * cap + 2 * float((m.double() ** 2).sum())
+        # per row: a max and two rate maxima; per job: an exact selection
+        # of two order statistics and the victim's maximum, about 10
+        # comparisons per candidate task (m, taken from the tasks with
+        # running attempts, an upper bound of the candidates)
+        tseg, running = args[4], args[6]
+        m = torch.unique(tseg.long()[running.bool()]).numel()
+        return 4.0 * tseg.shape[0] + 10.0 * m
     return 2.0 * args[0].shape[0]
 
 
@@ -624,6 +750,7 @@ def kernel_phase(cap_state):
     torch.cuda.synchronize()
     print(f"adversarial inputs: all kernels equal to their plain versions "
           f"({ADVERSARIAL_SEEDS} seeds)", flush=True)
+    boundary_phase()
 
     dev_in = kernel_inputs(cap_state, "cuda")
     cpu_in = kernel_inputs(cap_state, "cpu")
@@ -646,23 +773,68 @@ def kernel_phase(cap_state):
     return rows
 
 
+def boundary_phase():
+    """B3 and B4 on each of :data:`BOUNDARY_CASES`: launched twice with
+    the same bits, equal to the plain version, and as 64 scenarios in one
+    call, equal to 64 single calls and to the plain version."""
+    from repro_torch.accel import torch_backend as TB
+
+    fns = {"late": (TB.late, TB.late_ref), "reap": (TB.reap, TB.reap_ref)}
+    for case in BOUNDARY_CASES:
+        for name, (wrapper, plain) in fns.items():
+            dev = boundary_inputs(case, 0, "cuda")[name]
+            got = wrapper(*dev)
+            if not _compare(got, wrapper(*dev))[0]:
+                raise RuntimeError(f"{name} {case}: two launches differ")
+            want = plain(*boundary_inputs(case, 0, "cpu")[name])
+            equal, err = _compare(got, want)
+            if not equal:
+                raise RuntimeError(f"{name} {case}: kernel != plain version "
+                                   f"(max_abs_err {err})")
+            dev64 = stack_scenarios(name, [
+                boundary_inputs(case, s, "cuda")[name]
+                for s in range(N_SCENARIOS)])
+            batched = wrapper(*dev64)
+            singles = [wrapper(*one_scenario(name, dev64, s))
+                       for s in range(N_SCENARIOS)]
+            singles = (tuple(torch.stack(x) for x in zip(*singles))
+                       if isinstance(batched, tuple) else torch.stack(singles))
+            if not _compare(batched, singles)[0]:
+                raise RuntimeError(f"{name} {case}: batched launch != "
+                                   f"{N_SCENARIOS} single launches")
+            cpu64 = stack_scenarios(name, [
+                boundary_inputs(case, s, "cpu")[name]
+                for s in range(N_SCENARIOS)])
+            equal, err = _compare(batched, plain(*cpu64))
+            if not equal:
+                raise RuntimeError(f"{name} {case}: batched kernel != plain "
+                                   f"version (max_abs_err {err})")
+    torch.cuda.synchronize()
+    print(f"boundary cases: B3 and B4 equal to their plain versions, twice "
+          f"with the same bits, and as {N_SCENARIOS} scenarios in one call "
+          f"({', '.join(BOUNDARY_CASES)})", flush=True)
+
+
 def timed_row(name, wrapper, plain, args, got, err, source, replaces):
     """The kernel's line of the ``{"kernels": ...}`` record: kernel and
     plain version timed on the card on ``args``, and the bound for
     them (bytes of the inputs read once and the outputs written once
     over the memory rate, or operations over the float64 rate)."""
     ms = _time_ms(wrapper, args)
+    device_ms, host_us = _device_host(wrapper, args)
     plain_ms = _time_ms(plain, args)
     bytes_ = sum(_nbytes(a) for a in args) + _nbytes(got)
     ops = _ops(name, args)
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP64_OPS_PER_S * 1e3
     print(f"kernel {name}: equal max_abs_err={err} ms={ms:.6f} "
+          f"device_ms={device_ms:.6f} host_us={host_us:.3f} "
           f"plain_ms={plain_ms:.6f} bytes={bytes_}", flush=True)
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": 0,
         "equal": True, "max_abs_err": err, "ms": ms,
+        "device_ms": device_ms, "host_us": host_us,
         "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "bytes": bytes_, "ops": ops,
@@ -686,7 +858,8 @@ def main_path():
             return out
         setattr(TorchBackend, meth, counted)
 
-    total = {name: 0 for name in ("spatial", "temporal", "late", "reap")}
+    total = {name: 0 for name in ("spatial", "temporal", "late",
+                                  "late_jobs", "reap")}
     for policy in ("bino", "yarn"):
         K.reset_launches()
         card, c_launch, c_key, c_wall = scenario(policy, None)
@@ -719,6 +892,9 @@ def main_path():
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: "
                            f"{missing}")
+    if total["late_jobs"] != total["late"]:
+        raise RuntimeError(f"B3: {total['late']} row passes, "
+                           f"{total['late_jobs']} job passes")
     if not (b3_by["late_victims"] > 0 and b3_by["winning"] > 0):
         raise RuntimeError(f"B3 not reached through both callers: {b3_by}")
     print(f"B3 launches by caller: {b3_by}", flush=True)
@@ -832,7 +1008,8 @@ def sweep_path(state, now, device="cuda", n_scen=N_SCENARIOS,
     if len(batched) != len(serial) or len(serial) != n_scen:
         raise RuntimeError("sweep: scenario count differs")
     if device != "cpu":
-        want = {"spatial_sweep": 1, "late_sweep": 1, "reap_sweep": 1}
+        want = {"spatial_sweep": 1, "late_sweep": 1, "late_sweep_jobs": 1,
+                "reap_sweep": 1}
         seen = {k: counts[k] for k in want}
         if seen != want:
             raise RuntimeError(f"sweep: launches {seen}, expected {want}")
@@ -874,7 +1051,8 @@ def batched_kernel_phase(sweep):
     for name, (wrapper, plain) in fns.items():
         args = dev_args[name]
         got = wrapper(*args)
-        equal, err = _compare(got, plain(*cpu_args[name]))
+        want = plain(*cpu_args[name])
+        equal, err = _compare(got, want)
         if not equal:
             raise RuntimeError(f"{name}_sweep: kernel != plain version "
                                f"(max_abs_err {err})")
@@ -2666,16 +2844,17 @@ def ssm_serve_path(cfg=None, device="cuda"):
 
 # Name parts of the kernels whose resources the build phase prints.
 HOPPER_KERNELS = ("sm90", "group_sum", "decode_split", "decode_combine",
-                  "ssd_prep", "ssd_state", "ssd_out")
+                  "ssd_prep", "ssd_state", "ssd_out", "late_", "reap_")
 
 
 def print_resource_usage(libs) -> None:
-    """Registers and stack bytes (spills) of each Hopper kernel, as
-    ``cuobjdump -res-usage`` reads them from the built libraries."""
+    """Registers and stack bytes (spills) of each Hopper kernel and of
+    B3's and B4's, as ``cuobjdump -res-usage`` reads them from the built
+    libraries."""
     from repro_torch.accel import kernels as K
 
     tool = Path(K.nvcc()).with_name("cuobjdump")
-    for name in ("flash", "flash_bwd", "decode", "ssd"):
+    for name in ("assess", "flash", "flash_bwd", "decode", "ssd"):
         try:
             out = subprocess.run([str(tool), "-res-usage", str(libs[name])],
                                  check=True, capture_output=True,
@@ -2764,21 +2943,174 @@ def decode_wall() -> None:
           flush=True)
 
 
+def parent_assess(source: Path):
+    """B3 and B4 of another ``assess.cu``, built with ``nvcc`` into
+    ``build/parent_kernels/``. A source with this checkout's C interface
+    runs through this checkout's wrappers, its library swapped in for the
+    call. One with the interface before it (the wrapper allocated B3's
+    (N, jcap, cap) candidate scratch and B4's flag column on every call;
+    B4 was a memset and two launches) is called as that version's wrappers
+    called it: the same checks, allocations and launch count. Returns
+    (late, reap) taking the wrappers' arguments."""
+    import ctypes
+
+    from repro_torch.accel import kernels as K
+
+    out = ROOT / "build" / "parent_kernels" / "libassess_parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([K.nvcc(), *K.FLAGS["assess"], "-o", str(out),
+                    str(source)], check=True)
+    lib = ctypes.CDLL(str(out))
+    if hasattr(lib, "assess_late_work_bytes"):
+        K._bind("assess", lib)
+
+        def swapped(fn):
+            def run(*args, **kw):
+                own = K._libs["assess"]
+                K._libs["assess"] = lib
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    K._libs["assess"] = own
+            return run
+        return swapped(K.launch_late), swapped(K.launch_reap)
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.assess_late.argtypes = [P] * 9 + [I] * 3 + [D] * 4 + [P] * 6
+    lib.assess_reap.argtypes = [P] * 3 + [I, I, P, P, P]
+    lib.assess_late.restype = lib.assess_reap.restype = ctypes.c_int
+
+    def late(prog, start, rate, spec, tseg, jls, running, runatt, order,
+             now, min_runtime, q, win_factor, jcap):
+        dev = prog.device
+        N, cap, key = K._scenarios(prog, "late")
+        K._cols(dev, tuple(prog.shape),
+                f64=[("prog", prog), ("start", start), ("rate", rate)],
+                i32=[("spec", spec), ("tseg", tseg), ("jls", jls),
+                     ("running", running), ("runatt", runatt),
+                     ("order", order)])
+        K.library()
+        c_rho = torch.empty((N, jcap, cap), dtype=torch.float64, device=dev)
+        c_est = torch.empty((N, jcap, cap), dtype=torch.float64, device=dev)
+        c_pos = torch.empty((N, jcap, cap), dtype=torch.int32, device=dev)
+        out_shape = tuple(prog.shape[:-1]) + (jcap,)
+        victim = torch.empty(out_shape, dtype=torch.int32, device=dev)
+        win = torch.empty(out_shape, dtype=torch.int32, device=dev)
+        rc = lib.assess_late(
+            prog.data_ptr(), start.data_ptr(), rate.data_ptr(),
+            spec.data_ptr(), tseg.data_ptr(), jls.data_ptr(),
+            running.data_ptr(), runatt.data_ptr(), order.data_ptr(), cap,
+            jcap, N, float(now), float(min_runtime), float(q),
+            float(win_factor), c_rho.data_ptr(), c_est.data_ptr(),
+            c_pos.data_ptr(), victim.data_ptr(), win.data_ptr(),
+            K._stream(dev))
+        K._raise_on(rc, "late (parent)")
+        K.count_launch(key)
+        return victim, win
+
+    def reap(a_state, tseg, live):
+        dev = a_state.device
+        N, cap, key = K._scenarios(a_state, "reap")
+        K._cols(dev, tuple(a_state.shape), i32=[
+            ("a_state", a_state), ("tseg", tseg), ("live", live)])
+        K.library()
+        done = torch.empty(a_state.shape, dtype=torch.int32, device=dev)
+        out = torch.empty(a_state.shape, dtype=torch.int32, device=dev)
+        rc = lib.assess_reap(a_state.data_ptr(), tseg.data_ptr(),
+                             live.data_ptr(), cap, N, done.data_ptr(),
+                             out.data_ptr(), K._stream(dev))
+        K._raise_on(rc, "reap (parent)")
+        K.count_launch(key)
+        return out
+
+    return late, reap
+
+
+def assess_parent(source: str) -> None:
+    """B3 and B4 of this checkout against those of an earlier
+    ``assess.cu`` (:func:`parent_assess`) at the main path's snapshot
+    (the kernel phase's inputs), in one process: both equal to the plain
+    version, then timed in turns parent, change, change, parent, each by
+    CUDA events, by device time and by the host's time per call. Run as
+    ``chip_smoke.py --assess-parent PATH`` with PATH the earlier source,
+    e.g. one taken with ``git show <commit>:src/repro_torch/accel/csrc/
+    assess.cu`` into ``build/``."""
+    from repro_torch.accel import kernels as K
+    from repro_torch.accel import torch_backend as TB
+
+    libs = K.build()
+    K.library()
+    print_resource_usage(libs)
+    parent = dict(zip(("late", "reap"), parent_assess(Path(source))))
+    change = {"late": TB.late, "reap": TB.reap}
+    plain = {"late": TB.late_ref, "reap": TB.reap_ref}
+    cap_state = capture_snapshot()
+    dev_in = kernel_inputs(cap_state, "cuda")
+    cpu_in = kernel_inputs(cap_state, "cpu")
+    for name in ("late", "reap"):
+        args = dev_in[name]
+        want = plain[name](*cpu_in[name])
+        for label, fn in (("parent", parent[name]), ("change", change[name])):
+            equal, err = _compare(fn(*args), want)
+            if not equal:
+                raise RuntimeError(f"{name} {label}: kernel != plain version "
+                                   f"(max_abs_err {err})")
+        times = {"parent": [], "change": []}
+        for label in ("parent", "change", "change", "parent"):
+            fn = parent[name] if label == "parent" else change[name]
+            ms = _time_ms(fn, args)
+            device_ms, host_us = _device_host(fn, args)
+            times[label].append({"ms": ms, "device_ms": device_ms,
+                                 "host_us": host_us})
+        print(f"assess parent vs change, {name} at cap "
+              f"{args[0].shape[-1]}: {json.dumps(times)}", flush=True)
+    # B3's two passes apart, by the profiler's kernel times (they split a
+    # call's time between its kernels; they do not time the call)
+    _sub_kernels("late (change)", TB.late, dev_in["late"],
+                 ("late_rows", "late_jobs"))
+
+
+def sim_wall() -> None:
+    """The flat main path alone on the card, through the port whose
+    ``src`` directory comes first on ``sys.path``: bino and yarn (assess
+    ticks, assess_wall, ticks/s, wall), then bino once more under the
+    profiler (device busy share). Run as ``chip_smoke.py --sim-wall
+    [SRC]``, so that two checkouts compare in one call. The kernels are
+    built and loaded first, so that no run's wall holds their build."""
+    from repro_torch.accel import kernels as K
+
+    K.library()
+    torch.zeros(1, device="cuda")
+    for policy in ("bino", "yarn"):
+        sim, _l, _k, wall = scenario(policy, None)
+        torch.cuda.synchronize()
+        print(f"sim wall {sys.path[0]} {policy}: {sim.assess_ticks} ticks, "
+              f"assess_wall {sim.assess_wall:.6f} s, "
+              f"{sim.assess_ticks / sim.assess_wall:.3f} ticks/s, wall "
+              f"{wall:.6f} s", flush=True)
+    profile_bino()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--decode-wall"]:
-        if len(sys.argv) > 2:
-            sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
-        decode_wall()
-        return 0
-    from repro_torch.accel import kernels as K
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
+    modes = {"--decode-wall": decode_wall, "--sim-wall": sim_wall}
+    if sys.argv[1:2] and sys.argv[1] in modes:
+        if len(sys.argv) > 2:
+            sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        print(f"card: {smi}", flush=True)
+        modes[sys.argv[1]]()
+        return 0
+    if sys.argv[1:2] == ["--assess-parent"]:
+        print(f"card: {smi}", flush=True)
+        assess_parent(sys.argv[2])
+        return 0
+    from repro_torch.accel import kernels as K
+
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -2818,7 +3150,10 @@ def main() -> int:
     launches["ssd"] = ssm_launches["ssd"]
     for name, row in rows.items():
         row["launches"] = launches[name]
-    # the main paths' launches of B9's combine and B10's sub-kernels
+    # the main paths' launches of B3's job pass, B9's combine and B10's
+    # sub-kernels
+    rows["late"]["jobs_launches"] = launches["late_jobs"]
+    rows["late_sweep"]["jobs_launches"] = sweep_launches["late_sweep_jobs"]
     rows["decode"]["combine_launches"] = serve_launches["decode_combine"]
     rows["ssd"].update((f"{k}_launches", ssm_launches[k])
                        for k in K.SSD_TC_KEYS[1:])

@@ -19,11 +19,13 @@
 // Scenario axis (B1, B3, B4). The batched sweep stacks N perturbed copies
 // of the padded columns, (N, cap) row-major, and launches each kernel once
 // with gridDim.y = N: block (x, y) works on scenario y, offsetting its row,
-// job, scratch and output pointers by y times their per-scenario extent.
+// job, work-buffer and output pointers by y times their per-scenario
+// extent.
 // The per-tick path is the same launch with N = 1.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError() (0 on success).
+// returns cudaGetLastError() (0 on success). B3 keeps its per-call records
+// in a work buffer that the wrapper allocates once and reuses.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -245,120 +247,403 @@ __global__ void temporal_kernel(const double* __restrict__ prog,
 // from _late_call (:273) for _pallas_late (:306) and _pallas_winning
 // (:312).
 // Bound on the card: ~48 bytes per row read, 8 bytes per job written,
-// under a microsecond of bandwidth; latency bounds it (the launch, the
-// segment walks, the rank count). The rank count is O(m^2) per job in the
-// number m of candidate tasks (a few hundred here). Pad rows arrive as
-// one-row segments, so no thread walks the pad run.
-// Design: one block per job. Task segments are contiguous in canonical
-// order, so the thread that finds a segment's first row walks the segment
-// alone: best running attempt (max zeta, first wins), its start, the
-// has-speculative flag, and the winning test's max original/speculative
-// rates. Candidates go to a per-job list in global scratch (order free).
-// np.percentile's two order statistics are selected exactly by counting
-// ranks (no sort), then interpolated with numpy's _lerp. The victim is the
-// slow candidate of largest estimated remaining time, lowest task on ties.
+// under a microsecond of bandwidth at the simulator's sizes; latency
+// bounds it: the launch, the walk of each task segment, and each job's
+// selection of two order statistics.
+// Design: a row pass and a job pass, two launches on the stream.
+//   Row pass (late_rows_kernel): a block per LATE_ROWS rows, one thread per
+//   row, so each row is read once. Each thread stages its row's columns in
+//   shared memory (coalesced loads). Task segments are contiguous runs of
+//   equal tseg in canonical order (each pad row is a segment of its own),
+//   and the rows of a segment share one job
+//   (tests/test_torch_assess_redesign.py checks both on every prep
+//   output). The thread at a segment's first row walks the segment in the
+//   stage, and on in device memory if it runs past the tile: best running
+//   attempt (max zeta, first row wins ties), its start, the
+//   has-speculative flag, the running-row count and the winning test's
+//   max speculative/original rates. A segment that contributes anything
+//   appends one record (job, nrun, win, candidate, rho, est, pos) to its
+//   scenario's list, at a slot taken by a warp-aggregated integer atomic.
+//   The list's order varies from run to run; nothing below depends on it.
+//   Job pass (late_jobs_kernel): a block per job slot reads the list,
+//   keeps its job's records (nrun summed and win ORed as integers) and
+//   gathers its candidates into shared memory; a job with more than
+//   LATE_SMEM_CANDS candidates reads them from the list in device memory
+//   instead (the same code on another source). np.percentile's two order
+//   statistics are selected exactly by an MSD radix select on the
+//   order-preserving uint64 image of rho (8-bit digits, 256-bin shared
+//   histograms, stopping once the chosen bucket holds one key), then
+//   interpolated with numpy's _lerp. The victim is the slow candidate of
+//   largest est, lowest position on ties. The last job block of a scenario
+//   resets its counters, so the next launch on the stream finds them at 0
+//   (the wrapper zeroes the buffer once, when it allocates it).
+//   One launch for both passes (row blocks publishing to job blocks that
+//   wait on a counter) measured as fast at N = 1 and twice as slow at
+//   N = 64 (PERF.md §6): its blocks held the job pass's shared memory
+//   and waited in SM slots that the row blocks needed.
+// Hazards:
+//   - rho is finite on every path: bprog is a max that NaN never wins, and
+//     a candidate has now - start >= min_runtime; an infinite rho would
+//     still order correctly (chip_smoke.adversarial_inputs decides ties);
+//   - the image orders -0.0 below +0.0, which a sort and a rank count treat
+//     as equal: the selected statistic may be the other zero and thresh may
+//     differ in its sign bit, but thresh is only compared (rho < thresh),
+//     so the victim is the same;
+//   - q may be 0 or 100: loi and hii are clamped to [0, m - 1] as numpy's;
+//   - job slots with no rows, up to jcap, get victim -1 and win 0;
+//   - atomics touch integers only (slots, counts, flags, histograms): no
+//     double is summed or compared by an atomic.
 // Scenarios (blockIdx.y) share the scalars now/min_runtime/q/win_factor.
 // ---------------------------------------------------------------------------
+#define LATE_ROWS NTHREADS
+#define LATE_SMEM_CANDS 1024
+#define LATE_SCAN 4
+#define LATE_WIN_BIT (1 << 29)
+#define LATE_CAND_BIT (1 << 30)
+#define LATE_NRUN_MASK (LATE_WIN_BIT - 1)
+// A scenario's counters in the work buffer.
+#define LATE_COUNT 0
+#define LATE_JOBS_DONE 1
+#define LATE_NCOUNTERS 2
+
+struct LateRowsIn {          // one scenario's row columns
+    const double* prog;
+    const double* start;
+    const double* rate;
+    const int* spec;
+    const int* tseg;
+    const int* jls;
+    const int* running;
+    const int* runatt;
+};
+
+struct LateWork {            // one scenario's part of the work buffer
+    double* rho;             // records: up to cap (one per segment)
+    double* est;
+    int2* meta;              // (job, nrun | win bit | candidate bit)
+    int* pos;
+    int* counters;           // LATE_NCOUNTERS
+};
+
+// The buffer: rho and est (N * cap doubles each), meta (N * cap int2),
+// pos (N * cap ints), then LATE_NCOUNTERS ints per scenario.
+static inline size_t late_work_bytes(int cap, int nscen) {
+    const size_t n = (size_t)cap * nscen;
+    return n * (2 * sizeof(double) + sizeof(int2) + sizeof(int))
+           + (size_t)LATE_NCOUNTERS * nscen * sizeof(int);
+}
+
+__device__ __forceinline__ LateWork late_work(void* base, int cap,
+                                              int nscen, int sc) {
+    const size_t n = (size_t)cap * nscen, o = (size_t)cap * sc;
+    double* rho = (double*)base;
+    double* est = rho + n;
+    int2* meta = (int2*)(est + n);
+    int* pos = (int*)(meta + n);
+    int* counters = pos + n;
+    return {rho + o, est + o, meta + o, pos + o,
+            counters + (size_t)LATE_NCOUNTERS * sc};
+}
+
+__device__ __forceinline__ LateRowsIn late_rows_at(LateRowsIn in, int cap,
+                                                   int sc) {
+    const size_t o = (size_t)cap * sc;
+    in.prog += o;
+    in.start += o;
+    in.rate += o;
+    in.spec += o;
+    in.tseg += o;
+    in.jls += o;
+    in.running += o;
+    in.runatt += o;
+    return in;
+}
+
 __device__ __forceinline__ bool better(double e1, int p1, double e2, int p2) {
     return e1 > e2 || (e1 == e2 && p1 < p2);
 }
 
-__global__ void late_kernel(const double* __restrict__ prog,
-                            const double* __restrict__ start,
-                            const double* __restrict__ rate,
-                            const int* __restrict__ spec,
-                            const int* __restrict__ tseg,
-                            const int* __restrict__ jls,
-                            const int* __restrict__ running,
-                            const int* __restrict__ runatt,
-                            const int* __restrict__ order,
-                            int cap, double now, double min_runtime,
-                            double q, double win_factor,
-                            double* __restrict__ c_rho,
-                            double* __restrict__ c_est,
-                            int* __restrict__ c_pos,
-                            int* __restrict__ victim,
-                            int* __restrict__ win) {
-    __shared__ int s_nrows, s_m, s_win;
-    __shared__ double s_a, s_b;
-    __shared__ double tile[NTHREADS];
-    __shared__ double r_est[NTHREADS];
-    __shared__ int r_pos[NTHREADS];
-    const int j = blockIdx.x;
-    const int tid = threadIdx.x;
-    const size_t sc = blockIdx.y;
-    prog += sc * cap;
-    start += sc * cap;
-    rate += sc * cap;
-    spec += sc * cap;
-    tseg += sc * cap;
-    jls += sc * cap;
-    running += sc * cap;
-    runatt += sc * cap;
-    order += sc * cap;
-    victim += sc * gridDim.x;
-    win += sc * gridDim.x;
-    const size_t cbase = (sc * gridDim.x + j) * (size_t)cap;
-    double* crho = c_rho + cbase;
-    double* cest = c_est + cbase;
-    int* cpos = c_pos + cbase;
-    if (tid == 0) {
-        s_nrows = 0;
-        s_m = 0;
-        s_win = 0;
-        s_a = 0.0;
-        s_b = 0.0;
+// One task segment's walk: what the row pass keeps per segment.
+struct SegWalk {
+    double bprog = -INFINITY, bstart = 0.0, hi = -INFINITY, lo = -INFINITY;
+    int bpos = -1, hspec = 0, nrun = 0, has_spec = 0, has_orig = 0;
+    // bits: 1 speculative, 2 running, 4 running attempt (runatt)
+    __device__ __forceinline__ void add(double prog, double start,
+                                        double rate, int bits, int row) {
+        const int sp = bits & 1;
+        if (bits & 2) {
+            ++nrun;
+            if (prog > bprog) {                        // first wins ties
+                bprog = prog;
+                bpos = row;
+                bstart = start;
+            }
+            hspec |= sp;
+        }
+        if (bits & 4) {
+            if (sp) {
+                hi = isnan(hi) ? hi : np_max(rate, hi);
+                has_spec = 1;
+            } else {
+                lo = isnan(lo) ? lo : np_max(rate, lo);
+                has_orig = 1;
+            }
+        }
     }
-    __syncthreads();
+};
 
-    // Pass 1: one thread per task segment of this job.
-    for (int i = tid; i < cap; i += NTHREADS) {
-        const int s = tseg[i];
-        if (i > 0 && tseg[i - 1] == s) continue;      // not a segment head
-        double bprog = -INFINITY, bstart = 0.0;
-        int bpos = -1, hspec = 0, nrun = 0;
-        double hi = -INFINITY, lo = -INFINITY;
-        int has_spec = 0, has_orig = 0;
-        for (int r = i; r < cap && tseg[r] == s; ++r) {
-            if (jls[r] != j) continue;
-            const int sp = spec[r];
-            if (running[r] == 1) {
-                ++nrun;
-                if (prog[r] > bprog) {                 // first wins ties
-                    bprog = prog[r];
-                    bpos = r;
-                    bstart = start[r];
-                }
-                hspec |= sp;
-            }
-            if (runatt[r] == 1) {
-                if (sp) {
-                    hi = isnan(hi) ? hi : np_max(rate[r], hi);
-                    has_spec = 1;
-                } else {
-                    lo = isnan(lo) ? lo : np_max(rate[r], lo);
-                    has_orig = 1;
-                }
+__device__ __forceinline__ int row_bits(const LateRowsIn& in, int r) {
+    return (in.spec[r] != 0 ? 1 : 0) | (in.running[r] == 1 ? 2 : 0)
+           | (in.runatt[r] == 1 ? 4 : 0);
+}
+
+struct LateStage {           // a row tile, staged by the row pass
+    double prog[LATE_ROWS], start[LATE_ROWS], rate[LATE_ROWS];
+    int tseg[LATE_ROWS], bits[LATE_ROWS];
+    int prev;                // tseg of the row before the tile
+};
+
+// Row pass over rows [tile * LATE_ROWS, +LATE_ROWS) of one scenario. The
+// tile's columns are staged in shared memory by coalesced loads, one row a
+// thread; a segment head walks the stage, and on into device memory if its
+// segment runs past the tile.
+__device__ void late_row_pass(const LateRowsIn in, int cap, int tile,
+                              double now, double min_runtime,
+                              double win_factor, LateWork w,
+                              LateStage* st) {
+    const int li = threadIdx.x;
+    const int base = tile * LATE_ROWS;
+    const int i = base + li;
+    const int n = min(LATE_ROWS, cap - base);          // rows in the tile
+    if (li < n) {
+        st->tseg[li] = in.tseg[i];
+        st->prog[li] = in.prog[i];
+        st->start[li] = in.start[i];
+        st->rate[li] = in.rate[i];
+        st->bits[li] = row_bits(in, i);
+    }
+    if (li == 0) st->prev = base > 0 ? in.tseg[base - 1] : 0;
+    __syncthreads();
+    int info = 0, job = 0, bpos = -1;
+    double rho = 0.0, est = 0.0;
+    if (li < n && (i == 0 || (li == 0 ? st->prev : st->tseg[li - 1])
+                                 != st->tseg[li])) {
+        const int s = st->tseg[li];
+        SegWalk g;
+        int r = li;
+        for (; r < n && st->tseg[r] == s; ++r)
+            g.add(st->prog[r], st->start[r], st->rate[r], st->bits[r],
+                  base + r);
+        if (r == n)
+            for (int x = base + n; x < cap && in.tseg[x] == s; ++x)
+                g.add(in.prog[x], in.start[x], in.rate[x], row_bits(in, x),
+                      x);
+        job = in.jls[i];
+        bpos = g.bpos;
+        const bool win = g.has_spec
+                         && (!g.has_orig || g.hi > g.lo * win_factor);
+        const bool cand = bpos >= 0 && !g.hspec
+                          && (now - g.bstart >= min_runtime);
+        if (cand) {
+            rho = g.bprog / np_max(now - g.bstart, 1e-9);
+            est = (1.0 - g.bprog) / np_max(rho, 1e-9);
+        }
+        info = g.nrun | (win ? LATE_WIN_BIT : 0)
+               | (cand ? LATE_CAND_BIT : 0);
+    }
+    // One slot atomic per warp for the warp's records.
+    const unsigned lane = threadIdx.x & 31u;
+    const unsigned ballot = __ballot_sync(0xffffffffu, info != 0);
+    if (ballot == 0u) return;                          // warp-uniform
+    const int leader = __ffs(ballot) - 1;
+    int slot = 0;
+    if ((int)lane == leader)
+        slot = atomicAdd(w.counters + LATE_COUNT, __popc(ballot));
+    slot = __shfl_sync(0xffffffffu, slot, leader);
+    if (info != 0) {
+        const int c = slot + __popc(ballot & ((1u << lane) - 1u));
+        w.meta[c] = make_int2(job, info);
+        w.rho[c] = rho;
+        w.est[c] = est;
+        w.pos[c] = bpos;
+    }
+}
+
+// rho's order-preserving image: unsigned order of keys = numeric order of
+// the doubles (with -0.0 below +0.0), and back.
+__device__ __forceinline__ unsigned long long order_key(double x) {
+    const unsigned long long b = (unsigned long long)__double_as_longlong(x);
+    return (b >> 63) ? ~b : (b | 0x8000000000000000ull);
+}
+
+__device__ __forceinline__ double key_value(unsigned long long k) {
+    return __longlong_as_double(
+        (long long)((k >> 63) ? (k & 0x7fffffffffffffffull) : ~k));
+}
+
+// A job's candidates: gathered into shared memory, or (above
+// LATE_SMEM_CANDS) the scenario's whole list in device memory, where the
+// job's candidates are picked out on every read.
+struct CandSrc {
+    const double* rho;
+    const double* est;
+    const int* pos;
+    const int2* meta;        // the list's, for the device-memory source
+    int n, job;
+    __device__ __forceinline__ bool take(int c) const {
+        return meta == nullptr
+               || (meta[c].x == job && (meta[c].y & LATE_CAND_BIT) != 0);
+    }
+};
+
+struct LateShared {          // the job pass's shared state
+    unsigned int hist[2][256];                 // one pass's, the next's
+    unsigned long long last[256];              // a key of each bucket
+    unsigned long long prefix, found, min_gt;
+    int k, cnt, n_le, m, nrows, win;
+};
+
+// The k-th smallest (0-based) image among the source's candidates: MSD
+// radix select, 8 bits a pass, on integer histograms. Each pass counts
+// the keys that match the digits chosen so far into one of two histogram
+// buffers while the other is cleared for the next pass, and notes a key of
+// each bucket: when the chosen bucket holds one key, that key is the
+// answer and the search ends. Two barriers a pass.
+__device__ unsigned long long radix_select(const CandSrc& src, int k,
+                                           LateShared* sh) {
+    const int tid = threadIdx.x;
+    for (int b = tid; b < 256; b += NTHREADS) sh->hist[0][b] = 0u;
+    __syncthreads();
+    unsigned long long prefix = 0ull;
+    for (int shift = 56, buf = 0; shift >= 0; shift -= 8, buf ^= 1) {
+        unsigned int* hist = sh->hist[buf];
+        const unsigned long long hi_mask =
+            shift == 56 ? 0ull : ~0ull << (shift + 8);
+        for (int c = tid; c < src.n; c += NTHREADS) {
+            if (!src.take(c)) continue;
+            const unsigned long long key = order_key(src.rho[c]);
+            if ((key & hi_mask) == prefix) {
+                const unsigned d = (unsigned)(key >> shift) & 255u;
+                atomicAdd(&hist[d], 1u);
+                sh->last[d] = key;         // read only if the sole writer
             }
         }
-        if (nrun) atomicAdd(&s_nrows, nrun);
-        if (has_spec && (!has_orig || hi > lo * win_factor)) s_win = 1;
-        if (bpos >= 0 && !hspec && (now - bstart >= min_runtime)) {
-            const double rho = bprog / np_max(now - bstart, 1e-9);
-            const double est = (1.0 - bprog) / np_max(rho, 1e-9);
-            const int c = atomicAdd(&s_m, 1);
-            crho[c] = rho;
-            cest[c] = est;
-            cpos[c] = bpos;
+        __syncthreads();
+        if (tid < 32) {          // warp 0: the bucket that holds rank k
+            unsigned c8[8], tot = 0u;
+            for (int b = 0; b < 8; ++b) {
+                c8[b] = hist[tid * 8 + b];
+                tot += c8[b];
+            }
+            unsigned incl = tot;
+            for (int o = 1; o < 32; o <<= 1) {
+                const unsigned v = __shfl_up_sync(0xffffffffu, incl, o);
+                if (tid >= o) incl += v;
+            }
+            unsigned run = incl - tot;
+            const unsigned kk = (unsigned)k;
+            if (run <= kk && kk < incl) {
+                for (int b = 0; b < 8; ++b) {
+                    if (kk < run + c8[b]) {
+                        const int d = tid * 8 + b;
+                        sh->prefix = prefix
+                                     | ((unsigned long long)d << shift);
+                        sh->k = (int)(kk - run);
+                        sh->cnt = (int)c8[b];
+                        sh->found = sh->last[d];
+                        break;
+                    }
+                    run += c8[b];
+                }
+            }
+        } else {                 // the others clear the next pass's buffer
+            for (int b = tid - 32; b < 256; b += NTHREADS - 32)
+                sh->hist[buf ^ 1][b] = 0u;
         }
+        __syncthreads();
+        prefix = sh->prefix;
+        k = sh->k;
+        if (sh->cnt == 1) return sh->found;            // block-uniform
+    }
+    return prefix;
+}
+
+// The image at rank a's rank + 1 given image a (the rank-k image): a again
+// if more than k + 1 images are <= a, else the least image above a.
+__device__ unsigned long long next_key(const CandSrc& src,
+                                       unsigned long long a, int rank,
+                                       LateShared* sh) {
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+        sh->n_le = 0;
+        sh->min_gt = ~0ull;
     }
     __syncthreads();
-    const int m = s_m;
-    if (tid == 0) win[j] = s_win;
-    if (s_nrows < 2 || m < 2) {                        // block-uniform
+    int le = 0;
+    unsigned long long gt = ~0ull;
+    for (int c = tid; c < src.n; c += NTHREADS) {
+        if (!src.take(c)) continue;
+        const unsigned long long key = order_key(src.rho[c]);
+        if (key <= a) ++le;
+        else if (key < gt) gt = key;
+    }
+    if (le) atomicAdd(&sh->n_le, le);
+    if (gt != ~0ull) atomicMin(&sh->min_gt, gt);
+    __syncthreads();
+    return rank < sh->n_le ? a : sh->min_gt;
+}
+
+// Job pass for job slot j of one scenario; victim/win offset to it.
+__device__ void late_job_pass(int j, const LateWork w,
+                              const int* __restrict__ order, double q,
+                              int* victim, int* win, LateShared* sh,
+                              double* c_rho, double* c_est, int* c_pos,
+                              double* r_est, int* r_pos) {
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+        sh->m = 0;
+        sh->nrows = 0;
+        sh->win = 0;
+    }
+    __syncthreads();
+    const int count = w.counters[LATE_COUNT];
+    int nrows = 0, wn = 0;
+    // LATE_SCAN records a thread in flight: their loads issue together.
+    for (int c0 = tid; c0 < count; c0 += LATE_SCAN * NTHREADS) {
+        int2 mt[LATE_SCAN];
+#pragma unroll
+        for (int u = 0; u < LATE_SCAN; ++u) {
+            const int c = c0 + u * NTHREADS;
+            mt[u] = c < count ? w.meta[c] : make_int2(-1, 0);
+        }
+#pragma unroll
+        for (int u = 0; u < LATE_SCAN; ++u) {
+            if (mt[u].x != j) continue;
+            const int c = c0 + u * NTHREADS;
+            nrows += mt[u].y & LATE_NRUN_MASK;
+            wn |= (mt[u].y & LATE_WIN_BIT) != 0;
+            if (mt[u].y & LATE_CAND_BIT) {
+                const int s = atomicAdd(&sh->m, 1);
+                if (s < LATE_SMEM_CANDS) {
+                    c_rho[s] = w.rho[c];
+                    c_est[s] = w.est[c];
+                    c_pos[s] = w.pos[c];
+                }
+            }
+        }
+    }
+    if (nrows) atomicAdd(&sh->nrows, nrows);
+    if (wn) atomicOr(&sh->win, 1);
+    __syncthreads();
+    const int m = sh->m;
+    if (tid == 0) win[j] = sh->win;
+    if (sh->nrows < 2 || m < 2) {                      // block-uniform
         if (tid == 0) victim[j] = -1;
         return;
     }
+    const CandSrc src = m <= LATE_SMEM_CANDS
+        ? CandSrc{c_rho, c_est, c_pos, nullptr, m, j}
+        : CandSrc{w.rho, w.est, w.pos, w.meta, count, j};
 
     // np.percentile(rho, q), 'linear': virtual index (m-1)*q/100.
     const double v = (double)(m - 1) * (q / 100.0);
@@ -367,30 +652,9 @@ __global__ void late_kernel(const double* __restrict__ prog,
     int loi = (int)flo;
     loi = loi < 0 ? 0 : (loi > m - 1 ? m - 1 : loi);
     const int hii = loi + 1 > m - 1 ? m - 1 : loi + 1;
-    // Sorted value at index t is the x with #(<x) <= t < #(<=x).
-    for (int cb = 0; cb < m; cb += NTHREADS) {
-        const int c = cb + tid;
-        const double x = c < m ? crho[c] : 0.0;
-        int less = 0, leq = 0;
-        for (int tb = 0; tb < m; tb += NTHREADS) {
-            const int t = tb + tid;
-            tile[tid] = t < m ? crho[t] : 0.0;
-            __syncthreads();
-            const int lim = m - tb < NTHREADS ? m - tb : NTHREADS;
-            for (int e = 0; e < lim; ++e) {
-                const double y = tile[e];
-                less += y < x ? 1 : 0;
-                leq += y <= x ? 1 : 0;
-            }
-            __syncthreads();
-        }
-        if (c < m) {
-            if (less <= loi && loi < leq) s_a = x;
-            if (less <= hii && hii < leq) s_b = x;
-        }
-    }
-    __syncthreads();
-    const double a = s_a, b = s_b;
+    const unsigned long long ka = radix_select(src, loi, sh);
+    const unsigned long long kb = hii == loi ? ka : next_key(src, ka, hii, sh);
+    const double a = key_value(ka), b = key_value(kb);
     const double diff = b - a;
     const double thresh = gamma >= 0.5 ? b - diff * (1.0 - gamma)
                                        : a + diff * gamma;
@@ -398,20 +662,23 @@ __global__ void late_kernel(const double* __restrict__ prog,
     // Victim: max est among slow candidates, lowest position on ties.
     double best_e = -INFINITY;
     int best_p = INT32_MAX;
-    for (int c = tid; c < m; c += NTHREADS) {
-        if (crho[c] < thresh && better(cest[c], cpos[c], best_e, best_p)) {
-            best_e = cest[c];
-            best_p = cpos[c];
+    for (int c = tid; c < src.n; c += NTHREADS) {
+        if (!src.take(c)) continue;
+        const double e = src.est[c];
+        const int p = src.pos[c];
+        if (src.rho[c] < thresh && better(e, p, best_e, best_p)) {
+            best_e = e;
+            best_p = p;
         }
     }
     r_est[tid] = best_e;
     r_pos[tid] = best_p;
     __syncthreads();
-    for (int w = NTHREADS / 2; w > 0; w >>= 1) {
-        if (tid < w && better(r_est[tid + w], r_pos[tid + w],
+    for (int s = NTHREADS / 2; s > 0; s >>= 1) {
+        if (tid < s && better(r_est[tid + s], r_pos[tid + s],
                               r_est[tid], r_pos[tid])) {
-            r_est[tid] = r_est[tid + w];
-            r_pos[tid] = r_pos[tid + w];
+            r_est[tid] = r_est[tid + s];
+            r_pos[tid] = r_pos[tid + s];
         }
         __syncthreads();
     }
@@ -419,51 +686,131 @@ __global__ void late_kernel(const double* __restrict__ prog,
         victim[j] = r_pos[0] == INT32_MAX ? -1 : order[r_pos[0]];
 }
 
+// End of a job block: the last of the scenario's jcap job blocks resets
+// its counters for the next launch on the stream (every block has read
+// the record count by then).
+__device__ __forceinline__ void late_job_finish(const LateWork w, int jcap) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        __threadfence();
+        if (atomicAdd(w.counters + LATE_JOBS_DONE, 1) == jcap - 1) {
+            w.counters[LATE_COUNT] = 0;
+            w.counters[LATE_JOBS_DONE] = 0;
+        }
+    }
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+late_rows_kernel(LateRowsIn in, int cap, double now, double min_runtime,
+                 double win_factor, void* work) {
+    __shared__ LateStage stage;
+    const int sc = blockIdx.y;
+    late_row_pass(late_rows_at(in, cap, sc), cap, blockIdx.x, now,
+                  min_runtime, win_factor,
+                  late_work(work, cap, gridDim.y, sc), &stage);
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+late_jobs_kernel(const int* __restrict__ order, int cap, int jcap, double q,
+                 void* work, int* victim, int* win) {
+    __shared__ LateShared sh;
+    __shared__ double c_rho[LATE_SMEM_CANDS], c_est[LATE_SMEM_CANDS];
+    __shared__ int c_pos[LATE_SMEM_CANDS];
+    __shared__ double r_est[NTHREADS];
+    __shared__ int r_pos[NTHREADS];
+    const int sc = blockIdx.y;
+    const LateWork w = late_work(work, cap, gridDim.y, sc);
+    late_job_pass(blockIdx.x, w, order + (size_t)sc * cap, q,
+                  victim + (size_t)sc * jcap, win + (size_t)sc * jcap, &sh,
+                  c_rho, c_est, c_pos, r_est, r_pos);
+    late_job_finish(w, jcap);
+}
+
 // ---------------------------------------------------------------------------
 // B4 — sibling reap rows.
 // Replaces _reap_kernel (src/repro/accel/pallas_backend.py:191), called
 // from _pallas_reap (:318).
 // Bound on the card: 12 bytes per row read, 4 written; launch latency
-// bounds it (two launches and a memset).
-// Design: two passes over the rows, one thread per row. Pass 1 sets an
-// integer flag for every task segment holding a completed live attempt
-// (any order of the stores gives the same flags); pass 2 marks the live
-// running rows of flagged segments. Scenario y of the grid offsets rows,
-// flags and output by y * cap.
+// bounds it.
+// Design: one launch, one thread per row, a block per REAP_TILE rows, no
+// scratch in device memory. Task segments are contiguous runs of equal
+// tseg (see B3). Each warp ballots the rows that start a segment; a
+// prefix count of those heads over the block numbers the tile's segments
+// (0 is the segment carried in from the tile before), and each row whose
+// attempt completed sets its segment's flag in shared memory (every store
+// writes 1, so their order does not matter). The first and last segment
+// of a tile may cross its edges: thread 0 walks left, and the tile's last
+// row walks right, in global memory until the run ends or a completed
+// attempt is found. Each live running row then reads its own segment's
+// flag. Rows whose tseg lies outside [0, cap) are never marked and never
+// emitted. Scenario y of the grid offsets rows and output by y * cap.
 // ---------------------------------------------------------------------------
-__global__ void reap_mark_kernel(const int* __restrict__ a_state,
-                                 const int* __restrict__ tseg,
-                                 const int* __restrict__ live, int cap,
-                                 int* __restrict__ done) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    const size_t off = blockIdx.y * (size_t)cap;
-    a_state += off;
-    tseg += off;
-    live += off;
-    done += off;
-    if (i < cap && live[i] == 1 && a_state[i] == 1) {
-        const int s = tseg[i];
-        if (s >= 0 && s < cap) done[s] = 1;
-    }
+#define REAP_TILE 1024
+
+__device__ __forceinline__ bool reap_done(const int* __restrict__ a_state,
+                                          const int* __restrict__ tseg,
+                                          const int* __restrict__ live,
+                                          int r, int cap) {
+    const int s = tseg[r];
+    return live[r] == 1 && a_state[r] == 1 && s >= 0 && s < cap;
 }
 
-__global__ void reap_emit_kernel(const int* __restrict__ a_state,
-                                 const int* __restrict__ tseg,
-                                 const int* __restrict__ live, int cap,
-                                 const int* __restrict__ done,
-                                 int* __restrict__ out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(REAP_TILE)
+reap_kernel(const int* __restrict__ a_state, const int* __restrict__ tseg,
+            const int* __restrict__ live, int cap, int* __restrict__ out) {
+    __shared__ int seg_done[REAP_TILE + 1];
+    __shared__ int warp_base[REAP_TILE / 32];
+    const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int base = blockIdx.x * REAP_TILE;
+    const int i = base + tid;
     const size_t off = blockIdx.y * (size_t)cap;
     a_state += off;
     tseg += off;
     live += off;
-    done += off;
     out += off;
-    if (i >= cap) return;
-    const int s = tseg[i];
-    const bool hit = live[i] == 1 && a_state[i] == 0 && s >= 0 && s < cap
-                     && done[s] == 1;
-    out[i] = hit ? 1 : 0;
+    const bool in = i < cap;
+    const int s = in ? tseg[i] : 0;
+    const int st = in ? a_state[i] : 0;
+    const bool lv = in && live[i] == 1;
+    const bool valid = s >= 0 && s < cap;
+    const bool head = in && (i == 0 || tseg[i - 1] != s);
+    const unsigned heads = __ballot_sync(0xffffffffu, head);
+    seg_done[tid] = 0;
+    if (tid == 0) seg_done[REAP_TILE] = 0;
+    if (lane == 0) warp_base[warp] = __popc(heads);
+    __syncthreads();
+    if (warp == 0) {          // exclusive prefix of the warps' head counts
+        const int c = warp_base[lane];
+        int incl = c;
+        for (int o = 1; o < 32; o <<= 1) {
+            const int v = __shfl_up_sync(0xffffffffu, incl, o);
+            if (lane >= o) incl += v;
+        }
+        warp_base[lane] = incl - c;
+    }
+    __syncthreads();
+    // This row's segment within the tile: the heads at or before it.
+    const int id = warp_base[warp]
+                   + __popc(heads & (0xffffffffu >> (31 - lane)));
+    if (lv && st == 1 && valid) seg_done[id] = 1;
+    const int end = min(base + REAP_TILE, cap);       // past the tile
+    if (tid == 0 && !head) {                           // id 0, from the left
+        for (int r = base - 1; r >= 0 && tseg[r] == s; --r)
+            if (reap_done(a_state, tseg, live, r, cap)) {
+                seg_done[0] = 1;
+                break;
+            }
+    }
+    if (i == end - 1 && end < cap && tseg[end] == s) { // into the next tile
+        for (int r = end; r < cap && tseg[r] == s; ++r)
+            if (reap_done(a_state, tseg, live, r, cap)) {
+                seg_done[id] = 1;
+                break;
+            }
+    }
+    __syncthreads();
+    if (in) out[i] = (lv && st == 0 && valid && seg_done[id]) ? 1 : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -519,39 +866,47 @@ extern "C" int assess_temporal(const void* prog, const void* tprog,
     return (int)cudaGetLastError();
 }
 
+extern "C" size_t assess_late_work_bytes(int cap, int nscen) {
+    return late_work_bytes(cap, nscen);
+}
+
+// The wrappers' copies of these are checked when the library loads.
+extern "C" int assess_late_rows() { return LATE_ROWS; }
+extern "C" int assess_late_smem_cands() { return LATE_SMEM_CANDS; }
+extern "C" int assess_reap_tile() { return REAP_TILE; }
+
+// `work` holds assess_late_work_bytes(cap, nscen) bytes, zeroed before its
+// first launch and used by one stream at a time; each call leaves its
+// counters at 0 again. Two launches: the row pass, then the job pass.
 extern "C" int assess_late(const void* prog, const void* start,
                            const void* rate, const void* spec,
                            const void* tseg, const void* jls,
                            const void* running, const void* runatt,
                            const void* order, int cap, int jcap, int nscen,
                            double now, double min_runtime, double q,
-                           double win_factor, void* c_rho, void* c_est,
-                           void* c_pos, void* victim, void* win,
-                           void* stream) {
-    late_kernel<<<dim3(jcap, nscen), NTHREADS, 0, (cudaStream_t)stream>>>(
-        (const double*)prog, (const double*)start, (const double*)rate,
-        (const int*)spec, (const int*)tseg, (const int*)jls,
-        (const int*)running, (const int*)runatt, (const int*)order, cap,
-        now, min_runtime, q, win_factor, (double*)c_rho, (double*)c_est,
-        (int*)c_pos, (int*)victim, (int*)win);
+                           double win_factor, void* work, void* victim,
+                           void* win, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    const LateRowsIn in = {(const double*)prog, (const double*)start,
+                           (const double*)rate, (const int*)spec,
+                           (const int*)tseg, (const int*)jls,
+                           (const int*)running, (const int*)runatt};
+    const int ntiles = (cap + LATE_ROWS - 1) / LATE_ROWS;
+    late_rows_kernel<<<dim3(ntiles, nscen), NTHREADS, 0, s>>>(
+        in, cap, now, min_runtime, win_factor, work);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    late_jobs_kernel<<<dim3(jcap, nscen), NTHREADS, 0, s>>>(
+        (const int*)order, cap, jcap, q, work, (int*)victim, (int*)win);
     return (int)cudaGetLastError();
 }
 
 extern "C" int assess_reap(const void* a_state, const void* tseg,
-                           const void* live, int cap, int nscen, void* done,
-                           void* out, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t e = cudaMemsetAsync(
-        done, 0, (size_t)nscen * cap * sizeof(int), s);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 blocks((cap + NTHREADS - 1) / NTHREADS, nscen);
-    reap_mark_kernel<<<blocks, NTHREADS, 0, s>>>(
+                           const void* live, int cap, int nscen, void* out,
+                           void* stream) {
+    reap_kernel<<<dim3((cap + REAP_TILE - 1) / REAP_TILE, nscen), REAP_TILE,
+                  0, (cudaStream_t)stream>>>(
         (const int*)a_state, (const int*)tseg, (const int*)live, cap,
-        (int*)done);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    reap_emit_kernel<<<blocks, NTHREADS, 0, s>>>(
-        (const int*)a_state, (const int*)tseg, (const int*)live, cap,
-        (const int*)done, (int*)out);
+        (int*)out);
     return (int)cudaGetLastError();
 }

@@ -34,7 +34,8 @@ Nothing is compiled or loaded at import: CPU-only hosts import this
 module freely.
 
 Each ``launch_*`` function checks device, dtype, shape and contiguity,
-allocates its outputs and scratch with ``torch.empty``, launches on the
+allocates its outputs and scratch with ``torch.empty`` (B3's work buffer
+once per stream and shape, :func:`late_work`), launches on the
 current stream without synchronising, raises if the C entry point reports
 a CUDA error, and adds one to its entry of :data:`launches` through
 :func:`count_launch`, under a lock: the live runtime's host threads
@@ -50,7 +51,11 @@ B1, B3 and B4
 take an optional leading scenario axis: (cap,) row columns are one tick's
 launch (counted as ``spatial``/``late``/``reap``), (N, cap) columns are
 the batched sweep's one launch for all N scenarios (counted as
-``*_sweep``). The plain torch versions and the device dispatch live in
+``*_sweep``). B3 is two launches, its row pass and its job pass; the
+second counts as ``late_jobs``/``late_sweep_jobs``. B3 keeps its records
+in a work buffer held per (device, stream, N, cap) across calls
+(:func:`late_work`); B4 is one launch and needs none. The plain torch
+versions and the device dispatch live in
 :mod:`repro_torch.accel.torch_backend` and :mod:`repro_torch.accel.bulk`.
 """
 from __future__ import annotations
@@ -84,6 +89,14 @@ FLAGS = {"assess": NVCC_FLAGS + EXACT, "bulk": NVCC_FLAGS + EXACT,
 MAX_SMEM = 232448
 # Largest gridDim.y: bounds the scenarios of one batched launch.
 MAX_SCENARIOS = 65535
+# B3's rows per block of its row pass and the candidates a job keeps in
+# shared memory (more are read from device memory); B4's rows per block.
+# The built library's values are checked when it loads. A record keeps a
+# segment's running-row count in 29 bits, which bounds cap.
+LATE_ROWS = 256
+LATE_SMEM_CANDS = 1024
+LATE_MAX_CAP = 1 << 29
+REAP_TILE = 1024
 # Tile sizes of B6–B9, which their plain versions walk too (checked
 # against the built library when it loads), and the head sizes they take.
 # B6's SIMT body (float32; bf16 at head_dim 16, 32) and its Hopper body
@@ -126,6 +139,7 @@ SSD_TC_KEYS = ("ssd", "ssd_tc", "ssd_prep", "ssd_state", "ssd_out")
 launches: Dict[str, int] = {"spatial": 0, "temporal": 0, "late": 0,
                             "reap": 0, "price": 0, "spatial_sweep": 0,
                             "late_sweep": 0, "reap_sweep": 0,
+                            "late_jobs": 0, "late_sweep_jobs": 0,
                             "flash_fwd": 0, "flash_fwd_tc": 0,
                             "flash_dkv": 0, "flash_dkv_tc": 0,
                             "flash_dkv_group_sum": 0, "flash_dq": 0,
@@ -258,14 +272,19 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "assess":
         lib.assess_spatial.argtypes = [P] * 6 + [I] * 5 + [P, P]
         lib.assess_temporal.argtypes = [P] * 5 + [I] * 3 + [P, P, P]
-        lib.assess_late.argtypes = [P] * 9 + [I] * 3 + [D] * 4 + [P] * 6
-        lib.assess_reap.argtypes = [P] * 3 + [I, I, P, P, P]
+        lib.assess_late.argtypes = [P] * 9 + [I] * 3 + [D] * 4 + [P] * 4
+        lib.assess_reap.argtypes = [P] * 3 + [I, I, P, P]
         lib.assess_spatial_smem.argtypes = [I]
         lib.assess_temporal_smem.argtypes = [I]
+        lib.assess_late_work_bytes.argtypes = [I, I]
         fns = (lib.assess_spatial, lib.assess_temporal, lib.assess_late,
                lib.assess_reap)
-        lib.assess_spatial_smem.restype = ctypes.c_size_t
-        lib.assess_temporal_smem.restype = ctypes.c_size_t
+        for fn in (lib.assess_spatial_smem, lib.assess_temporal_smem,
+                   lib.assess_late_work_bytes):
+            fn.restype = ctypes.c_size_t
+        tiles = [(lib.assess_late_rows, LATE_ROWS),
+                 (lib.assess_late_smem_cands, LATE_SMEM_CANDS),
+                 (lib.assess_reap_tile, REAP_TILE)]
     elif name == "bulk":
         lib.bulk_price.argtypes = [P] * 3 + [I, I, P, P]
         fns = (lib.bulk_price,)
@@ -465,50 +484,80 @@ def launch_temporal(prog, tprog, node, jls, alive, jcap: int,
     return zn, zp
 
 
+# B3's work buffers by (device index, stream, N, cap). A launch reads and
+# rewrites its buffer's counters, so two launches may share a buffer only
+# if they run one after the other: launches on one stream do, so the key
+# holds the stream. Host threads that launch on one stream (the runtime's
+# share the default stream) therefore share its buffer safely.
+_late_work: Dict[Tuple[int, int, int, int], torch.Tensor] = {}
+
+
+def late_work(lib, device: torch.device, stream: int, N: int,
+              cap: int) -> torch.Tensor:
+    """B3's work buffer for N scenarios of ``cap`` rows on ``stream``:
+    allocated and zeroed on first use, then reused; every call leaves its
+    counters at zero."""
+    key = (device.index, stream, N, cap)
+    buf = _late_work.get(key)
+    if buf is None:
+        buf = torch.zeros(lib.assess_late_work_bytes(cap, N),
+                          dtype=torch.uint8, device=device)
+        buf = _late_work.setdefault(key, buf)
+    return buf
+
+
 def launch_late(prog, start, rate, spec, tseg, jls, running, runatt, order,
                 now: float, min_runtime: float, q: float, win_factor: float,
                 jcap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """B3: (jcap,) int32 LATE victim rows (-1: none) and winning flags;
-    with (N, cap) rows, (N, jcap) each for all scenarios in one launch."""
+    with (N, cap) rows, (N, jcap) each for all scenarios in one call. Two
+    launches: the row pass (counted as ``late``/``late_sweep``) and the job
+    pass (``late_jobs``/``late_sweep_jobs``). Task segments must be
+    contiguous runs of ``tseg``, each of one job
+    (``torch_backend.check_segments``)."""
     dev = prog.device
     N, cap, key = _scenarios(prog, "late")
     _cols(dev, tuple(prog.shape),
           f64=[("prog", prog), ("start", start), ("rate", rate)],
           i32=[("spec", spec), ("tseg", tseg), ("jls", jls),
                ("running", running), ("runatt", runatt), ("order", order)])
+    if not (1 <= cap < LATE_MAX_CAP and jcap >= 1):
+        raise ValueError(f"late: cap {cap} (1 to {LATE_MAX_CAP - 1}) and "
+                         f"jcap {jcap} (at least 1)")
     lib = library()
-    c_rho = torch.empty((N, jcap, cap), dtype=torch.float64, device=dev)
-    c_est = torch.empty((N, jcap, cap), dtype=torch.float64, device=dev)
-    c_pos = torch.empty((N, jcap, cap), dtype=torch.int32, device=dev)
-    out_shape = tuple(prog.shape[:-1]) + (jcap,)
-    victim = torch.empty(out_shape, dtype=torch.int32, device=dev)
-    win = torch.empty(out_shape, dtype=torch.int32, device=dev)
+    stream = _stream(dev)
+    work = late_work(lib, dev, stream, N, cap)
+    # victims and winning flags, one allocation
+    out = torch.empty((2,) + tuple(prog.shape[:-1]) + (jcap,),
+                      dtype=torch.int32, device=dev)
+    victim, win = out[0], out[1]
     rc = lib.assess_late(
         prog.data_ptr(), start.data_ptr(), rate.data_ptr(), spec.data_ptr(),
         tseg.data_ptr(), jls.data_ptr(), running.data_ptr(),
         runatt.data_ptr(), order.data_ptr(), cap, jcap, N, float(now),
-        float(min_runtime), float(q), float(win_factor), c_rho.data_ptr(),
-        c_est.data_ptr(), c_pos.data_ptr(), victim.data_ptr(),
-        win.data_ptr(), _stream(dev))
+        float(min_runtime), float(q), float(win_factor), work.data_ptr(),
+        victim.data_ptr(), win.data_ptr(), stream)
     _raise_on(rc, "late")
     count_launch(key)
+    count_launch(key + "_jobs")
     return victim, win
 
 
 def launch_reap(a_state, tseg, live) -> torch.Tensor:
     """B4: (cap,) int32 mask of reapable running sibling attempts; with
-    (N, cap) rows, (N, cap) for all scenarios in one call (two launches,
-    each over every scenario)."""
+    (N, cap) rows, (N, cap) for all scenarios in one launch. Task segments
+    must be contiguous runs of ``tseg``."""
     dev = a_state.device
     N, cap, key = _scenarios(a_state, "reap")
     _cols(dev, tuple(a_state.shape), i32=[("a_state", a_state),
                                           ("tseg", tseg), ("live", live)])
+    if cap < 1:
+        raise ValueError("reap: no rows")
     lib = library()
-    done = torch.empty(a_state.shape, dtype=torch.int32, device=dev)
     out = torch.empty(a_state.shape, dtype=torch.int32, device=dev)
     rc = lib.assess_reap(a_state.data_ptr(), tseg.data_ptr(),
-                         live.data_ptr(), cap, N, done.data_ptr(),
-                         out.data_ptr(), _stream(dev))
+                         live.data_ptr(), cap, N, out.data_ptr(),
+                         _stream(dev))
     _raise_on(rc, "reap")
     count_launch(key)
     return out

@@ -24,6 +24,11 @@ NumpyBackend`'s bit for bit:
 - LATE's percentile repeats numpy's linear interpolation term for term;
   maxima, order statistics and flags are order-free.
 
+Task segments. B3 and B4 read each task's attempts as one contiguous run
+of rows with the same ``tseg`` in canonical order, all of one job;
+:func:`prep` builds ``tseg`` that way and :func:`check_segments` checks
+it. The plain versions index by id and do not need it.
+
 Scenario axis. :func:`prep` and the B1/B3/B4 wrappers also take columns
 stacked along a leading scenario axis, (N, cap): the batched sweep
 (:mod:`repro_torch.accel.sweep`) prepares N perturbed snapshots at once
@@ -114,6 +119,27 @@ def prep(cols: dict, now: float) -> dict:
     if TMARK in cols:
         out["mark"], out["tprog"] = g(TMARK), g(TPROG)
     return out
+
+
+def check_segments(tseg: torch.Tensor, jls: torch.Tensor) -> None:
+    """Raise unless every task-segment id of ``tseg`` ((cap,) or (N, cap)
+    per scenario) is one contiguous run of rows and the rows of a run share
+    one job in ``jls``. B3 and B4 rely on both: their kernels walk each run
+    from its first row, and B3 credits a segment to its first row's job.
+    :func:`prep` builds ``tseg`` so (a cumulative count of task changes in
+    canonical order, pad rows after every live id)."""
+    ts = tseg.reshape(-1, tseg.shape[-1]).long()
+    js = jls.reshape(-1, jls.shape[-1]).long()
+    head = torch.ones_like(ts, dtype=torch.bool)
+    head[:, 1:] = ts[:, 1:] != ts[:, :-1]
+    srt = ts.sort(dim=1).values
+    ids = 1 + (srt[:, 1:] != srt[:, :-1]).sum(dim=1)
+    if not torch.equal(ids, head.sum(dim=1)):
+        raise ValueError("task segments are not contiguous runs of tseg")
+    pos = torch.arange(ts.shape[1], device=ts.device).expand_as(ts)
+    first = torch.cummax(torch.where(head, pos, 0), dim=1).values
+    if not torch.equal(js, torch.gather(js, 1, first)):
+        raise ValueError("a task segment spans more than one job")
 
 
 def _rate(p: dict, now: float) -> torch.Tensor:
@@ -536,8 +562,8 @@ class TorchBackend(AssessmentBackend):
 
 
 __all__ = [
-    "TorchBackend", "failure_core", "late", "late_inputs", "late_ref",
-    "neighborhood_tensor", "on_cpu", "percentile_runs", "prep", "reap",
-    "reap_inputs", "reap_ref", "require_device", "spatial",
+    "TorchBackend", "check_segments", "failure_core", "late", "late_inputs",
+    "late_ref", "neighborhood_tensor", "on_cpu", "percentile_runs", "prep",
+    "reap", "reap_inputs", "reap_ref", "require_device", "spatial",
     "spatial_inputs", "spatial_ref", "temporal", "temporal_ref",
 ]
