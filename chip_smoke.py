@@ -26,9 +26,13 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    padding boundary cases), then B3 and B4 on :func:`boundary_inputs`
    (task segments across B4's tile edges and over a whole tile, jobs
    interleaved, a job of two candidates, equal ρ, q of 0 and 100, empty
-   job slots, a job above B3's shared-memory candidates, ±0.0), each
-   launched twice with the same bits and each as 64 scenarios in one
-   call equal to 64 single calls; then on a mid-run snapshot of the
+   job slots, a job above B3's shared-memory candidates, ±0.0) and B1 and
+   B2 on :func:`glance_inputs` (buckets of 2 to 8 rows whose sums depend
+   on the order, jobs scattered across rows, one job holding every row,
+   empty job slots, Eq. 1 ties, all-NaN neighbourhoods, 10,000 nodes),
+   each launched twice with the same bits and each (B2 aside) as 64
+   scenarios in one call equal to 64 single calls; then on a mid-run
+   snapshot of the
    main-path scenario, where kernel and plain version are also timed on
    the card: by CUDA events, by device time (``_device_ms``) and by the
    host's time to enqueue a call (``host_us``).
@@ -37,7 +41,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    backend (torch on the card) and once with ``assess_backend="numpy"``.
    Action traces, attempt launches and job results must be
    byte-identical, and every kernel must have launched during the card
-   runs (B3's job pass, ``late_jobs``, once for each of its row passes);
+   runs (the job passes of B1, B2 and B3, ``spatial_jobs``,
+   ``temporal_jobs`` and ``late_jobs``, once for each of their row
+   passes);
    B3 must have been reached through both ``late_victims`` (yarn) and
    ``winning`` (bino).
 4. Fair path: the same jobs on the ε-fair network with 40
@@ -167,8 +173,9 @@ Three modes time one part against another checkout, so that two versions
 compare in one call on one card: ``--decode-wall [SRC]`` (the Qwen3-8B
 decode), ``--sim-wall [SRC]`` (the flat main path's ticks/s and the
 device's busy share) through the port under SRC, and ``--assess-parent
-PATH`` (B3 and B4 of an earlier ``assess.cu`` at PATH against this
-checkout's, in turns, at the main path's snapshot).
+PATH`` (B1 to B4 of an earlier ``assess.cu`` at PATH against this
+checkout's, in turns, at the main path's snapshot; B1 also at N = 64 and
+at 10,000 nodes).
 """
 from __future__ import annotations
 
@@ -178,6 +185,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -560,6 +568,106 @@ def boundary_inputs(case: str, seed: int, device, now: float = 100.0):
             "reap": (t(a_state), t(tseg), t(live))}
 
 
+# B1's and B2's boundary cases (glance_inputs); each runs twice with the
+# same bits, and B1's also as 64 scenarios (seeds 0 to 63) in one call.
+GLANCE_CASES = ("order", "scattered", "one_job", "empty_slots", "ties",
+                "nan_hood", "n10000")
+GLANCE_CAP = 4096
+# Values whose float64 sums depend on the order they are added in.
+ORDER_VALS = (0.1, 0.2, 0.3, 0.7, 1e-3, 0.9999999, 1.0, 1e16, 3e-17)
+
+
+def glance_inputs(case: str, seed: int, device):
+    """B1's and B2's arguments for one of :data:`GLANCE_CASES`, both from
+    one set of rows (job, phase, node, two values, a used flag; B2's
+    buckets merge the phases), random parts drawn from ``seed``; unused
+    rows carry out-of-range jobs, phases and nodes:
+
+    - order: buckets of 2 to 8 rows, at scattered rows, of values whose
+      sum depends on the order;
+    - scattered: every row's job drawn anew (jobs interleaved across all
+      rows), nodes from an eighth of the range (many rows a bucket);
+    - one_job: one job (slot 5) holds every row;
+    - empty_slots: jobs in 3 of 32 slots;
+    - ties: one row per (job, phase, node); each group's P takes two
+      values a, b in the pattern a a b b, so every neighbourhood holds
+      two of each and mean - sigma = min(a, b) in exact arithmetic: the
+      nodes whose own P is the smaller value sit on Eq. 1's boundary;
+    - nan_hood: in even groups only every fifth node has rows, some of
+      them negative, and each such node's neighbours are the four nodes
+      after it, all empty (an all-NaN neighbourhood; without the count
+      test mean - sigma would be 0 and a negative P would fire);
+    - n10000: 10,000 nodes and 8,192 rows, half of them in a band at the
+      top of the node range (the neighbourhoods wrap to node 0)."""
+    rng = np.random.default_rng(seed)
+    i32 = np.int32
+    cap, n, jcap = GLANCE_CAP, 256, 8
+    if case == "n10000":
+        cap, n = 8192, 10_000
+    elif case == "empty_slots":
+        jcap = 32
+    ks = np.arange(4) - 2
+    nh = (np.arange(n)[:, None] + ks[None, :]) % n
+    vals = np.array(ORDER_VALS)
+    job = rng.integers(0, jcap, cap)
+    kind = rng.integers(0, 2, cap)
+    node = rng.integers(0, n, cap)
+    used = rng.random(cap) < 0.8
+    a = rng.choice(vals, cap)
+    b = rng.choice(vals, cap)
+    if case == "order":
+        nb = cap // 6
+        bucket = rng.choice(jcap * 2 * n, nb, replace=False)
+        sizes = rng.integers(2, 9, nb)
+        rows = rng.permutation(cap)[:int(sizes.sum())]
+        per_row = np.repeat(bucket, sizes)
+        used = np.zeros(cap, dtype=bool)
+        used[rows] = True
+        job[rows], rest = np.divmod(per_row, 2 * n)
+        kind[rows], node[rows] = np.divmod(rest, n)
+    elif case == "scattered":
+        node = rng.integers(0, n // 8, cap)
+    elif case == "one_job":
+        job[:], used[:] = 5, True
+    elif case == "empty_slots":
+        job = rng.choice([0, 5, 31], cap)
+    elif case == "ties":
+        bucket = rng.permutation(jcap * 2 * n)[:cap]
+        job, rest = np.divmod(bucket, 2 * n)
+        kind, node = np.divmod(rest, n)
+        used[:] = True
+        pairs = np.concatenate([[[0.25, 0.75], [0.1, 0.3], [0.2, 0.7],
+                                 [1e-3, 0.9999999]],
+                                rng.uniform(0.0, 1.0, (jcap * 2 - 4, 2))])
+        pairs = pairs[rng.permutation(jcap * 2)]
+        a = pairs[job * 2 + kind, (node // 2) % 2]
+    elif case == "nan_hood":
+        nh = (np.arange(n)[:, None] + 1 + np.arange(4)[None, :]) % n
+        even = (job * 2 + kind) % 2 == 0
+        node = np.where(even, (node // 5) * 5, node)
+        a = np.where(even & (rng.random(cap) < 0.5),
+                     -rng.choice([0.5, 0.25, 1e-3], cap), a)
+    elif case == "n10000":
+        band = rng.random(cap) < 0.5
+        node = np.where(band, rng.integers(n - 300, n, cap), node)
+        a = np.where(rng.random(cap) < 0.5, rng.uniform(0.0, 1.0, cap), a)
+    # unused rows: out-of-range ids the kernels must not read as used
+    bad = ~used & (rng.random(cap) < 0.5)
+    job = np.where(bad, rng.choice([-1, jcap]), job)
+    kind = np.where(bad & (rng.random(cap) < 0.5), 2, kind)
+    node = np.where(bad & (rng.random(cap) < 0.5), n, node)
+
+    def t(x, dtype=None):
+        x = np.ascontiguousarray(x if dtype is None else x.astype(dtype))
+        return torch.from_numpy(x).to(device)
+
+    flag = t(used, i32)
+    return {"spatial": (t(a), t(node, i32), t(kind, i32), t(job, i32), flag,
+                        t(nh, i32), jcap),
+            "temporal": (t(a), t(b), t(node, i32), t(job, i32), flag, jcap,
+                         n)}
+
+
 def stack_scenarios(name: str, cases) -> tuple:
     """One batched argument tuple from per-scenario tuples of kernel
     ``name`` that share their non-row arguments."""
@@ -774,45 +882,58 @@ def kernel_phase(cap_state):
 
 
 def boundary_phase():
-    """B3 and B4 on each of :data:`BOUNDARY_CASES`: launched twice with
-    the same bits, equal to the plain version, and as 64 scenarios in one
-    call, equal to 64 single calls and to the plain version."""
+    """B3 and B4 on each of :data:`BOUNDARY_CASES`, B1 and B2 on each of
+    :data:`GLANCE_CASES`: launched twice with the same bits, equal to the
+    plain version, and (all but B2, which has no scenario axis) as 64
+    scenarios in one call, equal to 64 single calls and to the plain
+    version."""
     from repro_torch.accel import torch_backend as TB
 
     fns = {"late": (TB.late, TB.late_ref), "reap": (TB.reap, TB.reap_ref)}
     for case in BOUNDARY_CASES:
         for name, (wrapper, plain) in fns.items():
-            dev = boundary_inputs(case, 0, "cuda")[name]
-            got = wrapper(*dev)
-            if not _compare(got, wrapper(*dev))[0]:
-                raise RuntimeError(f"{name} {case}: two launches differ")
-            want = plain(*boundary_inputs(case, 0, "cpu")[name])
-            equal, err = _compare(got, want)
-            if not equal:
-                raise RuntimeError(f"{name} {case}: kernel != plain version "
-                                   f"(max_abs_err {err})")
-            dev64 = stack_scenarios(name, [
-                boundary_inputs(case, s, "cuda")[name]
-                for s in range(N_SCENARIOS)])
-            batched = wrapper(*dev64)
-            singles = [wrapper(*one_scenario(name, dev64, s))
-                       for s in range(N_SCENARIOS)]
-            singles = (tuple(torch.stack(x) for x in zip(*singles))
-                       if isinstance(batched, tuple) else torch.stack(singles))
-            if not _compare(batched, singles)[0]:
-                raise RuntimeError(f"{name} {case}: batched launch != "
-                                   f"{N_SCENARIOS} single launches")
-            cpu64 = stack_scenarios(name, [
-                boundary_inputs(case, s, "cpu")[name]
-                for s in range(N_SCENARIOS)])
-            equal, err = _compare(batched, plain(*cpu64))
-            if not equal:
-                raise RuntimeError(f"{name} {case}: batched kernel != plain "
-                                   f"version (max_abs_err {err})")
+            _boundary_case(name, case, wrapper, plain, boundary_inputs)
+    glance = {"spatial": (TB.spatial, TB.spatial_ref),
+              "temporal": (TB.temporal, TB.temporal_ref)}
+    for case in GLANCE_CASES:
+        for name, (wrapper, plain) in glance.items():
+            _boundary_case(name, case, wrapper, plain, glance_inputs,
+                           batched=name in ROW_ARGS)
     torch.cuda.synchronize()
-    print(f"boundary cases: B3 and B4 equal to their plain versions, twice "
-          f"with the same bits, and as {N_SCENARIOS} scenarios in one call "
-          f"({', '.join(BOUNDARY_CASES)})", flush=True)
+    print(f"boundary cases: B3 and B4 ({', '.join(BOUNDARY_CASES)}), B1 "
+          f"and B2 ({', '.join(GLANCE_CASES)}) equal to their plain "
+          f"versions, twice with the same bits, and B1, B3, B4 as "
+          f"{N_SCENARIOS} scenarios in one call", flush=True)
+
+
+def _boundary_case(name, case, wrapper, plain, inputs, batched=True):
+    dev = inputs(case, 0, "cuda")[name]
+    got = wrapper(*dev)
+    if not _compare(got, wrapper(*dev))[0]:
+        raise RuntimeError(f"{name} {case}: two launches differ")
+    want = plain(*inputs(case, 0, "cpu")[name])
+    equal, err = _compare(got, want)
+    if not equal:
+        raise RuntimeError(f"{name} {case}: kernel != plain version "
+                           f"(max_abs_err {err})")
+    if not batched:
+        return
+    dev64 = stack_scenarios(name, [inputs(case, s, "cuda")[name]
+                                   for s in range(N_SCENARIOS)])
+    out64 = wrapper(*dev64)
+    singles = [wrapper(*one_scenario(name, dev64, s))
+               for s in range(N_SCENARIOS)]
+    singles = (tuple(torch.stack(x) for x in zip(*singles))
+               if isinstance(out64, tuple) else torch.stack(singles))
+    if not _compare(out64, singles)[0]:
+        raise RuntimeError(f"{name} {case}: batched launch != "
+                           f"{N_SCENARIOS} single launches")
+    cpu64 = stack_scenarios(name, [inputs(case, s, "cpu")[name]
+                                   for s in range(N_SCENARIOS)])
+    equal, err = _compare(out64, plain(*cpu64))
+    if not equal:
+        raise RuntimeError(f"{name} {case}: batched kernel != plain "
+                           f"version (max_abs_err {err})")
 
 
 def timed_row(name, wrapper, plain, args, got, err, source, replaces):
@@ -858,8 +979,9 @@ def main_path():
             return out
         setattr(TorchBackend, meth, counted)
 
-    total = {name: 0 for name in ("spatial", "temporal", "late",
-                                  "late_jobs", "reap")}
+    total = {name: 0 for name in ("spatial", "spatial_jobs", "temporal",
+                                  "temporal_jobs", "late", "late_jobs",
+                                  "reap")}
     for policy in ("bino", "yarn"):
         K.reset_launches()
         card, c_launch, c_key, c_wall = scenario(policy, None)
@@ -892,9 +1014,10 @@ def main_path():
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: "
                            f"{missing}")
-    if total["late_jobs"] != total["late"]:
-        raise RuntimeError(f"B3: {total['late']} row passes, "
-                           f"{total['late_jobs']} job passes")
+    for name in ("spatial", "temporal", "late"):
+        if total[name + "_jobs"] != total[name]:
+            raise RuntimeError(f"{name}: {total[name]} row passes, "
+                               f"{total[name + '_jobs']} job passes")
     if not (b3_by["late_victims"] > 0 and b3_by["winning"] > 0):
         raise RuntimeError(f"B3 not reached through both callers: {b3_by}")
     print(f"B3 launches by caller: {b3_by}", flush=True)
@@ -1008,8 +1131,8 @@ def sweep_path(state, now, device="cuda", n_scen=N_SCENARIOS,
     if len(batched) != len(serial) or len(serial) != n_scen:
         raise RuntimeError("sweep: scenario count differs")
     if device != "cpu":
-        want = {"spatial_sweep": 1, "late_sweep": 1, "late_sweep_jobs": 1,
-                "reap_sweep": 1}
+        want = {"spatial_sweep": 1, "spatial_sweep_jobs": 1,
+                "late_sweep": 1, "late_sweep_jobs": 1, "reap_sweep": 1}
         seen = {k: counts[k] for k in want}
         if seen != want:
             raise RuntimeError(f"sweep: launches {seen}, expected {want}")
@@ -1929,8 +2052,6 @@ HOST_EXIT_S = 120.0
 
 def _host_calls(trainer):
     """Count every host's grad_fn calls, across threads."""
-    import threading
-
     lock, count = threading.Lock(), [0]
     for host in trainer.coord.hosts.values():
         def counted(params, batch, _orig=host.grad_fn):
@@ -2078,6 +2199,16 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
                               per_shard_batch=1, seed=TRAIN_SEED,
                               chaos=chaos, device=device)
 
+    def release():
+        """Free a finished runtime's device memory. A runtime is a web of
+        cycles (hosts, coordinator, closures) that only the collector
+        frees, once :func:`finish` has joined every thread that refers to
+        it: three runs' parameters and optimizer states left behind (about
+        16 GB) ran the last run out of memory."""
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
     def finish(trainer, calls):
         """Shut the hosts down and wait for their threads to end (a losing
         speculative attempt may still be inside its backward), then read
@@ -2088,6 +2219,11 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
             if host.is_alive():
                 raise RuntimeError(f"train: host {host.host_id} still "
                                    f"running {HOST_EXIT_S} s after shutdown")
+        # each host's heartbeat thread ends within a heartbeat period
+        beats = {f"hb-{host_id}" for host_id in trainer.coord.hosts}
+        for thread in threading.enumerate():
+            if thread.name in beats:
+                thread.join(timeout=HOST_EXIT_S)
         counts = dict(K.launches)
         want = cfg.n_layers * calls[0] if on_card else 0
         # every B6, B7 and B8 launch on its Hopper body (bf16, head_dim
@@ -2154,6 +2290,7 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
     ff_counts = counts
     assess_counts = {k: counts[k] for k in assess_keys}
     del t
+    release()
 
     # -- loss, gradients, reproducibility (gates c-e) -------------------
     checks = train_checks(cfg, params0, batches, device)
@@ -2205,6 +2342,7 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
             raise RuntimeError(f"train: {recovery} crash run shows no "
                                f"recovery")
         del t
+        release()
 
     # -- resume from the bino run's last checkpoint before the end ------
     kept = sorted(int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
@@ -2230,13 +2368,12 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
     if not same:
         raise RuntimeError("train: the resumed run diverged")
     del t
+    release()
     if on_card and not all(assess_counts.values()):
         raise RuntimeError(f"train: assessment kernels never launched on "
                            f"the bino ticks: {assess_counts}")
     print(f"train: assessment kernel launches on the bino ticks (fault-free "
           f"timed steps and both crash runs): {assess_counts}", flush=True)
-    if on_card:
-        torch.cuda.empty_cache()
     return ff_counts
 
 
@@ -2844,12 +2981,13 @@ def ssm_serve_path(cfg=None, device="cuda"):
 
 # Name parts of the kernels whose resources the build phase prints.
 HOPPER_KERNELS = ("sm90", "group_sum", "decode_split", "decode_combine",
-                  "ssd_prep", "ssd_state", "ssd_out", "late_", "reap_")
+                  "ssd_prep", "ssd_state", "ssd_out", "spatial_",
+                  "temporal_", "late_", "reap_")
 
 
 def print_resource_usage(libs) -> None:
     """Registers and stack bytes (spills) of each Hopper kernel and of
-    B3's and B4's, as ``cuobjdump -res-usage`` reads them from the built
+    B1's to B4's, as ``cuobjdump -res-usage`` reads them from the built
     libraries."""
     from repro_torch.accel import kernels as K
 
@@ -2943,15 +3081,17 @@ def decode_wall() -> None:
           flush=True)
 
 
-def parent_assess(source: Path):
-    """B3 and B4 of another ``assess.cu``, built with ``nvcc`` into
-    ``build/parent_kernels/``. A source with this checkout's C interface
-    runs through this checkout's wrappers, its library swapped in for the
-    call. One with the interface before it (the wrapper allocated B3's
-    (N, jcap, cap) candidate scratch and B4's flag column on every call;
-    B4 was a memset and two launches) is called as that version's wrappers
-    called it: the same checks, allocations and launch count. Returns
-    (late, reap) taking the wrappers' arguments."""
+def parent_assess(source: Path) -> dict:
+    """B1 to B4 of another ``assess.cu``, built with ``nvcc`` into
+    ``build/parent_kernels/``; returns the four wrappers by kernel name,
+    each taking this checkout's wrapper's arguments. A source with this
+    checkout's C interface runs through this checkout's wrappers, its
+    library swapped in for the call. An earlier source is called as that
+    version's wrappers called it: the same checks, allocations and launch
+    counts. Before slice 10, B1 and B2 took no work buffer (one launch
+    each, shared memory from ``assess_*_smem(n)``); before slice 9, the
+    wrapper allocated B3's (N, jcap, cap) candidate scratch and B4's flag
+    column on every call, and B4 was a memset and two launches."""
     import ctypes
 
     from repro_torch.accel import kernels as K
@@ -2961,20 +3101,72 @@ def parent_assess(source: Path):
     subprocess.run([K.nvcc(), *K.FLAGS["assess"], "-o", str(out),
                     str(source)], check=True)
     lib = ctypes.CDLL(str(out))
-    if hasattr(lib, "assess_late_work_bytes"):
-        K._bind("assess", lib)
 
-        def swapped(fn):
-            def run(*args, **kw):
-                own = K._libs["assess"]
-                K._libs["assess"] = lib
-                try:
-                    return fn(*args, **kw)
-                finally:
-                    K._libs["assess"] = own
-            return run
-        return swapped(K.launch_late), swapped(K.launch_reap)
+    def swapped(fn):
+        def run(*args, **kw):
+            own = K._libs["assess"]
+            K._libs["assess"] = lib
+            try:
+                return fn(*args, **kw)
+            finally:
+                K._libs["assess"] = own
+        return run
+
+    names = ("spatial", "temporal", "late", "reap")
+    if hasattr(lib, "assess_spatial_work_bytes"):
+        K._bind("assess", lib)
+        return {name: swapped(getattr(K, f"launch_{name}"))
+                for name in names}
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.assess_spatial.argtypes = [P] * 6 + [I] * 5 + [P, P]
+    lib.assess_temporal.argtypes = [P] * 5 + [I] * 3 + [P, P, P]
+    lib.assess_spatial_smem.argtypes = [I]
+    lib.assess_temporal_smem.argtypes = [I]
+    lib.assess_spatial.restype = lib.assess_temporal.restype = ctypes.c_int
+    lib.assess_spatial_smem.restype = ctypes.c_size_t
+    lib.assess_temporal_smem.restype = ctypes.c_size_t
+
+    def spatial(rho, node, kind, jls, running, nh, jcap):
+        dev = rho.device
+        N, cap, key = K._scenarios(rho, "spatial")
+        n, k = nh.shape
+        K._cols(dev, tuple(rho.shape), f64=[("rho", rho)],
+                i32=[("node", node), ("kind", kind), ("jls", jls),
+                     ("running", running)])
+        K._check(nh, "nh", torch.int32, (n, k), dev)
+        K.library()
+        K._smem(lib.assess_spatial_smem(n), "spatial (parent)", n)
+        fired = torch.empty(tuple(rho.shape[:-1]) + (jcap, 2, n),
+                            dtype=torch.bool, device=dev)
+        rc = lib.assess_spatial(
+            rho.data_ptr(), node.data_ptr(), kind.data_ptr(),
+            jls.data_ptr(), running.data_ptr(), nh.data_ptr(), cap, n, k,
+            jcap, N, fired.data_ptr(), K._stream(dev))
+        K._raise_on(rc, "spatial (parent)")
+        K.count_launch(key)
+        return fired
+
+    def temporal(prog, tprog, node, jls, alive, jcap, n):
+        dev, cap = prog.device, prog.shape[0]
+        K._cols(dev, (cap,), f64=[("prog", prog), ("tprog", tprog)],
+                i32=[("node", node), ("jls", jls), ("alive", alive)])
+        K.library()
+        K._smem(lib.assess_temporal_smem(n), "temporal (parent)", n)
+        zn = torch.empty((jcap, n), dtype=torch.float64, device=dev)
+        zp = torch.empty((jcap, n), dtype=torch.float64, device=dev)
+        rc = lib.assess_temporal(
+            prog.data_ptr(), tprog.data_ptr(), node.data_ptr(),
+            jls.data_ptr(), alive.data_ptr(), cap, n, jcap, zn.data_ptr(),
+            zp.data_ptr(), K._stream(dev))
+        K._raise_on(rc, "temporal (parent)")
+        K.count_launch("temporal")
+        return zn, zp
+
+    fns = {"spatial": spatial, "temporal": temporal}
+    if hasattr(lib, "assess_late_work_bytes"):
+        K.bind_late(lib)
+        fns.update(late=swapped(K.launch_late), reap=swapped(K.launch_reap))
+        return fns
     lib.assess_late.argtypes = [P] * 9 + [I] * 3 + [D] * 4 + [P] * 6
     lib.assess_reap.argtypes = [P] * 3 + [I, I, P, P, P]
     lib.assess_late.restype = lib.assess_reap.restype = ctypes.c_int
@@ -3022,37 +3214,47 @@ def parent_assess(source: Path):
         K.count_launch(key)
         return out
 
-    return late, reap
+    fns.update(late=late, reap=reap)
+    return fns
 
 
 def assess_parent(source: str) -> None:
-    """B3 and B4 of this checkout against those of an earlier
-    ``assess.cu`` (:func:`parent_assess`) at the main path's snapshot
-    (the kernel phase's inputs), in one process: both equal to the plain
-    version, then timed in turns parent, change, change, parent, each by
-    CUDA events, by device time and by the host's time per call. Run as
-    ``chip_smoke.py --assess-parent PATH`` with PATH the earlier source,
-    e.g. one taken with ``git show <commit>:src/repro_torch/accel/csrc/
-    assess.cu`` into ``build/``."""
+    """B1 to B4 of this checkout against those of an earlier ``assess.cu``
+    (:func:`parent_assess`) at the main path's snapshot (the kernel
+    phase's inputs), in one process: both equal to the plain version, then
+    timed in turns parent, change, change, parent, each by CUDA events, by
+    device time and by the host's time per call; then B1 at N = 64 (the
+    sweep's shape: the kernel phase's snapshot, 64 copies) the same way,
+    and B1 at 10,000 nodes (:data:`GLANCE_CASES` ``n10000``), which the
+    change must run and match the plain version on, and the parent may
+    refuse. Run as ``chip_smoke.py --assess-parent PATH`` with PATH the
+    earlier source, e.g. one taken with ``git show <commit>:src/
+    repro_torch/accel/csrc/assess.cu`` into ``build/``."""
     from repro_torch.accel import kernels as K
     from repro_torch.accel import torch_backend as TB
 
     libs = K.build()
     K.library()
     print_resource_usage(libs)
-    parent = dict(zip(("late", "reap"), parent_assess(Path(source))))
-    change = {"late": TB.late, "reap": TB.reap}
-    plain = {"late": TB.late_ref, "reap": TB.reap_ref}
+    parent = parent_assess(Path(source))
+    names = ("spatial", "temporal", "late", "reap")
+    change = {name: getattr(TB, name) for name in names}
+    plain = {name: getattr(TB, name + "_ref") for name in names}
     cap_state = capture_snapshot()
     dev_in = kernel_inputs(cap_state, "cuda")
     cpu_in = kernel_inputs(cap_state, "cpu")
-    for name in ("late", "reap"):
-        args = dev_in[name]
-        want = plain[name](*cpu_in[name])
+    dev_in["spatial_sweep"] = stack_scenarios(
+        "spatial", [dev_in["spatial"]] * N_SCENARIOS)
+    cpu_in["spatial_sweep"] = stack_scenarios(
+        "spatial", [cpu_in["spatial"]] * N_SCENARIOS)
+    for what in names + ("spatial_sweep",):
+        name = what.replace("_sweep", "")
+        args = dev_in[what]
+        want = plain[name](*cpu_in[what])
         for label, fn in (("parent", parent[name]), ("change", change[name])):
             equal, err = _compare(fn(*args), want)
             if not equal:
-                raise RuntimeError(f"{name} {label}: kernel != plain version "
+                raise RuntimeError(f"{what} {label}: kernel != plain version "
                                    f"(max_abs_err {err})")
         times = {"parent": [], "change": []}
         for label in ("parent", "change", "change", "parent"):
@@ -3061,12 +3263,31 @@ def assess_parent(source: str) -> None:
             device_ms, host_us = _device_host(fn, args)
             times[label].append({"ms": ms, "device_ms": device_ms,
                                  "host_us": host_us})
-        print(f"assess parent vs change, {name} at cap "
+        print(f"assess parent vs change, {what} at cap "
               f"{args[0].shape[-1]}: {json.dumps(times)}", flush=True)
-    # B3's two passes apart, by the profiler's kernel times (they split a
-    # call's time between its kernels; they do not time the call)
-    _sub_kernels("late (change)", TB.late, dev_in["late"],
-                 ("late_rows", "late_jobs"))
+    # each kernel's two passes apart, by the profiler's kernel times (they
+    # split a call's time between its kernels; they do not time the call)
+    for what, passes in (("spatial", ("spatial_rows", "spatial_jobs")),
+                         ("spatial_sweep", ("spatial_rows", "spatial_jobs")),
+                         ("temporal", ("temporal_rows", "temporal_jobs")),
+                         ("late", ("late_rows", "late_jobs"))):
+        _sub_kernels(f"{what} (change)", change[what.replace("_sweep", "")],
+                     dev_in[what], passes)
+    big = glance_inputs("n10000", 0, "cuda")["spatial"]
+    equal, err = _compare(change["spatial"](*big),
+                          plain["spatial"](*glance_inputs(
+                              "n10000", 0, "cpu")["spatial"]))
+    if not equal:
+        raise RuntimeError(f"spatial at 10,000 nodes: kernel != plain "
+                           f"version (max_abs_err {err})")
+    try:
+        parent["spatial"](*big)
+        torch.cuda.synchronize()
+        verdict = "ran"
+    except (ValueError, RuntimeError) as e:
+        verdict = f"raised: {e}"
+    print(f"spatial at 10,000 nodes: change equal to the plain version; "
+          f"parent {verdict}", flush=True)
 
 
 def sim_wall() -> None:
@@ -3150,10 +3371,13 @@ def main() -> int:
     launches["ssd"] = ssm_launches["ssd"]
     for name, row in rows.items():
         row["launches"] = launches[name]
-    # the main paths' launches of B3's job pass, B9's combine and B10's
-    # sub-kernels
-    rows["late"]["jobs_launches"] = launches["late_jobs"]
-    rows["late_sweep"]["jobs_launches"] = sweep_launches["late_sweep_jobs"]
+    # the main paths' launches of B1's, B2's and B3's job passes, B9's
+    # combine and B10's sub-kernels
+    for name in ("spatial", "temporal", "late"):
+        rows[name]["jobs_launches"] = launches[name + "_jobs"]
+    for name in ("spatial", "late"):
+        rows[name + "_sweep"]["jobs_launches"] = \
+            sweep_launches[name + "_sweep_jobs"]
     rows["decode"]["combine_launches"] = serve_launches["decode_combine"]
     rows["ssd"].update((f"{k}_launches", ssm_launches[k])
                        for k in K.SSD_TC_KEYS[1:])

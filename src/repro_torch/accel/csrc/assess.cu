@@ -7,9 +7,11 @@
 //
 // Exactness contract: every result equals the numpy reference backend bit
 // for bit, not within a tolerance.
-//   - Each float64 bucket is summed by ONE thread, visiting rows in
-//     canonical order: the association order of np.bincount. No atomics
-//     touch a double.
+//   - Each float64 bucket is summed as ONE chain of adds, visiting rows
+//     in canonical order: the association order of np.bincount. One
+//     thread adds at a time (B1 and B2 hand the chain from lane to lane
+//     of one warp, between slices, behind __syncwarp). No atomics touch a
+//     double.
 //   - -fmad=false keeps a*b+c as two rounded operations, as numpy does.
 //   - float64 '/' and sqrt are IEEE round-to-nearest in CUDA by default.
 //   - Order statistics, maxima and integer flags are order-free.
@@ -24,8 +26,9 @@
 // The per-tick path is the same launch with N = 1.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError() (0 on success). B3 keeps its per-call records
-// in a work buffer that the wrapper allocates once and reuses.
+// returns cudaGetLastError() (0 on success). B1, B2 and B3 keep their
+// per-call records in work buffers that the wrapper allocates once and
+// reuses.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,205 +42,395 @@ __device__ __forceinline__ double np_max(double x, double c) {
     return (isnan(x) || x > c) ? x : c;
 }
 
-// Order-preserving block compaction: every thread of the block calls this
-// with its flag; returns the flag's exclusive prefix count over the block
-// (thread order) and the block total in *total.
-__device__ __forceinline__ int block_slot(int flag, int* warp_counts,
-                                          int* total) {
-    const unsigned lane = threadIdx.x & 31u;
-    const unsigned warp = threadIdx.x >> 5;
-    const unsigned ballot = __ballot_sync(0xffffffffu, flag);
-    const int within = __popc(ballot & ((1u << lane) - 1u));
-    if (lane == 0) warp_counts[warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0, all = 0;
-    for (int w = 0; w < NWARPS; ++w) {
-        const int c = warp_counts[w];
-        before += (w < (int)warp) ? c : 0;
-        all += c;
-    }
-    *total = all;
-    __syncthreads();  // warp_counts is reused by the next call
-    return before + within;
-}
-
-// ---------------------------------------------------------------------------
-// B1 — Eq. 1 spatial pass.
-// Replaces _spatial_kernel (src/repro/accel/pallas_backend.py:51), called
-// from _pallas_spatial (:223).
-// Bound on the card: it reads ~24 bytes per row and writes 2n bytes per
-// job; at the simulator's sizes (a few thousand rows, 1000 nodes) that is a
-// few hundred KB, under a microsecond of bandwidth. Latency bounds it: the
-// launch, and each block's pass over all rows in NTHREADS-row chunks.
-// Design: one block per job. The block streams the rows in chunks of
-// NTHREADS, compacts the job's running rows of each chunk into shared
-// memory in canonical order, and each (phase, node) bucket is then summed
-// by the one thread that owns it (bucket % NTHREADS), row by row in that
-// order. The neighbourhood mean and sigma are left-to-right sums over k,
-// the order np.nansum uses for k < 8. One launch covers every job of every
-// scenario (blockIdx.y); `nh` is shared by all scenarios.
-// ---------------------------------------------------------------------------
-__global__ void spatial_kernel(const double* __restrict__ rho,
-                               const int* __restrict__ node,
-                               const int* __restrict__ kind,
-                               const int* __restrict__ jls,
-                               const int* __restrict__ running,
-                               const int* __restrict__ nh,
-                               int cap, int n, int k,
-                               unsigned char* __restrict__ fired) {
-    extern __shared__ double smem[];
-    double* sums = smem;                          // 2n: sums, then P
-    double* crho = sums + 2 * n;                  // NTHREADS
-    int* counts = (int*)(crho + NTHREADS);        // 2n
-    int* cbucket = counts + 2 * n;                // NTHREADS
-    int* warp_counts = cbucket + NTHREADS;        // NWARPS
-    const int j = blockIdx.x;
+// In-place exclusive prefix sum of a[0, len) over the block; every thread
+// calls it. Each thread sums a contiguous span, the warps scan the span
+// sums by shuffles, and warp_tot (NWARPS ints) carries the warp totals.
+__device__ void block_exclusive_scan(int* a, int len, int* warp_tot) {
     const int tid = threadIdx.x;
-    const int nb = 2 * n;
-    const size_t sc = blockIdx.y;
-    rho += sc * cap;
-    node += sc * cap;
-    kind += sc * cap;
-    jls += sc * cap;
-    running += sc * cap;
-    fired += sc * gridDim.x * (size_t)nb;
-
-    for (int b = tid; b < nb; b += NTHREADS) {
-        sums[b] = 0.0;
-        counts[b] = 0;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int per = (len + NTHREADS - 1) / NTHREADS;
+    const int lo = min(tid * per, len), hi = min(lo + per, len);
+    int sum = 0;
+    for (int x = lo; x < hi; ++x) sum += a[x];
+    int incl = sum;
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
     }
+    if (lane == 31) warp_tot[warp] = incl;
     __syncthreads();
-    for (int base = 0; base < cap; base += NTHREADS) {
-        const int i = base + tid;
-        int flag = 0, bucket = 0;
-        double r = 0.0;
-        if (i < cap && running[i] == 1 && jls[i] == j) {
-            const int ph = kind[i], v = node[i];
-            if (ph >= 0 && ph < 2 && v >= 0 && v < n) {
-                flag = 1;
-                bucket = ph * n + v;
-                r = rho[i];
-            }
-        }
-        int total;
-        const int slot = block_slot(flag, warp_counts, &total);
-        if (flag) {
-            cbucket[slot] = bucket;
-            crho[slot] = r;
-        }
-        __syncthreads();
-        for (int e = 0; e < total; ++e) {
-            const int b = cbucket[e];
-            if (b % NTHREADS == tid) {
-                sums[b] = sums[b] + crho[e];
-                counts[b] += 1;
-            }
-        }
-        __syncthreads();
+    int run = incl - sum;
+    for (int w = 0; w < warp; ++w) run += warp_tot[w];
+    for (int x = lo; x < hi; ++x) {
+        const int c = a[x];
+        a[x] = run;
+        run += c;
     }
-    // P = mean rho per bucket, NaN where the bucket is empty.
-    for (int b = tid; b < nb; b += NTHREADS)
-        sums[b] = counts[b] > 0 ? sums[b] / (double)counts[b] : (double)NAN;
-    __syncthreads();
-    for (int b = tid; b < nb; b += NTHREADS) {
-        const int ph = b / n, v = b - ph * n;
-        const double* Pp = sums + ph * n;
-        const int* row = nh + (size_t)v * k;
-        int cnt = 0;
-        double s = 0.0;
-        for (int kk = 0; kk < k; ++kk) {
-            const double x = Pp[row[kk]];
-            const bool valid = !isnan(x);
-            cnt += valid ? 1 : 0;
-            const double xv = valid ? x : 0.0;
-            s = (kk == 0) ? xv : s + xv;
-        }
-        const double denom = (double)(cnt > 1 ? cnt : 1);
-        const double mean = s / denom;
-        double vs = 0.0;
-        for (int kk = 0; kk < k; ++kk) {
-            const double x = Pp[row[kk]];
-            const double d = x - mean;
-            const double sq = isnan(x) ? 0.0 : d * d;
-            vs = (kk == 0) ? sq : vs + sq;
-        }
-        const double sd = sqrt(vs / denom);
-        const double P = Pp[v];
-        const bool hit = cnt >= 2 && !isnan(P) && (P < mean - sd);
-        fired[((size_t)j * 2 + ph) * n + v] = hit ? 1 : 0;
-    }
+    __syncthreads();         // a and warp_tot are read by the next step
 }
 
 // ---------------------------------------------------------------------------
-// B2 — Eq. 2-3 zeta accumulation.
-// Replaces _temporal_kernel (src/repro/accel/pallas_backend.py:85), called
+// B1 — Eq. 1 spatial pass, and B2 — Eq. 2-3 zeta sums: the glance.
+// B1 replaces _spatial_kernel (src/repro/accel/pallas_backend.py:51), called
+// from _pallas_spatial (:223); B2 replaces _temporal_kernel (:85), called
 // from _pallas_temporal (:245).
-// Bound on the card: ~28 bytes per row read and 16n bytes per job written,
-// under a microsecond of bandwidth at the simulator's sizes; latency (the
-// launch and the chunked pass over the rows) bounds it.
-// Design: as B1, with n node buckets per job; each bucket's zeta_now,
-// zeta_prev and count are owned by one thread and summed in canonical
-// order. NaN marks nodes with no surviving attempt.
+// Bound on the card: B1 reads ~24 bytes per row and writes 2n bytes per
+// job, B2 ~28 bytes per row and 16n bytes per job; at the simulator's sizes
+// (a few thousand rows, 1000 nodes) that is under a microsecond of
+// bandwidth. Latency bounds both: two launches, a row tile's barriers, and
+// each group's ordered sums.
+// Both sum float64 values into buckets (group, node), where a group is a
+// (job, phase) for B1 (g = 2 * job + phase, so B1's (jcap, 2, n) output is
+// (G, n)) and a job for B2; every bucket's sum is one chain of adds in
+// canonical row order, from 0.0, as np.bincount's. Rows of a job need
+// not be contiguous. Two launches on the stream, no atomics:
+//   Row pass (*_rows_kernel): a block per GLANCE_ROWS rows, one thread a
+//   row, so each row is read once (coalesced). A used row (the kernel's
+//   mask, its group and node in range) becomes a record (node, value(s)).
+//   The tile's records are binned by group, stably: each warp matches its
+//   lanes by group (__match_any_sync), and the warps, in row order, take
+//   their ranks from a shared count per group; an exclusive scan of the
+//   counts gives each group's offset in the tile's region of the record
+//   list, and the G + 1 offsets go to the tile's row of a table.
+//   Group pass (*_jobs_kernel): a block per group reads its segment's
+//   offset and length in every tile (one column of the table), scans the
+//   lengths, and gathers its m records in row order, GLANCE_CHUNK at a
+//   time, into shared memory (a binary search over the tile prefix maps
+//   each record to its tile). So its work grows with its own rows, not
+//   with cap. Warp 0 then walks the chunk 32 records at a time: lanes
+//   holding one node match, and the lowest of them adds its peers' values
+//   to the node's sum in lane (= row) order, so every bucket's sum is one
+//   left-to-right chain. A group with no record writes its empty output
+//   (all false; NaN) and returns.
+// The bucket table of a group is n sums (B2: 2n) and n counts in shared
+// memory, beside a fixed stage: B1 runs to about 18,800 nodes (it held
+// 2n sums and counts of a whole job beside its row staging before, and
+// stopped at 9,556); the wrappers raise above the limit.
+// B1 then takes P = sum / count per node (NaN where empty) and, for each
+// node with a P, the neighbourhood mean and sigma as left-to-right sums
+// over k, the order np.nansum uses for k < 8. Scenario y of the grid
+// (B1's sweep) offsets rows, records, table and output by y times their
+// per-scenario extent; `nh` is shared by all scenarios.
+// No scratch per call: the records and the table live in a work buffer the
+// wrapper allocates once per (device, stream, size) and reuses. Each call
+// rewrites every table entry and every record it reads, so nothing is reset
+// or zeroed between calls.
 // ---------------------------------------------------------------------------
-__global__ void temporal_kernel(const double* __restrict__ prog,
-                                const double* __restrict__ tprog,
-                                const int* __restrict__ node,
-                                const int* __restrict__ jls,
-                                const int* __restrict__ alive,
-                                int cap, int n,
-                                double* __restrict__ zn,
-                                double* __restrict__ zp) {
-    extern __shared__ double smem[];
-    double* szn = smem;                           // n
-    double* szp = szn + n;                        // n
-    double* cprog = szp + n;                      // NTHREADS
-    double* ctprog = cprog + NTHREADS;            // NTHREADS
-    int* scnt = (int*)(ctprog + NTHREADS);        // n
-    int* cnode = scnt + n;                        // NTHREADS
-    int* warp_counts = cnode + NTHREADS;          // NWARPS
-    const int j = blockIdx.x;
-    const int tid = threadIdx.x;
+#define GLANCE_ROWS NTHREADS
+#define GLANCE_CHUNK 512
 
-    for (int b = tid; b < n; b += NTHREADS) {
-        szn[b] = 0.0;
-        szp[b] = 0.0;
-        scnt[b] = 0;
+// One scenario's part of the work buffer: the records, in tile regions of
+// GLANCE_ROWS (each tile's records first, grouped), and the table of each
+// tile's G + 1 group offsets.
+template <int NV>
+struct GlanceWork {
+    double* val[NV];
+    int* node;
+    int* tab;
+};
+
+__host__ __device__ __forceinline__ int glance_tiles(int cap) {
+    return (cap + GLANCE_ROWS - 1) / GLANCE_ROWS;
+}
+
+// The buffer: NV value columns (N * ntiles * GLANCE_ROWS doubles each), the
+// node column (as many ints), then N tables of ntiles * (G + 1) ints.
+template <int NV>
+static inline size_t glance_work_bytes(int cap, int G, int nscen) {
+    const size_t ntiles = glance_tiles(cap);
+    const size_t recs = ntiles * GLANCE_ROWS * nscen;
+    return recs * (NV * sizeof(double) + sizeof(int))
+           + ntiles * (G + 1) * nscen * sizeof(int);
+}
+
+template <int NV>
+__device__ __forceinline__ GlanceWork<NV> glance_work(void* base, int cap,
+                                                      int G, int nscen,
+                                                      int sc) {
+    const size_t ntiles = glance_tiles(cap);
+    const size_t recs = ntiles * GLANCE_ROWS;
+    const size_t all = recs * nscen;
+    GlanceWork<NV> w;
+    double* v = (double*)base;
+    for (int k = 0; k < NV; ++k) w.val[k] = v + k * all + sc * recs;
+    int* node = (int*)(v + NV * all);
+    w.node = node + sc * recs;
+    w.tab = node + all + sc * ntiles * (G + 1);
+    return w;
+}
+
+struct SpatialRowsIn {       // B1's row columns
+    const double* rho;
+    const int* node;
+    const int* kind;
+    const int* jls;
+    const int* running;
+    __device__ __forceinline__ SpatialRowsIn at(int cap, int sc) const {
+        const size_t o = (size_t)cap * sc;
+        return {rho + o, node + o, kind + o, jls + o, running + o};
     }
+    // Row i's group (-1: not used), node and value.
+    __device__ __forceinline__ int group(int i, int n, int G, int* v,
+                                         double* val) const {
+        if (running[i] != 1) return -1;
+        const int ph = kind[i], nd = node[i], j = jls[i];
+        if (ph < 0 || ph > 1 || nd < 0 || nd >= n || j < 0
+            || 2 * j + ph >= G)
+            return -1;
+        *v = nd;
+        val[0] = rho[i];
+        return 2 * j + ph;
+    }
+};
+
+struct TemporalRowsIn {      // B2's row columns
+    const double* prog;
+    const double* tprog;
+    const int* node;
+    const int* jls;
+    const int* alive;
+    __device__ __forceinline__ TemporalRowsIn at(int cap, int sc) const {
+        const size_t o = (size_t)cap * sc;
+        return {prog + o, tprog + o, node + o, jls + o, alive + o};
+    }
+    __device__ __forceinline__ int group(int i, int n, int G, int* v,
+                                         double* val) const {
+        if (alive[i] != 1) return -1;
+        const int nd = node[i], j = jls[i];
+        if (nd < 0 || nd >= n || j < 0 || j >= G) return -1;
+        *v = nd;
+        val[0] = prog[i];
+        val[1] = tprog[i];
+        return j;
+    }
+};
+
+// Row pass over tile blockIdx.x of one scenario. s_cnt holds G + 1 ints,
+// warp_tot NWARPS.
+template <int NV, class In>
+__device__ void glance_row_pass(const In in, int cap, int n, int G,
+                                GlanceWork<NV> w, int* s_cnt,
+                                int* warp_tot) {
+    const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int t = blockIdx.x;
+    const int i = t * GLANCE_ROWS + tid;
+    int g = -1, v = 0;
+    double val[NV] = {};
+    if (i < cap) g = in.group(i, n, G, &v, val);
+    for (int x = tid; x <= G; x += NTHREADS) s_cnt[x] = 0;
     __syncthreads();
-    for (int base = 0; base < cap; base += NTHREADS) {
-        const int i = base + tid;
-        int flag = 0, v = 0;
-        double a = 0.0, b = 0.0;
-        if (i < cap && alive[i] == 1 && jls[i] == j) {
-            v = node[i];
-            if (v >= 0 && v < n) {
-                flag = 1;
-                a = prog[i];
-                b = tprog[i];
-            }
-        }
-        int total;
-        const int slot = block_slot(flag, warp_counts, &total);
-        if (flag) {
-            cnode[slot] = v;
-            cprog[slot] = a;
-            ctprog[slot] = b;
-        }
-        __syncthreads();
-        for (int e = 0; e < total; ++e) {
-            const int c = cnode[e];
-            if (c % NTHREADS == tid) {
-                szn[c] = szn[c] + cprog[e];
-                szp[c] = szp[c] + ctprog[e];
-                scnt[c] += 1;
-            }
+    // The row's rank among the tile's rows of its group: the warps before
+    // it (in turn, in row order), then the lanes before it in its warp.
+    const unsigned peers = __match_any_sync(0xffffffffu, g);
+    const int leader = __ffs(peers) - 1;
+    int before = 0;
+    for (int k = 0; k < NWARPS; ++k) {
+        if (warp == k && g >= 0 && lane == leader) {
+            before = s_cnt[g];
+            s_cnt[g] = before + __popc(peers);
         }
         __syncthreads();
     }
-    for (int b = tid; b < n; b += NTHREADS) {
-        const bool have = scnt[b] > 0;
-        zn[(size_t)j * n + b] = have ? szn[b] : (double)NAN;
-        zp[(size_t)j * n + b] = have ? szp[b] : (double)NAN;
+    before = __shfl_sync(0xffffffffu, before, leader)
+             + __popc(peers & ((1u << lane) - 1u));
+    block_exclusive_scan(s_cnt, G + 1, warp_tot);   // s_cnt[G]: the total
+    int* tab = w.tab + (size_t)t * (G + 1);
+    for (int x = tid; x <= G; x += NTHREADS) tab[x] = s_cnt[x];
+    if (g >= 0) {
+        const size_t slot = (size_t)t * GLANCE_ROWS + s_cnt[g] + before;
+        w.node[slot] = v;
+        for (int k = 0; k < NV; ++k) w.val[k][slot] = val[k];
+    }
+}
+
+// The shared state of a group block: the bucket table (NV * n sums and n
+// counts, int for B1, a flag byte for B2), the stage and the tile prefix.
+template <int NV, typename C>
+struct GlanceShared {
+    double* acc;             // NV * n
+    double* st_val;          // NV * GLANCE_CHUNK
+    int* st_node;            // GLANCE_CHUNK
+    int* pre;                // ntiles + 1: the group's records before tile t
+    int* sbase;              // ntiles: where its segment of tile t starts
+    int* warp_tot;           // NWARPS
+    C* cnt;                  // n
+};
+
+template <int NV, typename C>
+static inline size_t glance_jobs_smem(int n, int cap) {
+    return (size_t)NV * (n + GLANCE_CHUNK) * sizeof(double)
+           + (size_t)(GLANCE_CHUNK + 2 * glance_tiles(cap) + 1 + NWARPS)
+             * sizeof(int)
+           + (size_t)n * sizeof(C);
+}
+
+template <int NV, typename C>
+__device__ __forceinline__ GlanceShared<NV, C> glance_shared(void* smem,
+                                                             int n,
+                                                             int ntiles) {
+    GlanceShared<NV, C> s;
+    s.acc = (double*)smem;
+    s.st_val = s.acc + NV * n;
+    s.st_node = (int*)(s.st_val + NV * GLANCE_CHUNK);
+    s.pre = s.st_node + GLANCE_CHUNK;
+    s.sbase = s.pre + ntiles + 1;
+    s.warp_tot = s.sbase + ntiles;
+    s.cnt = (C*)(s.warp_tot + NWARPS);
+    return s;
+}
+
+// Warp 0's walk of a staged chunk of len records, in row order: the lanes
+// of one node match, and the lowest adds its peers' values in lane order.
+template <int NV, typename C>
+__device__ void glance_accumulate(const GlanceShared<NV, C>& s, int len,
+                                  int n) {
+    const int lane = threadIdx.x & 31;
+    for (int e0 = 0; e0 < len; e0 += 32) {
+        const int e = e0 + lane;
+        const int v = e < len ? s.st_node[e] : -1 - lane;   // unmatched
+        const unsigned peers = __match_any_sync(0xffffffffu, v);
+        if (e < len && lane == __ffs(peers) - 1) {
+            double a[NV];
+            for (int k = 0; k < NV; ++k) a[k] = s.acc[k * n + v];
+            for (unsigned p = peers; p; p &= p - 1u) {
+                const int l = e0 + __ffs(p) - 1;
+                for (int k = 0; k < NV; ++k)
+                    a[k] = a[k] + s.st_val[k * GLANCE_CHUNK + l];
+            }
+            for (int k = 0; k < NV; ++k) s.acc[k * n + v] = a[k];
+            s.cnt[v] = sizeof(C) == 1 ? (C)1 : (C)(s.cnt[v] + __popc(peers));
+        }
+        __syncwarp();        // the next slice's leader may be another lane
+    }
+}
+
+// Group pass for group blockIdx.x of one scenario: the bucket table of its
+// records. Returns the record count m; with m = 0 the table is untouched.
+template <int NV, typename C>
+__device__ int glance_group_pass(const GlanceWork<NV> w, int G, int ntiles,
+                                 int n, const GlanceShared<NV, C>& s) {
+    const int tid = threadIdx.x;
+    const int g = blockIdx.x;
+    for (int t = tid; t < ntiles; t += NTHREADS) {
+        const int* row = w.tab + (size_t)t * (G + 1);
+        const int a = row[g];
+        s.pre[t] = row[g + 1] - a;
+        s.sbase[t] = t * GLANCE_ROWS + a;
+    }
+    if (tid == 0) s.pre[ntiles] = 0;
+    __syncthreads();
+    block_exclusive_scan(s.pre, ntiles + 1, s.warp_tot);
+    const int m = s.pre[ntiles];
+    if (m == 0) return 0;                              // block-uniform
+    for (int v = tid; v < n; v += NTHREADS) {
+        for (int k = 0; k < NV; ++k) s.acc[k * n + v] = 0.0;
+        s.cnt[v] = 0;
+    }
+    for (int c0 = 0; c0 < m; c0 += GLANCE_CHUNK) {
+        const int len = min(GLANCE_CHUNK, m - c0);
+        for (int e = tid; e < len; e += NTHREADS) {
+            const int k = c0 + e;
+            int lo = 0, hi = ntiles;                   // pre[lo] <= k < pre[hi]
+            while (hi - lo > 1) {
+                const int mid = (lo + hi) >> 1;
+                if (s.pre[mid] <= k) lo = mid;
+                else hi = mid;
+            }
+            const size_t slot = (size_t)s.sbase[lo] + (k - s.pre[lo]);
+            s.st_node[e] = w.node[slot];
+            for (int q = 0; q < NV; ++q)
+                s.st_val[q * GLANCE_CHUNK + e] = w.val[q][slot];
+        }
+        __syncthreads();
+        if (tid < 32) glance_accumulate(s, len, n);
+        __syncthreads();
+    }
+    return m;
+}
+
+// Eq. 1 for a node with P = Pv (not NaN) among the group's P: the
+// neighbourhood's valid count, mean and sigma, left-to-right over k.
+__device__ __forceinline__ bool eq1_hit(const double* P, const int* row,
+                                        int k, double Pv) {
+    int cnt = 0;
+    double s = 0.0;
+    for (int kk = 0; kk < k; ++kk) {
+        const double x = P[row[kk]];
+        const bool valid = !isnan(x);
+        cnt += valid ? 1 : 0;
+        const double xv = valid ? x : 0.0;
+        s = (kk == 0) ? xv : s + xv;
+    }
+    const double denom = (double)(cnt > 1 ? cnt : 1);
+    const double mean = s / denom;
+    double vs = 0.0;
+    for (int kk = 0; kk < k; ++kk) {
+        const double x = P[row[kk]];
+        const double d = x - mean;
+        const double sq = isnan(x) ? 0.0 : d * d;
+        vs = (kk == 0) ? sq : vs + sq;
+    }
+    const double sd = sqrt(vs / denom);
+    return cnt >= 2 && (Pv < mean - sd);
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+spatial_rows_kernel(SpatialRowsIn in, int cap, int n, int G, void* work) {
+    extern __shared__ int s_rows[];                    // G + 1, NWARPS
+    const int sc = blockIdx.y;
+    glance_row_pass<1>(in.at(cap, sc), cap, n, G,
+                       glance_work<1>(work, cap, G, gridDim.y, sc), s_rows,
+                       s_rows + G + 1);
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+spatial_jobs_kernel(const int* __restrict__ nh, int cap, int n, int k,
+                    int G, void* work, unsigned char* __restrict__ fired) {
+    extern __shared__ double s_jobs[];
+    const int sc = blockIdx.y, g = blockIdx.x, tid = threadIdx.x;
+    const int ntiles = glance_tiles(cap);
+    const GlanceShared<1, int> s = glance_shared<1, int>(s_jobs, n, ntiles);
+    const int m = glance_group_pass(
+        glance_work<1>(work, cap, G, gridDim.y, sc), G, ntiles, n, s);
+    unsigned char* out = fired + ((size_t)sc * G + g) * n;
+    if (m == 0) {                                      // block-uniform
+        for (int v = tid; v < n; v += NTHREADS) out[v] = 0;
+        return;
+    }
+    // P = mean rho per node, NaN where the bucket is empty.
+    for (int v = tid; v < n; v += NTHREADS)
+        s.acc[v] = s.cnt[v] > 0 ? s.acc[v] / (double)s.cnt[v] : (double)NAN;
+    __syncthreads();
+    for (int v = tid; v < n; v += NTHREADS) {
+        const double P = s.acc[v];
+        out[v] = !isnan(P) && eq1_hit(s.acc, nh + (size_t)v * k, k, P);
+    }
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+temporal_rows_kernel(TemporalRowsIn in, int cap, int n, int G, void* work) {
+    extern __shared__ int s_rows[];
+    glance_row_pass<2>(in, cap, n, G, glance_work<2>(work, cap, G, 1, 0),
+                       s_rows, s_rows + G + 1);
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+temporal_jobs_kernel(int cap, int n, int G, void* work,
+                     double* __restrict__ zn, double* __restrict__ zp) {
+    extern __shared__ double s_jobs[];
+    const int g = blockIdx.x, tid = threadIdx.x;
+    const int ntiles = glance_tiles(cap);
+    const GlanceShared<2, unsigned char> s =
+        glance_shared<2, unsigned char>(s_jobs, n, ntiles);
+    const int m = glance_group_pass(glance_work<2>(work, cap, G, 1, 0), G,
+                                    ntiles, n, s);
+    zn += (size_t)g * n;
+    zp += (size_t)g * n;
+    for (int v = tid; v < n; v += NTHREADS) {         // NaN: no attempt
+        const bool have = m > 0 && s.cnt[v];
+        zn[v] = have ? s.acc[v] : (double)NAN;
+        zp[v] = have ? s.acc[n + v] : (double)NAN;
     }
 }
 
@@ -818,51 +1011,89 @@ reap_kernel(const int* __restrict__ a_state, const int* __restrict__ tseg,
 // ---------------------------------------------------------------------------
 static const size_t kDefaultSmem = 48 * 1024;
 
-extern "C" size_t assess_spatial_smem(int n) {
-    return (size_t)(2 * n + NTHREADS) * sizeof(double)
-           + (size_t)(2 * n + NTHREADS + NWARPS) * sizeof(int);
+static inline size_t glance_rows_smem(int G) {
+    return (size_t)(G + 1 + NWARPS) * sizeof(int);
 }
 
-extern "C" size_t assess_temporal_smem(int n) {
-    return (size_t)(2 * n + 2 * NTHREADS) * sizeof(double)
-           + (size_t)(n + NTHREADS + NWARPS) * sizeof(int);
+// Shared memory the larger of a glance kernel's two launches takes.
+extern "C" size_t assess_spatial_smem(int n, int jcap, int cap) {
+    const size_t jobs = glance_jobs_smem<1, int>(n, cap);
+    const size_t rows = glance_rows_smem(2 * jcap);
+    return jobs > rows ? jobs : rows;
 }
 
+extern "C" size_t assess_temporal_smem(int n, int jcap, int cap) {
+    const size_t jobs = glance_jobs_smem<2, unsigned char>(n, cap);
+    const size_t rows = glance_rows_smem(jcap);
+    return jobs > rows ? jobs : rows;
+}
+
+extern "C" size_t assess_spatial_work_bytes(int cap, int jcap, int nscen) {
+    return glance_work_bytes<1>(cap, 2 * jcap, nscen);
+}
+
+extern "C" size_t assess_temporal_work_bytes(int cap, int jcap) {
+    return glance_work_bytes<2>(cap, jcap, 1);
+}
+
+// Raise a kernel's dynamic shared memory limit where it needs more than
+// the default.
+static cudaError_t allow_smem(const void* kernel, size_t smem) {
+    if (smem <= kDefaultSmem) return cudaSuccess;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// `work` holds assess_spatial_work_bytes(cap, jcap, nscen) bytes, used by
+// one stream at a time; no part of it needs to be set before a call. Two
+// launches: the row pass, then the group pass (a block per (job, phase)).
 extern "C" int assess_spatial(const void* rho, const void* node,
                               const void* kind, const void* jls,
                               const void* running, const void* nh, int cap,
-                              int n, int k, int jcap, int nscen, void* fired,
-                              void* stream) {
-    const size_t smem = assess_spatial_smem(n);
-    if (smem > kDefaultSmem) {
-        cudaError_t e = cudaFuncSetAttribute(
-            spatial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    spatial_kernel<<<dim3(jcap, nscen), NTHREADS, smem,
-                     (cudaStream_t)stream>>>(
-        (const double*)rho, (const int*)node, (const int*)kind,
-        (const int*)jls, (const int*)running, (const int*)nh, cap, n, k,
-        (unsigned char*)fired);
+                              int n, int k, int jcap, int nscen, void* work,
+                              void* fired, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    const int G = 2 * jcap;
+    const size_t rows_smem = glance_rows_smem(G);
+    const size_t jobs_smem = glance_jobs_smem<1, int>(n, cap);
+    cudaError_t e = allow_smem((const void*)spatial_rows_kernel, rows_smem);
+    if (e == cudaSuccess)
+        e = allow_smem((const void*)spatial_jobs_kernel, jobs_smem);
+    if (e != cudaSuccess) return (int)e;
+    const SpatialRowsIn in = {(const double*)rho, (const int*)node,
+                              (const int*)kind, (const int*)jls,
+                              (const int*)running};
+    spatial_rows_kernel<<<dim3(glance_tiles(cap), nscen), NTHREADS,
+                          rows_smem, s>>>(in, cap, n, G, work);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    spatial_jobs_kernel<<<dim3(G, nscen), NTHREADS, jobs_smem, s>>>(
+        (const int*)nh, cap, n, k, G, work, (unsigned char*)fired);
     return (int)cudaGetLastError();
 }
 
+// `work` holds assess_temporal_work_bytes(cap, jcap) bytes, as above.
 extern "C" int assess_temporal(const void* prog, const void* tprog,
                                const void* node, const void* jls,
                                const void* alive, int cap, int n, int jcap,
-                               void* zn, void* zp, void* stream) {
-    const size_t smem = assess_temporal_smem(n);
-    if (smem > kDefaultSmem) {
-        cudaError_t e = cudaFuncSetAttribute(
-            temporal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    temporal_kernel<<<jcap, NTHREADS, smem, (cudaStream_t)stream>>>(
-        (const double*)prog, (const double*)tprog, (const int*)node,
-        (const int*)jls, (const int*)alive, cap, n, (double*)zn,
-        (double*)zp);
+                               void* work, void* zn, void* zp,
+                               void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    const size_t rows_smem = glance_rows_smem(jcap);
+    const size_t jobs_smem = glance_jobs_smem<2, unsigned char>(n, cap);
+    cudaError_t e = allow_smem((const void*)temporal_rows_kernel, rows_smem);
+    if (e == cudaSuccess)
+        e = allow_smem((const void*)temporal_jobs_kernel, jobs_smem);
+    if (e != cudaSuccess) return (int)e;
+    const TemporalRowsIn in = {(const double*)prog, (const double*)tprog,
+                               (const int*)node, (const int*)jls,
+                               (const int*)alive};
+    temporal_rows_kernel<<<glance_tiles(cap), NTHREADS, rows_smem, s>>>(
+        in, cap, n, jcap, work);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    temporal_jobs_kernel<<<jcap, NTHREADS, jobs_smem, s>>>(
+        cap, n, jcap, work, (double*)zn, (double*)zp);
     return (int)cudaGetLastError();
 }
 
@@ -871,6 +1102,8 @@ extern "C" size_t assess_late_work_bytes(int cap, int nscen) {
 }
 
 // The wrappers' copies of these are checked when the library loads.
+extern "C" int assess_glance_rows() { return GLANCE_ROWS; }
+extern "C" int assess_glance_chunk() { return GLANCE_CHUNK; }
 extern "C" int assess_late_rows() { return LATE_ROWS; }
 extern "C" int assess_late_smem_cands() { return LATE_SMEM_CANDS; }
 extern "C" int assess_reap_tile() { return REAP_TILE; }

@@ -34,8 +34,9 @@ Nothing is compiled or loaded at import: CPU-only hosts import this
 module freely.
 
 Each ``launch_*`` function checks device, dtype, shape and contiguity,
-allocates its outputs and scratch with ``torch.empty`` (B3's work buffer
-once per stream and shape, :func:`late_work`), launches on the
+allocates its outputs and scratch with ``torch.empty`` (the work buffers
+of B1–B3 once per stream and shape, :func:`glance_work`,
+:func:`late_work`), launches on the
 current stream without synchronising, raises if the C entry point reports
 a CUDA error, and adds one to its entry of :data:`launches` through
 :func:`count_launch`, under a lock: the live runtime's host threads
@@ -51,11 +52,13 @@ B1, B3 and B4
 take an optional leading scenario axis: (cap,) row columns are one tick's
 launch (counted as ``spatial``/``late``/``reap``), (N, cap) columns are
 the batched sweep's one launch for all N scenarios (counted as
-``*_sweep``). B3 is two launches, its row pass and its job pass; the
-second counts as ``late_jobs``/``late_sweep_jobs``. B3 keeps its records
-in a work buffer held per (device, stream, N, cap) across calls
-(:func:`late_work`); B4 is one launch and needs none. The plain torch
-versions and the device dispatch live in
+``*_sweep``). B1, B2 and B3 are two launches each, a row pass and a job
+pass; the second counts as ``spatial_jobs``/``spatial_sweep_jobs``,
+``temporal_jobs`` and ``late_jobs``/``late_sweep_jobs``. B3 keeps its
+records in a work buffer held per (device, stream, N, cap) across calls
+(:func:`late_work`), B1 and B2 theirs in one held per (device, stream,
+shape) (:func:`glance_work`); B4 is one launch and needs none. The plain
+torch versions and the device dispatch live in
 :mod:`repro_torch.accel.torch_backend` and :mod:`repro_torch.accel.bulk`.
 """
 from __future__ import annotations
@@ -89,6 +92,10 @@ FLAGS = {"assess": NVCC_FLAGS + EXACT, "bulk": NVCC_FLAGS + EXACT,
 MAX_SMEM = 232448
 # Largest gridDim.y: bounds the scenarios of one batched launch.
 MAX_SCENARIOS = 65535
+# B1's and B2's rows per block of their row pass and the records a group
+# block stages at a time (checked against the built library when it loads).
+GLANCE_ROWS = 256
+GLANCE_CHUNK = 512
 # B3's rows per block of its row pass and the candidates a job keeps in
 # shared memory (more are read from device memory); B4's rows per block.
 # The built library's values are checked when it loads. A record keeps a
@@ -139,6 +146,8 @@ SSD_TC_KEYS = ("ssd", "ssd_tc", "ssd_prep", "ssd_state", "ssd_out")
 launches: Dict[str, int] = {"spatial": 0, "temporal": 0, "late": 0,
                             "reap": 0, "price": 0, "spatial_sweep": 0,
                             "late_sweep": 0, "reap_sweep": 0,
+                            "spatial_jobs": 0, "spatial_sweep_jobs": 0,
+                            "temporal_jobs": 0,
                             "late_jobs": 0, "late_sweep_jobs": 0,
                             "flash_fwd": 0, "flash_fwd_tc": 0,
                             "flash_dkv": 0, "flash_dkv_tc": 0,
@@ -148,6 +157,10 @@ launches: Dict[str, int] = {"spatial": 0, "temporal": 0, "late": 0,
                             "ssd": 0, "ssd_tc": 0, "ssd_prep": 0,
                             "ssd_state": 0, "ssd_out": 0}
 _launch_lock = threading.Lock()
+# B1, B2 and B3 enqueue two launches that share a cached work buffer, and
+# ctypes lets other threads run during the call: this lock keeps another
+# thread's launches of the same kernel from falling between the two.
+_work_lock = threading.Lock()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -209,10 +222,11 @@ def ssd_chunk(dtype: torch.dtype, p: int, n: int, s: int,
     return min(chunk, s)
 
 
-def count_launch(key: str) -> None:
-    """Add one to ``launches[key]``; safe across threads."""
+def count_launch(*keys: str) -> None:
+    """Add one to ``launches[key]`` for each key; safe across threads."""
     with _launch_lock:
-        launches[key] += 1
+        for key in keys:
+            launches[key] += 1
 
 
 def reset_launches() -> None:
@@ -266,23 +280,24 @@ def build() -> Dict[str, Path]:
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
-    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    P, I = ctypes.c_void_p, ctypes.c_int
     F = ctypes.c_float
     tiles = []    # (library function, the wrappers' value)
     if name == "assess":
-        lib.assess_spatial.argtypes = [P] * 6 + [I] * 5 + [P, P]
-        lib.assess_temporal.argtypes = [P] * 5 + [I] * 3 + [P, P, P]
-        lib.assess_late.argtypes = [P] * 9 + [I] * 3 + [D] * 4 + [P] * 4
-        lib.assess_reap.argtypes = [P] * 3 + [I, I, P, P]
-        lib.assess_spatial_smem.argtypes = [I]
-        lib.assess_temporal_smem.argtypes = [I]
-        lib.assess_late_work_bytes.argtypes = [I, I]
-        fns = (lib.assess_spatial, lib.assess_temporal, lib.assess_late,
-               lib.assess_reap)
+        lib.assess_spatial.argtypes = [P] * 6 + [I] * 5 + [P, P, P]
+        lib.assess_temporal.argtypes = [P] * 5 + [I] * 3 + [P] * 4
+        lib.assess_spatial_smem.argtypes = [I, I, I]
+        lib.assess_temporal_smem.argtypes = [I, I, I]
+        lib.assess_spatial_work_bytes.argtypes = [I, I, I]
+        lib.assess_temporal_work_bytes.argtypes = [I, I]
+        fns = (lib.assess_spatial, lib.assess_temporal) + bind_late(lib)
         for fn in (lib.assess_spatial_smem, lib.assess_temporal_smem,
-                   lib.assess_late_work_bytes):
+                   lib.assess_spatial_work_bytes,
+                   lib.assess_temporal_work_bytes):
             fn.restype = ctypes.c_size_t
-        tiles = [(lib.assess_late_rows, LATE_ROWS),
+        tiles = [(lib.assess_glance_rows, GLANCE_ROWS),
+                 (lib.assess_glance_chunk, GLANCE_CHUNK),
+                 (lib.assess_late_rows, LATE_ROWS),
                  (lib.assess_late_smem_cands, LATE_SMEM_CANDS),
                  (lib.assess_reap_tile, REAP_TILE)]
     elif name == "bulk":
@@ -338,6 +353,20 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         check_bodies(name, getattr(lib, fn_name), wrappers)
     elif name == "ssd":
         check_ssd_bodies(lib.ssd_tc)
+
+
+def bind_late(lib: ctypes.CDLL) -> tuple:
+    """Argument types of B3's and B4's C interface (slice 9's, which
+    ``chip_smoke.py --assess-parent`` also binds on an earlier library);
+    returns the two launch functions."""
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.assess_late.argtypes = [P] * 9 + [I] * 3 + [D] * 4 + [P] * 4
+    lib.assess_reap.argtypes = [P] * 3 + [I, I, P, P]
+    lib.assess_late_work_bytes.argtypes = [I, I]
+    lib.assess_late_work_bytes.restype = ctypes.c_size_t
+    for fn in (lib.assess_late, lib.assess_reap):
+        fn.restype = ctypes.c_int
+    return lib.assess_late, lib.assess_reap
 
 
 def check_bodies(name: str, library_fn, wrappers_fn) -> None:
@@ -438,13 +467,21 @@ def _smem(bytes_: int, kernel: str, n: int) -> int:
     return bytes_
 
 
+def _glance_sizes(kernel: str, cap: int, n: int, jcap: int) -> None:
+    if min(cap, n, jcap) < 1:
+        raise ValueError(f"{kernel}: cap {cap}, {n} nodes and jcap {jcap} "
+                         f"(each at least 1)")
+
+
 # ---------------------------------------------------------------------------
 # Launchers (CUDA tensors only)
 # ---------------------------------------------------------------------------
 def launch_spatial(rho, node, kind, jls, running, nh,
                    jcap: int) -> torch.Tensor:
     """B1: (jcap, 2, n) bool Eq. 1 hits per (job, phase, node); with
-    (N, cap) rows, (N, jcap, 2, n) for all scenarios in one launch."""
+    (N, cap) rows, (N, jcap, 2, n) for all scenarios in one call. Two
+    launches: the row pass (counted as ``spatial``/``spatial_sweep``) and
+    the group pass (``spatial_jobs``/``spatial_sweep_jobs``)."""
     dev = rho.device
     N, cap, key = _scenarios(rho, "spatial")
     n, k = nh.shape
@@ -452,43 +489,81 @@ def launch_spatial(rho, node, kind, jls, running, nh,
           i32=[("node", node), ("kind", kind), ("jls", jls),
                ("running", running)])
     _check(nh, "nh", torch.int32, (n, k), dev)
+    _glance_sizes("spatial", cap, n, jcap)
     lib = library()
-    _smem(lib.assess_spatial_smem(n), "spatial", n)
+    stream = _stream(dev)
+    work = glance_work(lib, "spatial", dev, stream, N, cap, jcap, n)
     fired = torch.empty(tuple(rho.shape[:-1]) + (jcap, 2, n),
                         dtype=torch.bool, device=dev)
-    rc = lib.assess_spatial(
-        rho.data_ptr(), node.data_ptr(), kind.data_ptr(), jls.data_ptr(),
-        running.data_ptr(), nh.data_ptr(), cap, n, k, jcap, N,
-        fired.data_ptr(), _stream(dev))
+    with _work_lock:
+        rc = lib.assess_spatial(
+            rho.data_ptr(), node.data_ptr(), kind.data_ptr(),
+            jls.data_ptr(), running.data_ptr(), nh.data_ptr(), cap, n, k,
+            jcap, N, work.data_ptr(), fired.data_ptr(), stream)
     _raise_on(rc, "spatial")
-    count_launch(key)
+    count_launch(key, key + "_jobs")
     return fired
 
 
 def launch_temporal(prog, tprog, node, jls, alive, jcap: int,
                     n: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B2: (jcap, n) float64 ζ_now and ζ_prev sums, NaN where empty."""
+    """B2: (jcap, n) float64 ζ_now and ζ_prev sums, NaN where empty. Two
+    launches: the row pass (counted as ``temporal``) and the group pass
+    (``temporal_jobs``)."""
     dev, cap = prog.device, prog.shape[0]
     _cols(dev, (cap,), f64=[("prog", prog), ("tprog", tprog)],
           i32=[("node", node), ("jls", jls), ("alive", alive)])
+    _glance_sizes("temporal", cap, n, jcap)
     lib = library()
-    _smem(lib.assess_temporal_smem(n), "temporal", n)
-    zn = torch.empty((jcap, n), dtype=torch.float64, device=dev)
-    zp = torch.empty((jcap, n), dtype=torch.float64, device=dev)
-    rc = lib.assess_temporal(
-        prog.data_ptr(), tprog.data_ptr(), node.data_ptr(), jls.data_ptr(),
-        alive.data_ptr(), cap, n, jcap, zn.data_ptr(), zp.data_ptr(),
-        _stream(dev))
+    stream = _stream(dev)
+    work = glance_work(lib, "temporal", dev, stream, 1, cap, jcap, n)
+    # ζ_now and ζ_prev, one allocation
+    z = torch.empty((2, jcap, n), dtype=torch.float64, device=dev)
+    zn, zp = z[0], z[1]
+    with _work_lock:
+        rc = lib.assess_temporal(
+            prog.data_ptr(), tprog.data_ptr(), node.data_ptr(),
+            jls.data_ptr(), alive.data_ptr(), cap, n, jcap,
+            work.data_ptr(), zn.data_ptr(), zp.data_ptr(), stream)
     _raise_on(rc, "temporal")
-    count_launch("temporal")
+    count_launch("temporal", "temporal_jobs")
     return zn, zp
 
 
-# B3's work buffers by (device index, stream, N, cap). A launch reads and
-# rewrites its buffer's counters, so two launches may share a buffer only
-# if they run one after the other: launches on one stream do, so the key
-# holds the stream. Host threads that launch on one stream (the runtime's
-# share the default stream) therefore share its buffer safely.
+# B1's and B2's work buffers by (device index, stream, kernel, N, cap,
+# jcap, n). A call rewrites every part of its buffer that it reads, so
+# nothing in it is reset; calls on one stream run one after the other
+# (their launch pairs kept whole by _work_lock), so they may share one.
+_glance_work: Dict[Tuple[int, int, str, int, int, int, int],
+                   torch.Tensor] = {}
+
+
+def glance_work(lib, kernel: str, device: torch.device, stream: int, N: int,
+                cap: int, jcap: int, n: int) -> torch.Tensor:
+    """B1's (``kernel`` "spatial") or B2's ("temporal") work buffer for N
+    scenarios of ``cap`` rows, ``jcap`` job slots and ``n`` nodes on
+    ``stream``. On first use the shape's shared memory is checked (raises
+    above a block's) and the buffer allocated, not zeroed: nothing in it
+    needs a value before a call. Later calls find it here."""
+    key = (device.index, stream, kernel, N, cap, jcap, n)
+    buf = _glance_work.get(key)
+    if buf is None:
+        if kernel == "spatial":
+            smem = lib.assess_spatial_smem(n, jcap, cap)
+            nbytes = lib.assess_spatial_work_bytes(cap, jcap, N)
+        else:
+            smem = lib.assess_temporal_smem(n, jcap, cap)
+            nbytes = lib.assess_temporal_work_bytes(cap, jcap)
+        _smem(smem, kernel, n)
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        buf = _glance_work.setdefault(key, buf)
+    return buf
+
+
+# B3's work buffers by (device index, stream, N, cap). A call reads and
+# rewrites its buffer's counters, so two calls may share a buffer only if
+# they run one after the other: calls on one stream do (their launch pairs
+# kept whole by _work_lock), so the key holds the stream.
 _late_work: Dict[Tuple[int, int, int, int], torch.Tensor] = {}
 
 
@@ -531,15 +606,16 @@ def launch_late(prog, start, rate, spec, tseg, jls, running, runatt, order,
     out = torch.empty((2,) + tuple(prog.shape[:-1]) + (jcap,),
                       dtype=torch.int32, device=dev)
     victim, win = out[0], out[1]
-    rc = lib.assess_late(
-        prog.data_ptr(), start.data_ptr(), rate.data_ptr(), spec.data_ptr(),
-        tseg.data_ptr(), jls.data_ptr(), running.data_ptr(),
-        runatt.data_ptr(), order.data_ptr(), cap, jcap, N, float(now),
-        float(min_runtime), float(q), float(win_factor), work.data_ptr(),
-        victim.data_ptr(), win.data_ptr(), stream)
+    with _work_lock:
+        rc = lib.assess_late(
+            prog.data_ptr(), start.data_ptr(), rate.data_ptr(),
+            spec.data_ptr(), tseg.data_ptr(), jls.data_ptr(),
+            running.data_ptr(), runatt.data_ptr(), order.data_ptr(), cap,
+            jcap, N, float(now), float(min_runtime), float(q),
+            float(win_factor), work.data_ptr(), victim.data_ptr(),
+            win.data_ptr(), stream)
     _raise_on(rc, "late")
-    count_launch(key)
-    count_launch(key + "_jobs")
+    count_launch(key, key + "_jobs")
     return victim, win
 
 

@@ -212,6 +212,17 @@ def _ordered_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """``np.sqrt``, correctly rounded. ``torch.sqrt`` of a CPU float64
+    tensor is not: on an AVX512 host it differs from ``np.sqrt`` in the
+    last bit for about 0.7 % of inputs, which flips Eq. 1 at its boundary
+    (``mean - std == P`` in exact arithmetic). CUDA's float64 sqrt is the
+    IEEE square root, as the kernels' is."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
 def _bucket_add(use, seg, vals, nb) -> torch.Tensor:
     """Masked bucket sums; masked rows go to a dump bucket past ``nb``."""
     idx = torch.where(use, seg, nb)
@@ -242,7 +253,7 @@ def spatial_ref(rho, node, kind, jls, running, nh, jcap: int
     mean = _ordered_sum(torch.where(valid, Pn, 0.0)) / denom
     d = Pn - mean[:, :, None]
     var = _ordered_sum(torch.where(valid, d * d, 0.0)) / denom
-    std = torch.sqrt(var)
+    std = _sqrt(var)
     fired = (cnt >= 2) & ~torch.isnan(P) & (P < mean - std)
     return fired.reshape(jcap, 2, n)
 
