@@ -46,22 +46,39 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    passes);
    B3 must have been reached through both ``late_victims`` (yarn) and
    ``winning`` (bino).
-4. Fair path: the same jobs on the ε-fair network with 40
+4. Predictor path: the learned straggler predictor on the card. The
+   default training corpus (``CORPUS_RUNS`` x 3 replicas and the fleet
+   slice, traced bino runs) generated with the default backend (the
+   card) and with numpy must be byte-identical files, with B1-B4
+   launched (each glance row pass with its job pass); ``train`` on the
+   card and on the CPU from the same initial bits, 20 steps within
+   ``PREDICT_TRAIN_TOL_SHORT`` and the reference's 400 within
+   ``PREDICT_TRAIN_TOL`` (each leaf's ||card - cpu|| / ||cpu||); the
+   card-trained ``PredictorPolicy`` on the main-path scenario, card
+   against numpy: byte-identical traces, launches and results, exactly
+   one B4 launch per assess tick and none of B1-B3, no plain-version
+   call; B4 held against its plain version and timed on that run's
+   snapshot; then fig_predictor's held-out scenarios (seed 1) under
+   yarn, bino and the card-trained predictor on the card: predictor
+   recall (scorecard ``mode="any"``) at least bino's wherever there are
+   victims, and wasted backup launches per true straggler at most
+   yarn's.
+5. Fair path: the same jobs on the ε-fair network with 40
    racks, the kernel shuffle engine and drain-boundary re-pricing, plus a
    rack switch degrade — bino with assessment and the bulk solver on the
    card, then both on numpy. Byte-identical traces, launches and results;
    B5 launched and transfers re-priced. B5 is then held against its plain
    version on every pricing call of the card run and timed.
-5. Sweep path: the fair card run's snapshot at 120 s, 64 fault
+6. Sweep path: the fair card run's snapshot at 120 s, 64 fault
    scenarios of all five kinds; ``BatchedSweep.run_batched`` on the card
    (one call each of B1, B3 and B4 with a scenario axis) equals
    ``run_serial`` on numpy exactly. The batched kernels are then held
    against their plain versions and against 64 per-scenario launches,
    and timed as in phase 2.
-6. Profile: the flat bino card run once more under
+7. Profile: the flat bino card run once more under
    ``torch.profiler`` — device time by kernel and the device's busy share
    of the run's wall time.
-7. Attention kernels: B6 (flash-attention forward) and
+8. Attention kernels: B6 (flash-attention forward) and
    B9 (decode attention) against their plain torch versions on the card,
    in bf16 and f32, on boundary inputs (sq < sk, ragged tiles, a window,
    groups 1, 4 and 48, head_dim 64 and 128, valid lengths at 1, at tile
@@ -80,7 +97,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    plain versions and ``F.scaled_dot_product_attention`` (the yardstick
    only: the port never calls it), by CUDA events and, for B6 at the
    training layer and B9, by device time (``_device_ms``).
-8. Serving path: Qwen3-8B at full width (36 layers, random
+9. Serving path: Qwen3-8B at full width (36 layers, random
    bf16 weights from a seeded generator) serves 4 prompts of 2,048 token
    ids through ``make_prefill_step`` and 64 greedy steps of
    ``make_serve_step``: exactly 36 B6 launches, all on its Hopper body
@@ -93,7 +110,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    how much of the error is bf16 rounding. Prints prefill ms, decode ms
    per step, tokens/s, peak device memory, and a profile of the device
    time by kernel.
-9. Attention backward: B7 (dK, dV) and B8 (dQ) against
+10. Attention backward: B7 (dK, dV) and B8 (dQ) against
    their plain versions on the card in bf16 and f32 on boundary inputs
    (causal or not, windows, sq < sk, ragged tiles, groups 1, 4 and 8,
    head_dim 32, 64 and 128; bf16 2e-2, f32 2e-5), each launched twice
@@ -108,7 +125,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    yardstick only) by CUDA events and by device time, and the port's
    whole backward (``bwd_delta``, B7, B8) beside that yardstick by device
    time.
-10. Training path: Qwen1.5-0.5B at full width and depth (random bf16
+11. Training path: Qwen1.5-0.5B at full width and depth (random bf16
    weights from seed 0) trained by ``TrainerRuntime`` under the
    binocular-speculation coordinator, 4 hosts x 4 microbatches of 2,048
    tokens: a warm-up step and 5 timed steps (wall, tokens/s, loss, peak
@@ -126,7 +143,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    fault-free run, and the crash runs must show a recovery. The last
    resumed step is profiled (device time by kernel, busy share, device
    time per ``grad_fn`` call, B6/B7/B8's shares).
-11. SSD scan: B10 against its plain version on the card, y and final
+12. SSD scan: B10 against its plain version on the card, y and final
    state, in bf16 and f32, on boundary inputs (the shapes of
    ``tests/test_kernels.py``, s < chunk, ragged tails, 1, 2 and 8 groups,
    head_dim 16 to 128 with d_state 128, A near 0 and decays that
@@ -141,7 +158,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    Mamba2-2.7B's layer shape on the Hopper body, launched twice
    byte-identical, timed beside the plain version by CUDA events and by
    device time (no PyTorch call computes the scan).
-12. SSM serving path: Mamba2-2.7B at full width and depth (64 layers,
+13. SSM serving path: Mamba2-2.7B at full width and depth (64 layers,
    random bf16 weights from a seeded generator, about 2.70 B parameters)
    serves 4 prompts of 2,048 token ids through ``make_prefill_step`` and
    64 greedy steps of ``make_serve_step``: exactly 64 B10 launches in
@@ -159,11 +176,11 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    it), each layer's final state within ``SSM_STATE_TOL``. Prints prefill ms, decode ms per
    step, tokens/s, peak device memory, the parameters' and the cache's
    bytes, and a profile of the device time by kernel.
-13. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
+14. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Each path is driven with the launch counts set to 0 just before it and
-read just after; the comparisons of phases 2, 4, 5, 7, 9 and 11, and the
+read just after; the comparisons of phases 2, 4, 5, 6, 8, 10 and 12, and the
 training and serving checks, launch outside those windows.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -261,11 +278,13 @@ def scenario(policy: str, backend, *, n_workers: int = N_WORKERS,
              n_jobs: int = N_JOBS, gb: float = JOB_GB,
              cap: float = SIM_TIME_CAP, shuffle: str = "batch",
              net: str = "flat", racks: int = 0, net_opts=None,
-             degrade=None):
+             degrade=None, ckpt=None):
     """One seeded run of the main-path scenario through the port's
     public entry points; returns (sim, launches, result key, wall s).
     ``net``/``racks``/``net_opts``/``shuffle`` select the network and
-    engine, ``degrade`` adds a rack switch degrade."""
+    engine, ``degrade`` adds a rack switch degrade, and ``ckpt`` is a
+    predictor checkpoint the ``"predictor"`` policy loads before the
+    run."""
     from repro_torch.sim import JobSpec, Simulation, faults
     from repro_torch.sim.mapreduce import BINO_PARAMS, SimParams
 
@@ -275,6 +294,8 @@ def scenario(policy: str, backend, *, n_workers: int = N_WORKERS,
                      params=dataclasses.replace(base, sim_time_cap=cap),
                      shuffle=shuffle, net=net, racks=racks,
                      net_opts=net_opts, record_actions=True)
+    if ckpt is not None:
+        sim.speculator.load_checkpoint(ckpt)
     launches = []
     orig = sim._start_attempt
 
@@ -1022,6 +1043,280 @@ def main_path():
         raise RuntimeError(f"B3 not reached through both callers: {b3_by}")
     print(f"B3 launches by caller: {b3_by}", flush=True)
     return total
+
+
+# Predictor path: the learned straggler predictor's corpus, its training
+# and the trained policy, each on the card. The held-out scenarios of
+# fig_predictor (benchmarks/fig_predictor.py, SCENARIOS and SEED), kept
+# here so that this script imports nothing of benchmarks/.
+PREDICT_SEED = 0
+FIG_PREDICTOR_SEED = 1
+FIG_PREDICTOR_SCENARIOS = {
+    "clean": ([], {}),
+    "one_crash": ([("crash", 1, 0.2, 0.0)], {}),
+    "two_crashes": ([("crash", 1, 0.2, 0.0), ("crash", 2, 0.3, 0.0)], {}),
+    "rack_degrade": ([("degrade", 0, 0.25, 0.1), ("slow", 2, 0.3, 0.4)],
+                     {"net": "topo", "racks": 4}),
+}
+FIG_PREDICTOR_POLICIES = ("yarn", "bino", "predictor")
+# Training on the card against the same training on the CPU, both from
+# the same initial bits (drawn on the CPU, then moved): each trained
+# leaf's ||card - cpu|| / ||cpu||. After PREDICT_TRAIN_STEPS_SHORT steps
+# the two differ only by the rounding of their float32 sums: measured
+# 4.2e-7 on an H100 80GB HBM3 at 700 W (PERF.md), bound 1e-5; this holds
+# the arithmetic. Over the reference's 400 steps AdamW's sign-like steps
+# on near-zero gradients carry those roundings into the weights: measured
+# 0.043 on the same card, and on a CPU the thread count alone moved a
+# 400-step run by up to 0.23 against the reference's from the same bits.
+# PREDICT_TRAIN_TOL bounds gross errors only.
+PREDICT_TRAIN_STEPS_SHORT = 20
+PREDICT_TRAIN_TOL_SHORT = 1e-5
+PREDICT_TRAIN_TOL = 0.25
+ASSESS_KEYS = ("spatial", "spatial_jobs", "temporal", "temporal_jobs",
+               "late", "late_jobs", "reap")
+
+
+def predictor_path(device="cuda", workdir=None, corpus_runs=None,
+                   **sizes):
+    """The predictor path on ``device``: the default corpus generated with
+    the card's backend and with numpy (byte-identical files), training on
+    ``device`` and on the CPU, the card-trained policy at the main path's
+    scale (``sizes`` override it) against numpy, and fig_predictor's two
+    bars on the card. A CPU run (``device="cpu"``) rehearses it on
+    ``TorchBackend("cpu")``, with no launch to count and without the
+    bars: a CPU-trained model's bars move with the CPU's thread count
+    (its float32 sums round differently, and 400 AdamW steps carry that
+    into the weights). ``corpus_runs`` replaces the default corpus's run
+    list. Files go to a temporary
+    directory under ``workdir`` (default: the repository's git-ignored
+    ``build/``), removed at the end. Returns the card runs' launch counts
+    and B4's timing on the predictor run's snapshot."""
+    import shutil
+    import tempfile
+
+    root = Path(workdir or ROOT / "build")
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="predict_", dir=root))
+    try:
+        return _predictor_runs(device, tmp, corpus_runs, sizes)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _predictor_runs(device, tmp, corpus_runs, sizes):
+    from collections import Counter
+
+    from repro_torch.accel import kernels as K
+    from repro_torch.accel import torch_backend as TB
+    from repro_torch.accel.numpy_backend import NumpyBackend
+    from repro_torch.core.arrays import snapshot_from_state, snapshot_state
+    from repro_torch.predict.dataset import generate_corpus
+    from repro_torch.predict.model import TRAINED_LEAVES, load_params_np
+    from repro_torch.predict.train import train
+
+    on_card = device == "cuda"
+    assess = None if on_card else TB.TorchBackend("cpu")
+    out = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # -- the corpus ------------------------------------------------------
+    paths = {k: str(tmp / f"corpus_{k}.npz") for k in ("card", "numpy")}
+    walls = {}
+    K.reset_launches()
+    for key, backend in (("card", assess), ("numpy", "numpy")):
+        t0 = time.perf_counter()
+        meta = generate_corpus(paths[key], seed=PREDICT_SEED,
+                               runs=corpus_runs, assess_backend=backend)
+        sync()
+        walls[key] = time.perf_counter() - t0
+        if key == "card":
+            counts = {k: K.launches[k] for k in ASSESS_KEYS}
+    same = Path(paths["card"]).read_bytes() == \
+        Path(paths["numpy"]).read_bytes()
+    print(f"predictor corpus: {len(meta['runs'])} traced bino runs, "
+          f"{meta['n_rows']} rows ({meta['n_positive']} positive); files "
+          f"{'byte-identical' if same else 'DIFFER'}, card vs numpy; wall "
+          f"card {walls['card']:.6f} s, numpy {walls['numpy']:.6f} s; "
+          f"kernel launches {counts}", flush=True)
+    if not same:
+        raise RuntimeError("predictor corpus: card and numpy files differ")
+    if on_card:
+        missing = [k for k in ASSESS_KEYS if counts[k] == 0]
+        if missing:
+            raise RuntimeError(f"predictor corpus: kernels never launched: "
+                               f"{missing}")
+        for name in ("spatial", "temporal", "late"):
+            if counts[name + "_jobs"] != counts[name]:
+                raise RuntimeError(f"predictor corpus: {name}: "
+                                   f"{counts[name]} row passes, "
+                                   f"{counts[name + '_jobs']} job passes")
+    out["corpus"] = counts
+    corpus = paths["card"]
+
+    # -- training on the card and on the CPU, from the same bits ---------
+    def trained(steps, tol):
+        runs = {}
+        for dev in dict.fromkeys((device, "cpu")):
+            ckpt = str(tmp / f"ckpt_{steps}_{dev}")
+            t0 = time.perf_counter()
+            meta = train(corpus, ckpt, seed=PREDICT_SEED, steps=steps,
+                         device=dev)
+            sync()
+            runs[dev] = (ckpt, meta, time.perf_counter() - t0,
+                         load_params_np(ckpt))
+        ckpt, meta, wall, got = runs[device]
+        _c, meta_cpu, _w, want = runs["cpu"]
+        errs = {k: float(np.linalg.norm(got[k] - want[k])
+                         / np.linalg.norm(want[k])) for k in TRAINED_LEAVES}
+        print(f"predictor train {steps} steps on {device}: wall "
+              f"{wall:.6f} s, final loss {meta['final_train_loss']}, "
+              f"threshold {meta['threshold']}, eval precision "
+              f"{meta['eval']['precision']} recall "
+              f"{meta['eval']['recall']}; on the cpu: loss "
+              f"{meta_cpu['final_train_loss']}, threshold "
+              f"{meta_cpu['threshold']}; ||{device} - cpu|| / ||cpu|| by "
+              f"leaf {errs} (limit {tol})", flush=True)
+        if not max(errs.values()) <= tol:
+            raise RuntimeError(f"predictor train {steps} steps: {device} "
+                               f"vs cpu {errs}, limit {tol}")
+        return ckpt
+
+    trained(PREDICT_TRAIN_STEPS_SHORT, PREDICT_TRAIN_TOL_SHORT)
+    ckpt = trained(400, PREDICT_TRAIN_TOL)
+
+    # -- the trained policy at the main path's scale ---------------------
+    got = {}
+
+    class Capture(NumpyBackend):
+        """numpy, keeping the snapshot of the first reap at or after
+        ``CAPTURE_AT`` (B4 is timed on it below)."""
+
+        def reap_rows(self, arr, now):
+            if "state" not in got and now >= CAPTURE_AT:
+                got.update(state=snapshot_state(arr), now=now)
+            return super().reap_rows(arr, now)
+
+    plain = _CountCalls([(TB, "reap_ref")])
+    K.reset_launches()
+    with plain:
+        card, c_launch, c_key, c_wall = scenario("predictor", assess,
+                                                 ckpt=ckpt, **sizes)
+    counts = {k: K.launches[k] for k in ASSESS_KEYS}
+    ref, r_launch, r_key, r_wall = scenario("predictor", Capture(),
+                                            ckpt=ckpt, **sizes)
+    backend = card.speculator.backend
+    if not isinstance(backend, TB.TorchBackend) or \
+            backend.device.type != torch.device(device).type:
+        raise RuntimeError(f"predictor: backend {backend!r}, not torch on "
+                           f"{device}")
+    if card.action_trace != ref.action_trace:
+        raise RuntimeError("predictor: action traces differ")
+    if c_launch != r_launch:
+        raise RuntimeError("predictor: attempt launches differ")
+    if c_key != r_key:
+        raise RuntimeError("predictor: job results differ")
+    kinds = Counter(a.split("(", 1)[0] for _t, a in card.action_trace)
+    print(f"predictor policy: identical traces ({len(card.action_trace)} "
+          f"actions: {dict(kinds)}; {len(c_launch)} attempt launches, "
+          f"{len(c_key)} jobs finished); threshold "
+          f"{card.speculator.cfg.threshold}; card: {card.assess_ticks} "
+          f"assess ticks, assess_wall {card.assess_wall:.6f} s, wall "
+          f"{c_wall:.6f} s, {card.assess_ticks / card.assess_wall:.3f} "
+          f"ticks/s; numpy: {ref.assess_ticks} ticks, assess_wall "
+          f"{ref.assess_wall:.6f} s, wall {r_wall:.6f} s, "
+          f"{ref.assess_ticks / ref.assess_wall:.3f} ticks/s; kernel "
+          f"launches {counts}; plain-version calls {plain.calls}",
+          flush=True)
+    if not kinds.get("SpeculateTask"):
+        print("predictor policy: the trained model nominated no backup "
+              "at this scale", flush=True)
+    if on_card:
+        want = dict.fromkeys(ASSESS_KEYS, 0)
+        want["reap"] = card.assess_ticks
+        if counts != want or any(plain.calls.values()):
+            raise RuntimeError(f"predictor: launches {counts}, expected "
+                               f"{want}; plain calls {plain.calls}")
+        if "state" not in got:
+            raise RuntimeError("predictor: no reap after the capture time")
+        arr = snapshot_from_state(got["state"])
+        args = TB.TorchBackend(device).reap_args(arr, got["now"])
+        equal, err = _compare(TB.reap(*args), TB.reap_ref(
+            *TB.TorchBackend("cpu").reap_args(arr, got["now"])))
+        if not equal:
+            raise RuntimeError(f"predictor: B4 != plain version on the "
+                               f"snapshot (max_abs_err {err})")
+        dev_ms, host_us = _device_host(TB.reap, args)
+        out["reap_timing"] = {"device_ms": dev_ms, "host_us": host_us,
+                              "ms": _time_ms(TB.reap, args),
+                              "rows": arr.n, "now": got["now"]}
+        print(f"predictor B4 on the snapshot at {got['now']} s ({arr.n} "
+              f"rows): equal to its plain version; {out['reap_timing']}",
+              flush=True)
+        out["fig"] = fig_predictor_bars(ckpt)
+    out["policy"] = counts
+    return out
+
+
+def fig_predictor_bars(ckpt, assess=None):
+    """fig_predictor's held-out scenarios under yarn, bino and the
+    predictor of checkpoint ``ckpt``, assessing on ``assess`` (default:
+    the card); raises unless the benchmark's two bars hold. Returns the
+    runs' launch counts."""
+    from repro_torch.accel import kernels as K
+
+    K.reset_launches()
+    per = {name: {p: _fig_predictor_run(p, script, kw, ckpt, assess)
+                  for p in FIG_PREDICTOR_POLICIES}
+           for name, (script, kw) in FIG_PREDICTOR_SCENARIOS.items()}
+    counts = {k: K.launches[k] for k in ASSESS_KEYS}
+    fp_rate = {p: sum(per[n][p]["wasted_launches"] for n in per)
+               / max(sum(per[n][p]["victims"] for n in per), 1)
+               for p in FIG_PREDICTOR_POLICIES}
+    for name in per:
+        print(f"fig_predictor {name}: {per[name]}", flush=True)
+    print(f"fig_predictor: wasted backup launches per true straggler "
+          f"{fp_rate}; kernel launches {counts}", flush=True)
+    for name in per:
+        if not per[name]["bino"]["victims"]:
+            continue
+        if per[name]["predictor"]["recall"] < per[name]["bino"]["recall"]:
+            raise RuntimeError(f"fig_predictor {name}: predictor recall "
+                               f"below bino's: {per[name]}")
+    if fp_rate["predictor"] > fp_rate["yarn"]:
+        raise RuntimeError(f"fig_predictor: the predictor wastes more "
+                           f"backups per straggler than yarn: {fp_rate}")
+    return counts
+
+
+def _fig_predictor_run(policy, script, kw, ckpt, assess):
+    """One fig_predictor scenario (seed 1, a 2 GB terasort) under
+    ``policy``, traced; its scorecard (``mode="any"``) numbers."""
+    from repro_torch.obs import TraceRecorder, attempt_outcomes, scorecard
+    from repro_torch.obs.trace import END_COMPLETED
+    from repro_torch.sim import JobSpec, Simulation, faults
+
+    rec = TraceRecorder()
+    sim = Simulation(policy=policy, seed=FIG_PREDICTOR_SEED, obs=rec,
+                     assess_backend=assess, **kw)
+    if policy == "predictor":
+        sim.speculator.load_checkpoint(ckpt)
+    job = sim.submit(JobSpec("j0", "terasort", 2.0))
+    if script:
+        faults.apply_script(sim, job, script)
+    sim.run()
+    card = scorecard(rec, policy=policy, mode="any")
+    return {
+        "finish": round(sim.engine.now, 6),
+        "recall": card["recall"],
+        "victims": len(card["victims"]),
+        "n_backups": card["n_backups"],
+        "wasted_launches": sum(1 for o in attempt_outcomes(rec)
+                               if o["speculative"]
+                               and o["end_code"] != END_COMPLETED),
+    }
 
 
 def fair_path():
@@ -2214,16 +2509,13 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
         speculative attempt may still be inside its backward), then read
         the launch counts and check them against the grad_fn calls."""
         trainer.shutdown()
+        # each host's thread and its heartbeat thread (the host's handle)
         for host in trainer.coord.hosts.values():
-            host.join(timeout=HOST_EXIT_S)
-            if host.is_alive():
-                raise RuntimeError(f"train: host {host.host_id} still "
-                                   f"running {HOST_EXIT_S} s after shutdown")
-        # each host's heartbeat thread ends within a heartbeat period
-        beats = {f"hb-{host_id}" for host_id in trainer.coord.hosts}
-        for thread in threading.enumerate():
-            if thread.name in beats:
+            for thread in (host, host.hb):
                 thread.join(timeout=HOST_EXIT_S)
+                if thread.is_alive():
+                    raise RuntimeError(f"train: {thread.name} still running "
+                                       f"{HOST_EXIT_S} s after shutdown")
         counts = dict(K.launches)
         want = cfg.n_layers * calls[0] if on_card else 0
         # every B6, B7 and B8 launch on its Hopper body (bf16, head_dim
@@ -2265,8 +2557,9 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         timed = t.run(steps)
+        # the crash runs' horizon: the steps alone, not the hosts' shutdown
+        ff_wall = time.perf_counter() - w0
         counts = finish(t, calls)
-    ff_wall = time.perf_counter() - w0
     peak = torch.cuda.max_memory_allocated() if on_card else None
     if on_card and any(plain.calls.values()):
         raise RuntimeError(f"train: plain versions called on the card's "
@@ -3349,6 +3642,7 @@ def main() -> int:
     cap_state = capture_snapshot()
     rows = kernel_phase(cap_state)
     launches = main_path()
+    predict = predictor_path()
     fair_launches, fair = fair_path()
     launches["price"] = fair_launches["price"]
     rows["price"] = price_phase(fair["prices"])
@@ -3369,6 +3663,7 @@ def main() -> int:
     rows.update(ssd_kernel_phase())
     ssm_launches = ssm_serve_path()
     launches["ssd"] = ssm_launches["ssd"]
+    launches["reap"] += predict["policy"]["reap"]
     for name, row in rows.items():
         row["launches"] = launches[name]
     # the main paths' launches of B1's, B2's and B3's job passes, B9's
@@ -3381,6 +3676,14 @@ def main() -> int:
     rows["decode"]["combine_launches"] = serve_launches["decode_combine"]
     rows["ssd"].update((f"{k}_launches", ssm_launches[k])
                        for k in K.SSD_TC_KEYS[1:])
+    # the predictor path: B4 once per tick of the trained policy (in
+    # ``launches`` above); B1-B4 in its corpus and fig_predictor's runs
+    for name in ("spatial", "temporal", "late", "reap"):
+        rows[name]["predictor_corpus_launches"] = predict["corpus"][name]
+        rows[name]["fig_predictor_launches"] = predict["fig"][name]
+    rows["reap"].update(
+        predictor_policy_launches=predict["policy"]["reap"],
+        **{f"predictor_{k}": v for k, v in predict["reap_timing"].items()})
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

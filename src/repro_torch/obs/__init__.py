@@ -1,12 +1,16 @@
-"""repro_torch.obs — the flight recorder's trace schema and the metrics
-plane (DESIGN.md §18).
+"""repro_torch.obs — flight recorder, metrics plane, exporters, scorecards
+(DESIGN.md §18).
 
-Ported: :mod:`repro_torch.obs.trace` (the simulator's and the runtime's
-emit sites need its record kinds and :class:`TraceRecorder`) and
-:mod:`repro_torch.obs.metrics` (the live coordinator counts its recovery
-work in a :class:`MetricsRegistry`). The exporters and scorecards wait
-(ROADMAP).
+One trace schema, two worlds: the simulator and the live runtime emit
+identical structured-numpy records through a :class:`TraceRecorder`
+(one ``is not None`` branch per site when absent), the
+:class:`MetricsRegistry` counts the coordinator's recovery work, and the
+exporters and scorecard turn traces into Perfetto timelines and
+detection-quality numbers. All of it is numpy and Python, copied from
+the reference package; nothing here touches the card.
 """
+from repro_torch.obs.export import to_chrome_trace, trace_diff, \
+    write_chrome_trace
 from repro_torch.obs.metrics import (
     Counter,
     Gauge,
@@ -15,6 +19,8 @@ from repro_torch.obs.metrics import (
     Timer,
     instrument_drain,
 )
+from repro_torch.obs.scorecard import attempt_outcomes, comparable_core, \
+    scorecard
 from repro_torch.obs.trace import (
     ACT_KILL,
     ACT_MARK_FAILED,
@@ -61,4 +67,6 @@ __all__ = [
     "K_GLANCE_TEMPORAL", "K_LATE", "K_PREDICT", "K_RAMP", "K_ROLLBACK",
     "K_THRESH", "KIND_NAMES", "NODE_FAULT_CODES", "TRACE_DTYPE",
     "TraceRecorder",
+    "to_chrome_trace", "write_chrome_trace", "trace_diff",
+    "scorecard", "comparable_core", "attempt_outcomes",
 ]

@@ -234,10 +234,6 @@ class Coordinator:
             if self.chaos is not None and getattr(self.chaos, "obs", None) \
                     is None:
                 self.chaos.obs = obs
-        for hid in host_ids:
-            self._spawn_host(hid)
-        if self.chaos is not None:
-            self.chaos.arm(self.hosts, self.clock)
         # Columnar substrate: the same incrementally-maintained columns the
         # simulator writes through, here fed from live heartbeats/progress
         # messages. Single-writer: only the coordinator thread touches the
@@ -283,6 +279,18 @@ class Coordinator:
                 coll = getattr(self.speculator, "collective", None)
                 if coll is not None:
                     coll.obs = obs
+        # The hosts start only now, after the speculator: its assessment
+        # backend (the card's by default) raises without a card, and then
+        # no thread may be left running. A failure while the hosts start
+        # stops and joins those already started.
+        try:
+            for hid in host_ids:
+                self._spawn_host(hid)
+            if self.chaos is not None:
+                self.chaos.arm(self.hosts, self.clock)
+        except BaseException:
+            self.shutdown()
+            raise
         self.reports: List[StepReport] = []
 
     # ------------------------------------------------------------------
@@ -327,6 +335,10 @@ class Coordinator:
             close()
         for h in self.hosts.values():
             h.join(timeout=2.0)
+        # each heartbeat thread ends within a heartbeat period of the halt
+        for h in self.hosts.values():
+            if h.hb.ident is not None:
+                h.hb.join(timeout=2.0)
 
     # ------------------------------------------------------------------
     # One training step

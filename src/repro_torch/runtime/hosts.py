@@ -120,6 +120,10 @@ class HostDaemon(threading.Thread):
         # at-least-once delivery: attempt ids already accepted (redelivered
         # work items are re-acked but not re-executed)
         self._seen: set = set()
+        # the NodeManager heartbeat thread, started by run(); kept so that
+        # whoever stops the host can join it
+        self.hb = threading.Thread(target=self._hb_loop, daemon=True,
+                                   name=f"hb-{host_id}")
 
     # -- control ---------------------------------------------------------
     def set_params(self, params) -> None:
@@ -176,8 +180,7 @@ class HostDaemon(threading.Thread):
             self.clock.sleep(self.heartbeat_period)
 
     def run(self) -> None:
-        threading.Thread(target=self._hb_loop, daemon=True,
-                         name=f"hb-{self.host_id}").start()
+        self.hb.start()
         while not self._halt.is_set():
             try:
                 item = self._work.get(timeout=self.heartbeat_period)

@@ -465,9 +465,18 @@ class Simulation:
                 total_slots=n_workers * n_containers,
                 assess_backend=assess_backend)
         elif policy == "predictor":
-            raise NotImplementedError(
-                "policy='predictor' waits for the predict/ package to be "
-                "ported (ROADMAP, port queue)")
+            # Learned straggler nomination over the columnar mirror
+            # (DESIGN.md §20); untrained default params degenerate to
+            # reap + silent-window failure detection.
+            if self.arrays is None:
+                raise ValueError(
+                    "policy='predictor' requires columnar=True "
+                    "(features live in the ArraySnapshot mirror)")
+            from repro_torch.predict.policy import PredictorPolicy
+            self.speculator = PredictorPolicy(
+                self.cluster.node_ids,
+                total_slots=n_workers * n_containers,
+                assess_backend=assess_backend)
         else:
             from repro_torch.core.speculator import YarnLateSpeculator
             self.speculator = YarnLateSpeculator(

@@ -8,8 +8,7 @@ reference package.
 2. **Registry** — ``get_backend(None)`` and ``get_bulk_backend(None)``
    are torch on the card and raise without one; ``"numpy"`` and
    ``"torch"`` on the CPU resolve; ``make_network`` builds every network
-   model; the predictor policy, which waits for a later slice, raises
-   instead of running.
+   model.
 3. **Mirror** — the ``DeviceColumns`` padding/compaction cases of
    ``tests/test_accel.py``, run on the port's snapshot, and the
    ``snapshot_state``/``snapshot_from_state`` round trip from a reference
@@ -75,6 +74,13 @@ import repro_torch.optim
 import repro_torch.data
 import repro_torch.checkpoint
 import repro_torch.obs.metrics
+import repro_torch.obs.export
+import repro_torch.obs.scorecard
+import repro_torch.predict.features
+import repro_torch.predict.model
+import repro_torch.predict.policy
+import repro_torch.predict.dataset
+import repro_torch.predict.train
 import repro_torch.runtime
 ref = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not ref, ref
@@ -124,7 +130,7 @@ def test_chip_smoke_refuses_outside_checkout(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# 2. Registry and the parts not ported yet
+# 2. Registry
 # ---------------------------------------------------------------------------
 def test_default_backend_is_the_card(monkeypatch):
     import torch
@@ -189,11 +195,6 @@ def test_bulk_registry(monkeypatch):
                  lambda: get_bulk_backend("torch")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
-
-
-def test_predictor_policy_raises():
-    with pytest.raises(NotImplementedError, match="predict"):
-        Simulation(policy="predictor", assess_backend="numpy")
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,9 @@ attention runs through B6/B7/B8's plain versions.
    reference's in norm (1 when no update is applied, 2 when its sign is
    flipped).
 4. **Defaults and clock** — the card is the default device and assessment
-   backend (both raise without one); the copied ``FakeClock`` and script
-   parser behave as the reference's.
+   backend (both raise without one), and a runtime whose construction
+   raises leaves no host thread running; the copied ``FakeClock`` and
+   script parser behave as the reference's.
 
 ``chip_smoke.py``'s training phase is rehearsed on the CPU in
 ``tests/test_torch_train_smoke.py``.
@@ -241,6 +242,36 @@ def test_defaults_are_the_card(monkeypatch):
     params = PM.init_params(CFG, 0, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TrainerRuntime(CFG, TC, RuntimeConfig(), params=params)
+
+
+def _host_threads():
+    return {t for t in threading.enumerate()
+            if t.name.startswith(("host-", "hb-")) and t.is_alive()}
+
+
+@pytest.mark.parametrize("fault", ["no_card", "chaos_arm"])
+def test_failed_construction_leaves_no_host_thread(fault, monkeypatch):
+    """A runtime whose construction raises leaves no host or heartbeat
+    thread running: without a card the default assessment backend raises
+    before any host starts; a failure after the hosts have started (here
+    the chaos controller's arming) stops and joins them."""
+    before = _host_threads()
+    params = PM.init_params(CFG, 0, device="cpu")
+    if fault == "no_card":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TrainerRuntime(CFG, TC, RuntimeConfig(), params=params)
+    else:
+        chaos = ChaosController([], horizon=HORIZON, seed=7)
+
+        def arm(hosts, clock):
+            assert set(hosts.values()) <= _host_threads()
+            raise RuntimeError("arm failed")
+        chaos.arm = arm
+        with pytest.raises(RuntimeError, match="arm failed"):
+            TrainerRuntime(CFG, TC, RuntimeConfig(assess_backend="numpy"),
+                           params=params, chaos=chaos)
+    assert not _host_threads() - before
 
 
 def test_fake_clock_manual_advance_is_deterministic():
