@@ -29,7 +29,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    job slots, a job above B3's shared-memory candidates, ±0.0) and B1 and
    B2 on :func:`glance_inputs` (buckets of 2 to 8 rows whose sums depend
    on the order, jobs scattered across rows, one job holding every row,
-   empty job slots, Eq. 1 ties, all-NaN neighbourhoods, 10,000 nodes),
+   empty job slots, Eq. 1 ties, all-NaN neighbourhoods, 10,000 nodes,
+   and 20,000 and 50,000 nodes, where each group's table moves from
+   shared to device memory),
    each launched twice with the same bits and each (B2 aside) as 64
    scenarios in one call equal to 64 single calls; then on a mid-run
    snapshot of the
@@ -85,15 +87,23 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    edges ±1 and at the cache size; for B6's Hopper body sq, sk of 127,
    128 and 129, a q_offset off its 128-row tile, a window crossing a
    tile; for B9's split-KV body valid lengths at its 128-key split edges
-   ±1, a ragged last split, groups of 48 and 64, head_dim 16), within the
+   ±1, a ragged last split, groups of 48 and 64, head_dim 16; B6 at
+   head_dim 80, causal and not, on its SIMT body), within the
    tolerances of ``tests/test_kernels.py`` (bf16 2e-2, f32 2e-5; lse
    2e-5; B9's bf16 output within one bf16 unit, 2^-7 of itself, plus
    1e-2 of its sequence's RMS, which a combine that drops the last live
    split must fail); every bf16 case at head_dim 64/128 counted once as
    ``flash_fwd_tc``, no other; every B9 call one split launch and one
    combine; every B6 and B9 case launched twice gives byte-identical
-   results. Then at the serving path's shapes, and B6
-   also at Qwen1.5-0.5B's layer (the training path's), timed beside the
+   results. The same checks at the shapes the model-family paths (phase
+   14) give B6 and B9: B6 over 4 x 2,048 positions at moonshot's 16/16,
+   the jamba cut's 64/8 and internvl2's 16/8 heads of 128 (causal,
+   bf16) and hubert's 16/16 of 80 (non-causal, bf16 and, as its f32 copy
+   runs it, f32); B9 at the three decoders' heads against a 4,096-slot
+   cache, valid lengths from the first decode step's to the last's.
+   Then at the serving path's shapes, and B6
+   also at Qwen1.5-0.5B's layer (the training path's) and at
+   hubert-xlarge's (head_dim 80, non-causal), timed beside the
    plain versions and ``F.scaled_dot_product_attention`` (the yardstick
    only: the port never calls it), by CUDA events and, for B6 at the
    training layer and B9, by device time (``_device_ms``).
@@ -157,7 +167,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    autograd backward) against autograd of the oracle (1e-4); then at
    Mamba2-2.7B's layer shape on the Hopper body, launched twice
    byte-identical, timed beside the plain version by CUDA events and by
-   device time (no PyTorch call computes the scan).
+   device time (no PyTorch call computes the scan); and at the hybrid
+   path's layer (the jamba cut: 256 heads of 64, 8 groups, d_state 128,
+   chunk 256, 4 x 2,048 tokens, bf16), launched twice byte-identical,
+   within the same tolerances of its plain version.
 13. SSM serving path: Mamba2-2.7B at full width and depth (64 layers,
    random bf16 weights from a seeded generator, about 2.70 B parameters)
    serves 4 prompts of 2,048 token ids through ``make_prefill_step`` and
@@ -176,20 +189,56 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    it), each layer's final state within ``SSM_STATE_TOL``. Prints prefill ms, decode ms per
    step, tokens/s, peak device memory, the parameters' and the cache's
    bytes, and a profile of the device time by kernel.
-14. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
+14. Model families (one path each, its weights freed before the next;
+   each prints prefill ms, decode ms per step, tokens/s, peak device
+   memory, the parameters' and the cache's bytes, and a profile of the
+   device time by kernel), random bf16 weights from seed 0, no
+   plain-version call, gated layer by layer on the f32 reference's
+   residual stream (each bf16 layer beside its f32 copy on the oracles,
+   prefill and every decode step, within ``FAMILY_LAYER_TOL``; an fp8
+   probe must fail it; tokens whose MoE routing differs between bf16 and
+   f32 left out, their share within ``FAMILY_FLIP_TOL``), and what the
+   timed run served held bit for bit against those same calls composed
+   on the served stream (``family_replay``: every layer's cache after
+   the last step, the prefill's and the checked steps' logits; every
+   step's logits finite, their argmax the token fed next):
+   - moe: moonshot-v1-16b-a3b at full width and depth (28.06 B
+     parameters, 56.1 GB) serves 4 prompts of 2,048 tokens and 64 greedy
+     steps into a 4,096-slot cache: exactly 48 B6 launches, all
+     ``flash_fwd_tc``, and 3,072 B9 launches with their combines;
+   - hybrid: jamba-1.5-large cut to one block of 8 layers with 4 experts
+     (16.26 B parameters, 32.5 GB), the same traffic: exactly 1 B6
+     launch (``flash_fwd_tc``), 7 B10 launches in the prefill on the
+     Hopper body, none in decode, 64 B9 launches and combines; each
+     Mamba layer's final state within ``SSM_STATE_TOL``;
+   - audio: hubert-xlarge at full width and depth (0.95 B parameters),
+     ``forward`` over 4 x 2,048 frames: exactly 48 B6 launches,
+     non-causal at head_dim 80 on the SIMT body, no decode; the
+     ``forward`` of an f32 copy of the weights within
+     ``FAMILY_F32_TOL`` of the f32 reference (an fp8 probe must fail
+     it);
+   - vlm: internvl2-2b at full width and depth (1.89 B parameters), 4
+     prompts of 256 patch features ahead of 1,792 token ids, 64 greedy
+     steps: exactly 24 B6 launches (``flash_fwd_tc``) and 1,536 B9
+     launches with combines; the logits of the prefill and decode steps
+     1, 16, 64 within ``SERVE_TOL`` of the f32 reference (an fp8 probe
+     must fail it).
+15. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the comparisons of phases 2, 4, 5, 6, 8, 10 and 12, and the
-training and serving checks, launch outside those windows.
+training, serving and family checks, launch outside those windows.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
 
-Three modes time one part against another checkout, so that two versions
+Four modes time one part against another checkout, so that two versions
 compare in one call on one card: ``--decode-wall [SRC]`` (the Qwen3-8B
 decode), ``--sim-wall [SRC]`` (the flat main path's ticks/s and the
-device's busy share) through the port under SRC, and ``--assess-parent
+device's busy share), ``--train-wall [SRC]`` (the training path's
+fault-free run, its hosts' heartbeat silences and the collector's
+pauses) through the port under SRC, and ``--assess-parent
 PATH`` (B1 to B4 of an earlier ``assess.cu`` at PATH against this
 checkout's, in turns, at the main path's snapshot; B1 also at N = 64 and
 at 10,000 nodes).
@@ -592,7 +641,12 @@ def boundary_inputs(case: str, seed: int, device, now: float = 100.0):
 # B1's and B2's boundary cases (glance_inputs); each runs twice with the
 # same bits, and B1's also as 64 scenarios (seeds 0 to 63) in one call.
 GLANCE_CASES = ("order", "scattered", "one_job", "empty_slots", "ties",
-                "nan_hood", "n10000")
+                "nan_hood", "n10000", "n20000", "n50000")
+# The node counts of the large cases: B1's group table leaves shared
+# memory above 18,834 nodes, B2's above 13,053 (at their 8,192 rows), so
+# n10000 keeps both tables there, n20000 and n50000 put both in device
+# memory.
+GLANCE_NODES = {"n10000": 10_000, "n20000": 20_000, "n50000": 50_000}
 GLANCE_CAP = 4096
 # Values whose float64 sums depend on the order they are added in.
 ORDER_VALS = (0.1, 0.2, 0.3, 0.7, 1e-3, 0.9999999, 1.0, 1e16, 3e-17)
@@ -618,13 +672,14 @@ def glance_inputs(case: str, seed: int, device):
       them negative, and each such node's neighbours are the four nodes
       after it, all empty (an all-NaN neighbourhood; without the count
       test mean - sigma would be 0 and a negative P would fire);
-    - n10000: 10,000 nodes and 8,192 rows, half of them in a band at the
-      top of the node range (the neighbourhoods wrap to node 0)."""
+    - n10000, n20000, n50000: that many nodes and 8,192 rows, half of
+      them in a band at the top of the node range (the neighbourhoods
+      wrap to node 0)."""
     rng = np.random.default_rng(seed)
     i32 = np.int32
     cap, n, jcap = GLANCE_CAP, 256, 8
-    if case == "n10000":
-        cap, n = 8192, 10_000
+    if case in GLANCE_NODES:
+        cap, n = 8192, GLANCE_NODES[case]
     elif case == "empty_slots":
         jcap = 32
     ks = np.arange(4) - 2
@@ -668,7 +723,7 @@ def glance_inputs(case: str, seed: int, device):
         node = np.where(even, (node // 5) * 5, node)
         a = np.where(even & (rng.random(cap) < 0.5),
                      -rng.choice([0.5, 0.25, 1e-3], cap), a)
-    elif case == "n10000":
+    elif case in GLANCE_NODES:
         band = rng.random(cap) < 0.5
         node = np.where(band, rng.integers(n - 300, n, cap), node)
         a = np.where(rng.random(cap) < 0.5, rng.uniform(0.0, 1.0, cap), a)
@@ -920,6 +975,13 @@ def boundary_phase():
         for name, (wrapper, plain) in glance.items():
             _boundary_case(name, case, wrapper, plain, glance_inputs,
                            batched=name in ROW_ARGS)
+    # the large cases' device time: the group tables move from shared to
+    # device memory between 10,000 and 20,000 nodes
+    times = {f"{name} {case}": _device_ms(wrapper, glance_inputs(
+        case, 0, "cuda")[name]) for case in GLANCE_NODES
+        for name, (wrapper, _plain) in glance.items()}
+    print(f"glance device ms at 8,192 rows, by kernel and nodes: "
+          f"{json.dumps(times)}", flush=True)
     torch.cuda.synchronize()
     print(f"boundary cases: B3 and B4 ({', '.join(BOUNDARY_CASES)}), B1 "
           f"and B2 ({', '.join(GLANCE_CASES)}) equal to their plain "
@@ -1556,6 +1618,11 @@ FLASH_CASES = [
     (1, 129, 300, 48, 1, 128, True, 0),    # a group of 48, q_offset 171
     (2, 300, 300, 16, 4, 128, True, 0),    # a group of 4, ragged
     (1, 300, 300, 16, 16, 64, True, 100),  # a window crossing a tile
+    # head_dim 80 (hubert-xlarge), on the SIMT body in both types
+    (1, 130, 130, 16, 16, 80, False, 0),   # the encoder's layout, ragged
+    (2, 64, 64, 4, 4, 80, False, 0),       # exactly one tile
+    (1, 100, 200, 8, 2, 80, True, 0),      # causal, GQA-4, q_offset 100
+    (1, 129, 129, 4, 4, 80, True, 0),      # causal, one row past a tile
 ]
 DECODE_CASES = [
     (5, 300, 4, 4, 64, (1, 63, 64, 65, 300)),     # group 1, tile edges
@@ -1573,6 +1640,9 @@ FLASH_SOURCE = "src/repro_torch/accel/csrc/flash_attention_sm90.cuh"
 # Qwen1.5-0.5B's attention layer, the training path's B6 shape: (b, s,
 # hq, hkv, d), causal, bf16.
 FLASH_TRAIN_SHAPE = (1, 2048, 16, 16, 64)
+# hubert-xlarge's attention layer as the audio path runs it: (b, s, hq,
+# hkv, d), non-causal, bf16, on the SIMT body.
+FLASH_HD80_SHAPE = (4, 2048, 16, 16, 80)
 DECODE_SOURCE = "src/repro_torch/accel/csrc/decode_attention.cu"
 FLASH_REPLACES = ("src/repro/kernels/flash_attention/flash_attention.py:38 "
                   "_fwd_kernel (pallas_call :141)")
@@ -1714,6 +1784,7 @@ def attention_kernel_phase():
           f"the split kernel and its combine launched once a call, each "
           f"call twice with byte-identical results) within tolerance of "
           f"their plain versions in float32 and bf16", flush=True)
+    family_attention_checks()
 
     cfg_b, cfg_s, hq, hkv, d = (SERVE_BATCH, SERVE_PROMPT, 32, 8, 128)
     bf16 = torch.bfloat16
@@ -1792,6 +1863,60 @@ def attention_kernel_phase():
           f"time {dev_ms:.6f} ms per call, SDPA's {lib_dev_ms:.6f} ms "
           f"(events behind a sleep kernel); event time {train['ms']:.6f} and "
           f"{train['library_ms']:.6f} ms", flush=True)
+    del q, k, v, out, lse, pout, plse, qt, kt, vt
+
+    # B6 at hubert-xlarge's layer (head_dim 80, non-causal, SIMT body)
+    hb, hs, hhq, hhkv, hd = FLASH_HD80_SHAPE
+    q, k, v = _randn(103, bf16, (hb, hs, hhq, hd), (hb, hs, hhkv, hd),
+                     (hb, hs, hhkv, hd))
+    before = dict(K.launches)
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    got = {key: K.launches[key] - before[key]
+           for key in ("flash_fwd", "flash_fwd_tc")}
+    if got != {"flash_fwd": 1, "flash_fwd_tc": 0}:
+        raise RuntimeError(f"flash_fwd at head_dim 80: launches {got}, the "
+                           f"SIMT body expected")
+    again = FA.flash_attention_fwd(q, k, v, causal=False)
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        raise RuntimeError("flash_fwd at head_dim 80: two launches differ")
+    pout, plse = FA.flash_attention_plain(q, k, v, causal=False)
+    h_err = _within("flash_fwd at head_dim 80", out, pout, ATTN_TOL[bf16])
+    _within("flash_fwd lse at head_dim 80", lse, plse, LSE_TOL)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa_hd80():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+
+    def b6_hd80(q, k, v):
+        return FA.flash_attention_fwd(q, k, v, causal=False)
+
+    def plain_hd80(q, k, v):
+        return FA.flash_attention_plain(q, k, v, causal=False)
+
+    h_lib_err = float((sdpa_hd80().transpose(1, 2).float()
+                       - out.float()).abs().max())
+    hd80 = _attn_row(
+        "flash_fwd (head_dim 80)", _time_ms(b6_hd80, (q, k, v)),
+        _time_ms(plain_hd80, (q, k, v), reps=3),
+        _time_ms(sdpa_hd80, ()), sum(_nbytes(x) for x in (q, k, v, out, lse)),
+        4.0 * hb * hhq * hd * hs * hs, bf16, h_err, FLASH_SOURCE,
+        FLASH_REPLACES)
+    hd80_dev = _device_ms(b6_hd80, (q, k, v))
+    hd80_lib_dev = _device_ms(sdpa_hd80, ())
+    rows["flash_fwd"].update(
+        hd80_shape=list(FLASH_HD80_SHAPE), hd80_ms=hd80["ms"],
+        hd80_device_ms=hd80_dev, hd80_plain_ms=hd80["plain_ms"],
+        hd80_library_ms=hd80["library_ms"],
+        hd80_library_device_ms=hd80_lib_dev,
+        hd80_bound_ms=hd80["bound_ms"], hd80_bound_by=hd80["bound_by"],
+        hd80_max_abs_err=h_err)
+    print(f"flash_fwd at head_dim 80 {FLASH_HD80_SHAPE} (non-causal, SIMT "
+          f"body): device time {hd80_dev:.6f} ms per call, SDPA's "
+          f"{hd80_lib_dev:.6f} ms (events behind a sleep kernel); event time "
+          f"{hd80['ms']:.6f} and {hd80['library_ms']:.6f} ms; bound "
+          f"{hd80['bound_ms']:.6f} ms ({hd80['bound_by']}); vs SDPA "
+          f"max_abs_err {h_lib_err}", flush=True)
     del q, k, v, out, lse, pout, plse, qt, kt, vt
 
     # B9 at the decode shape: a 4,096-slot cache filled to 2,100
@@ -2053,19 +2178,23 @@ def serve_path(cfg=None, device="cuda"):
     return counts
 
 
-def profile_serve(params, prompts, prefill_step, serve_step,
-                  steps: int = 8) -> None:
+def profile_serve(params, batch, prefill_step, serve_step=None,
+                  steps: int = 8, label: str = "serve") -> None:
     """Device time by kernel, and the device's busy share of the wall
-    time, for one prefill and, apart, ``steps`` decode steps."""
+    time, for one prefill of ``batch`` (token ids, or a dict of the
+    model's inputs) and, apart, ``steps`` decode steps (none without a
+    ``serve_step``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    B, P = prompts.shape
+    if not isinstance(batch, dict):
+        batch = {"tokens": batch}
+    B = next(iter(batch.values())).shape[0]
+    P = sum(t.shape[1] for t in batch.values())    # positions: all inputs
     cuda = torch.autograd.DeviceType.CUDA
     state = {}
 
     def prefill():
-        state["logits"], state["cache"] = prefill_step(
-            params, {"tokens": prompts})
+        state["logits"], state["cache"] = prefill_step(params, batch)
 
     def decode():
         tok = state["logits"].argmax(-1).to(torch.int32)
@@ -2076,8 +2205,10 @@ def profile_serve(params, prompts, prefill_step, serve_step,
             tok = logits.argmax(-1).to(torch.int32)
             pos = pos + 1
 
-    for label, fn in (("prefill", prefill), (f"{steps} decode steps",
-                                              decode)):
+    phases = [("prefill", prefill)]
+    if serve_step is not None:
+        phases.append((f"{steps} decode steps", decode))
+    for what, fn in phases:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2087,11 +2218,12 @@ def profile_serve(params, prompts, prefill_step, serve_step,
         events = prof.key_averages()
         dev_us = sum(e.self_device_time_total for e in events
                      if e.device_type == cuda)
-        print(f"profile serve {label}: wall {wall:.6f} s (profiled), device "
-              f"busy {dev_us / 1e6:.6f} s = {dev_us / 1e6 / wall:.6f} of "
-              f"wall")
+        print(f"profile {label} {what}: wall {wall:.6f} s (profiled), "
+              f"device busy {dev_us / 1e6:.6f} s = {dev_us / 1e6 / wall:.6f} "
+              f"of wall")
         print(events.table(sort_by="self_device_time_total", row_limit=12,
                            max_name_column_width=60), flush=True)
+    state.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -2532,6 +2664,7 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
         return counts
 
     # -- fault-free ------------------------------------------------------
+    watch = _HeartbeatWatch()      # the hosts' silences and the collector
     t = runtime()
     print(f"train: {cfg.arch_id} {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
@@ -2552,11 +2685,15 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
     K.reset_launches()
     w0 = time.perf_counter()
     with plain:
-        warm = t.run(1)
-        _print_reports("fault-free (warm-up)", warm, tokens)
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-        timed = t.run(steps)
+        try:
+            warm = t.run(1)
+            _print_reports("fault-free (warm-up)", warm, tokens)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            timed = t.run(steps)
+        finally:
+            watch.stop()
+            print(f"train fault-free: {watch.summary()}", flush=True)
         # the crash runs' horizon: the steps alone, not the hosts' shutdown
         ff_wall = time.perf_counter() - w0
         counts = finish(t, calls)
@@ -2877,6 +3014,7 @@ def ssd_kernel_phase():
           f"launched twice with byte-identical results) "
           f"within tolerance of its plain version; the op's float32 "
           f"gradient within {SSD_GRAD_TOL} of the oracle's", flush=True)
+    family_ssd_check()
 
     # B10 at the serving shape: Mamba2-2.7B's layer over 4 x 2,048 tokens
     cfg = _ssm_config()
@@ -3268,8 +3406,735 @@ def ssm_serve_path(cfg=None, device="cuda"):
                            f"{state_errs[worst]} outside {SSM_STATE_TOL}")
 
     if on_card:
-        profile_serve(params, prompts, prefill_step, serve_step)
+        profile_serve(params, prompts, prefill_step, serve_step,
+                      label="ssm serve")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Model families on the card: moe, hybrid, audio, vlm
+# ---------------------------------------------------------------------------
+# Four serving paths, one per family the dense and ssm paths leave out,
+# each at full width with random bf16 weights from seed 0 (generated on
+# the card), through the port's entry points:
+# - moe: moonshot-v1-16b-a3b at full width and depth (48 layers, d_model
+#   2,048, 16/16 heads of 128, 64 experts top-6 of width 1,408, vocab
+#   163,840; 28.06 B parameters, 56.1 GB): 4 prompts of 2,048 tokens,
+#   then 64 greedy steps into a 4,096-slot cache;
+# - hybrid: jamba-1.5-large cut to one card (JAMBA_CUT): full width
+#   (d_model 8,192, 64/8 heads, d_ff 24,576, vocab 65,536, d_state 128,
+#   head_dim 64, 8 groups, chunk 256), one block of 8 layers (attention at
+#   4, seven Mamba-2 layers, MoE at 1, 3, 5, 7) with 4 of its 16 experts,
+#   top-2 kept: 16.26 B parameters, 32.5 GB; the same traffic;
+# - audio: hubert-xlarge at full width and depth (48 layers, d_model
+#   1,280, 16 heads of 80, layernorm, gelu, non-causal; 0.95 B
+#   parameters): ``forward`` over 4 x 2,048 frames of 512 features;
+# - vlm: internvl2-2b at full width and depth (24 layers, d_model 2,048,
+#   16/8 heads of 128; 1.89 B parameters): 4 prompts of 256 patch
+#   features (1,024-d) ahead of 1,792 token ids, then 64 greedy steps.
+FAMILY_SEED = 0
+FAMILY_BATCH = 4
+FAMILY_PROMPT = 2048            # positions: patches and text for vlm
+FAMILY_MAX_LEN = 4096
+FAMILY_STEPS = 64
+FAMILY_CHECKS = (1, 16, 64)
+MOE_ARCH = "moonshot-v1-16b-a3b"
+HYBRID_ARCH = "jamba-1.5-large-398b"
+AUDIO_ARCH = "hubert-xlarge"
+VLM_ARCH = "internvl2-2b"
+# jamba-1.5-large (398.6 B parameters) cut to one card: one of its nine
+# blocks, and 4 of 16 experts in each MoE layer (top-2 kept). One block
+# at 16 experts is 45.2 B parameters (90.5 GB) and does not fit; at 8
+# (51.8 GB) one MoE layer's f32 copy for the layer gate (19.3 GB) leaves
+# too little room beside the caches.
+JAMBA_CUT = {"n_layers": 8, "n_experts": 4}
+# Correctness. Each path's gate runs every layer of the bf16 served model
+# (a layer: its mixer and its FFN slot) on the residual stream of the f32
+# reference (the same layer with its weights cast to float32 and the
+# oracles, impl="ref"), through the prefill and every decode step with
+# its own cache, so rounding cannot compound across layers (as the ssm
+# path does), and the head on the last position. Where a MoE router's
+# bf16 and f32 inputs pick different experts for a token (a near tie; or
+# a kept slot on one side and a dropped one on the other), that token's
+# layer output is not compared: FAMILY_FLIP_TOL bounds the share of such
+# (token, layer) pairs. FAMILY_LAYER_TOL bounds max |port - ref| /
+# RMS(ref) over the compared tokens of every layer and the head; a probe
+# that casts the blocks' and the head's normalised inputs to fp8 (e4m3)
+# must exceed it. The hybrid path's Mamba layers' final states are held
+# to SSM_STATE_TOL. hubert (3.8 GB in f32) and internvl2 also run
+# whole: hubert's ``forward`` on an f32 copy of the weights (B6's f32 body
+# at head_dim 80) within FAMILY_F32_TOL of the f32 reference, internvl2's
+# bf16 serving logits within SERVE_TOL of it (as the Qwen3-8B path), each
+# with an fp8 probe that must exceed its limit.
+# Measured on an H100 80GB HBM3 at 700 W (PERF.md), the worst
+# layer over the prefill and decode steps 1, 16, 64 and its fp8 probe:
+# moe 0.086 (probe 0.382), hybrid 0.070 (0.442), audio 0.0255 (0.148),
+# vlm 0.039 (0.273); the routing differs for 2.39 % (moe) and 0.30 %
+# (hybrid) of (token, layer) pairs; hubert's f32 copy 4.6e-6 (probe
+# 0.145); the jamba cut's Mamba states at most 0.0052. Each limit sits at
+# least 2.1x above its measurement and 1.9x below its probe.
+FAMILY_LAYER_TOL = {"moe": 0.2, "hybrid": 0.18, "audio": 0.07, "vlm": 0.1}
+FAMILY_FLIP_TOL = 0.05
+FAMILY_F32_TOL = 0.01
+
+
+def family_config(name: str):
+    """The full-width configuration of a family path (the hybrid one
+    cut to one card)."""
+    from repro_torch.configs import get_config
+
+    arch = {"moe": MOE_ARCH, "hybrid": HYBRID_ARCH, "audio": AUDIO_ARCH,
+            "vlm": VLM_ARCH}[name]
+    cfg = get_config(arch)
+    if name == "hybrid":
+        cfg = dataclasses.replace(
+            cfg, arch_id=cfg.arch_id + "-1block-4experts",
+            n_layers=JAMBA_CUT["n_layers"],
+            moe=dataclasses.replace(cfg.moe,
+                                    n_experts=JAMBA_CUT["n_experts"]))
+    return cfg
+
+
+def family_inputs(cfg, device, positions=None):
+    """A seeded batch of FAMILY_BATCH prompts of ``positions`` positions
+    (FAMILY_PROMPT by default): token ids; frame features for audio;
+    ``n_prefix`` patch features ahead of token ids for vlm (features
+    standard normal, as float32)."""
+    batch = FAMILY_BATCH
+    positions = positions or FAMILY_PROMPT
+    rng = np.random.default_rng(FAMILY_SEED)
+    out = {}
+    if cfg.frontend is not None:
+        n = positions if cfg.family == "audio" else cfg.frontend.n_prefix
+        out["feats"] = torch.from_numpy(rng.standard_normal(
+            (batch, n, cfg.frontend.feature_dim)).astype(np.float32))
+        positions -= n
+    if cfg.family != "audio":
+        out["tokens"] = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (batch, positions)).astype(np.int32))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def family_attention_checks() -> None:
+    """B6 and B9 against their plain versions at the shapes each family
+    path gives them (the attention phase runs this, outside any counted
+    run): B6 over the prompt (4 x 2,048 positions) at each path's heads,
+    in bf16, and hubert's in float32 as its f32 copy runs it; B9 at each
+    decoder's heads against a FAMILY_MAX_LEN-slot cache, valid lengths
+    from the first decode step's to the last's. Each call twice with the
+    same bits; B6 within ATTN_TOL and LSE_TOL, B9 within one bf16 unit
+    and 1e-2 of the RMS (``_within_decode``)."""
+    from repro_torch.accel import kernels as K
+    from repro_torch.kernels.decode_attention import decode_attention as DA
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    B, P, S = FAMILY_BATCH, FAMILY_PROMPT, FAMILY_STEPS
+    seed = 400
+    bf16, f32 = torch.bfloat16, torch.float32
+    done = []
+    for name in ("moe", "hybrid", "audio", "vlm"):
+        cfg = family_config(name)
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+        causal = not cfg.is_encoder_only()
+        for dtype in (bf16, f32) if name == "audio" else (bf16,):
+            what = f"flash_fwd at the {name} path's layer {dtype}"
+            q, k, v = _randn(seed, dtype, (B, P, hq, d), (B, P, hkv, d),
+                             (B, P, hkv, d))
+            seed += 1
+            before = dict(K.launches)
+            out, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
+            tc = K.flash_fwd_tc(dtype, d)
+            got = {key: K.launches[key] - before[key]
+                   for key in ("flash_fwd", "flash_fwd_tc")}
+            if got != {"flash_fwd": 1, "flash_fwd_tc": int(tc)}:
+                raise RuntimeError(f"{what}: launches {got}, Hopper body "
+                                   f"expected: {tc}")
+            again = FA.flash_attention_fwd(q, k, v, causal=causal)
+            if not (torch.equal(out, again[0])
+                    and torch.equal(lse, again[1])):
+                raise RuntimeError(f"{what}: two launches differ")
+            pout, plse = FA.flash_attention_plain(q, k, v, causal=causal)
+            err = _within(what, out, pout, ATTN_TOL[dtype])
+            _within(what + " lse", lse, plse, LSE_TOL)
+            done.append(f"B6 {name} ({B}, {P}, {hq}/{hkv}, {d}, "
+                        f"{'causal' if causal else 'non-causal'}, "
+                        f"{str(dtype)[6:]}) {err}")
+            del q, k, v, out, lse, again, pout, plse
+        if not causal:
+            continue
+        q, k, v = _randn(seed, bf16, (B, hq, d), (B, FAMILY_MAX_LEN, hkv, d),
+                         (B, FAMILY_MAX_LEN, hkv, d))
+        seed += 1
+        vl = torch.tensor([P + 1, P + S // 4 + 1, P + S // 2 + 1, P + S],
+                          dtype=torch.int32, device="cuda")[:B]
+        what = f"decode at the {name} path's layer"
+        before = dict(K.launches)
+        out = DA.decode_attention_fwd(q, k, v, vl)
+        got = {key: K.launches[key] - before[key]
+               for key in ("decode", "decode_combine")}
+        if got != {"decode": 1, "decode_combine": 1}:
+            raise RuntimeError(f"{what}: launches {got}")
+        if not _same_bits(out, DA.decode_attention_fwd(q, k, v, vl)):
+            raise RuntimeError(f"{what}: two launches differ")
+        err = _within_decode(what, out, DA.decode_attention_plain(q, k, v,
+                                                                   vl))
+        done.append(f"B9 {name} ({B}, {FAMILY_MAX_LEN} slots, {hq}/{hkv}, "
+                    f"{d}, valid {vl.tolist()}) {err}")
+        del q, k, v, out
+    torch.cuda.synchronize()
+    print(f"attention at the family paths' shapes, each launched twice with "
+          f"byte-identical results, within tolerance of the plain versions "
+          f"(max_abs_err): {'; '.join(done)}", flush=True)
+
+
+def family_ssd_check() -> None:
+    """B10 against its plain version at the hybrid path's layer (the
+    jamba cut's Mamba-2 layer over 4 x 2,048 tokens, bf16, on the Hopper
+    body; A and D as the model initialises them), launched twice with the
+    same bits, within SSD_TOL and SSD_STATE_TOL."""
+    from repro_torch.accel import kernels as K
+    from repro_torch.kernels.ssd import ssd as SSD
+
+    cfg = family_config("hybrid")
+    b, s = FAMILY_BATCH, FAMILY_PROMPT
+    h = cfg.ssm.n_heads(cfg.d_model)
+    p, g, n, chunk = (cfg.ssm.head_dim, cfg.ssm.n_groups, cfg.ssm.d_state,
+                      cfg.ssm.chunk_size)
+    bf16 = torch.bfloat16
+    x, dt, _A, B, C, D = _ssd_inputs(500, bf16, b, s, h, p, g, n)
+    args = (x, dt, -torch.linspace(1.0, 16.0, h, device="cuda"), B, C,
+            torch.ones_like(D))
+    what = f"ssd at the hybrid path's layer ({b}, {s}, {h}, {p}, {g}, {n})"
+    before = dict(K.launches)
+    y, st = SSD.ssd_fwd(*args, chunk=chunk)
+    if any(K.launches[k] != before[k] + 1 for k in K.SSD_TC_KEYS):
+        raise RuntimeError(f"{what}: the Hopper body's three kernels were "
+                           f"not launched once each")
+    y2, st2 = SSD.ssd_fwd(*args, chunk=chunk)
+    if not (_same_bits(y, y2) and _same_bits(st, st2)):
+        raise RuntimeError(f"{what}: two launches differ")
+    py, pst = SSD.ssd_plain(*args, chunk=chunk)
+    err = _within(what, y, py, SSD_TOL[bf16])
+    st_err = _within(what + " state", st, pst, SSD_STATE_TOL)
+    torch.cuda.synchronize()
+    print(f"{what}, chunk {chunk}: launched twice with byte-identical "
+          f"results, within tolerance of the plain version: y max_abs_err "
+          f"{err}, state {st_err}", flush=True)
+
+
+def _sublayers(cfg, params):
+    """The stack of an attention family as (label, kind, mixer, ln1, ln2,
+    ffn, is_moe, slot) per layer, ``slot`` the layer's index into its
+    part of the decode cache (``cache["attn"]`` or ``cache["mamba"]``);
+    for a hybrid block, its layers in order."""
+    from repro_torch.configs.base import ATTN
+    from repro_torch.models import model as PM
+
+    if cfg.hybrid is None:
+        return [(f"layer {i}", "attn", lp["mixer"], lp["ln1"], lp["ln2"],
+                 lp["ffn"], PM.uses_moe(cfg, 0), i)
+                for i, lp in enumerate(params["layers"])]
+    out = []
+    for i, bp in enumerate(params["blocks"]):
+        mi = nm = nl = 0
+        for j in range(cfg.hybrid.block_len):
+            if cfg.hybrid.layer_kind(j) == ATTN:
+                kind, mixer, slot = "attn", bp["attn"], i
+            else:
+                kind, mixer, slot = "mamba", bp["mamba"][mi], (i, mi)
+                mi += 1
+            if PM.uses_moe(cfg, j):
+                ffn, moe = bp["moe"][nm], True
+                nm += 1
+            else:
+                ffn, moe = bp["mlp"][nl], False
+                nl += 1
+            out.append((f"block {i} layer {j}", kind, mixer,
+                        bp["lns"][j]["ln1"], bp["lns"][j]["ln2"], ffn, moe,
+                        slot))
+    return out
+
+
+def _routing_agree(cfg, p_port, p_ref, x_port, x_ref):
+    """(t,) bool: tokens whose bf16 and f32 routers pick the same experts
+    and keep the same of them (the queue of this call's tokens)."""
+    from repro_torch.models import moe as MOE
+
+    t = x_ref.shape[0] * x_ref.shape[1]
+    cap = MOE.capacity(t, cfg)
+    sets = []
+    for p, x in ((p_port, x_port), (p_ref, x_ref)):
+        _probs, _gate, eid = MOE.route(cfg, p, x.reshape(t, -1))
+        _ef, _pos, keep = MOE.queue(cfg, eid, cap)
+        kept = torch.where(keep.reshape(eid.shape), eid, -1)
+        sets.append((eid.sort(dim=-1).values, kept.sort(dim=-1).values))
+    return ((sets[0][0] == sets[1][0]).all(-1)
+            & (sets[0][1] == sets[1][1]).all(-1))
+
+
+def family_layer_checks(cfg, params, batch, seq_tokens, probe=None):
+    """Each layer of the served bf16 model, through the kernels, on the
+    residual stream of the f32 reference: the prompt ``batch`` as a
+    prefill into a cache of each side, then one decode step per token of
+    ``seq_tokens`` (b, steps), each layer through its own cache. Layers
+    run one at a time over the prefill and every step (one layer's f32
+    weights and caches at a time). ``probe`` transforms the served
+    layers' and head's normalised inputs. Returns ({"prefill" and
+    "decode step k" for k in FAMILY_CHECKS: (worst max |port - ref| /
+    RMS(ref) over the layers and the head's last-position logits, its
+    layer)}, {MoE: (tokens compared, tokens with a routing flip)}, the
+    Mamba layers' final states ||port - ref|| / ||ref|| after the
+    prefill)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import model as PM
+
+    f32 = torch.float32
+    adt = L.DTYPES[cfg.activation_dtype]
+    keep = probe or (lambda x: x)
+    h = PM.embed_inputs(cfg, params, batch, f32)
+    b, P = h.shape[:2]
+    steps = seq_tokens.shape[1]
+    dec = [PM._embed(params, seq_tokens[:, k:k + 1], f32)
+           for k in range(steps)]
+    labels = ["prefill"] + [f"decode step {k}" for k in range(1, steps + 1)]
+    worst = dict.fromkeys(labels, (0.0, ""))
+    flips = [0, 0]
+    states = []
+    positions = torch.arange(P, device=h.device)
+    cache_len = P + steps
+
+    def note(label, got, want, where, agree=None):
+        rms = float(want.pow(2).mean().sqrt())
+        diff = (got.float() - want).abs()
+        if agree is not None:
+            diff = diff.reshape(-1, diff.shape[-1])[agree.reshape(-1)]
+        err = float(diff.max()) / rms if diff.numel() else 0.0
+        worst[label] = max(worst[label], (err, where))
+
+    with torch.no_grad():
+        for where, kind, mixer, ln1, ln2, ffn, moe, _slot in _sublayers(
+                cfg, params):
+            mix32 = L.cast_tree(mixer, f32)
+            ln1_32 = L.cast_tree(ln1, f32)
+            ln2_32 = L.cast_tree(ln2, f32)
+            ffn32 = L.cast_tree(ffn, f32)
+            if kind == "attn":
+                shape = (b, cache_len, cfg.n_kv_heads,
+                         cfg.resolved_head_dim())
+                pc = {n: torch.zeros(shape, dtype=adt, device=h.device)
+                      for n in ("k", "v")}
+                rc = {n: torch.zeros(shape, dtype=f32, device=h.device)
+                      for n in ("k", "v")}
+            else:
+                pc = M.init_mamba_cache(cfg, b, adt, device=h.device)
+                rc = {n: torch.zeros_like(t, dtype=f32)
+                      for n, t in pc.items()}
+            for si, label in enumerate(labels):
+                hr = h if si == 0 else dec[si - 1]
+                hp = hr.to(adt)
+                x = keep(L.apply_norm(cfg, ln1, hp))
+                xr = L.apply_norm(cfg, ln1_32, hr)
+                if si == 0 and kind == "attn":
+                    got, kv = L.attention_block(cfg, mixer, x,
+                                                positions=positions)
+                    want, kvr = L.attention_block(cfg, mix32, xr,
+                                                  positions=positions,
+                                                  impl="ref")
+                    for n in ("k", "v"):
+                        pc[n][:, :P] = kv[n]
+                        rc[n][:, :P] = kvr[n]
+                elif si == 0:
+                    got, _ = M.mamba_block(cfg, mixer, x,
+                                           return_state=True, out=pc)
+                    want, _ = M.mamba_block(cfg, mix32, xr, impl="ref",
+                                            return_state=True, out=rc)
+                    states.append(_rel_norm(pc["state"], rc["state"]))
+                elif kind == "attn":
+                    pos = torch.full((b,), P + si - 1, dtype=torch.int32,
+                                     device=h.device)
+                    got, _ = L.attention_decode(cfg, mixer, x, pc, pos)
+                    want, _ = L.attention_decode(cfg, mix32, xr, rc, pos,
+                                                 impl="ref")
+                else:
+                    got, _ = M.mamba_decode(cfg, mixer, x, pc)
+                    want, _ = M.mamba_decode(cfg, mix32, xr, rc)
+                # the FFN slot on both sides, on each side's stream
+                x2 = keep(L.apply_norm(cfg, ln2, hp + got))
+                x2r = L.apply_norm(cfg, ln2_32, hr + want)
+                fgot, _ = PM.ffn(cfg, ffn, x2, moe)
+                fwant, _ = PM.ffn(cfg, ffn32, x2r, moe)
+                agree = None
+                if moe:
+                    agree = _routing_agree(cfg, ffn, ffn32, x2, x2r)
+                    flips[0] += agree.numel()
+                    flips[1] += int((~agree).sum())
+                note(label, got.float() + fgot.float(), want + fwant, where,
+                     agree)
+                hr += want + fwant
+            del mix32, ffn32, pc, rc
+        head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        final32 = L.cast_tree(params["final_norm"], f32)
+        for si, label in enumerate(labels):
+            last = (h if si == 0 else dec[si - 1])[:, -1]
+            want = L.apply_norm(cfg, final32, last) @ head.float().T
+            x = keep(L.apply_norm(cfg, params["final_norm"], last.to(adt)))
+            note(label, x @ head.T, want, "head")
+    out = {k: v for k, v in worst.items()
+           if k == "prefill" or int(k.split()[-1]) in FAMILY_CHECKS}
+    return out, flips, states
+
+
+def _family_gate(tag, tol, cfg, params, batch, seq_tokens) -> None:
+    """The layer-by-layer gate of a family path within ``tol`` and its fp8
+    probe (on the prefill); raises outside the limits."""
+    errs, flips, states = family_layer_checks(cfg, params, batch,
+                                              seq_tokens)
+    probe, pflips, _ = family_layer_checks(cfg, params, batch,
+                                           seq_tokens[:, :0], probe=_fp8)
+    share = flips[1] / flips[0] if flips[0] else 0.0
+    print(f"{tag}: layer by layer on the f32 reference's stream, worst "
+          f"max|diff|/rms over the layers and the head (error, layer): "
+          f"{json.dumps(errs)}; tolerance {tol}; fp8-activation "
+          f"probe {json.dumps(probe)}", flush=True)
+    if flips[0]:
+        pshare = pflips[1] / pflips[0] if pflips[0] else 0.0
+        print(f"{tag}: MoE routing, bf16 vs f32 router inputs: {flips[1]} of "
+              f"{flips[0]} (token, layer) pairs pick or keep other experts "
+              f"(share {share}; tolerance {FAMILY_FLIP_TOL}), left out of the "
+              f"layer gate; the fp8 probe's share {pshare}", flush=True)
+    if states:
+        print(f"{tag}: Mamba layers' final states vs the f32 reference, "
+              f"||diff||/||ref||: max {max(states)}, per layer {states}; "
+              f"tolerance {SSM_STATE_TOL}", flush=True)
+    bad = {k: e for k, e in errs.items() if not e[0] <= tol}
+    if bad:
+        raise RuntimeError(f"{tag}: layers outside tolerance "
+                           f"{tol}: {bad}")
+    if not probe["prefill"][0] > tol:
+        raise RuntimeError(f"{tag}: the fp8 probe ({probe}) passes the "
+                           f"tolerance {tol}: it is too loose")
+    if not share <= FAMILY_FLIP_TOL:
+        raise RuntimeError(f"{tag}: routing flips on {share} of (token, "
+                           f"layer) pairs, above {FAMILY_FLIP_TOL}")
+    if states and not max(states) <= SSM_STATE_TOL:
+        raise RuntimeError(f"{tag}: a Mamba layer's final state "
+                           f"{max(states)} outside {SSM_STATE_TOL}")
+
+
+def family_replay(cfg, params, batch, fed, cache, logits0, checks):
+    """What the timed run served, held against the layer gate's harness:
+    the calls the gate makes for its bf16 side (norms, mixers with their
+    caches, FFN slots, the head), composed here on the bf16 stream the
+    served model sees, layer after layer, over the prompt ``batch`` and
+    then one decode step per column of ``fed`` (b, steps + 1) but the
+    last: the tokens the run fed, then its last argmax (None without a
+    decode step). The gate holds those calls against the f32 reference;
+    here their composition must give, bit for bit, what the model's own
+    stack gave: each layer's part of the served ``cache`` after the last
+    step (K/V, Mamba conv tails and states), the prefill's logits
+    ``logits0`` and the checked steps' ``checks`` ({step: float32
+    logits}). At every step the logits are finite and their argmax is the
+    token the run fed next. Returns the number of tensors compared bit
+    for bit; raises on the first difference."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import model as PM
+
+    adt = L.DTYPES[cfg.activation_dtype]
+    h = PM.embed_inputs(cfg, params, batch, adt)
+    b, P = h.shape[:2]
+    steps = 0 if fed is None else fed.shape[1] - 1
+    dec = [PM._embed(params, fed[:, k:k + 1], adt) for k in range(steps)]
+    positions = torch.arange(P, device=h.device)
+    compared = 0
+
+    def same(what, got, want):
+        if not _same_bits(got, want):
+            diff = float((got.float() - want.float()).abs().max())
+            raise RuntimeError(f"served state: {what} differs from the "
+                               f"layer-by-layer replay, max |diff| {diff}")
+
+    with torch.no_grad():
+        for where, kind, mixer, ln1, ln2, ffn, moe, slot in _sublayers(
+                cfg, params):
+            if kind == "attn":
+                own = {n: torch.zeros_like(t[slot])
+                       for n, t in cache["attn"].items()} if cache else None
+            else:
+                own = M.init_mamba_cache(cfg, b, adt, device=h.device)
+            for si in range(steps + 1):
+                x = L.apply_norm(cfg, ln1, h if si == 0 else dec[si - 1])
+                if si == 0 and kind == "attn":
+                    out, kv = L.attention_block(cfg, mixer, x,
+                                                positions=positions)
+                    if own is not None:
+                        for n in ("k", "v"):
+                            own[n][:, :P] = kv[n]
+                elif si == 0:
+                    out, _ = M.mamba_block(cfg, mixer, x, return_state=True,
+                                           out=own)
+                elif kind == "attn":
+                    pos = torch.full((b,), P + si - 1, dtype=torch.int32,
+                                     device=h.device)
+                    out, _ = L.attention_decode(cfg, mixer, x, own, pos)
+                else:
+                    out, _ = M.mamba_decode(cfg, mixer, x, own)
+                hs = (h if si == 0 else dec[si - 1]) + out
+                x2 = L.apply_norm(cfg, ln2, hs)
+                hs = hs + PM.ffn(cfg, ffn, x2, moe)[0]
+                if si == 0:
+                    h = hs
+                else:
+                    dec[si - 1] = hs
+            if own is not None:
+                served = cache[kind]
+                for n, t in own.items():
+                    same(f"{where}'s cache {kind}.{n}", t, served[n][slot])
+                    compared += 1
+        final = params["final_norm"]
+        last = h if cfg.is_encoder_only() else h[:, -1:]
+        got = PM._lm_head(cfg, params, L.apply_norm(cfg, final, last))[:, -1]
+        same("the prefill's logits", got, logits0)
+        compared += 1
+        for k in range(1, steps + 1):
+            got = PM._lm_head(cfg, params, L.apply_norm(cfg, final,
+                                                        dec[k - 1]))[:, 0]
+            if not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"served state: decode step {k}'s logits "
+                                   f"not finite")
+            if not torch.equal(got.argmax(-1).to(torch.int32), fed[:, k]):
+                raise RuntimeError(f"served state: decode step {k}'s argmax "
+                                   f"is not the token the run fed next")
+            if k in checks:
+                same(f"decode step {k}'s logits", got.float(), checks[k])
+                compared += 1
+    return compared
+
+
+def _free() -> None:
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def family_path(name: str, cfg=None, device="cuda"):
+    """One family's serving path (``name`` moe, hybrid, audio or vlm) at
+    full width (or ``cfg``), on ``device`` (a CPU run rehearses it on the
+    plain versions, with no launch to count): the prompt batch through
+    ``make_prefill_step`` (audio: ``forward``), then FAMILY_STEPS greedy
+    steps of ``make_serve_step`` (none for audio). Returns the launch
+    counts of the run."""
+    from repro_torch.accel import kernels as K
+    from repro_torch.kernels.decode_attention import decode_attention as DA
+    from repro_torch.kernels.decode_attention import ref as DREF
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as FREF
+    from repro_torch.kernels.ssd import ref as SREF
+    from repro_torch.kernels.ssd import ssd as SSD
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as PM
+    from repro_torch.train.loop import (TrainConfig, make_prefill_step,
+                                        make_serve_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag = f"{name} serve"
+    cfg = cfg or family_config(name)
+    on_card = torch.device(device).type == "cuda"
+    decoder = not cfg.is_encoder_only()
+    B, P, S = FAMILY_BATCH, FAMILY_PROMPT, FAMILY_STEPS if decoder else 0
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(FAMILY_SEED)
+    params = PM.init_params(cfg, gen, device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in params.parameters())
+    weight_bytes = _nbytes(tuple(params.parameters()))
+    batch = family_inputs(cfg, device)
+    tc = TrainConfig()
+    prefill_step = make_prefill_step(cfg, tc, max_len=FAMILY_MAX_LEN)
+    serve_step = make_serve_step(cfg, tc) if decoder else None
+
+    def run(b):
+        if decoder:
+            return prefill_step(params, b)
+        with torch.no_grad():
+            logits, _aux, _ = PM.forward(cfg, params, b)
+        return logits[:, -1], None
+
+    moe = cfg.moe
+    print(f"{tag}: {cfg.arch_id} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim()}"
+          + (f", {moe.n_experts} experts top-{moe.top_k} of width "
+             f"{moe.d_ff_expert}" if moe else "")
+          + f", vocab {cfg.vocab_size}, {n_params} parameters "
+          f"({weight_bytes} bytes), init {init_s:.3f} s", flush=True)
+
+    # warm-up on a short prompt (library handles, allocator), uncounted
+    w = min(64, P // 2)
+    warm = family_inputs(cfg, device, positions=w + (
+        cfg.frontend.n_prefix if cfg.family == "vlm" else 0))
+    _l, wc = run(warm)
+    if decoder:
+        serve_step(params, wc, warm["tokens"][:, -1],
+                   torch.full((B,), sum(t.shape[1] for t in warm.values()),
+                              dtype=torch.int32, device=device))
+    del wc, warm
+    _sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    plain = _CountCalls([(FA, "flash_attention_plain"),
+                         (DA, "decode_attention_plain"),
+                         (FREF, "attention_reference"),
+                         (DREF, "decode_attention_reference"),
+                         (SSD, "ssd_plain"), (SREF, "ssd_reference")])
+    K.reset_launches()
+    with plain:
+        t0 = time.perf_counter()
+        logits0, cache = run(batch)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        after_prefill = dict(K.launches)
+        tok = logits0.argmax(-1).to(torch.int32)
+        inputs, checks = [tok], {}
+        pos = torch.full((B,), P, dtype=torch.int32, device=device)
+        t0 = time.perf_counter()
+        for step in range(1, S + 1):
+            logits, cache = serve_step(params, cache, tok, pos)
+            if step in FAMILY_CHECKS:
+                checks[step] = logits.float()
+            tok = logits.argmax(-1).to(torch.int32)
+            inputs.append(tok)
+            pos = pos + 1
+        _sync(device)
+        decode_s = time.perf_counter() - t0
+    counts = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    cache_bytes = 0 if cache is None else sum(
+        _nbytes(tuple(part.values())) for part in cache.values())
+    n_attn = cfg.n_attn_layers() if on_card else 0
+    n_ssd = cfg.n_mamba_layers() if on_card and cfg.ssm else 0
+    tc_attn = bool(K.flash_fwd_tc(L.DTYPES[cfg.activation_dtype],
+                                  cfg.resolved_head_dim()))
+    want_prefill = {"flash_fwd": n_attn, "flash_fwd_tc": n_attn * tc_attn,
+                    "decode": 0, "decode_combine": 0}
+    want_prefill.update(dict.fromkeys(K.SSD_TC_KEYS, n_ssd))
+    want = dict(want_prefill, decode=n_attn * S, decode_combine=n_attn * S)
+    if {k: after_prefill[k] for k in want_prefill} != want_prefill:
+        raise RuntimeError(f"{tag}: prefill launches {after_prefill}, "
+                           f"expected {want_prefill}")
+    others = {k: c for k, c in counts.items() if k not in want and c}
+    if {k: counts[k] for k in want} != want or others:
+        raise RuntimeError(f"{tag}: launches {counts}, expected {want}")
+    if on_card and any(plain.calls.values()):
+        raise RuntimeError(f"{tag}: plain versions called on the card's "
+                           f"path: {plain.calls}")
+    decode_ms = decode_s * 1e3 / S if S else 0.0
+    print(f"{tag}: prefill {B} x {P} positions {prefill_s * 1e3:.3f} ms "
+          f"({B * P / prefill_s:.1f} tokens/s); decode {S} steps "
+          f"{decode_ms:.3f} ms/step"
+          + (f" ({B * S / decode_s:.1f} tokens/s)" if S else "")
+          + f"; peak device memory {peak} bytes; parameters {weight_bytes} "
+          f"bytes, cache {cache_bytes} bytes; kernel launches "
+          f"{ {k: v for k, v in counts.items() if v} }; plain-version "
+          f"calls {plain.calls}", flush=True)
+    fed = torch.stack(inputs, dim=1) if S else None
+    n_same = family_replay(cfg, params, batch, fed, cache, logits0, checks)
+    served = (f"the served cache after the last step and the logits of the "
+              f"prefill and decode steps {list(checks)}" if S else
+              "the logits of the forward")
+    print(f"{tag}: {served} equal, bit for bit, the layer-by-layer replay of "
+          f"the gate's calls on the served stream ({n_same} tensors)"
+          + ("; every step's logits finite, their argmax the token fed next"
+             if S else ""), flush=True)
+    del cache
+    _free()
+
+    # End to end against the f32 reference (forward, impl="ref", each
+    # layer's weights upcast as it runs, the head on the last position):
+    # the prefill, and for the decoders without MoE the checked steps.
+    seq = torch.stack(inputs[:-1], dim=1) if S else None
+    got = {"prefill": (batch, logits0)}
+    if S and moe is None:
+        for k in FAMILY_CHECKS:
+            b = dict(batch, tokens=torch.cat([batch["tokens"], seq[:, :k]],
+                                             dim=1))
+            got[f"decode step {k}"] = (b, checks[k])
+    errs, refs = {}, {}
+    with torch.no_grad():
+        for label, (b, port) in got.items():
+            if port.shape != (B, cfg.vocab_size) or \
+                    not bool(torch.isfinite(port).all()):
+                raise RuntimeError(f"{tag}: {label} logits not finite of "
+                                   f"shape {(B, cfg.vocab_size)}")
+            refs[label] = PM.forward(cfg, params, b, impl="ref",
+                                     compute_dtype=torch.float32,
+                                     last_only=True)[0][:, 0]
+            errs[label] = _rel_err(port, refs[label])
+            _free()
+        probe = _fp8_norms(lambda: run(batch)[0])
+        probe_err = _rel_err(probe, refs["prefill"])
+    print(f"{tag}: end to end, bf16 logits vs the f32 reference, "
+          f"max|diff|/rms: {json.dumps(errs)}; fp8-activation probe "
+          f"{probe_err}", flush=True)
+    agree = float((refs["prefill"].argmax(-1).int() == inputs[0])
+                  .float().mean())
+    print(f"{tag}: greedy first token equal to the reference's argmax for "
+          f"{agree:.2f} of the batch", flush=True)
+    if name == "vlm":
+        bad = {k: e for k, e in errs.items() if not e <= SERVE_TOL}
+        if bad or not probe_err > SERVE_TOL:
+            raise RuntimeError(f"{tag}: logits {errs} (tolerance "
+                               f"{SERVE_TOL}) or the fp8 probe "
+                               f"{probe_err} passes it")
+    if name == "audio":
+        family_f32_check(tag, cfg, params, batch, refs["prefill"])
+    del probe, refs
+    _free()
+
+    # The gate, layer by layer on the f32 reference's stream
+    if seq is None:                           # no decode step
+        seq = torch.zeros((B, 0), dtype=torch.int32, device=device)
+    _family_gate(tag, FAMILY_LAYER_TOL[name], cfg, params, batch, seq)
+    _free()
+    if on_card:
+        profile_serve(params, batch, prefill_step, serve_step, label=tag)
+    del params
+    _free()
+    return counts
+
+
+def family_f32_check(tag, cfg, params, batch, ref) -> None:
+    """The encoder's ``forward`` on a float32 copy of the weights (an f32
+    config: B6's f32 body) against the f32 reference's last-position
+    logits ``ref``, within FAMILY_F32_TOL; an fp8 probe must exceed it."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as PM
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    params32 = L.tree_from_leaves(params, {
+        k: t.float() for k, t in L.tree_leaves(params).items()})
+    with torch.no_grad():
+        got = PM.forward(cfg32, params32, batch, last_only=True)[0][:, 0]
+        probe = _fp8_norms(lambda: PM.forward(cfg32, params32, batch,
+                                              last_only=True)[0][:, 0])
+    err, perr = _rel_err(got, ref), _rel_err(probe, ref)
+    del params32
+    print(f"{tag}: end to end in float32 (forward on an f32 copy of the "
+          f"weights), logits vs the f32 reference, max|diff|/rms: {err}; "
+          f"tolerance {FAMILY_F32_TOL}; fp8-activation probe {perr}",
+          flush=True)
+    if not err <= FAMILY_F32_TOL:
+        raise RuntimeError(f"{tag}: f32 logits {err} outside "
+                           f"{FAMILY_F32_TOL}")
+    if not perr > FAMILY_F32_TOL:
+        raise RuntimeError(f"{tag}: the f32 run's fp8 probe ({perr}) passes "
+                           f"the tolerance {FAMILY_F32_TOL}")
 
 
 # Name parts of the kernels whose resources the build phase prints.
@@ -3374,6 +4239,16 @@ def decode_wall() -> None:
           flush=True)
 
 
+def _parent_smem(bytes_: int, kernel: str, n: int) -> None:
+    """An earlier B1 or B2 held every table in shared memory: raise where
+    ``n`` nodes need more than a block's."""
+    from repro_torch.accel import kernels as K
+
+    if bytes_ > K.MAX_SMEM:
+        raise ValueError(f"{kernel}: {n} nodes need {bytes_} B of shared "
+                         f"memory, above the {K.MAX_SMEM} B a block may use")
+
+
 def parent_assess(source: Path) -> dict:
     """B1 to B4 of another ``assess.cu``, built with ``nvcc`` into
     ``build/parent_kernels/``; returns the four wrappers by kernel name,
@@ -3406,11 +4281,54 @@ def parent_assess(source: Path) -> dict:
         return run
 
     names = ("spatial", "temporal", "late", "reap")
-    if hasattr(lib, "assess_spatial_work_bytes"):
+    if hasattr(lib, "assess_spatial_table_bytes"):
         K._bind("assess", lib)
         return {name: swapped(getattr(K, f"launch_{name}"))
                 for name in names}
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    if hasattr(lib, "assess_spatial_work_bytes"):
+        # slices 10-11: this checkout's wrappers, but every group table in
+        # shared memory and a work buffer without tables, sized and kept
+        # here, as that version's ``glance_work`` did
+        lib.assess_spatial.argtypes = [P] * 6 + [I] * 5 + [P, P, P]
+        lib.assess_temporal.argtypes = [P] * 5 + [I] * 3 + [P] * 4
+        lib.assess_spatial_smem.argtypes = [I, I, I]
+        lib.assess_temporal_smem.argtypes = [I, I, I]
+        lib.assess_spatial_work_bytes.argtypes = [I, I, I]
+        lib.assess_temporal_work_bytes.argtypes = [I, I]
+        for fn in (lib.assess_spatial_smem, lib.assess_temporal_smem,
+                   lib.assess_spatial_work_bytes,
+                   lib.assess_temporal_work_bytes):
+            fn.restype = ctypes.c_size_t
+        K.bind_late(lib)
+        bufs = {}
+
+        def work(_lib, kernel, device, stream, N, cap, jcap, n):
+            key = (device.index, stream, kernel, N, cap, jcap, n)
+            if key not in bufs:
+                smem = getattr(lib, f"assess_{kernel}_smem")(n, jcap, cap)
+                _parent_smem(smem, f"{kernel} (parent)", n)
+                nbytes = (lib.assess_spatial_work_bytes(cap, jcap, N)
+                          if kernel == "spatial" else
+                          lib.assess_temporal_work_bytes(cap, jcap))
+                bufs[key] = torch.empty(nbytes, dtype=torch.uint8,
+                                        device=device)
+            return bufs[key]
+
+        def glance(fn):
+            def run(*args, **kw):
+                own = K.glance_work
+                K.glance_work = work
+                try:
+                    return swapped(fn)(*args, **kw)
+                finally:
+                    K.glance_work = own
+            return run
+
+        return {"spatial": glance(K.launch_spatial),
+                "temporal": glance(K.launch_temporal),
+                "late": swapped(K.launch_late),
+                "reap": swapped(K.launch_reap)}
     lib.assess_spatial.argtypes = [P] * 6 + [I] * 5 + [P, P]
     lib.assess_temporal.argtypes = [P] * 5 + [I] * 3 + [P, P, P]
     lib.assess_spatial_smem.argtypes = [I]
@@ -3428,7 +4346,7 @@ def parent_assess(source: Path) -> dict:
                      ("running", running)])
         K._check(nh, "nh", torch.int32, (n, k), dev)
         K.library()
-        K._smem(lib.assess_spatial_smem(n), "spatial (parent)", n)
+        _parent_smem(lib.assess_spatial_smem(n), "spatial (parent)", n)
         fired = torch.empty(tuple(rho.shape[:-1]) + (jcap, 2, n),
                             dtype=torch.bool, device=dev)
         rc = lib.assess_spatial(
@@ -3444,7 +4362,7 @@ def parent_assess(source: Path) -> dict:
         K._cols(dev, (cap,), f64=[("prog", prog), ("tprog", tprog)],
                 i32=[("node", node), ("jls", jls), ("alive", alive)])
         K.library()
-        K._smem(lib.assess_temporal_smem(n), "temporal (parent)", n)
+        _parent_smem(lib.assess_temporal_smem(n), "temporal (parent)", n)
         zn = torch.empty((jcap, n), dtype=torch.float64, device=dev)
         zp = torch.empty((jcap, n), dtype=torch.float64, device=dev)
         rc = lib.assess_temporal(
@@ -3583,6 +4501,114 @@ def assess_parent(source: str) -> None:
           f"parent {verdict}", flush=True)
 
 
+TRAIN_WALL_RUNS = 3
+
+
+def train_wall(cfg=None, device="cuda", seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+               runs=TRAIN_WALL_RUNS) -> None:
+    """The training path's fault-free run alone (a warm-up step and
+    ``steps`` steps of Qwen1.5-0.5B, or ``cfg``, on 4 host threads under
+    bino), ``runs`` times, through the port whose ``src`` directory comes
+    first on ``sys.path``, with the hosts' heartbeats timed as the
+    coordinator receives them: each run's outcome (``StepWedged``
+    caught), step walls, detections, the longest silence of each host and
+    how many silences passed Eq. 4's thresholds (0.4 s at the least, 1 s
+    before a host's first outage), and the longest pause of the garbage
+    collector. Run as ``chip_smoke.py --train-wall [SRC]``, so that two
+    checkouts compare in one call."""
+    from repro_torch.accel import kernels as K
+    from repro_torch.accel.torch_backend import TorchBackend
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import RuntimeConfig, StepWedged, TrainerRuntime
+    from repro_torch.train.loop import TrainConfig
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        K.build()
+        for name in K.SOURCES:
+            K.library(name)
+    cfg = cfg or get_config(TRAIN_ARCH)
+    for run in range(runs):
+        watch = _HeartbeatWatch()
+        t = TrainerRuntime(
+            cfg, TrainConfig(), RuntimeConfig(
+                n_hosts=TRAIN_HOSTS, microbatches_per_shard=TRAIN_MB,
+                recovery="bino", compute_delay=0.0, verify_columnar=True,
+                assess_backend=None if on_card else TorchBackend("cpu")),
+            seq_len=seq, per_shard_batch=1, seed=TRAIN_SEED, device=device)
+        reports, outcome = [], "ok"
+        try:
+            reports += t.run(1)
+            reports += t.run(steps)
+        except StepWedged as e:
+            outcome = f"StepWedged: {e}"
+        finally:
+            watch.stop()
+            t.shutdown()
+            for host in t.coord.hosts.values():
+                for thread in (host, host.hb):
+                    thread.join(timeout=HOST_EXIT_S)
+        print(f"train wall {sys.path[0]} run {run}: {outcome}; step walls "
+              f"{[round(r.wall_s, 6) for r in reports]}; detections "
+              f"{t.coord.metrics.counter('detections').n}, wedges "
+              f"{sum(r.wedges for r in reports)}; {watch.summary()}",
+              flush=True)
+        del t, reports
+        _free()
+
+
+class _HeartbeatWatch:
+    """From its creation to :meth:`stop`: the heartbeat silences of every
+    host of the runtimes created meanwhile, as their coordinator receives
+    them (the gap between one heartbeat's time and the next), and the
+    garbage collector's pauses. Eq. 4 declares a host failed after a
+    silence above its threshold: 1 s before the host's first outage, 0.4
+    s at the least (``RuntimeConfig.glance``)."""
+
+    def __init__(self):
+        from repro_torch.runtime import coordinator as C
+
+        self._cls, self._orig = C.Coordinator, C.Coordinator._on_heartbeat
+        self.silences, self.pauses = {}, []
+        last, lock, orig, t0 = {}, threading.Lock(), self._orig, [0.0]
+
+        def on_heartbeat(coord, host_id, now):
+            with lock:
+                if host_id in last:
+                    self.silences.setdefault(host_id, []).append(
+                        now - last[host_id])
+                last[host_id] = now
+            orig(coord, host_id, now)
+
+        def on_gc(phase, info):
+            if phase == "start":
+                t0[0] = time.perf_counter()
+            else:
+                self.pauses.append((time.perf_counter() - t0[0],
+                                    info["generation"]))
+
+        self._on_gc = on_gc
+        C.Coordinator._on_heartbeat = on_heartbeat
+        gc.callbacks.append(on_gc)
+
+    def stop(self) -> None:
+        """Stop timing the collector and leave runtimes created from now
+        on untouched (hosts spawned meanwhile keep reporting here)."""
+        self._cls._on_heartbeat = self._orig
+        if self._on_gc in gc.callbacks:
+            gc.callbacks.remove(self._on_gc)
+
+    def summary(self) -> str:
+        every = [x for v in self.silences.values() for x in v]
+        worst = {h: round(max(v), 6) for h, v in sorted(self.silences.items())}
+        gc_worst = max(self.pauses, default=(0.0, None))
+        return (f"heartbeats {len(every)}, longest silence by host {worst}, "
+                f"silences over 0.4 s {sum(x > 0.4 for x in every)}, over 1 s "
+                f"{sum(x > 1.0 for x in every)}; garbage collections "
+                f"{len(self.pauses)}, longest {gc_worst[0]:.6f} s (generation "
+                f"{gc_worst[1]})")
+
+
 def sim_wall() -> None:
     """The flat main path alone on the card, through the port whose
     ``src`` directory comes first on ``sys.path``: bino and yarn (assess
@@ -3612,7 +4638,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-    modes = {"--decode-wall": decode_wall, "--sim-wall": sim_wall}
+    modes = {"--decode-wall": decode_wall, "--sim-wall": sim_wall,
+             "--train-wall": train_wall}
     if sys.argv[1:2] and sys.argv[1] in modes:
         if len(sys.argv) > 2:
             sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
@@ -3639,30 +4666,43 @@ def main() -> int:
           flush=True)
     print_resource_usage(libs)
 
+    start = time.perf_counter()
+
+    def phase(label, fn, *args):
+        """``fn(*args)``, then the wall time since the start."""
+        out = fn(*args)
+        print(f"phase {label} done at {time.perf_counter() - start:.1f} s",
+              flush=True)
+        return out
+
     cap_state = capture_snapshot()
-    rows = kernel_phase(cap_state)
-    launches = main_path()
-    predict = predictor_path()
-    fair_launches, fair = fair_path()
+    rows = phase("kernels", kernel_phase, cap_state)
+    launches = phase("main path", main_path)
+    predict = phase("predictor", predictor_path)
+    fair_launches, fair = phase("fair path", fair_path)
     launches["price"] = fair_launches["price"]
     rows["price"] = price_phase(fair["prices"])
-    sweep, sweep_launches = sweep_path(fair["state"], fair["now"])
+    sweep, sweep_launches = phase("sweep", sweep_path, fair["state"],
+                                  fair["now"])
     launches.update((k, sweep_launches[k])
                     for k in ("spatial_sweep", "late_sweep", "reap_sweep"))
     rows.update(batched_kernel_phase(sweep))
-    profile_bino()
-    rows.update(attention_kernel_phase())
-    serve_launches = serve_path()
+    phase("profile", profile_bino)
+    rows.update(phase("attention", attention_kernel_phase))
+    serve_launches = phase("serving", serve_path)
     launches.update((k, serve_launches[k]) for k in ("flash_fwd", "decode"))
-    rows.update(attention_bwd_phase())
-    train_launches = train_path()
+    rows.update(phase("attention backward", attention_bwd_phase))
+    train_launches = phase("training", train_path)
     launches.update((k, train_launches[k]) for k in ("flash_dkv",
                                                      "flash_dq"))
     gc.collect()    # the earlier models' last references
     torch.cuda.empty_cache()
-    rows.update(ssd_kernel_phase())
-    ssm_launches = ssm_serve_path()
+    rows.update(phase("ssd", ssd_kernel_phase))
+    ssm_launches = phase("ssm serving", ssm_serve_path)
     launches["ssd"] = ssm_launches["ssd"]
+    _free()         # the ssm model's last references
+    family = {name: phase(f"{name} serving", family_path, name)
+              for name in ("moe", "hybrid", "audio", "vlm")}
     launches["reap"] += predict["policy"]["reap"]
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -3675,6 +4715,16 @@ def main() -> int:
             sweep_launches[name + "_sweep_jobs"]
     rows["decode"]["combine_launches"] = serve_launches["decode_combine"]
     rows["ssd"].update((f"{k}_launches", ssm_launches[k])
+                       for k in K.SSD_TC_KEYS[1:])
+    # the model-family paths' launches, each its own run
+    for name, counts in family.items():
+        rows["flash_fwd"][f"{name}_launches"] = counts["flash_fwd"]
+        rows["flash_fwd"][f"{name}_tc_launches"] = counts["flash_fwd_tc"]
+        rows["decode"][f"{name}_launches"] = counts["decode"]
+        rows["decode"][f"{name}_combine_launches"] = \
+            counts["decode_combine"]
+    rows["ssd"]["hybrid_launches"] = family["hybrid"]["ssd"]
+    rows["ssd"].update((f"hybrid_{k}_launches", family["hybrid"][k])
                        for k in K.SSD_TC_KEYS[1:])
     # the predictor path: B4 once per tick of the trained policy (in
     # ``launches`` above); B1-B4 in its corpus and fig_predictor's runs

@@ -102,10 +102,15 @@ __device__ void block_exclusive_scan(int* a, int len, int* warp_tot) {
 //   to the node's sum in lane (= row) order, so every bucket's sum is one
 //   left-to-right chain. A group with no record writes its empty output
 //   (all false; NaN) and returns.
-// The bucket table of a group is n sums (B2: 2n) and n counts in shared
-// memory, beside a fixed stage: B1 runs to about 18,800 nodes (it held
-// 2n sums and counts of a whole job beside its row staging before, and
-// stopped at 9,556); the wrappers raise above the limit.
+// The bucket table of a group is n sums (B2: 2n) and n counts. It lives
+// in shared memory beside a fixed stage where both fit a block (B1 to
+// about 18,800 nodes, B2 to about 13,000); above that the table moves to
+// device memory, one table per (scenario, group) block after the records
+// and offset tables of the work buffer, and only the stage stays in
+// shared memory. The table's reads and writes are the same in both
+// places (warp 0 alone adds, behind __syncwarp; the block reads after a
+// barrier, which orders device memory as it does shared), so every
+// bucket's chain of adds and every result is the same bits.
 // B1 then takes P = sum / count per node (NaN where empty) and, for each
 // node with a P, the neighbourhood mean and sigma as left-to-right sums
 // over k, the order np.nansum uses for k < 8. Scenario y of the grid
@@ -257,27 +262,83 @@ struct GlanceShared {
     C* cnt;                  // n
 };
 
+// Largest dynamic shared memory a block may take on Hopper (227 KB).
+#define GLANCE_MAX_SMEM 232448
+
+// The stage, tile prefix and scan space of a group block.
+static inline size_t glance_stage_smem(int NV, int cap) {
+    return (size_t)NV * GLANCE_CHUNK * sizeof(double)
+           + (size_t)(GLANCE_CHUNK + 2 * glance_tiles(cap) + 1 + NWARPS)
+             * sizeof(int);
+}
+
+// One group's bucket table: NV * n sums and n counts, in 8-byte words.
+template <int NV, typename C>
+__host__ __device__ __forceinline__ size_t glance_table_words(int n) {
+    return ((size_t)NV * n * sizeof(double) + (size_t)n * sizeof(C) + 7) / 8;
+}
+
+template <int NV, typename C>
+static inline bool glance_table_in_smem(int n, int cap) {
+    return glance_stage_smem(NV, cap) + glance_table_words<NV, C>(n) * 8
+           <= GLANCE_MAX_SMEM;
+}
+
+// The group pass's dynamic shared memory: stage and table where both fit,
+// else the stage alone.
 template <int NV, typename C>
 static inline size_t glance_jobs_smem(int n, int cap) {
+    if (!glance_table_in_smem<NV, C>(n, cap))
+        return glance_stage_smem(NV, cap);
     return (size_t)NV * (n + GLANCE_CHUNK) * sizeof(double)
            + (size_t)(GLANCE_CHUNK + 2 * glance_tiles(cap) + 1 + NWARPS)
              * sizeof(int)
            + (size_t)n * sizeof(C);
 }
 
+// Bytes of the device-memory tables of G groups in each of nscen
+// scenarios (0 where the table fits in shared memory), and where they
+// start in the work buffer: after the records and offset tables, at a
+// 16-byte boundary.
+template <int NV, typename C>
+static inline size_t glance_table_bytes(int n, int cap, int G, int nscen) {
+    if (glance_table_in_smem<NV, C>(n, cap)) return 0;
+    return glance_table_words<NV, C>(n) * 8 * (size_t)G * nscen + 16;
+}
+
+static inline size_t glance_table_offset(size_t work_bytes) {
+    return (work_bytes + 15) / 16 * 16;
+}
+
+// `table`: this block's table in device memory, or null to keep it in
+// shared memory before the stage.
 template <int NV, typename C>
 __device__ __forceinline__ GlanceShared<NV, C> glance_shared(void* smem,
                                                              int n,
-                                                             int ntiles) {
+                                                             int ntiles,
+                                                             double* table) {
     GlanceShared<NV, C> s;
-    s.acc = (double*)smem;
-    s.st_val = s.acc + NV * n;
+    if (table) {
+        s.acc = table;
+        s.st_val = (double*)smem;
+    } else {
+        s.acc = (double*)smem;
+        s.st_val = s.acc + NV * n;
+    }
     s.st_node = (int*)(s.st_val + NV * GLANCE_CHUNK);
     s.pre = s.st_node + GLANCE_CHUNK;
     s.sbase = s.pre + ntiles + 1;
     s.warp_tot = s.sbase + ntiles;
-    s.cnt = (C*)(s.warp_tot + NWARPS);
+    s.cnt = table ? (C*)(table + NV * n) : (C*)(s.warp_tot + NWARPS);
     return s;
+}
+
+// Block (g, sc)'s table among the device-memory tables, or null.
+template <int NV, typename C>
+__device__ __forceinline__ double* glance_block_table(double* tables, int n,
+                                                      int G, int sc, int g) {
+    if (!tables) return nullptr;
+    return tables + ((size_t)sc * G + g) * glance_table_words<NV, C>(n);
 }
 
 // Warp 0's walk of a staged chunk of len records, in row order: the lanes
@@ -386,11 +447,13 @@ spatial_rows_kernel(SpatialRowsIn in, int cap, int n, int G, void* work) {
 
 __global__ void __launch_bounds__(NTHREADS)
 spatial_jobs_kernel(const int* __restrict__ nh, int cap, int n, int k,
-                    int G, void* work, unsigned char* __restrict__ fired) {
+                    int G, void* work, double* tables,
+                    unsigned char* __restrict__ fired) {
     extern __shared__ double s_jobs[];
     const int sc = blockIdx.y, g = blockIdx.x, tid = threadIdx.x;
     const int ntiles = glance_tiles(cap);
-    const GlanceShared<1, int> s = glance_shared<1, int>(s_jobs, n, ntiles);
+    const GlanceShared<1, int> s = glance_shared<1, int>(
+        s_jobs, n, ntiles, glance_block_table<1, int>(tables, n, G, sc, g));
     const int m = glance_group_pass(
         glance_work<1>(work, cap, G, gridDim.y, sc), G, ntiles, n, s);
     unsigned char* out = fired + ((size_t)sc * G + g) * n;
@@ -416,13 +479,14 @@ temporal_rows_kernel(TemporalRowsIn in, int cap, int n, int G, void* work) {
 }
 
 __global__ void __launch_bounds__(NTHREADS)
-temporal_jobs_kernel(int cap, int n, int G, void* work,
+temporal_jobs_kernel(int cap, int n, int G, void* work, double* tables,
                      double* __restrict__ zn, double* __restrict__ zp) {
     extern __shared__ double s_jobs[];
     const int g = blockIdx.x, tid = threadIdx.x;
     const int ntiles = glance_tiles(cap);
-    const GlanceShared<2, unsigned char> s =
-        glance_shared<2, unsigned char>(s_jobs, n, ntiles);
+    const GlanceShared<2, unsigned char> s = glance_shared<2, unsigned char>(
+        s_jobs, n, ntiles,
+        glance_block_table<2, unsigned char>(tables, n, G, 0, g));
     const int m = glance_group_pass(glance_work<2>(work, cap, G, 1, 0), G,
                                     ntiles, n, s);
     zn += (size_t)g * n;
@@ -1036,6 +1100,17 @@ extern "C" size_t assess_temporal_work_bytes(int cap, int jcap) {
     return glance_work_bytes<2>(cap, jcap, 1);
 }
 
+// Bytes the work buffer needs beyond assess_*_work_bytes for the group
+// tables in device memory: 0 where a group's table fits in shared memory.
+extern "C" size_t assess_spatial_table_bytes(int n, int jcap, int cap,
+                                             int nscen) {
+    return glance_table_bytes<1, int>(n, cap, 2 * jcap, nscen);
+}
+
+extern "C" size_t assess_temporal_table_bytes(int n, int jcap, int cap) {
+    return glance_table_bytes<2, unsigned char>(n, cap, jcap, 1);
+}
+
 // Raise a kernel's dynamic shared memory limit where it needs more than
 // the default.
 static cudaError_t allow_smem(const void* kernel, size_t smem) {
@@ -1044,8 +1119,9 @@ static cudaError_t allow_smem(const void* kernel, size_t smem) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// `work` holds assess_spatial_work_bytes(cap, jcap, nscen) bytes, used by
-// one stream at a time; no part of it needs to be set before a call. Two
+// `work` holds assess_spatial_work_bytes(cap, jcap, nscen) +
+// assess_spatial_table_bytes(n, jcap, cap, nscen) bytes, used by one
+// stream at a time; no part of it needs to be set before a call. Two
 // launches: the row pass, then the group pass (a block per (job, phase)).
 extern "C" int assess_spatial(const void* rho, const void* node,
                               const void* kind, const void* jls,
@@ -1067,12 +1143,17 @@ extern "C" int assess_spatial(const void* rho, const void* node,
                           rows_smem, s>>>(in, cap, n, G, work);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
+    double* tables = nullptr;
+    if (!glance_table_in_smem<1, int>(n, cap))
+        tables = (double*)((char*)work + glance_table_offset(
+            glance_work_bytes<1>(cap, G, nscen)));
     spatial_jobs_kernel<<<dim3(G, nscen), NTHREADS, jobs_smem, s>>>(
-        (const int*)nh, cap, n, k, G, work, (unsigned char*)fired);
+        (const int*)nh, cap, n, k, G, work, tables, (unsigned char*)fired);
     return (int)cudaGetLastError();
 }
 
-// `work` holds assess_temporal_work_bytes(cap, jcap) bytes, as above.
+// `work` holds assess_temporal_work_bytes(cap, jcap) +
+// assess_temporal_table_bytes(n, jcap, cap) bytes, as above.
 extern "C" int assess_temporal(const void* prog, const void* tprog,
                                const void* node, const void* jls,
                                const void* alive, int cap, int n, int jcap,
@@ -1092,8 +1173,12 @@ extern "C" int assess_temporal(const void* prog, const void* tprog,
         in, cap, n, jcap, work);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
+    double* tables = nullptr;
+    if (!glance_table_in_smem<2, unsigned char>(n, cap))
+        tables = (double*)((char*)work + glance_table_offset(
+            glance_work_bytes<2>(cap, jcap, 1)));
     temporal_jobs_kernel<<<jcap, NTHREADS, jobs_smem, s>>>(
-        cap, n, jcap, work, (double*)zn, (double*)zp);
+        cap, n, jcap, work, tables, (double*)zn, (double*)zp);
     return (int)cudaGetLastError();
 }
 

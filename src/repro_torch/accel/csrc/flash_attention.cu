@@ -12,7 +12,7 @@
 //     and training paths): the Hopper body of flash_attention_sm90.cuh,
 //     wgmma tensor-core products on TMA-fed tiles of 128 x 128, p rounded
 //     to bf16 before P.V (its note says why and what bounds it);
-//   - float32, and bf16 with head_dim 16 or 32: the SIMT body below,
+//   - float32, and bf16 with head_dim 16, 32 or 80: the SIMT body below,
 //     float32 FMAs on 64 x 64 tiles. It keeps the reference's f32
 //     arithmetic (q, k and v upcast before both dots, p in f32); TF32
 //     tensor cores would miss the f32 limits.
@@ -257,6 +257,9 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* out,
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window, scale, stream);
     case 32: return launch<T, 32>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window, scale, stream);
+    // hubert-xlarge's layers (1280 / 16 heads); 80 is no 128-byte swizzle
+    // width, so bf16 at 80 stays on this body too
+    case 80: return launch<T, 80>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window, scale, stream);
   }
   // bf16 at head_dim 64 and 128 runs the Hopper body (flash_fwd)
   if constexpr (std::is_same<T, float>::value) {
@@ -283,7 +286,7 @@ int flash_fwd_tc(int is_bf16, int d) { return sm90::takes(is_bf16, d); }
 
 // q (b, sq, hq, d), k/v (b, sk, hkv, d) contiguous, all bf16 (is_bf16 = 1)
 // or all float32; out (b, sq, hq, d) in their type, lse (b, hq, sq) f32.
-// d in {16, 32, 64, 128}. Returns a cudaError_t (0: launched), or 10000 +
+// d in {16, 32, 64, 80, 128}. Returns a cudaError_t (0: launched), or 10000 +
 // a CUDA driver error of the Hopper body's tensor maps.
 int flash_fwd(const void* q, const void* k, const void* v, void* out,
               void* lse, int b, int sq, int sk, int hq, int hkv, int d,

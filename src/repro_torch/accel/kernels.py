@@ -16,7 +16,8 @@ header or flag rebuilds — and :func:`library` loads them with
 multiply-adds. B6 has two bodies in one library: bf16 inputs with
 head_dim 64 or 128 take the Hopper body (``csrc/flash_attention_sm90.cuh``:
 wgmma products on TMA-fed 128 x 128 tiles), float32 and bf16 at head_dim
-16 or 32 the SIMT body (64 x 64 tiles); :func:`flash_fwd_tc` says which.
+16, 32 or 80 the SIMT body (64 x 64 tiles); :func:`flash_fwd_tc` says
+which.
 B7 and B8 have two bodies each in the same way: bf16 at head_dim 64 or
 128 the Hopper bodies (``csrc/flash_attention_bwd_sm90.cuh``, sharing
 B6's TMA and wgmma primitives in ``csrc/sm90_primitives.cuh``), the rest
@@ -120,7 +121,11 @@ FLASH_BWD_BLOCK_Q = 64
 FLASH_BWD_BLOCK_K = 64
 FLASH_BWD_TC_BLOCK_Q = 64
 FLASH_BWD_TC_BLOCK_K = 64
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
+# Head sizes that only B6 takes so far: head_dim 80 (hubert-xlarge, an
+# encoder that is served, not trained here) on B6's SIMT body. B7, B8 and
+# B9 raise for them (ROADMAP.md Queue B).
+FWD_ONLY_HEAD_DIMS = (80,)
 # B9's split-KV body: a block per DECODE_SPLIT keys of one (KV head,
 # sequence), streamed in tiles of DECODE_BLOCK_K keys through a ring of
 # DECODE_STAGES tiles; it takes every dtype and head_dim above.
@@ -290,10 +295,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.assess_temporal_smem.argtypes = [I, I, I]
         lib.assess_spatial_work_bytes.argtypes = [I, I, I]
         lib.assess_temporal_work_bytes.argtypes = [I, I]
+        lib.assess_spatial_table_bytes.argtypes = [I, I, I, I]
+        lib.assess_temporal_table_bytes.argtypes = [I, I, I]
         fns = (lib.assess_spatial, lib.assess_temporal) + bind_late(lib)
         for fn in (lib.assess_spatial_smem, lib.assess_temporal_smem,
                    lib.assess_spatial_work_bytes,
-                   lib.assess_temporal_work_bytes):
+                   lib.assess_temporal_work_bytes,
+                   lib.assess_spatial_table_bytes,
+                   lib.assess_temporal_table_bytes):
             fn.restype = ctypes.c_size_t
         tiles = [(lib.assess_glance_rows, GLANCE_ROWS),
                  (lib.assess_glance_chunk, GLANCE_CHUNK),
@@ -460,13 +469,6 @@ def _raise_on(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
 
 
-def _smem(bytes_: int, kernel: str, n: int) -> int:
-    if bytes_ > MAX_SMEM:
-        raise ValueError(f"{kernel}: {n} nodes need {bytes_} B of shared "
-                         f"memory, above the {MAX_SMEM} B a block may use")
-    return bytes_
-
-
 def _glance_sizes(kernel: str, cap: int, n: int, jcap: int) -> None:
     if min(cap, n, jcap) < 1:
         raise ValueError(f"{kernel}: cap {cap}, {n} nodes and jcap {jcap} "
@@ -542,19 +544,20 @@ def glance_work(lib, kernel: str, device: torch.device, stream: int, N: int,
                 cap: int, jcap: int, n: int) -> torch.Tensor:
     """B1's (``kernel`` "spatial") or B2's ("temporal") work buffer for N
     scenarios of ``cap`` rows, ``jcap`` job slots and ``n`` nodes on
-    ``stream``. On first use the shape's shared memory is checked (raises
-    above a block's) and the buffer allocated, not zeroed: nothing in it
-    needs a value before a call. Later calls find it here."""
+    ``stream``: the records and offset tables, and, where a group's
+    bucket table does not fit a block's shared memory (B1 above about
+    18,800 nodes, B2 above about 13,000), one table per (scenario, group)
+    in device memory. On first use the buffer is allocated, not zeroed:
+    nothing in it needs a value before a call. Later calls find it here."""
     key = (device.index, stream, kernel, N, cap, jcap, n)
     buf = _glance_work.get(key)
     if buf is None:
         if kernel == "spatial":
-            smem = lib.assess_spatial_smem(n, jcap, cap)
-            nbytes = lib.assess_spatial_work_bytes(cap, jcap, N)
+            nbytes = (lib.assess_spatial_work_bytes(cap, jcap, N)
+                      + lib.assess_spatial_table_bytes(n, jcap, cap, N))
         else:
-            smem = lib.assess_temporal_smem(n, jcap, cap)
-            nbytes = lib.assess_temporal_work_bytes(cap, jcap)
-        _smem(smem, kernel, n)
+            nbytes = (lib.assess_temporal_work_bytes(cap, jcap)
+                      + lib.assess_temporal_table_bytes(n, jcap, cap))
         buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
         buf = _glance_work.setdefault(key, buf)
     return buf
@@ -670,6 +673,13 @@ def _attn_dtype(kernel: str, *tensors) -> int:
     return _ATTN_DTYPES[dtype]
 
 
+def _fwd_only(kernel: str, d: int) -> None:
+    if d in FWD_ONLY_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{kernel}: head_dim {d} is not ported yet; B6 takes it, B7, B8 "
+            f"and B9 wait (see ROADMAP.md Queue B)")
+
+
 def _aligned(kernel: str, **tensors) -> None:
     """B6–B9 load 16 bytes at a time."""
     for name, t in tensors.items():
@@ -727,6 +737,7 @@ def launch_decode(q, k, v, valid, scale: float) -> torch.Tensor:
     _check(k, "k", q.dtype, (b, S, hkv, d), dev)
     _check(v, "v", q.dtype, (b, S, hkv, d), dev)
     _check(valid, "valid", torch.int32, (b,), dev)
+    _fwd_only("decode", d)
     if d not in HEAD_DIMS or hq % hkv or hq // hkv > DECODE_MAX_GROUP \
             or min(b, S) < 1:
         raise ValueError(f"decode: head_dim {d} (one of {HEAD_DIMS}), "
@@ -765,6 +776,7 @@ def _flash_bwd_args(kernel, q, k, v, dout, lse, delta):
     _check(dout, "dout", q.dtype, (b, sq, hq, d), dev)
     _check(lse, "lse", torch.float32, (b, hq, sq), dev)
     _check(delta, "delta", torch.float32, (b, hq, sq), dev)
+    _fwd_only(kernel, d)
     if d not in HEAD_DIMS or hq % hkv or min(b, sq, sk) < 1:
         raise ValueError(f"{kernel}: head_dim {d} (one of {HEAD_DIMS}), "
                          f"heads {hq}/{hkv}, b {b}, sq {sq}, sk {sk}")

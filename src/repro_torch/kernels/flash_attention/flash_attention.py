@@ -17,8 +17,9 @@ head_dim alone (``kernels.flash_fwd_tc``):
   tensor cores' operand type; the reference keeps p in float32), while l
   sums the float32 p, as the reference does. The plain version rounds p
   the same way for these inputs.
-- float32, and bf16 at head_dim 16 or 32: the SIMT body, float32 FMAs on
-  tiles of 64 x 64, with p in float32 throughout.
+- float32, and bf16 at head_dim 16, 32 or 80 (hubert-xlarge's 1,280 over
+  16 heads): the SIMT body, float32 FMAs on tiles of 64 x 64, with p in
+  float32 throughout.
 
 Otherwise both keep the reference kernel's arithmetic: q, k and v upcast
 to float32 (exact: a bf16 product is exact in float32), the scale applied
@@ -57,7 +58,8 @@ have two bodies each, chosen as B6's (``kernels.flash_bwd_tc``):
   (:func:`dkv_group_sum_plain`). The plain versions round and sum the
   same way for these inputs.
 - float32, and bf16 at head_dim 16 or 32: the SIMT bodies, float32
-  throughout, the group summed inside B7's block.
+  throughout, the group summed inside B7's block. At head_dim 80 B7 and
+  B8 raise on the card (ROADMAP.md Queue B); their plain versions run.
 """
 from __future__ import annotations
 

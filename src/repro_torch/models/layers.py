@@ -92,10 +92,12 @@ def tree_from_leaves(like: ParamTree, leaves: Mapping[str, torch.Tensor],
 
 
 def cast_tree(p, dtype: torch.dtype):
-    """A dict copy of a :class:`ParamTree` without lists (one layer) with
-    every floating tensor cast to ``dtype``."""
+    """A copy of a :class:`ParamTree` (one layer or block) as dicts and
+    lists, with every floating tensor cast to ``dtype``."""
     if isinstance(p, torch.Tensor):
         return p.to(dtype) if p.is_floating_point() else p
+    if isinstance(p, nn.ModuleList):
+        return [cast_tree(c, dtype) for c in p]
     return {n: cast_tree(p[n], dtype) for n in (*p._parameters, *p._modules)}
 
 

@@ -15,11 +15,13 @@ compression residual) as dicts ``{path: tensor}`` in
 the dry-run of the launch-tooling slice (ROADMAP).
 
 ``TrainConfig.impl`` defaults to ``"kernel"``: the attention kernels B6
-(forward), B7/B8 (backward) and B9 (decode), and the ssm stack's SSD
+(forward), B7/B8 (backward) and B9 (decode), and the Mamba-2 layers' SSD
 scan B10 (prefill and forward; its backward is autograd of the oracle),
 on CUDA tensors, their plain torch versions on CPU tensors; ``"ref"``
-asks for the plain oracles. The serving steps serve the dense and ssm
-families alike. The
+asks for the plain oracles. The serving steps serve every family: a
+batch is handed to ``prefill``/``forward`` whole, so the audio family's
+``feats`` and the vlm family's ``feats`` beside its ``tokens`` go
+through (the encoder-only audio family has no decode step). The
 reference defaults to ``"ref"``; the port differs because its main path
 on the card must go through its kernels. The reference's ``unroll`` knob
 has no counterpart: the port's layer loop is a Python loop.
@@ -189,6 +191,8 @@ def make_serve_step(cfg: ModelConfig, tc: TrainConfig):
 
 def make_prefill_step(cfg: ModelConfig, tc: TrainConfig,
                       max_len: Optional[int] = None):
+    """``prefill_step(params, batch)``: ``batch`` as ``forward`` takes it
+    (``tokens``; ``feats``; or both for vlm)."""
     def prefill_step(params, batch):
         return MODEL.prefill(cfg, params, batch, max_len=max_len,
                              impl=tc.impl)

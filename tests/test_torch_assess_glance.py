@@ -247,7 +247,7 @@ SMALL = ((K.GLANCE_ROWS, K.GLANCE_CHUNK), (32, 32), (64, 40))
 def test_spatial_mirror_matches_plain_on_glance_cases(case):
     args = _chip_smoke().glance_inputs(case, 0, "cpu")["spatial"]
     want = TB.spatial_ref(*args)
-    sizes = SMALL[:1] if case == "n10000" else SMALL
+    sizes = SMALL[:1] if case in _chip_smoke().GLANCE_NODES else SMALL
     for tile, chunk in sizes:
         _same(spatial_mirror(*args, tile=tile, chunk=chunk), want)
     assert want.any(), case
@@ -257,7 +257,7 @@ def test_spatial_mirror_matches_plain_on_glance_cases(case):
 def test_temporal_mirror_matches_plain_on_glance_cases(case):
     args = _chip_smoke().glance_inputs(case, 0, "cpu")["temporal"]
     want = TB.temporal_ref(*args)
-    sizes = SMALL[:1] if case == "n10000" else SMALL
+    sizes = SMALL[:1] if case in _chip_smoke().GLANCE_NODES else SMALL
     for tile, chunk in sizes:
         _same(temporal_mirror(*args, tile=tile, chunk=chunk), want)
 
@@ -454,6 +454,79 @@ def test_n10000_case_crosses_the_old_limit():
     assert int(nh[n - 1, 3]) == 0            # the last node's wraps to 0
 
 
+def _table_in_smem(nv: int, count_bytes: int, n: int, cap: int) -> bool:
+    """``glance_table_in_smem`` of ``assess.cu``: the stage (nv value
+    columns and the node column of GLANCE_CHUNK records, the tile prefix
+    and scan space) and one group's table (nv * n sums and n counts, in
+    8-byte words) within a block's shared memory."""
+    ntiles = -(-cap // K.GLANCE_ROWS)
+    stage = (nv * K.GLANCE_CHUNK * 8
+             + (K.GLANCE_CHUNK + 2 * ntiles + 1 + K.GLANCE_ROWS // 32) * 4)
+    table = -(-(nv * n * 8 + n * count_bytes) // 8) * 8
+    return stage + table <= K.MAX_SMEM
+
+
+def test_group_tables_leave_shared_memory_past_the_limits():
+    """C2: at 8,192 rows B1's group table (n float64 sums, n int counts)
+    fits a block's shared memory up to 18,834 nodes and B2's (2n sums, n
+    flag bytes) up to 13,053; past that each group's table lives in the
+    work buffer. n10000 keeps both in shared memory; n20000 and n50000
+    put both in device memory (the path that raised before)."""
+    cs = _chip_smoke()
+    for nv, cb, limit in ((1, 4, 18_834), (2, 1, 13_053)):
+        assert _table_in_smem(nv, cb, limit, 8192)
+        assert not _table_in_smem(nv, cb, limit + 1, 8192)
+    for case, n in cs.GLANCE_NODES.items():
+        cap = cs.glance_inputs(case, 0, "cpu")["spatial"][0].shape[0]
+        assert cap == 8192
+        assert _table_in_smem(1, 4, n, cap) == (n <= 18_834)
+        assert _table_in_smem(2, 1, n, cap) == (n <= 13_053)
+
+
+def _numpy_glance(sp, tp):
+    """``NumpyBackend``'s arithmetic on the kernels' arguments: Eq. 1 from
+    ``np.bincount`` sums and ``spatial_slow_mask_batch_np``, and the ζ
+    sums from ``np.bincount``, NaN where a bucket is empty."""
+    from repro_torch.core import metrics as M
+
+    rho, node, kind, jls, running, nh, jcap = sp
+    n = nh.shape[0]
+    use = running.numpy() == 1
+    seg = ((jls.numpy() * 2 + kind.numpy()) * n + node.numpy())[use]
+    sums = np.bincount(seg, weights=rho.numpy()[use], minlength=jcap * 2 * n)
+    counts = np.bincount(seg, minlength=jcap * 2 * n).astype(float)
+    with np.errstate(invalid="ignore"):
+        P = np.where(counts > 0, sums / np.maximum(counts, 1.0),
+                     np.nan).reshape(jcap * 2, n)
+    fired = M.spatial_slow_mask_batch_np(P, nh.numpy().astype(np.int64))
+    prog, tprog, tnode, tjls, alive, tjcap, tn = tp
+    use = alive.numpy() == 1
+    seg = (tjls.numpy() * tn + tnode.numpy())[use]
+    zn = np.bincount(seg, weights=prog.numpy()[use], minlength=tjcap * tn)
+    zp = np.bincount(seg, weights=tprog.numpy()[use], minlength=tjcap * tn)
+    cnt = np.bincount(seg, minlength=tjcap * tn)
+    z = tuple(torch.from_numpy(np.where(cnt > 0, x, np.nan)
+                               .reshape(tjcap, tn)) for x in (zn, zp))
+    return torch.from_numpy(fired.reshape(jcap, 2, n)), z
+
+
+@pytest.mark.parametrize("case", ["n20000", "n50000"])
+def test_device_table_path_matches_numpy(case):
+    """The group pass of C2's device-memory path is the same walk over
+    the same records (only the table's address moves), so the mirror at
+    20,000 and 50,000 nodes equals numpy's Eq. 1 and ζ sums byte for
+    byte, as do the plain versions."""
+    inp = _chip_smoke().glance_inputs(case, 0, "cpu")
+    sp, tp = inp["spatial"], inp["temporal"]
+    want_sp, want_tp = _numpy_glance(sp, tp)
+    got_sp = spatial_mirror(*sp)
+    _same(got_sp, want_sp)
+    _same(TB.spatial_ref(*sp), want_sp)
+    assert got_sp[..., -300:].any()
+    _same(temporal_mirror(*tp), want_tp)
+    _same(TB.temporal_ref(*tp), want_tp)
+
+
 # ---------------------------------------------------------------------------
 # The mirrors on the recorded snapshots: NumpyBackend and Pallas
 # ---------------------------------------------------------------------------
@@ -538,6 +611,7 @@ def test_wrapper_constants_match_the_source():
     assert int(defs["NTHREADS"]) == K.GLANCE_ROWS
     assert defs["GLANCE_ROWS"] == "NTHREADS"
     assert int(defs["GLANCE_CHUNK"]) == K.GLANCE_CHUNK
+    assert int(defs["GLANCE_MAX_SMEM"]) == K.MAX_SMEM
     assert {"spatial_jobs", "spatial_sweep_jobs", "temporal_jobs"} <= set(
         K.launches)
     # the library reports both, and the wrappers check them when it loads

@@ -111,6 +111,35 @@ def test_flash_plain_matches_reference(b, sq, sk, hq, hkv, d, causal,
     np.testing.assert_allclose(_np(lse), _np(pal_lse), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d", [
+    (1, 128, 128, 4, 4, 80),     # hubert-xlarge's head_dim, MHA
+    (2, 130, 200, 4, 2, 80),     # GQA, ragged tiles, q shorter than kv
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_head_dim_80_matches_reference(b, sq, sk, hq, hkv, d,
+                                                   causal, dtype):
+    """head_dim 80 (hubert-xlarge: 1,280 over 16 heads, non-causal) on
+    the SIMT body's tiles, against the reference's Pallas forward in
+    interpret mode (which takes any head_dim) and its oracle."""
+    assert d in K.HEAD_DIMS and not K.flash_fwd_tc(DTYPES[dtype][1], d)
+    (jq, q), (jk, k), (jv, v) = _inputs(
+        16, dtype, (b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d))
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
+    assert out.shape == q.shape and lse.shape == (b, hq, sq)
+    want, want_lse = ref_attention_lse(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_np(out), _np(want), **_tol(dtype))
+    np.testing.assert_allclose(_np(lse), _np(want_lse), rtol=2e-5,
+                               atol=2e-5)
+    if sq % 64 == 0 and sk % 64 == 0:     # the Pallas grid asserts tiles
+        pal, pal_lse = RFA.flash_attention_fwd(jq, jk, jv, causal=causal,
+                                               block_q=64, block_k=64,
+                                               interpret=True)
+        np.testing.assert_allclose(_np(out), _np(pal), **_tol(dtype))
+        np.testing.assert_allclose(_np(lse), _np(pal_lse), rtol=2e-5,
+                                   atol=2e-5)
+
+
 @pytest.mark.parametrize("b,sq,sk,hq,hkv,d,window", [
     (1, 256, 256, 2, 2, 32, 64),    # tests/test_kernels.py's window case
     (1, 200, 300, 8, 2, 32, 64),    # ragged, q_offset 100, GQA-4
@@ -407,6 +436,21 @@ def test_kernel_wrappers_check_arguments():
                         torch.empty(2, **meta), 0.25)
 
 
+def test_head_dim_80_waits_for_b7_b8_b9():
+    """B6 takes head_dim 80 (the hubert encoder's); B7, B8 and B9 raise
+    for it, naming ROADMAP, before anything is built."""
+    meta = dict(device="meta")
+    q = torch.empty((1, 8, 4, 80), **meta)
+    lse = torch.empty((1, 4, 8), **meta)
+    for launch in (K.launch_flash_dkv, K.launch_flash_dq):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            launch(q, q, q, q, lse, lse, True, 0, 0.1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        K.launch_decode(torch.empty((1, 4, 80), **meta), q, q,
+                        torch.empty(1, dtype=torch.int32, **meta), 0.1)
+    assert not K._libs
+
+
 # ---------------------------------------------------------------------------
 # 5. On the card (skips without one)
 # ---------------------------------------------------------------------------
@@ -498,10 +542,11 @@ def test_flash_hopper_body_matches_plain_on_card(b, sq, sk, hq, hkv, d,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [("float32", 64), ("float32", 128),
-                                     ("bfloat16", 16), ("bfloat16", 32)])
+                                     ("bfloat16", 16), ("bfloat16", 32),
+                                     ("float32", 80), ("bfloat16", 80)])
 def test_flash_simt_body_keeps_its_inputs_on_card(dtype, d):
-    """float32 (any head_dim) and bf16 at head_dim 16/32 stay on the SIMT
-    body: counted as ``flash_fwd`` only."""
+    """float32 (any head_dim) and bf16 at head_dim 16/32/80 stay on the
+    SIMT body: counted as ``flash_fwd`` only."""
     _need_card()
     q, k, v = _on_card(_inputs(15, dtype, (1, 129, 4, d), (1, 129, 2, d),
                                (1, 129, 2, d)))

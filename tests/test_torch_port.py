@@ -67,6 +67,8 @@ import repro_torch.kernels.flash_attention.ops
 import repro_torch.kernels.decode_attention.ops
 import repro_torch.kernels.ssd.ops
 import repro_torch.models.mamba2
+import repro_torch.models.moe
+import repro_torch.models.inputs
 import repro_torch.models
 import repro_torch.models.convert
 import repro_torch.train.loop

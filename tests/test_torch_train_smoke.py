@@ -42,3 +42,16 @@ def test_chip_smoke_train_path_rehearses_on_cpu(chip_smoke, tmp_path,
         assert f"train {run} (horizon" in out
     assert out.count("byte-identical to the fault-free run") == 3
     assert not list(tmp_path.iterdir())       # checkpoints removed
+
+
+def test_chip_smoke_train_wall_rehearses_on_cpu(chip_smoke, capsys):
+    """``--train-wall``'s fault-free run on the CPU: every host's
+    heartbeat silences timed, the run's outcome and the collector's
+    pauses printed."""
+    cfg = reduced_config(get_config("qwen1.5-0.5b"))
+    chip_smoke.train_wall(cfg, device="cpu", seq=32, steps=2, runs=1)
+    out = capsys.readouterr().out
+    line = out.split("train wall ")[1]
+    assert " run 0: ok; step walls " in line
+    assert all(f"'h0{i}'" in line for i in range(4))
+    assert "over 1 s" in line and "garbage collections" in line
