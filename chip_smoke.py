@@ -88,7 +88,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    128 and 129, a q_offset off its 128-row tile, a window crossing a
    tile; for B9's split-KV body valid lengths at its 128-key split edges
    ±1, a ragged last split, groups of 48 and 64, head_dim 16; B6 at
-   head_dim 80, causal and not, on its SIMT body), within the
+   head_dim 80, causal and not, on its SIMT body; B9 at head_dim 80 at
+   split and tile edges), within the
    tolerances of ``tests/test_kernels.py`` (bf16 2e-2, f32 2e-5; lse
    2e-5; B9's bf16 output within one bf16 unit, 2^-7 of itself, plus
    1e-2 of its sequence's RMS, which a combine that drops the last live
@@ -103,7 +104,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    cache, valid lengths from the first decode step's to the last's.
    Then at the serving path's shapes, and B6
    also at Qwen1.5-0.5B's layer (the training path's) and at
-   hubert-xlarge's (head_dim 80, non-causal), timed beside the
+   hubert-xlarge's (head_dim 80, non-causal), and B9 at head_dim 80
+   (hubert's heads against the decode shape's cache), timed beside the
    plain versions and ``F.scaled_dot_product_attention`` (the yardstick
    only: the port never calls it), by CUDA events and, for B6 at the
    training layer and B9, by device time (``_device_ms``).
@@ -128,8 +130,11 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    (``flash_dkv_tc``/``flash_dq_tc`` for bf16 at head_dim 64/128, one
    ``flash_dkv_group_sum`` per such B7 launch with a group above 1), the
    f32 gradient of the op against autograd of the oracle (1e-3); then at
-   Qwen1.5-0.5B's layer shape (no group sum) and Qwen3-8B's head layout
-   (one group sum per B7 launch), launched twice byte-identical, timed
+   Qwen1.5-0.5B's layer shape (no group sum), Qwen3-8B's head layout
+   (one group sum per B7 launch) and hubert-xlarge's training layer (b 2,
+   s 4,096, 16/16 heads of 80, non-causal, the SIMT bodies; the boundary
+   inputs also hold head_dim 80 causal and not, a group of 2, windows and
+   sq < sk), launched twice byte-identical, timed
    beside the plain versions and the backward of
    ``scaled_dot_product_attention`` (dq, dk and dv in one call; the
    yardstick only) by CUDA events and by device time, and the port's
@@ -223,7 +228,35 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      launches with combines; the logits of the prefill and decode steps
      1, 16, 64 within ``SERVE_TOL`` of the f32 reference (an fp8 probe
      must fail it).
-15. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
+15. Family training paths (``family_train_path``; each its own run, its
+   state freed before the next), ``make_train_step`` on random bf16
+   weights from seed 0, a warm-up step and 3 timed steps of 4 sequences
+   of 4,096 positions (step wall, tokens/s, peak memory, the bytes of
+   parameters and optimizer state, and a profiled step's busy share and
+   device time by kernel):
+   - audio: hubert-xlarge at full width and depth, 2 microbatches of 2 x
+     4,096 frames, no remat: exactly 48 B6, B7 and B8 launches a
+     ``grad_fn`` call, all on the SIMT bodies (head_dim 80);
+   - vlm: internvl2-2b at full width and depth, 2 microbatches of 2 x
+     (256 patches + 3,840 tokens), remat "dots": 48 B6 (24 and 24 in the
+     recompute), 24 B7, 24 group sums and 24 B8 a call, on the Hopper
+     bodies; microbatch 0's gradients under "dots" the same bits as under
+     "none";
+   - moe: moonshot-v1-16b-a3b cut to 4 of its 48 layers at full width
+     (2.95 B parameters), 4 microbatches of 1 x 4,096 tokens, remat
+     "full": 8 B6 (4 and 4 recomputed), 4 B7 and 4 B8 a call, on the
+     Hopper bodies, no group sum.
+   Gated for each: no plain-version call; the path's launch counts
+   exactly those of its ``grad_fn`` calls; step 0's loss within
+   ``TRAIN_LOSS_TOL`` of float32 autograd through the oracles on a
+   float32 copy of the weights, microbatch 0's gradients within
+   ``FAMILY_GRAD_TOL`` of it (for moe layer by layer on the f32 stream,
+   tokens whose routing flips between bf16 and f32 left out, their share
+   within ``FAMILY_FLIP_TOL``; a probe zeroing B8's dq must fail it) and
+   the same bits twice; every loss finite, the AdamW count the number of
+   steps, every leaf changed but those bf16 cannot move
+   (``FROZEN_IN_BF16``) and the audio family's unreached embedding.
+16. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Each path is driven with the launch counts set to 0 just before it and
@@ -242,9 +275,17 @@ pauses) through the port under SRC, and ``--assess-parent
 PATH`` (B1 to B4 of an earlier ``assess.cu`` at PATH against this
 checkout's, in turns, at the main path's snapshot; B1 also at N = 64 and
 at 10,000 nodes).
+``--family-train NAME`` runs one family training path (phase 15) alone;
+the full run takes the moe path this way, in a child process whose
+allocator maps expandable segments (``family_train_child``).
+``--train-context [RUNS]`` runs every phase before the training phase,
+then the training phase RUNS times (3 by default) in the same process,
+each printing its fault-free run's heartbeat silences and collector
+pauses.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -808,8 +849,8 @@ def _compare(a, b):
     return equal, err
 
 
-def _time_ms(fn, args, reps: int = REPS) -> float:
-    for _ in range(WARMUP):
+def _time_ms(fn, args, reps: int = REPS, warmup: int = WARMUP) -> float:
+    for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -1635,6 +1676,9 @@ DECODE_CASES = [
     (3, 1024, 48, 1, 128, (1, 700, 1024)),        # a group of 48, 4 splits
     (2, 257, 8, 2, 16, (256, 257)),               # head_dim 16
     (2, 600, 64, 1, 32, (300, 600)),              # a group of 64
+    # head_dim 80: 10 (bf16) or 20 (f32) 16-byte chunks a row
+    (4, 800, 16, 16, 80, (127, 128, 129, 257)),   # split edges, group 1
+    (3, 300, 16, 8, 80, (1, 32, 300)),            # tile edges, group 2
 ]
 FLASH_SOURCE = "src/repro_torch/accel/csrc/flash_attention_sm90.cuh"
 # Qwen1.5-0.5B's attention layer, the training path's B6 shape: (b, s,
@@ -1970,6 +2014,48 @@ def attention_kernel_phase():
           f"device time {rows['decode']['device_ms']:.6f} ms per call, "
           f"SDPA's {rows['decode']['library_device_ms']:.6f} ms (events "
           f"behind a sleep kernel)", flush=True)
+    del q, k, v, q4, k4, v4, out, want, dropped
+
+    # B9 at head_dim 80: hubert-xlarge's head layout in the serving
+    # decode's shape (no registry decoder has head_dim 80; the kernel
+    # phase alone runs it)
+    hb, _s, hhq, hhkv, hd = FLASH_HD80_SHAPE
+    q, k, v = _randn(104, bf16, (hb, hhq, hd), (hb, SERVE_MAX_LEN, hhkv, hd),
+                     (hb, SERVE_MAX_LEN, hhkv, hd))
+    vl = torch.full((hb,), n, dtype=torch.int32, device="cuda")
+    out = DA.decode_attention_fwd(q, k, v, vl)
+    if not _same_bits(out, DA.decode_attention_fwd(q, k, v, vl)):
+        raise RuntimeError("decode at head_dim 80: two launches differ")
+    h_err = _within_decode("decode at head_dim 80",
+                           out, DA.decode_attention_plain(q, k, v, vl))
+    q4 = q[:, :, None].contiguous()
+    k4, v4 = (x[:, :n].transpose(1, 2).contiguous() for x in (k, v))
+
+    def sdpa_decode_hd80():
+        return F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True)
+
+    hd80 = _attn_row(
+        "decode (head_dim 80)",
+        _time_ms(DA.decode_attention_fwd, (q, k, v, vl)),
+        _time_ms(DA.decode_attention_plain, (q, k, v, vl), reps=10),
+        _time_ms(sdpa_decode_hd80, ()),
+        _nbytes(q) + 2 * hb * n * hhkv * hd * k.element_size()
+        + _nbytes(vl) + _nbytes(out), 4.0 * hb * hhq * hd * n, bf16, h_err,
+        DECODE_SOURCE, DECODE_REPLACES)
+    hd80_dev = _device_ms(DA.decode_attention_fwd, (q, k, v, vl))
+    hd80_lib_dev = _device_ms(sdpa_decode_hd80, ())
+    rows["decode"].update(
+        hd80_shape=[hb, SERVE_MAX_LEN, hhq, hhkv, hd, n],
+        hd80_ms=hd80["ms"], hd80_device_ms=hd80_dev,
+        hd80_plain_ms=hd80["plain_ms"], hd80_library_ms=hd80["library_ms"],
+        hd80_library_device_ms=hd80_lib_dev, hd80_bound_ms=hd80["bound_ms"],
+        hd80_bound_by=hd80["bound_by"], hd80_max_abs_err=h_err,
+        hd80_launches=0)
+    print(f"decode at head_dim 80 (b {hb}, {SERVE_MAX_LEN} slots filled to "
+          f"{n}, {hhq}/{hhkv} heads): device time {hd80_dev:.6f} ms per "
+          f"call, SDPA's {hd80_lib_dev:.6f} ms; event time {hd80['ms']:.6f} "
+          f"and {hd80['library_ms']:.6f} ms; bound {hd80['bound_ms']:.6f} ms "
+          f"({hd80['bound_by']})", flush=True)
     return rows
 
 
@@ -1978,7 +2064,8 @@ def attention_kernel_phase():
 # ---------------------------------------------------------------------------
 class _CountCalls:
     """Counts calls of ``module.name`` for each (module, name) pair while
-    the ``with`` block runs; restores them after."""
+    the ``with`` block runs (the counts add up over repeated blocks);
+    restores them after."""
 
     def __init__(self, targets):
         self.targets = targets
@@ -1989,7 +2076,7 @@ class _CountCalls:
         for mod, name in self.targets:
             orig = getattr(mod, name)
             key = f"{mod.__name__}.{name}"
-            self.calls[key] = 0
+            self.calls.setdefault(key, 0)
 
             def counted(*a, _orig=orig, _key=key, **kw):
                 self.calls[_key] += 1
@@ -2241,15 +2328,24 @@ BWD_CASES = [
     (1, 77, 256, 32, 8, 128, False, 40),   # a window without the band
     (1, 96, 96, 8, 1, 64, True, 16),       # a group of 8, a narrow window
     (1, 100, 300, 4, 1, 32, True, 0),      # head_dim 32: the SIMT bodies
+    # head_dim 80 (hubert-xlarge), the SIMT bodies in both types
+    (2, 130, 130, 16, 16, 80, False, 0),   # the encoder's layout, ragged
+    (1, 100, 300, 4, 2, 80, True, 0),      # sq < sk, a group of 2
+    (1, 200, 200, 8, 4, 80, True, 64),     # a window, a group of 2
+    (1, 64, 192, 4, 4, 80, False, 40),     # a window without the band
 ]
 # The f32 kernels against autograd of the oracle (tests/test_kernels.py:
 # 83-90): 1e-3.
 BWD_ORACLE_TOL = 1e-3
-# Training shapes: Qwen1.5-0.5B's layer (the main path), then Qwen3-8B's
-# head layout: (b, s, hq, hkv, d), causal, bf16.
-BWD_SHAPES = {"qwen1.5-0.5b": (1, 2048, 16, 16, 64),
-              "qwen3-8b": (1, 4096, 32, 8, 128)}
+# Training shapes: Qwen1.5-0.5B's layer (the main path), Qwen3-8B's head
+# layout, and hubert-xlarge's training layer (its audio training path's
+# microbatch, head_dim 80 on the SIMT bodies): (b, s, hq, hkv, d,
+# causal), bf16.
+BWD_SHAPES = {"qwen1.5-0.5b": (1, 2048, 16, 16, 64, True),
+              "qwen3-8b": (1, 4096, 32, 8, 128, True),
+              "hubert-xlarge": (2, 4096, 16, 16, 80, False)}
 BWD_SOURCE = "src/repro_torch/accel/csrc/flash_attention_bwd_sm90.cuh"
+BWD_SIMT_SOURCE = "src/repro_torch/accel/csrc/flash_attention_bwd.cu"
 DKV_REPLACES = ("src/repro/kernels/flash_attention/flash_attention.py:169 "
                 "_dkv_kernel (pallas_call :322)")
 DQ_REPLACES = ("src/repro/kernels/flash_attention/flash_attention.py:235 "
@@ -2356,20 +2452,34 @@ def attention_bwd_phase():
           f"{BWD_ORACLE_TOL} of autograd of the oracle", flush=True)
 
     rows, bf16 = {}, torch.bfloat16
-    for arch, (b, s, hq, hkv, d) in BWD_SHAPES.items():
-        args = _bwd_case(300, bf16, b, s, s, hq, hkv, d, True, 0)
+    for arch, (b, s, hq, hkv, d, causal) in BWD_SHAPES.items():
+        args = _bwd_case(300, bf16, b, s, s, hq, hkv, d, causal, 0)
         q, k, v, do = args[:4]
         scale = d ** -0.5
-        dk, dv, dq = _bwd_launch_twice(f"at {arch}'s layout", args, True, 0)
+        dk, dv, dq = _bwd_launch_twice(f"at {arch}'s layout", args, causal,
+                                       0)
         # B7's device memory above its inputs: dk and dv, and with a group
         # above 1 the float32 partials the group sum reads
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        K.launch_flash_dkv(*args, True, 0, scale)
+        K.launch_flash_dkv(*args, causal, 0, scale)
         torch.cuda.synchronize()
         dkv_bytes = torch.cuda.max_memory_allocated() - base
-        pdk, pdv = FA.flash_attention_dkv_plain(*args)
-        pdq = FA.flash_attention_dq_plain(*args)
+
+        def dkv_plain(*a):
+            return FA.flash_attention_dkv_plain(*a, causal=causal)
+
+        def dq_plain(*a):
+            return FA.flash_attention_dq_plain(*a, causal=causal)
+
+        t0 = time.perf_counter()
+        pdk, pdv = dkv_plain(*args)
+        torch.cuda.synchronize()
+        # a plain version slower than a second is timed once, on its own
+        # first call's clock
+        slow = time.perf_counter() - t0 > 1.0
+        plain_reps = dict(reps=1, warmup=0) if slow else dict(reps=3)
+        pdq = dq_plain(*args)
         err_kv = max(_within(f"flash_dkv at {arch}'s shape dk", dk, pdk,
                              ATTN_TOL[bf16]),
                      _within(f"flash_dkv at {arch}'s shape dv", dv, pdv,
@@ -2380,7 +2490,7 @@ def attention_bwd_phase():
         # the yardstick: SDPA's backward for dq, dk and dv together
         qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_()
                       for x in (q, k, v))
-        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                enable_gqa=True)
         do_t = do.transpose(1, 2)
 
@@ -2392,36 +2502,42 @@ def attention_bwd_phase():
                             .max()) for g, w in zip(sdpa_bwd(),
                                                     (dq, dk, dv)))
         # the port's whole backward on its forward's out: delta, B7, B8
-        whole = (q, k, v, FA.flash_attention_fwd(q, k, v)[0], args[4], do)
+        whole = (q, k, v, FA.flash_attention_fwd(q, k, v, causal=causal)[0],
+                 args[4], do)
+
+        def whole_bwd(*a):
+            return FA.flash_attention_bwd(*a, causal=causal)
+
         library_ms = _time_ms(sdpa_bwd, ())
-        pairs = _causal_pairs(s, s, True, 0)
+        pairs = _causal_pairs(s, s, causal, 0)
         flops = 2.0 * b * hq * d * pairs    # one product
         in_bytes = sum(_nbytes(x) for x in args)
+        kargs = (*args, causal, 0, scale)
+        source = BWD_SOURCE if K.flash_bwd_tc(bf16, d) else BWD_SIMT_SOURCE
         dkv = _attn_row(
-            "flash_dkv", _time_ms(K.launch_flash_dkv, (*args, True, 0, scale)),
-            _time_ms(FA.flash_attention_dkv_plain, args, reps=3),
+            "flash_dkv", _time_ms(K.launch_flash_dkv, kargs),
+            _time_ms(dkv_plain, args, **plain_reps),
             library_ms, in_bytes + _nbytes((dk, dv)), 4 * flops, bf16,
-            err_kv, BWD_SOURCE, DKV_REPLACES)
+            err_kv, source, DKV_REPLACES)
         dq_row = _attn_row(
-            "flash_dq", _time_ms(K.launch_flash_dq, (*args, True, 0, scale)),
-            _time_ms(FA.flash_attention_dq_plain, args, reps=3),
+            "flash_dq", _time_ms(K.launch_flash_dq, kargs),
+            _time_ms(dq_plain, args, **plain_reps),
             library_ms, in_bytes + _nbytes(dq), 3 * flops, bf16, err_q,
-            BWD_SOURCE, DQ_REPLACES)
+            source, DQ_REPLACES)
         # calls this short are timed by the host's time per call in CUDA
         # events: the device time (``_device_ms``) beside them
-        dev = {"flash_dkv": _device_ms(K.launch_flash_dkv,
-                                       (*args, True, 0, scale)),
-               "flash_dq": _device_ms(K.launch_flash_dq,
-                                      (*args, True, 0, scale)),
-               "whole": _device_ms(FA.flash_attention_bwd, whole),
+        dev = {"flash_dkv": _device_ms(K.launch_flash_dkv, kargs),
+               "flash_dq": _device_ms(K.launch_flash_dq, kargs),
+               "whole": _device_ms(whole_bwd, whole),
                "library": _device_ms(sdpa_bwd, ())}
         for row in (dkv, dq_row):
             row.update(device_ms=dev[row["name"]],
                        library_device_ms=dev["library"],
                        whole_bwd_device_ms=dev["whole"])
         dkv["peak_bytes"] = dkv_bytes
+        mask = "causal" if causal else "non-causal"
         print(f"flash bwd at {arch}'s layout (b {b}, s {s}, {hq}/{hkv} heads, "
-              f"d {d}, causal, bf16): B7 {dkv['ms']:.6f} ms (device "
+              f"d {d}, {mask}, bf16): B7 {dkv['ms']:.6f} ms (device "
               f"{dev['flash_dkv']:.6f}; bound {dkv['bound_ms']:.6f}, "
               f"{dkv['bound_by']}), B8 {dq_row['ms']:.6f} ms (device "
               f"{dev['flash_dq']:.6f}; bound {dq_row['bound_ms']:.6f}); by "
@@ -2438,7 +2554,7 @@ def attention_bwd_phase():
                 key: row[key] for key in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "library_device_ms", "whole_bwd_device_ms",
-                    "peak_bytes", "max_abs_err") if key in row}
+                    "peak_bytes", "max_abs_err", "source") if key in row}
         del q, k, v, do, args, dk, dv, dq, qt, kt, vt, o_lib, whole
     torch.cuda.empty_cache()
     return rows
@@ -2475,6 +2591,45 @@ TRAIN_GRAD_TOL = 0.05
 # A host thread ends at its next check after shutdown, at most one
 # microbatch's gradient away.
 HOST_EXIT_S = 120.0
+
+
+def _stop_hosts(trainer) -> list:
+    """Shut ``trainer`` down and wait for each host's thread and its
+    heartbeat thread to end (through the host's handle, ``HostDaemon.hb``:
+    never threads found by name); returns the names of those still
+    running HOST_EXIT_S after the shutdown."""
+    trainer.shutdown()
+    alive = []
+    for host in trainer.coord.hosts.values():
+        for thread in (host, host.hb):
+            if thread.ident is None:
+                continue
+            thread.join(timeout=HOST_EXIT_S)
+            if thread.is_alive():
+                alive.append(thread.name)
+    return alive
+
+
+@contextlib.contextmanager
+def _hosts_joined(trainer):
+    """Runs the block, then shuts ``trainer`` down and joins its host and
+    heartbeat threads on every exit path. A block that raises re-raises
+    after the joins (a wedged step ends the process with its traceback,
+    not with threads left inside a kernel at interpreter exit, which
+    aborted it); a block that returns raises if a thread outlives the
+    shutdown."""
+    try:
+        yield
+    except BaseException:
+        alive = _stop_hosts(trainer)
+        if alive:
+            print(f"train: {alive} still running {HOST_EXIT_S} s after "
+                  f"shutdown", flush=True)
+        raise
+    alive = _stop_hosts(trainer)
+    if alive:
+        raise RuntimeError(f"train: {alive} still running {HOST_EXIT_S} s "
+                           f"after shutdown")
 
 
 def _host_calls(trainer):
@@ -2636,18 +2791,10 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
         if on_card:
             torch.cuda.empty_cache()
 
-    def finish(trainer, calls):
-        """Shut the hosts down and wait for their threads to end (a losing
-        speculative attempt may still be inside its backward), then read
-        the launch counts and check them against the grad_fn calls."""
-        trainer.shutdown()
-        # each host's thread and its heartbeat thread (the host's handle)
-        for host in trainer.coord.hosts.values():
-            for thread in (host, host.hb):
-                thread.join(timeout=HOST_EXIT_S)
-                if thread.is_alive():
-                    raise RuntimeError(f"train: {thread.name} still running "
-                                       f"{HOST_EXIT_S} s after shutdown")
+    def finish(calls):
+        """After :func:`_hosts_joined` (a losing speculative attempt may
+        still be inside its backward until the hosts end), read the
+        launch counts and check them against the grad_fn calls."""
         counts = dict(K.launches)
         want = cfg.n_layers * calls[0] if on_card else 0
         # every B6, B7 and B8 launch on its Hopper body (bf16, head_dim
@@ -2684,7 +2831,7 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
                          (FREF, "attention_reference")])
     K.reset_launches()
     w0 = time.perf_counter()
-    with plain:
+    with plain, _hosts_joined(t):
         try:
             warm = t.run(1)
             _print_reports("fault-free (warm-up)", warm, tokens)
@@ -2696,7 +2843,7 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
             print(f"train fault-free: {watch.summary()}", flush=True)
         # the crash runs' horizon: the steps alone, not the hosts' shutdown
         ff_wall = time.perf_counter() - w0
-        counts = finish(t, calls)
+    counts = finish(calls)
     peak = torch.cuda.max_memory_allocated() if on_card else None
     if on_card and any(plain.calls.values()):
         raise RuntimeError(f"train: plain versions called on the card's "
@@ -2754,8 +2901,9 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
         t = runtime(recovery, "crash", horizon,
                     ckpt_every=2 if recovery == "bino" else None)
         calls = _host_calls(t)
-        reports = t.run(n_steps)
-        counts = finish(t, calls)
+        with _hosts_joined(t):
+            reports = t.run(n_steps)
+        counts = finish(calls)
         for k in assess_keys:
             assess_counts[k] += counts[k]
         _print_reports(f"{recovery} crash", reports, tokens)
@@ -2782,14 +2930,16 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
         if k > start:   # as if the run had died before writing them
             shutil.rmtree(os.path.join(ckpt_dir, f"step_{k:09d}"))
     t = runtime(ckpt_every=0)
-    if t._start_step != start:
-        raise RuntimeError(f"train: resumed at {t._start_step}, not {start}")
-    calls = _host_calls(t)
-    K.reset_launches()
-    reports = t.run(n_steps - start - 1)
-    # the last step profiled, after a step on the fresh host threads
-    reports += profile_train(t, calls) if on_card else t.run(1)
-    finish(t, calls)
+    with _hosts_joined(t):
+        if t._start_step != start:
+            raise RuntimeError(f"train: resumed at {t._start_step}, not "
+                               f"{start}")
+        calls = _host_calls(t)
+        K.reset_launches()
+        reports = t.run(n_steps - start - 1)
+        # the last step profiled, after a step on the fresh host threads
+        reports += profile_train(t, calls) if on_card else t.run(1)
+    finish(calls)
     same = torch.equal(_param_bytes(t.state["params"]), final)
     print(f"train resume: restored step {start} of the bino crash run "
           f"(checkpoints {kept}), ran steps {[r.step for r in reports]}: "
@@ -4137,6 +4287,588 @@ def family_f32_check(tag, cfg, params, batch, ref) -> None:
                            f"the tolerance {FAMILY_F32_TOL}")
 
 
+# ---------------------------------------------------------------------------
+# Training paths of the audio, vlm and moe families
+# ---------------------------------------------------------------------------
+# Each path trains one family through ``make_train_step`` (random bf16
+# weights from seed 0, TrainConfig() defaults but the microbatches and the
+# remat policy): one warm-up step, then FAMILY_TRAIN_STEPS timed steps of
+# 4 sequences of train_4k's 4,096 positions (configs/base.py:269-285).
+# - audio: hubert-xlarge at full width and depth, 2 microbatches of 2 x
+#   4,096 frames of 512 features, labels over its 504 entries, no remat;
+#   48 B6, B7 and B8 a grad_fn call, all on the SIMT bodies (head_dim 80).
+# - vlm: internvl2-2b at full width and depth, 2 microbatches of 2
+#   sequences of 256 patch features (1,024-d) then 3,840 tokens, labels
+#   over all 4,096 positions, remat "dots": 24 B7 and B8 and 24 group
+#   sums a grad_fn call, and B6 twice a layer, 48 (the policy saves the
+#   products' outputs, not B6's, which the dispatcher does not see, so
+#   each layer's recompute runs B6 again), all on the Hopper bodies.
+# - moe: moonshot-v1-16b-a3b cut to its first MOE_TRAIN_LAYERS of 48
+#   layers, every width kept (2,953,332,736 parameters), 4 microbatches
+#   of 1 x 4,096 tokens, remat "full": B6 8 (4 and 4 recomputed), B7 and
+#   B8 4 a grad_fn call, on the Hopper bodies, no group sum. bf16 weights
+#   5.9 GB, AdamW moments 23.6, gradients 5.9 and the float32 sums 11.8
+#   come to 47.2 GB before activations; at 6 layers (4.09 B) 65 GB.
+FAMILY_TRAIN_SEQ = 4096
+FAMILY_TRAIN_STEPS = 3
+FAMILY_TRAIN_SEED = 0
+MOE_TRAIN_LAYERS = 4
+# (microbatches, sequences per microbatch, remat) of each path
+FAMILY_TRAIN = {"audio": (2, 2, "none"), "vlm": (2, 2, "dots"),
+                "moe": (4, 1, "full")}
+# The gates. Step 0's loss within TRAIN_LOSS_TOL of float32 autograd
+# through the oracles (impl="ref", remat="full", on a float32 copy of the
+# weights); microbatch 0's gradients: the largest ||g - ref|| / ||ref||
+# over the leaves within FAMILY_GRAD_TOL, which the probe (B8's dq
+# replaced by zeros) must exceed; microbatch 0's gradients the same bits
+# twice, and for vlm the same bits under "dots" as under "none". For moe
+# the whole model's gradients are printed, not gated: a token whose bf16
+# and f32 routers pick other experts sends its gradient through other
+# expert and router weights (0.33 of a leaf's norm for the moonshot cut,
+# PERF.md), so the gate runs layer by layer on the f32 stream with such
+# tokens left out (moe_layer_grad_checks), their share within
+# FAMILY_FLIP_TOL.
+# Measured on an H100 80GB HBM3 at 700 W (PERF.md; two runs, the same
+# bits): audio 0.0431 (wq of layer 46), vlm 0.0368 (wq of layer
+# 23), moe layer by layer 0.0123 (the final norm's scale; 2.37 % of
+# (token, layer) pairs flipped), each probe 1.0; each limit 2.2x or more
+# above its reading and 10x or more below the probe.
+FAMILY_GRAD_TOL = {"audio": 0.1, "vlm": 0.08, "moe": 0.03}
+# Leaves AdamW cannot move in bf16 (no float32 master copy, as in the
+# reference): a norm's scale starts at 1.0, where a step of lr 3e-4 is
+# below half of bf16's spacing (2^-8 below 1.0); the audio family's
+# token embedding gets no gradient (it reads frame features), and its
+# decay (lr x 0.1 of each weight) rounds away. The timed steps must change
+# every other leaf, and give every leaf but the unreached one a nonzero
+# first moment.
+FROZEN_IN_BF16 = ("/scale",)
+ATTN_KEYS = ("flash_fwd", "flash_fwd_tc", "flash_dkv", "flash_dkv_tc",
+             "flash_dkv_group_sum", "flash_dq", "flash_dq_tc")
+
+
+def family_train_config(name: str):
+    """The configuration of a family's training path: the serving path's
+    (audio, vlm) or moonshot cut to MOE_TRAIN_LAYERS layers (moe)."""
+    from repro_torch.configs import get_config
+
+    if name != "moe":
+        return family_config(name)
+    cfg = get_config(MOE_ARCH)
+    return dataclasses.replace(
+        cfg, arch_id=f"{cfg.arch_id}-{MOE_TRAIN_LAYERS}layers",
+        n_layers=MOE_TRAIN_LAYERS)
+
+
+def family_train_batch(cfg, step: int, n_seq: int, seq: int, device):
+    """Step ``step``'s batch of ``n_seq`` sequences of ``seq`` positions,
+    drawn with numpy: frame features (audio), patch features then token
+    ids (vlm) or token ids, and labels over every position."""
+    rng = np.random.default_rng((FAMILY_TRAIN_SEED, step))
+    out = {}
+    if cfg.frontend is not None:
+        n = seq if cfg.family == "audio" else cfg.frontend.n_prefix
+        out["feats"] = torch.from_numpy(rng.standard_normal(
+            (n_seq, n, cfg.frontend.feature_dim)).astype(np.float32))
+    if cfg.family != "audio":
+        n_text = seq - (out["feats"].shape[1] if "feats" in out else 0)
+        out["tokens"] = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (n_seq, n_text)).astype(np.int64))
+    out["labels"] = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (n_seq, seq)).astype(np.int64))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def train_launches(cfg, remat: str, on_card: bool) -> dict:
+    """B6-B8's launches in one grad_fn call of ``cfg`` under ``remat``:
+    every attention layer once forward and once backward, B6 once more
+    in the recompute of every policy but "none"; each on the body its
+    dtype and head_dim take; the group sum after each B7 launch of the
+    Hopper body with a group above 1. Zeros on the CPU."""
+    from repro_torch.accel import kernels as K
+
+    n = cfg.n_attn_layers() if on_card else 0
+    bf16, d = torch.bfloat16, cfg.resolved_head_dim()
+    fwd = n * (1 if remat == "none" else 2)
+    tc_f, tc_b = int(K.flash_fwd_tc(bf16, d)), int(K.flash_bwd_tc(bf16, d))
+    group = int(cfg.n_heads != cfg.n_kv_heads)
+    return {"flash_fwd": fwd, "flash_fwd_tc": fwd * tc_f, "flash_dkv": n,
+            "flash_dkv_tc": n * tc_b, "flash_dkv_group_sum": n * tc_b * group,
+            "flash_dq": n, "flash_dq_tc": n * tc_b}
+
+
+def _grad_errors(got, want):
+    """{leaf: ||got - want|| / ||want||}; a leaf whose reference gradient
+    is zero (a leaf the loss does not reach) counts 0 if the port's is
+    zero too, infinity otherwise."""
+    out = {}
+    for k, w in want.items():
+        w = w.float()
+        diff = float((got[k].float() - w).norm())
+        ref = float(w.norm())
+        out[k] = diff / ref if ref else (0.0 if diff == 0 else float("inf"))
+    return out
+
+
+def family_train_checks(tag, cfg, params, batches, tc, device, plain):
+    """On the initial weights and step 0's microbatches (``batches``):
+    float32 losses through the oracles, each layer's weights upcast as it
+    runs; microbatch 0's gradients through the oracles on a float32 copy
+    of the weights (the reference; for moe also layer by layer,
+    :func:`moe_layer_grad_checks`; the copy freed before the kernels'
+    run); on the kernels under ``tc`` twice (byte identity, and the launches of one
+    call), under "none" for a remat policy that saves products (the same
+    bits), and with B8's dq replaced by zeros (the probe), the kernels'
+    calls under ``plain`` (a :class:`_CountCalls`). Returns the readings
+    and the launches the calls made."""
+    from repro_torch.accel import kernels as K
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as PM
+    from repro_torch.train.loop import (TrainConfig, cross_entropy_loss,
+                                        make_grad_fn)
+
+    on_card = torch.device(device).type == "cuda"
+    with torch.no_grad():
+        ref_losses = []
+        for b in batches:
+            logits = PM.forward(cfg, params, b, impl="ref",
+                                compute_dtype=torch.float32)[0]
+            ref_losses.append(float(cross_entropy_loss(logits,
+                                                       b["labels"])))
+            del logits
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    p32 = L.tree_from_leaves(params, {k: v.detach().float() for k, v in
+                                      L.tree_leaves(params).items()},
+                             trainable=True)
+    gref, _m = make_grad_fn(cfg32, TrainConfig(impl="ref", remat="full"))(
+        p32, batches[0])
+    layer_gate = None
+    if cfg.moe is not None:
+        # whole-model gradients differ where the bf16 and f32 routers pick
+        # other experts: the gate runs layer by layer on the f32 stream
+        errs, flips = moe_layer_grad_checks(cfg, params, p32, batches[0],
+                                            plain)
+        probe_errs, _f = moe_layer_grad_checks(cfg, params, p32, batches[0],
+                                               plain, probe=True)
+        worst = max(errs, key=errs.get)
+        layer_gate = {"err": errs[worst], "leaf": worst, "flips": flips,
+                      "probe": max(probe_errs.values())}
+    del p32
+    _free()
+
+    per_call = train_launches(cfg, tc.remat, on_card)
+    grad = make_grad_fn(cfg, tc)
+    before = dict(K.launches)
+    with plain:
+        g1, _m = grad(params, batches[0])
+        _sync(device)
+        one = {k: K.launches[k] - before[k] for k in ATTN_KEYS}
+        if one != per_call:
+            raise RuntimeError(f"{tag}: one grad_fn call launched {one}, "
+                               f"expected {per_call}")
+        g2, _m = grad(params, batches[0])
+    differ = [k for k in g1 if not _same_bits(g1[k], g2[k])]
+    del g2
+    made = {k: 2 * v for k, v in per_call.items()}
+    remat_differ = None
+    if tc.remat not in ("none", "full"):
+        with plain:
+            gn, _m = make_grad_fn(cfg, dataclasses.replace(
+                tc, remat="none"))(params, batches[0])
+        remat_differ = {k: e for k, e in _grad_errors(gn, g1).items()
+                        if not _same_bits(gn[k], g1[k])}
+        del gn
+        for k, v in train_launches(cfg, "none", on_card).items():
+            made[k] += v
+    # the probe: B8's dq (or its plain version's, on the CPU) set to zeros
+    target = (K, "launch_flash_dq") if on_card else \
+        (FA, "flash_attention_dq_plain")
+    orig = getattr(*target)
+    setattr(*target, lambda q, *a, **kw: torch.zeros_like(q))
+    try:
+        with plain:
+            gp, _m = grad(params, batches[0])
+    finally:
+        setattr(*target, orig)
+    probe = max(_grad_errors(gp, gref).values())
+    del gp
+    for k, v in per_call.items():
+        made[k] += 0 if k.startswith("flash_dq") else v
+    errs = _grad_errors(g1, gref)
+    worst = max(errs, key=errs.get)
+    out = {"ref_losses": ref_losses, "grad_err": errs[worst],
+           "grad_worst_leaf": worst, "probe_err": probe,
+           "nondeterministic": differ, "remat_differ": remat_differ,
+           "per_call": per_call, "layer_gate": layer_gate}
+    if layer_gate is not None:
+        # the layer gate and its probe: each layer once forward and once
+        # backward a run, B8's launches left out of the probe's
+        for k, v in train_launches(cfg, "none", on_card).items():
+            made[k] += v if k.startswith("flash_dq") else 2 * v
+    del g1, gref
+    _free()
+    return out, made
+
+
+def moe_layer_grad_checks(cfg, params, p32, batch, plain, probe=False):
+    """The MoE family's gradient gate, layer by layer on the f32 stream:
+    the f32 reference (``p32``, the oracles) runs microbatch ``batch``
+    whole and gives each layer's input h_i and the loss's gradient at its
+    output; then each bf16 layer of ``params`` (through the kernels) and
+    its f32 copy run on h_i, and each leaf's gradient of ``<out, dL/dout>
+    + aux`` is compared, with the tokens whose bf16 and f32 routers pick
+    or keep other experts left out of dL/dout on both sides (a flip makes
+    the two sides different functions of such a token); the head (final
+    norm, lm_head) on the last layer's f32 output and the embedding under
+    dL/dh_0 likewise; the bf16 side's attention under ``plain`` (a
+    :class:`_CountCalls`). ``probe``: B8's dq (its plain version's on the
+    CPU) replaced by zeros on the bf16 side. Returns ({leaf: ||g - ref|| /
+    ||ref||}, (tokens compared, tokens flipped))."""
+    from repro_torch.accel import kernels as K
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as PM
+    from repro_torch.train.loop import cross_entropy_loss
+
+    f32, adt = torch.float32, L.DTYPES[cfg.activation_dtype]
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    labels = batch["labels"]
+    with torch.enable_grad():
+        h = PM.embed_inputs(cfg32, p32, batch, f32)
+        positions = torch.arange(h.shape[1], device=h.device)
+        hs, aux = [h], 0.0
+        for i, lp in enumerate(p32["layers"]):
+            h, a = PM._layer(cfg32, lp, h, positions, "ref", None, i)
+            hs.append(h)
+            aux = aux + a
+        logits = PM._lm_head(cfg32, p32, L.apply_norm(
+            cfg32, p32["final_norm"], h))
+        loss = cross_entropy_loss(logits, labels) + aux
+        del logits
+        gs = torch.autograd.grad(loss, hs)
+    hs = [x.detach() for x in hs]
+
+    def layer(mixer, ln1, ln2, ffn, h, impl):
+        x = L.apply_norm(cfg, ln1, h)
+        out, _ = L.attention_block(cfg, mixer, x, positions=positions,
+                                   impl=impl)
+        h = h + out
+        x2 = L.apply_norm(cfg, ln2, h)
+        f, a = PM.ffn(cfg, ffn, x2, True)
+        return h + f, a, x2
+
+    def grads(tree, loss):
+        """{path: gradient} of ``loss`` over a dict of sub-trees and
+        tensors."""
+        leaves = {}
+        for name, sub in tree.items():
+            if isinstance(sub, torch.Tensor):
+                leaves[name] = sub
+            else:
+                leaves.update((f"{name}/{k}", t)
+                              for k, t in L.tree_leaves(sub).items())
+        return dict(zip(leaves, torch.autograd.grad(loss,
+                                                    list(leaves.values()))))
+
+    target = (K, "launch_flash_dq") if h.is_cuda else \
+        (FA, "flash_attention_dq_plain")
+    orig = getattr(*target)
+    errs, flips = {}, [0, 0]
+    if probe:
+        setattr(*target, lambda q, *a, **kw: torch.zeros_like(q))
+    try:
+        for i, (where, _k, mixer, ln1, ln2, ffn, _m, _s) in enumerate(
+                _sublayers(cfg, params)):
+            sub = {"mixer": mixer, "ln1": ln1, "ln2": ln2, "ffn": ffn}
+            sub32 = {k: p32["layers"][i][k] for k in sub}
+            with torch.enable_grad():
+                with plain:
+                    out, a, x2 = layer(mixer, ln1, ln2, ffn,
+                                       hs[i].to(adt), "kernel")
+                out32, a32, x2r = layer(sub32["mixer"], sub32["ln1"],
+                                        sub32["ln2"], sub32["ffn"], hs[i],
+                                        "ref")
+                agree = _routing_agree(cfg, ffn, sub32["ffn"], x2.detach(),
+                                       x2r.detach())
+                flips[0] += agree.numel()
+                flips[1] += int((~agree).sum())
+                g = gs[i + 1] * agree.reshape(gs[i + 1].shape[:2])[..., None]
+                with plain:
+                    got = grads(sub, (out.float() * g).sum() + a)
+                want = grads(sub32, (out32 * g).sum() + a32)
+            errs.update((f"layers/{i}/{k}", _rel_norm(got[k], want[k]))
+                        for k in want)
+            del out, out32, got, want
+    finally:
+        setattr(*target, orig)
+    # the head on the last layer's f32 output, the embedding under dL/dh_0
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    got = []
+    with torch.enable_grad():
+        for p, c, x in ((params, cfg, hs[-1].to(adt)), (p32, cfg32, hs[-1])):
+            logits = PM._lm_head(c, p, L.apply_norm(c, p["final_norm"], x))
+            got.append(grads({"final_norm": p["final_norm"], name: p[name]},
+                             cross_entropy_loss(logits, labels)))
+            del logits
+            if not cfg.tie_embeddings:
+                got[-1].update(grads({"embed": p["embed"]}, (PM.embed_inputs(
+                    c, p, batch, x.dtype).float() * gs[0]).sum()))
+    errs.update((k, _rel_norm(got[0][k], w)) for k, w in got[1].items())
+    return errs, flips
+
+
+# The line a child process of family_train_child prints its launch
+# counts on.
+FAMILY_TRAIN_COUNTS = "family train counts "
+
+
+def family_train_child(name: str) -> dict:
+    """:func:`family_train_path` of ``name`` in a child process
+    (``chip_smoke.py --family-train NAME``) whose caching allocator maps
+    expandable segments: the moonshot cut's AdamW step holds the old and
+    the new moments (2 x 23.6 GB) beside the float32 sums and the
+    weights, 75.6 GB at its peak on an H100 80GB (PERF.md), and blocks of
+    fixed sizes left gigabytes reserved but unusable there (an
+    out-of-memory error at 72.95 GB allocated). The allocator's setting is read
+    when a process first touches the card, so only a new process can
+    take it; this one keeps the allocator every earlier phase ran
+    with. Its output is echoed here; returns its launch counts."""
+    _free()
+    print(f"{name} train: in a child process; this process holds "
+          f"{torch.cuda.memory_allocated()} bytes of device memory "
+          f"({torch.cuda.memory_reserved()} reserved)", flush=True)
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--family-train",
+         name], env=env, stdout=subprocess.PIPE, text=True)
+    counts = None
+    for line in proc.stdout:
+        print(line, end="", flush=True)
+        if line.startswith(FAMILY_TRAIN_COUNTS):
+            counts = json.loads(line[len(FAMILY_TRAIN_COUNTS):])
+    if proc.wait() or counts is None:
+        raise RuntimeError(f"{name} train: the child process exited with "
+                           f"{proc.returncode}")
+    return counts
+
+
+def _leaf_marks(params) -> dict:
+    """Each leaf's bits summed as int64 with a float64 sum of squares: a
+    change of any bit of a leaf changes one or the other (short of a
+    coincidence), without a copy of the weights."""
+    from repro_torch.models import layers as L
+
+    out = {}
+    for k, t in L.tree_leaves(params).items():
+        t = t.detach()
+        bits = t.view(torch.int16) if t.element_size() == 2 else \
+            t.view(torch.int32)
+        out[k] = (int(bits.to(torch.int64).sum()),
+                  float(t.double().square().sum()))
+    return out
+
+
+def _profile_train_step(tag, step_fn):
+    """One training step under the profiler (device activity only): its
+    wall, the device's busy share of it and the device time by kernel;
+    returns (the step's result, its wall in seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == cuda]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    shares = {}
+    for name in ("flash_fwd", "flash_dkv", "flash_dq"):
+        mine = [e for e in kernels if name in e.key]
+        shares[name] = sum(e.self_device_time_total for e in mine) / dev_us
+    print(f"profile {tag} step: wall {wall:.6f} s (profiled), device busy "
+          f"{dev_us / 1e6:.6f} s = {dev_us / 1e6 / wall:.6f} of wall; "
+          f"shares of device time B6 {shares['flash_fwd']:.4f}, B7 "
+          f"{shares['flash_dkv']:.4f}, B8 {shares['flash_dq']:.4f}")
+    print(events.table(sort_by="self_device_time_total", row_limit=15,
+                       max_name_column_width=60), flush=True)
+    return out, wall
+
+
+def family_train_path(name: str, cfg=None, device="cuda",
+                      steps: int = FAMILY_TRAIN_STEPS,
+                      seq: int = FAMILY_TRAIN_SEQ):
+    """One family's training path (``name`` audio, vlm or moe) at the
+    width of :func:`family_train_config` (or ``cfg``) on ``device`` (a
+    CPU run rehearses it on the plain versions, with no launch to count):
+    the checks on the initial weights (:func:`family_train_checks`),
+    then the optimizer state, a warm-up step and ``steps`` timed steps of
+    ``make_train_step``. Returns the launch counts of the path."""
+    from repro_torch.accel import kernels as K
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as FREF
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as PM
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.loop import TrainConfig, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 references
+    torch.backends.cudnn.allow_tf32 = False
+    tag = f"{name} train"
+    cfg = cfg or family_train_config(name)
+    on_card = torch.device(device).type == "cuda"
+    n_mb, per_mb, remat = FAMILY_TRAIN[name]
+    n_seq, tol = n_mb * per_mb, FAMILY_GRAD_TOL[name]
+    tc = TrainConfig(microbatches=n_mb, remat=remat)
+    K.reset_launches()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(FAMILY_TRAIN_SEED)
+    params = PM.init_params(cfg, gen, device=device)
+    params = L.tree_from_leaves(params, L.tree_leaves(params),
+                                trainable=True)
+    n_params = sum(t.numel() for t in params.parameters())
+    param_bytes = _nbytes(tuple(params.parameters()))
+    batches = [family_train_batch(cfg, s, n_seq, seq, device)
+               for s in range(1 + steps)]
+    mbs = [{k: v[i * per_mb:(i + 1) * per_mb] for k, v in
+            batches[0].items()} for i in range(n_mb)]
+    moe = cfg.moe
+    print(f"{tag}: {cfg.arch_id} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim()}"
+          + (f", {moe.n_experts} experts top-{moe.top_k} of width "
+             f"{moe.d_ff_expert}" if moe else "")
+          + f", vocab {cfg.vocab_size}, {n_params} parameters "
+          f"({param_bytes} bytes); {n_mb} microbatches of {per_mb} x {seq} "
+          f"positions a step, remat {remat!r}", flush=True)
+
+    plain = _CountCalls([(FA, "flash_attention_plain"),
+                         (FA, "flash_attention_dkv_plain"),
+                         (FA, "flash_attention_dq_plain"),
+                         (FREF, "attention_reference")])
+    # -- the checks on the initial weights (before the optimizer state) --
+    checks, made = family_train_checks(tag, cfg, params, mbs, tc, device,
+                                       plain)
+    ref_loss = float(np.mean(checks["ref_losses"]))
+
+    # -- the optimizer state, a warm-up step and the timed steps ---------
+    state = {"params": params, "opt": adamw_init(L.tree_leaves(params)),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    opt_bytes = _nbytes(tuple(state["opt"]["m"].values())) + _nbytes(
+        tuple(state["opt"]["v"].values())) + _nbytes(state["opt"]["count"])
+    marks = _leaf_marks(params)
+    del params
+    step_fn = make_train_step(cfg, tc)
+    before = dict(K.launches)
+    with plain:
+        state, metrics = step_fn(state, batches[0])
+        losses = [float(metrics["loss"])]
+        _sync(device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for s in range(1, 1 + steps):
+            if on_card and s == steps:
+                (state, metrics), wall = _profile_train_step(
+                    tag, lambda: step_fn(state, batches[s]))
+            else:
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batches[s])
+                _sync(device)
+                wall = time.perf_counter() - t0
+            walls.append(wall)
+            losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    step_counts = {k: K.launches[k] - before[k] for k in ATTN_KEYS}
+    want_steps = {k: v * n_mb * (1 + steps)
+                  for k, v in checks["per_call"].items()}
+    counts = dict(K.launches)
+    want = {k: made[k] + want_steps[k] for k in ATTN_KEYS}
+    others = {k: c for k, c in counts.items() if k not in want and c}
+    tokens = n_seq * seq
+    print(f"{tag}: step walls {[round(w, 6) for w in walls]} s (the last "
+          f"profiled), mean of the unprofiled "
+          f"{np.mean(walls[:-1] if len(walls) > 1 else walls):.6f} s "
+          f"({tokens / np.mean(walls[:-1] if len(walls) > 1 else walls):.1f}"
+          f" tokens/s); losses {losses}; peak device memory {peak} bytes; "
+          f"parameters {param_bytes} bytes, optimizer state {opt_bytes} "
+          f"bytes; launches a grad_fn call {checks['per_call']}, in the "
+          f"steps {step_counts}, in the path "
+          f"{ {k: counts[k] for k in ATTN_KEYS} }; plain-version calls "
+          f"{plain.calls}", flush=True)
+    if step_counts != want_steps or {k: counts[k] for k in want} != want \
+            or others:
+        raise RuntimeError(f"{tag}: launches {counts} (steps "
+                           f"{step_counts}), expected {want} (steps "
+                           f"{want_steps})")
+    if on_card and any(plain.calls.values()):
+        raise RuntimeError(f"{tag}: plain versions called on the card's "
+                           f"path: {plain.calls}")
+
+    # -- the gates --------------------------------------------------------
+    loss_err = abs(losses[0] - ref_loss) / abs(ref_loss)
+    gate = checks["layer_gate"]
+    whole = (f"max ||g - ref|| / ||ref|| {checks['grad_err']} at "
+             f"{checks['grad_worst_leaf']}")
+    if gate is None:
+        grad_err, probe_err = checks["grad_err"], checks["probe_err"]
+        whole += f" (limit {tol}); the probe (B8's dq zeroed) {probe_err}"
+    else:
+        grad_err, probe_err = gate["err"], gate["probe"]
+        whole += (f" (not gated: routing flips), the probe (B8's dq "
+                  f"zeroed) {checks['probe_err']}; layer by layer on the "
+                  f"f32 stream, flipped tokens left out: max ||g - ref|| / "
+                  f"||ref|| {grad_err} at {gate['leaf']} (limit {tol}); "
+                  f"the probe (B8's dq zeroed) {probe_err}; routing flips "
+                  f"{gate['flips'][1]} of {gate['flips'][0]} (token, layer) "
+                  f"pairs")
+    print(f"{tag} checks: step 0 loss {losses[0]!r} vs float32 through the "
+          f"oracles {ref_loss!r} (microbatches {checks['ref_losses']}), "
+          f"relative error {loss_err} (limit {TRAIN_LOSS_TOL}); microbatch "
+          f"0 gradients vs float32 autograd through the oracles: {whole}; "
+          f"leaves differing between two runs {checks['nondeterministic']}"
+          + (f"; leaves differing between {remat!r} and 'none' "
+             f"{checks['remat_differ']}"
+             if checks["remat_differ"] is not None else ""), flush=True)
+    if not loss_err <= TRAIN_LOSS_TOL:
+        raise RuntimeError(f"{tag}: step 0 loss off by {loss_err}")
+    if not grad_err <= tol:
+        raise RuntimeError(f"{tag}: gradients off by {grad_err}")
+    if not probe_err > tol:
+        raise RuntimeError(f"{tag}: the probe ({probe_err}) passes {tol}: "
+                           f"it is too loose")
+    if gate is not None and not gate["flips"][1] <= \
+            FAMILY_FLIP_TOL * gate["flips"][0]:
+        raise RuntimeError(f"{tag}: routing flips {gate['flips']}")
+    if checks["nondeterministic"]:
+        raise RuntimeError(f"{tag}: gradients not reproducible: "
+                           f"{checks['nondeterministic']}")
+    if checks["remat_differ"]:
+        raise RuntimeError(f"{tag}: {remat!r} gradients differ from "
+                           f"'none': {checks['remat_differ']}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"{tag}: losses not finite: {losses}")
+    count = int(state["opt"]["count"])
+    after = _leaf_marks(state["params"])
+    same = [k for k in marks if after[k] == marks[k]]
+    zero_m = [k for k, m in state["opt"]["m"].items() if not bool(m.any())]
+    unreached = ["embed"] if cfg.family == "audio" else []
+    stuck = [k for k in same if not k.endswith(FROZEN_IN_BF16)
+             and k not in unreached]
+    print(f"{tag}: AdamW count {count} after {1 + steps} steps; leaves "
+          f"unchanged {same}; leaves with a zero first moment {zero_m}",
+          flush=True)
+    if count != 1 + steps or stuck or zero_m != unreached:
+        raise RuntimeError(f"{tag}: AdamW count {count}, leaves that did "
+                           f"not move {stuck}, zero moments {zero_m}")
+    del state, metrics, batches, mbs
+    _free()
+    return counts
+
+
 # Name parts of the kernels whose resources the build phase prints.
 HOPPER_KERNELS = ("sm90", "group_sum", "decode_split", "decode_combine",
                   "ssd_prep", "ssd_state", "ssd_out", "spatial_",
@@ -4537,17 +5269,14 @@ def train_wall(cfg=None, device="cuda", seq=TRAIN_SEQ, steps=TRAIN_STEPS,
                 assess_backend=None if on_card else TorchBackend("cpu")),
             seq_len=seq, per_shard_batch=1, seed=TRAIN_SEED, device=device)
         reports, outcome = [], "ok"
-        try:
-            reports += t.run(1)
-            reports += t.run(steps)
-        except StepWedged as e:
-            outcome = f"StepWedged: {e}"
-        finally:
-            watch.stop()
-            t.shutdown()
-            for host in t.coord.hosts.values():
-                for thread in (host, host.hb):
-                    thread.join(timeout=HOST_EXIT_S)
+        with _hosts_joined(t):
+            try:
+                reports += t.run(1)
+                reports += t.run(steps)
+            except StepWedged as e:
+                outcome = f"StepWedged: {e}"
+            finally:
+                watch.stop()
         print(f"train wall {sys.path[0]} run {run}: {outcome}; step walls "
               f"{[round(r.wall_s, 6) for r in reports]}; detections "
               f"{t.coord.metrics.counter('detections').n}, wedges "
@@ -4630,6 +5359,77 @@ def sim_wall() -> None:
     profile_bino()
 
 
+def _phase_clock():
+    """``phase(label, fn, *args)``: ``fn(*args)``, then the wall time since
+    the clock was made."""
+    start = time.perf_counter()
+
+    def phase(label, fn, *args):
+        out = fn(*args)
+        print(f"phase {label} done at {time.perf_counter() - start:.1f} s",
+              flush=True)
+        return out
+
+    return phase
+
+
+def _phases_before_training(phase):
+    """Every phase that runs before the training phase, in order: (kernel
+    rows, main-path launches, the predictor's counts, the sweep's and the
+    serving path's launches)."""
+    cap_state = capture_snapshot()
+    rows = phase("kernels", kernel_phase, cap_state)
+    launches = phase("main path", main_path)
+    predict = phase("predictor", predictor_path)
+    fair_launches, fair = phase("fair path", fair_path)
+    launches["price"] = fair_launches["price"]
+    rows["price"] = price_phase(fair["prices"])
+    sweep, sweep_launches = phase("sweep", sweep_path, fair["state"],
+                                  fair["now"])
+    launches.update((k, sweep_launches[k])
+                    for k in ("spatial_sweep", "late_sweep", "reap_sweep"))
+    rows.update(batched_kernel_phase(sweep))
+    phase("profile", profile_bino)
+    rows.update(phase("attention", attention_kernel_phase))
+    serve_launches = phase("serving", serve_path)
+    launches.update((k, serve_launches[k]) for k in ("flash_fwd", "decode"))
+    rows.update(phase("attention backward", attention_bwd_phase))
+    return rows, launches, predict, sweep_launches, serve_launches
+
+
+TRAIN_CONTEXT_RUNS = 3
+
+
+def train_context(runs: int = TRAIN_CONTEXT_RUNS) -> int:
+    """The training phase where a fault-free run once lost quorum
+    (ROADMAP.md, C3): after every phase before it (their heaps and
+    threads), ``runs`` times in one process, each printing its fault-free
+    run's heartbeat silences and collector pauses. A run that raises prints its traceback (its hosts
+    joined) and the next one starts; returns the number that raised. Run
+    as ``chip_smoke.py --train-context [RUNS]``."""
+    import traceback
+
+    from repro_torch.accel import kernels as K
+
+    for name in K.build():
+        K.library(name)
+    phase = _phase_clock()
+    _phases_before_training(phase)
+    failed = 0
+    for run in range(runs):
+        try:
+            phase(f"training (run {run})", train_path)
+        except Exception:
+            failed += 1
+            print(f"train context run {run} raised:", flush=True)
+            traceback.print_exc()
+            sys.stdout.flush()
+        _free()
+    print(f"train context: {runs} runs of the training phase after the "
+          f"earlier phases, {failed} raised", flush=True)
+    return failed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4646,6 +5446,19 @@ def main() -> int:
         print(f"card: {smi}", flush=True)
         modes[sys.argv[1]]()
         return 0
+    if sys.argv[1:2] == ["--family-train"]:
+        from repro_torch.accel import kernels as K
+
+        print(f"card: {smi}", flush=True)
+        for name in K.build():
+            K.library(name)
+        counts = family_train_path(sys.argv[2])
+        print(FAMILY_TRAIN_COUNTS + json.dumps(counts), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--train-context"]:
+        print(f"card: {smi}", flush=True)
+        runs = int(sys.argv[2]) if len(sys.argv) > 2 else TRAIN_CONTEXT_RUNS
+        return 1 if train_context(runs) else 0
     if sys.argv[1:2] == ["--assess-parent"]:
         print(f"card: {smi}", flush=True)
         assess_parent(sys.argv[2])
@@ -4666,32 +5479,9 @@ def main() -> int:
           flush=True)
     print_resource_usage(libs)
 
-    start = time.perf_counter()
-
-    def phase(label, fn, *args):
-        """``fn(*args)``, then the wall time since the start."""
-        out = fn(*args)
-        print(f"phase {label} done at {time.perf_counter() - start:.1f} s",
-              flush=True)
-        return out
-
-    cap_state = capture_snapshot()
-    rows = phase("kernels", kernel_phase, cap_state)
-    launches = phase("main path", main_path)
-    predict = phase("predictor", predictor_path)
-    fair_launches, fair = phase("fair path", fair_path)
-    launches["price"] = fair_launches["price"]
-    rows["price"] = price_phase(fair["prices"])
-    sweep, sweep_launches = phase("sweep", sweep_path, fair["state"],
-                                  fair["now"])
-    launches.update((k, sweep_launches[k])
-                    for k in ("spatial_sweep", "late_sweep", "reap_sweep"))
-    rows.update(batched_kernel_phase(sweep))
-    phase("profile", profile_bino)
-    rows.update(phase("attention", attention_kernel_phase))
-    serve_launches = phase("serving", serve_path)
-    launches.update((k, serve_launches[k]) for k in ("flash_fwd", "decode"))
-    rows.update(phase("attention backward", attention_bwd_phase))
+    phase = _phase_clock()
+    rows, launches, predict, sweep_launches, serve_launches = \
+        _phases_before_training(phase)
     train_launches = phase("training", train_path)
     launches.update((k, train_launches[k]) for k in ("flash_dkv",
                                                      "flash_dq"))
@@ -4703,6 +5493,9 @@ def main() -> int:
     _free()         # the ssm model's last references
     family = {name: phase(f"{name} serving", family_path, name)
               for name in ("moe", "hybrid", "audio", "vlm")}
+    family_train = {name: phase(f"{name} training", family_train_path, name)
+                    for name in ("audio", "vlm")}
+    family_train["moe"] = phase("moe training", family_train_child, "moe")
     launches["reap"] += predict["policy"]["reap"]
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -4723,6 +5516,14 @@ def main() -> int:
         rows["decode"][f"{name}_launches"] = counts["decode"]
         rows["decode"][f"{name}_combine_launches"] = \
             counts["decode_combine"]
+    # the family training paths' launches, each its own run
+    for name, counts in family_train.items():
+        for row, keys in (("flash_fwd", ("flash_fwd", "flash_fwd_tc")),
+                          ("flash_dkv", ("flash_dkv", "flash_dkv_tc",
+                                         "flash_dkv_group_sum")),
+                          ("flash_dq", ("flash_dq", "flash_dq_tc"))):
+            for key in keys:
+                rows[row][f"{name}_train_{key}_launches"] = counts[key]
     rows["ssd"]["hybrid_launches"] = family["hybrid"]["ssd"]
     rows["ssd"].update((f"hybrid_{k}_launches", family["hybrid"][k])
                        for k in K.SSD_TC_KEYS[1:])

@@ -150,6 +150,14 @@ template <typename T, int D>
 struct Layout {
   static constexpr int CH = D * (int)sizeof(T) / 16;   // 16-byte chunks a row
   static constexpr int SW = (CH < 8 ? CH : 8) - 1;     // K's swizzle mask
+  // The chunks that are swizzled: whole groups of 8 (all of a row whose
+  // chunk count is a power of two). At head_dim 80 a row is 10 chunks
+  // (bf16) or 20 (float32): c ^ (r & 7) of chunk 8 or 16 would leave
+  // the row, so its last 2 or 4 chunks stay in place.
+  static constexpr int SWZ = CH < 8 ? CH : CH / 8 * 8;
+  static __device__ __forceinline__ int swizzle(int c, int r) {
+    return c < SWZ ? c ^ (r & SW) : c;
+  }
   static constexpr int TILE = BK * D * (int)sizeof(T); // bytes of K or V
   static constexpr int RING = STAGES * 2 * TILE;
   static size_t bytes(int group) {
@@ -191,7 +199,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t ring = smem_u32(smem);
 
   // Tile t of this split into stage t % STAGES: chunk c of key row r goes
-  // to chunk c ^ (r & SW) of K's row, chunk c of V's; keys past s_end
+  // to chunk swizzle(c, r) of K's row, chunk c of V's; keys past s_end
   // read zeros (their scores are -inf, and 0 x V stays finite).
   auto load_tile = [&](int t) {
     const int k0 = s0 + t * BK;
@@ -200,7 +208,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / CH, c = idx % CH;
       const bool in = k0 + r < s_end;
       const size_t off = (size_t)(in ? k0 + r : s0) * kv_row + c * VN;
-      cp_async16(st + (r * CH + (c ^ (r & L::SW))) * 16, kb + off,
+      cp_async16(st + (r * CH + L::swizzle(c, r)) * 16, kb + off,
                  in ? 16 : 0);
       cp_async16(st + L::TILE + (r * CH + c) * 16, vb + off, in ? 16 : 0);
     }
@@ -238,7 +246,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
         const uint4 raw = *reinterpret_cast<const uint4*>(
-            sK + (lane * CH + (c ^ (lane & L::SW))) * 16);
+            sK + (lane * CH + L::swizzle(c, lane)) * 16);
         float kv[VN];
         unpack(raw, kv, T());
 #pragma unroll
@@ -372,6 +380,7 @@ int dispatch(int d, const void* q, const void* k, const void* v,
     case 16: return launch<T, 16>(q, k, v, valid, out, pa, pm, pl, b, S, hq, hkv, scale, stream);
     case 32: return launch<T, 32>(q, k, v, valid, out, pa, pm, pl, b, S, hq, hkv, scale, stream);
     case 64: return launch<T, 64>(q, k, v, valid, out, pa, pm, pl, b, S, hq, hkv, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, valid, out, pa, pm, pl, b, S, hq, hkv, scale, stream);
     case 128: return launch<T, 128>(q, k, v, valid, out, pa, pm, pl, b, S, hq, hkv, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -389,7 +398,7 @@ int decode_max_group() { return MAX_GROUP; }
 // q (b, hq, d); k/v (b, S, hkv, d) contiguous, all bf16 (is_bf16 = 1) or
 // all float32; valid (b,) int32; out (b, hq, d) in q's type; scratch
 // part_acc (b, hq, splits, d) and part_m, part_l (b, hq, splits) float32
-// with splits = ceil(S / SPLIT). d in {16, 32, 64, 128}, hq / hkv <= 64.
+// with splits = ceil(S / SPLIT). d in {16, 32, 64, 80, 128}, hq / hkv <= 64.
 // Launches the split kernel, then the combine. Returns a cudaError_t.
 int decode_attn(const void* q, const void* k, const void* v,
                 const void* valid, void* out, void* part_acc, void* part_m,

@@ -21,7 +21,9 @@
 //     tiles, p and dS rounded to bf16 before the products that take them
 //     (its note says why and what bounds them), the GQA group split
 //     across blocks and summed in head order by flash_dkv_group_sum;
-//   - float32, and bf16 with head_dim 16 or 32: the SIMT bodies below.
+//   - float32, and bf16 with head_dim 16, 32 or 80: the SIMT bodies below.
+//     (hubert-xlarge's 16 heads of 80: a 160-byte bf16 row fits no
+//     128-byte swizzle of the Hopper bodies' tensor maps.)
 //
 // The SIMT bodies. What bounds them on an H100: at the training path's
 // shape (Qwen1.5-0.5B: b 1, sq = sk = 2048, 16 heads over 16, head_dim
@@ -426,6 +428,7 @@ int dispatch_dq(int d, const Args& a, void* dq) {
     case 16: return launch_dq<T, 16>(a, dq);
     case 32: return launch_dq<T, 32>(a, dq);
     case 64: return launch_dq<T, 64>(a, dq);
+    case 80: return launch_dq<T, 80>(a, dq);
     case 128: return launch_dq<T, 128>(a, dq);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -437,6 +440,7 @@ int dispatch_dkv(int d, const Args& a, void* dk, void* dv) {
     case 16: return launch_dkv<T, 16>(a, dk, dv);
     case 32: return launch_dkv<T, 32>(a, dk, dv);
     case 64: return launch_dkv<T, 64>(a, dk, dv);
+    case 80: return launch_dkv<T, 80>(a, dk, dv);
     case 128: return launch_dkv<T, 128>(a, dk, dv);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -458,7 +462,7 @@ int flash_bwd_tc(int is_bf16, int d) { return sm90::bwd::takes(is_bf16, d); }
 
 // q and dout (b, sq, hq, d), k/v (b, sk, hkv, d) contiguous, all bf16
 // (is_bf16 = 1) or all float32; lse and delta (b, hq, sq) float32; dq
-// (b, sq, hq, d) in their type. d in {16, 32, 64, 128}. Returns a
+// (b, sq, hq, d) in their type. d in {16, 32, 64, 80, 128}. Returns a
 // cudaError_t (0: launched), or 10000 + a driver error of the Hopper
 // body's tensor maps.
 int flash_bwd_dq(const void* q, const void* k, const void* v,

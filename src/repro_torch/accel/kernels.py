@@ -21,7 +21,8 @@ which.
 B7 and B8 have two bodies each in the same way: bf16 at head_dim 64 or
 128 the Hopper bodies (``csrc/flash_attention_bwd_sm90.cuh``, sharing
 B6's TMA and wgmma primitives in ``csrc/sm90_primitives.cuh``), the rest
-the SIMT bodies; :func:`flash_bwd_tc` says which. With a GQA group above
+(float32, and bf16 at head_dim 16, 32 or 80) the SIMT bodies;
+:func:`flash_bwd_tc` says which. With a GQA group above
 1, B7's Hopper body writes f32 partials per query head and a second
 kernel of the same library, ``flash_dkv_group_sum``, adds each KV head's
 partials in head order. B9 is split-KV for every dtype and head_dim: a
@@ -107,7 +108,7 @@ LATE_MAX_CAP = 1 << 29
 REAP_TILE = 1024
 # Tile sizes of B6–B9, which their plain versions walk too (checked
 # against the built library when it loads), and the head sizes they take.
-# B6's SIMT body (float32; bf16 at head_dim 16, 32) and its Hopper body
+# B6's SIMT body (float32; bf16 at head_dim 16, 32, 80) and its Hopper body
 # (bf16 at FLASH_TC_HEAD_DIMS) have tiles of their own; B7 and B8 theirs,
 # for each of their two bodies the (query tile, KV tile) pairs that skip
 # (the Hopper bodies' blocks hold two 64-row consumers, each pairing its
@@ -121,11 +122,9 @@ FLASH_BWD_BLOCK_Q = 64
 FLASH_BWD_BLOCK_K = 64
 FLASH_BWD_TC_BLOCK_Q = 64
 FLASH_BWD_TC_BLOCK_K = 64
+# Every head size B6–B9 take; head_dim 80 (hubert-xlarge) runs the SIMT
+# bodies of B6–B8 in both dtypes.
 HEAD_DIMS = (16, 32, 64, 80, 128)
-# Head sizes that only B6 takes so far: head_dim 80 (hubert-xlarge, an
-# encoder that is served, not trained here) on B6's SIMT body. B7, B8 and
-# B9 raise for them (ROADMAP.md Queue B).
-FWD_ONLY_HEAD_DIMS = (80,)
 # B9's split-KV body: a block per DECODE_SPLIT keys of one (KV head,
 # sequence), streamed in tiles of DECODE_BLOCK_K keys through a ring of
 # DECODE_STAGES tiles; it takes every dtype and head_dim above.
@@ -673,13 +672,6 @@ def _attn_dtype(kernel: str, *tensors) -> int:
     return _ATTN_DTYPES[dtype]
 
 
-def _fwd_only(kernel: str, d: int) -> None:
-    if d in FWD_ONLY_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{kernel}: head_dim {d} is not ported yet; B6 takes it, B7, B8 "
-            f"and B9 wait (see ROADMAP.md Queue B)")
-
-
 def _aligned(kernel: str, **tensors) -> None:
     """B6–B9 load 16 bytes at a time."""
     for name, t in tensors.items():
@@ -737,7 +729,6 @@ def launch_decode(q, k, v, valid, scale: float) -> torch.Tensor:
     _check(k, "k", q.dtype, (b, S, hkv, d), dev)
     _check(v, "v", q.dtype, (b, S, hkv, d), dev)
     _check(valid, "valid", torch.int32, (b,), dev)
-    _fwd_only("decode", d)
     if d not in HEAD_DIMS or hq % hkv or hq // hkv > DECODE_MAX_GROUP \
             or min(b, S) < 1:
         raise ValueError(f"decode: head_dim {d} (one of {HEAD_DIMS}), "
@@ -776,7 +767,6 @@ def _flash_bwd_args(kernel, q, k, v, dout, lse, delta):
     _check(dout, "dout", q.dtype, (b, sq, hq, d), dev)
     _check(lse, "lse", torch.float32, (b, hq, sq), dev)
     _check(delta, "delta", torch.float32, (b, hq, sq), dev)
-    _fwd_only(kernel, d)
     if d not in HEAD_DIMS or hq % hkv or min(b, sq, sk) < 1:
         raise ValueError(f"{kernel}: head_dim {d} (one of {HEAD_DIMS}), "
                          f"heads {hq}/{hkv}, b {b}, sq {sq}, sk {sk}")

@@ -57,9 +57,9 @@ have two bodies each, chosen as B6's (``kernels.flash_bwd_tc``):
   ``flash_dkv_group_sum`` adds in head order
   (:func:`dkv_group_sum_plain`). The plain versions round and sum the
   same way for these inputs.
-- float32, and bf16 at head_dim 16 or 32: the SIMT bodies, float32
-  throughout, the group summed inside B7's block. At head_dim 80 B7 and
-  B8 raise on the card (ROADMAP.md Queue B); their plain versions run.
+- float32, and bf16 at head_dim 16, 32 or 80 (hubert-xlarge's
+  training): the SIMT bodies, float32 throughout, the group summed
+  inside B7's block.
 """
 from __future__ import annotations
 

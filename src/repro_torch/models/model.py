@@ -29,11 +29,17 @@ torch, as they are plain jnp in the reference. The reference's
 ``lax.scan`` over stacked layers is a Python loop here, so its ``unroll``
 knob has no counterpart. ``forward`` is differentiable (training builds
 the weights with ``ParamTree(..., trainable=True)``); its
-``remat="full"`` recomputes each layer (hybrid: each block) in the
-backward, one ``torch.utils.checkpoint`` each, the counterpart of the
-reference's ``nothing_saveable`` policy. The ``"dots"`` policies and
-the ``param_shapes``/``param_axes``/``cache_axes`` trees serve the
-launch-tooling slice and raise.
+``remat`` policies are the reference's (``_REMAT_POLICIES``), one
+``torch.utils.checkpoint`` per layer (hybrid: per block): ``"full"``
+recomputes the whole layer in the backward (``nothing_saveable``);
+``"dots"`` saves the outputs of the matrix products and recomputes the
+rest (``checkpoint_dots``), ``"dots_no_batch"`` saves only the products
+without a batch dimension (``checkpoint_dots_with_no_batch_dims``), each
+through a selective-checkpoint policy (:func:`dots_policy`). The attention
+kernels are not products the dispatcher sees, so B6 runs again in the
+recompute under every policy but ``"none"``, as the reference's Pallas
+forward does. The ``param_shapes``/``param_axes``/``cache_axes`` trees
+serve the launch-tooling slice and raise.
 
 Encoder-only configurations (hubert-xlarge) have no decode step, as the
 reference's shape list has none for them (``configs.base.skip_reason``):
@@ -46,11 +52,13 @@ weights are.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.accel.torch_backend import require_device
 from repro_torch.configs.base import ATTN, ModelConfig
@@ -268,16 +276,55 @@ def _block(cfg, bp, h, positions, impl, cache, i, dtype=None):
 # ---------------------------------------------------------------------------
 # Forward (training and prefill)
 # ---------------------------------------------------------------------------
-REMAT = ("none", "full")
+REMAT = ("none", "full", "dots", "dots_no_batch")
+_ATEN = torch.ops.aten
+# The matrix products the "dots" policies save: the reference's
+# dot_general, as the dispatcher sees it. ``x @ w`` of a 3-D activation
+# and a weight that needs its gradient folds into ``mm``; an einsum, an
+# unfolded ``matmul`` and the MoE's expert products reach ``bmm``.
+_PRODUCTS = (_ATEN.mm, _ATEN.addmm, _ATEN.bmm, _ATEN.baddbmm)
+
+
+def has_batch_dims(op, args) -> bool:
+    """True where the product ``op(*args)`` has a batch dimension in the
+    reference's sense: a ``bmm``/``baddbmm`` over more than one batch
+    entry whose operands both step along it. A batch of one (an einsum
+    without batch dimensions) or an operand broadcast along it (stride 0:
+    ``matmul`` of an activation by a weight that it did not fold into
+    ``mm``) is a product without one, as ``mm`` and ``addmm`` are."""
+    if op.overloadpacket in (_ATEN.mm, _ATEN.addmm):
+        return False
+    a, b = args[-2:] if op.overloadpacket is _ATEN.baddbmm else args[:2]
+    return a.shape[0] > 1 and a.stride(0) != 0 and b.stride(0) != 0
+
+
+def dots_policy(remat: str):
+    """The selective-checkpoint policy of ``"dots"`` (save every
+    product's output) or ``"dots_no_batch"`` (save those without a batch
+    dimension); every other op is recomputed."""
+    batched_too = remat == "dots"
+
+    def policy(ctx, op, *args, **kwargs):
+        if op.overloadpacket in _PRODUCTS and (
+                batched_too or not has_batch_dims(op, args)):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
 
 
 def check_remat(remat: str) -> None:
-    if remat in ("dots", "dots_no_batch"):
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported yet; 'none' and 'full' are "
-            f"(see ROADMAP.md)")
     if remat not in REMAT:
         raise ValueError(f"remat {remat!r}: expected one of {REMAT}")
+
+
+def _remat_kwargs(remat: str) -> Dict[str, Any]:
+    """``checkpoint``'s options for a policy other than ``"none"``."""
+    kw: Dict[str, Any] = {"use_reentrant": False}
+    if remat != "full":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, dots_policy(remat))
+    return kw
 
 
 def _forward(cfg, params, batch, impl, cache=None, compute_dtype=None,
@@ -294,9 +341,9 @@ def _forward(cfg, params, batch, impl, cache=None, compute_dtype=None,
     else:
         units, run = params["layers"], _layer
     for i, up in enumerate(units):
-        if remat == "full":
+        if remat != "none":
             h, a = checkpoint(run, cfg, up, h, positions, impl, cache, i,
-                              compute_dtype, use_reentrant=False)
+                              compute_dtype, **_remat_kwargs(remat))
         else:
             h, a = run(cfg, up, h, positions, impl, cache, i, compute_dtype)
         if a is not None:
@@ -340,7 +387,7 @@ def forward(
     laid out as the reference's: {'k', 'v'}, each (layers, b, s,
     kv_heads, hd); for ssm {'conv', 'state'}; for hybrid {'attn': {'k',
     'v'} (blocks, ...), 'mamba': {'conv', 'state'} (blocks, block_len -
-    1, ...)}. ``remat`` is ``"none"`` or ``"full"``.
+    1, ...)}. ``remat`` is one of :data:`REMAT`.
 
     Two options the reference lacks serve a reference run at full width:
     ``compute_dtype`` runs the activations in that type and casts each

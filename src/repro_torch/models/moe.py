@@ -23,7 +23,17 @@ Three places where torch's defaults would differ from the reference:
   kept (expert, slot) is written once, so the result is the same bits on
   every run, where a scatter-add on the card would be atomic. Dropped
   rows, which add zeros in the reference, go to a spare row that is cut
-  off before the products.
+  off before the products;
+- the backward of that write and of the combine's gather would be float
+  atomics on the card (``index_add_`` through ``repeat_interleave``,
+  ``index_put_(accumulate=True)`` through the gather), so one
+  microbatch's gradients would differ from run to run, which the
+  runtime's exactly-once reduce cannot take. Both go through
+  ``autograd.Function`` subclasses (:class:`Dispatch`, :class:`Combine`) whose
+  forward is the same ops and whose backward is a gather over the slot
+  map: each kept (expert, slot) has exactly one source (token, slot),
+  so the transpose of each copy is a copy back, and a token's k slots
+  are then summed in slot order.
 """
 from __future__ import annotations
 
@@ -99,6 +109,48 @@ def expert_ffn(cfg: ModelConfig, p: Params, buf: torch.Tensor
     return torch.bmm(y, p["w_out"])
 
 
+class Dispatch(torch.autograd.Function):
+    """(t, d) tokens → the (rows + 1, d) buffer: token ``j // k`` into
+    row ``dest[j]`` for each (token, slot) j; kept rows are distinct,
+    dropped ones all go to the spare last row. The backward gathers
+    each kept slot's row back (zeros for dropped slots) and sums a
+    token's k slots in order."""
+
+    @staticmethod
+    def forward(ctx, xf, dest, keep, rows: int, k: int):
+        buf = xf.new_zeros((rows + 1, xf.shape[1]))
+        buf.index_put_((dest,), xf.repeat_interleave(k, dim=0))
+        ctx.save_for_backward(dest, keep)
+        ctx.k = k
+        return buf
+
+    @staticmethod
+    def backward(ctx, g):
+        dest, keep = ctx.saved_tensors
+        rows = torch.where(keep[:, None], g[dest], 0)
+        return rows.view(-1, ctx.k, g.shape[1]).sum(dim=1), None, None, \
+            None, None
+
+
+class Combine(torch.autograd.Function):
+    """The expert outputs (rows, d) → (t·k, d): (token, slot) j reads row
+    ``flat[j]`` where ``keep[j]``, zeros elsewhere. The backward writes
+    each kept slot's gradient back to its row through the inverse map
+    ``src`` (row → the one j that reads it; ``t·k`` for a row no slot
+    reads, which picks an appended zero row): a gather, no accumulation."""
+
+    @staticmethod
+    def forward(ctx, out_rows, flat, keep, src):
+        ctx.save_for_backward(src)
+        return torch.where(keep[:, None], out_rows[flat], 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (src,) = ctx.saved_tensors
+        return torch.cat([g, g.new_zeros((1, g.shape[1]))])[src], None, \
+            None, None
+
+
 def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (b, s, d) → (out (b, s, d), Switch load-balance loss, a float32
@@ -121,14 +173,19 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor
     # kept rows to their (expert, slot), each written once; dropped rows to
     # one spare row past the buffer, which is cut off (no host sync to
     # count the kept rows)
-    dest = torch.where(keep, eflat * cap + pos, m.n_experts * cap)
-    buf = x.new_zeros((m.n_experts * cap + 1, d))
-    buf.index_put_((dest,), xf.repeat_interleave(m.top_k, dim=0))
+    rows = m.n_experts * cap
+    dest = torch.where(keep, eflat * cap + pos, rows)
+    buf = Dispatch.apply(xf, dest, keep, rows, m.top_k)
     out_buf = expert_ffn(cfg, p, buf[:-1].view(m.n_experts, cap, d))
 
-    # combine: each slot's row back, weighted by its renormalised gate
-    slot = torch.where(keep, pos, 0)
-    gathered = torch.where(keep[:, None], out_buf[eflat, slot], 0)
+    # combine: each slot's row back, weighted by its renormalised gate;
+    # src is the slot map's inverse (the spare row collects the dropped
+    # slots, in no fixed order, and is cut off)
+    flat = torch.where(keep, dest, 0)
+    src = torch.full((rows + 1,), t * m.top_k, dtype=torch.int64,
+                     device=x.device)
+    src[dest] = torch.arange(t * m.top_k, device=x.device)
+    gathered = Combine.apply(out_buf.view(rows, d), flat, keep, src[:-1])
     gathered = gathered.reshape(t, m.top_k, d)
     out = (gathered * gate[..., None].to(x.dtype)).sum(dim=1)
     return out.reshape(b, s, d), aux

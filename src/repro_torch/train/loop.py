@@ -3,13 +3,15 @@
 
 ``make_train_step`` produces ``train_step(state, batch)``: microbatched
 gradient accumulation (a Python loop summing float32 gradients, the
-reference's ``lax.scan``), the ``remat`` policies ``"none"`` and
-``"full"``, optional error-feedback int8 gradient compression, then
-AdamW. ``make_prefill_step`` and ``make_serve_step`` produce the serving
-path's steps. A train state is ``{"params": ParamTree (trainable), "opt":
-{"m", "v", "count"}, "step"[, "ef"]}`` with the moments (and the
-compression residual) as dicts ``{path: tensor}`` in
-:func:`~repro_torch.models.layers.tree_leaves` order.
+reference's ``lax.scan``; every entry of the batch — ``tokens``, the
+audio and vlm families' ``feats``, ``labels`` — split along its first
+axis), the reference's ``remat`` policies (``"none"``, ``"full"``,
+``"dots"``, ``"dots_no_batch"``), optional error-feedback int8 gradient
+compression, then AdamW. ``make_prefill_step`` and ``make_serve_step``
+produce the serving path's steps. A train state is ``{"params":
+ParamTree (trainable), "opt": {"m", "v", "count"}, "step"[, "ef"]}``
+with the moments (and the compression residual) as dicts ``{path:
+tensor}`` in :func:`~repro_torch.models.layers.tree_leaves` order.
 
 ``train_state_shapes`` and ``train_state_axes`` raise: they serve only
 the dry-run of the launch-tooling slice (ROADMAP).
@@ -51,7 +53,7 @@ class TrainConfig:
     weight_decay: float = 0.1
     grad_clip_norm: float = 1.0
     microbatches: int = 1
-    remat: str = "none"            # none | full (dots | dots_no_batch raise)
+    remat: str = "none"            # none | full | dots | dots_no_batch
     impl: str = "kernel"           # attention/SSD kernel impl: kernel | ref
     grad_compression: bool = False  # error-feedback int8
     lr_schedule: Optional[Callable] = None
@@ -117,14 +119,18 @@ def train_state_axes(cfg: ModelConfig, tc: TrainConfig):
 def make_grad_fn(cfg: ModelConfig, tc: TrainConfig):
     """``grad_fn(params, batch) -> (grads {path: tensor}, metrics)``:
     ``torch.autograd.grad`` of the loss with respect to every leaf, which
-    leaves the shared parameters' ``.grad`` untouched."""
+    leaves the shared parameters' ``.grad`` untouched. A leaf the loss
+    does not reach (the token embedding of the audio family, which reads
+    frame features) gets zeros, as ``jax.grad`` gives it."""
     loss_fn = make_loss_fn(cfg, tc)
 
     def grad_fn(params, batch):
         leaves = L.tree_leaves(params)
         with torch.enable_grad():
             total, metrics = loss_fn(params, batch)
-            grads = torch.autograd.grad(total, list(leaves.values()))
+            grads = torch.autograd.grad(total, list(leaves.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
         return (dict(zip(leaves, grads)),
                 {k: v.detach() for k, v in metrics.items()})
 
@@ -142,6 +148,9 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
                 if x.shape[0] % n:
                     raise ValueError(f"batch {name}: {x.shape[0]} rows do "
                                      f"not split into {n} microbatches")
+            # float32 sums, updated in place: a second copy of the sums
+            # (11.8 GB for a moonshot cut of 2.95 B parameters) and the
+            # previous microbatch's gradients are not held meanwhile
             grads, metrics = None, None
             for i in range(n):
                 mb = {name: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
@@ -154,9 +163,12 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
                     metrics = {k: torch.zeros((), dtype=torch.float32,
                                               device=t.device)
                                for k, t in m.items()}
-                grads = {k: grads[k] + g[k].float() for k in grads}
+                for k in grads:
+                    grads[k].add_(g[k].float())
                 metrics = {k: metrics[k] + m[k] for k in metrics}
-            grads = {k: g / n for k, g in grads.items()}
+                del g
+            for t in grads.values():
+                t.div_(n)
             metrics = {k: m / n for k, m in metrics.items()}
         else:
             grads, metrics = grad_fn(params, batch)

@@ -18,7 +18,11 @@ on the kernel's tiles.
    and so which tiles, each (dtype, head_dim) takes.
 2. **B9 plain version** — against ``decode_attention_reference`` and
    ``decode_attention_pallas`` in interpret mode, valid lengths at 1, at
-   tile edges and at the cache size; NaN for a sequence with no key.
+   tile edges and at the cache size (head_dim 80 too); NaN for a
+   sequence with no key. B7's and B8's plain versions at head_dim 80
+   against ``jax.grad`` through the reference's Pallas kernels in
+   interpret mode and through its oracle (the other head sizes are in
+   ``tests/test_torch_attention_bwd.py``).
 3. **Oracles** — the port's ``ref.py`` functions equal the reference's.
 4. **Ops** — ``impl`` selection, ``kv_valid_len`` through the oracle,
    devices the kernels cannot run on refused (no fallback),
@@ -436,19 +440,57 @@ def test_kernel_wrappers_check_arguments():
                         torch.empty(2, **meta), 0.25)
 
 
-def test_head_dim_80_waits_for_b7_b8_b9():
-    """B6 takes head_dim 80 (the hubert encoder's); B7, B8 and B9 raise
-    for it, naming ROADMAP, before anything is built."""
-    meta = dict(device="meta")
-    q = torch.empty((1, 8, 4, 80), **meta)
-    lse = torch.empty((1, 4, 8), **meta)
-    for launch in (K.launch_flash_dkv, K.launch_flash_dq):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            launch(q, q, q, q, lse, lse, True, 0, 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.launch_decode(torch.empty((1, 4, 80), **meta), q, q,
-                        torch.empty(1, dtype=torch.int32, **meta), 0.1)
-    assert not K._libs
+@pytest.mark.parametrize("hq,hkv,causal", [
+    (4, 4, True), (4, 4, False),     # hubert-xlarge's layout is MHA
+    (4, 2, False),                   # a GQA group of 2
+])
+def test_flash_bwd_plain_head_dim_80_matches_reference(hq, hkv, causal):
+    """B7's and B8's plain versions at head_dim 80 (the SIMT bodies' tiles)
+    against ``jax.grad`` through the reference's Pallas kernels in
+    interpret mode (its ``custom_vjp``: ``_dkv_kernel``, ``_dq_kernel``)
+    and through its oracle, float32, within the gradient tolerance of
+    ``tests/test_kernels.py`` (1e-3)."""
+    import jax
+
+    from repro.kernels.flash_attention import ops as ROPS
+
+    b, sq, sk, d = 1, 128, 128, 80
+    assert not K.flash_bwd_tc(torch.bfloat16, d)
+    (jq, q), (jk, k), (jv, v), (jdo, do) = _inputs(
+        80 + hkv, "float32", (b, sq, hq, d), (b, sk, hkv, d),
+        (b, sk, hkv, d), (b, sq, hq, d))
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
+    got = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    assert [tuple(g.shape) for g in got] == [q.shape, k.shape, v.shape]
+    for impl, tiles in (("pallas", dict(block_q=64, block_k=64)),
+                        ("ref", {})):
+        def loss(q_, k_, v_):
+            o = ROPS.flash_attention(q_, k_, v_, causal=causal, impl=impl,
+                                     **tiles)
+            return jnp.sum(o * jdo)
+        want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(_np(g), _np(w), rtol=1e-3, atol=1e-3,
+                                       err_msg=impl)
+
+
+@pytest.mark.parametrize("b,sk,hq,hkv", [(3, 256, 4, 4), (2, 128, 8, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_head_dim_80_matches_reference(b, sk, hq, hkv, dtype):
+    """B9's plain version at head_dim 80 (valid lengths at 1, at tile
+    edges and at the cache size) against the reference's decode kernel
+    in interpret mode and its oracle."""
+    d = 80
+    (jq, q), (jk, k), (jv, v) = _inputs(
+        81, dtype, (b, hq, d), (b, sk, hkv, d), (b, sk, hkv, d))
+    valid = _valid(b * sk, b, sk)
+    out = DA.decode_attention_fwd(q, k, v, torch.from_numpy(valid))
+    assert out.dtype == q.dtype and out.shape == q.shape
+    want = ref_decode(jq, jk, jv, jnp.asarray(valid))
+    pal = decode_attention_pallas(jq, jk, jv, jnp.asarray(valid),
+                                  block_k=128, interpret=True)
+    np.testing.assert_allclose(_np(out), _np(want), **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(pal), **_tol(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -491,7 +533,8 @@ def test_flash_kernel_matches_plain_on_card(dtype, b, sq, sk, hq, hkv, d,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,sk,hq,hkv,d", [(5, 4096, 32, 8, 128),
                                            (3, 300, 48, 1, 64),
-                                           (2, 128, 4, 4, 16)])
+                                           (2, 128, 4, 4, 16),
+                                           (5, 300, 16, 8, 80)])
 def test_decode_kernel_matches_plain_on_card(dtype, b, sk, hq, hkv, d):
     _need_card()
     q, k, v = _on_card(_inputs(12, dtype, (b, hq, d), (b, sk, hkv, d),

@@ -269,6 +269,8 @@ def test_launch_counts_are_thread_safe():
     (2, 130, 130, 8, 8, 128, True, 0),
     (1, 200, 300, 16, 2, 128, True, 64),
     (1, 77, 256, 32, 8, 128, False, 40),
+    (2, 130, 130, 16, 16, 80, False, 0),    # hubert-xlarge's head_dim
+    (1, 100, 300, 4, 2, 80, True, 40),
 ])
 def test_bwd_kernels_match_plain_on_card(dtype, b, sq, sk, hq, hkv, d,
                                          causal, window):

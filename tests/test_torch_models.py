@@ -463,14 +463,9 @@ def test_moe_gradients_match_reference(name):
 # ---------------------------------------------------------------------------
 def test_unported_parts_raise(model):
     """Every family builds, runs and trains on the CPU; what waits
-    raises, naming ROADMAP: the ``"dots"`` remat policies, the
-    dry-run's trees (parameter shapes and axes, cache axes, train-state
-    shapes), ``input_axes``."""
-    _rcfg, pcfg, _rparams, pparams = model
-    batch = _torch(_batch(6, pcfg, 1, 8))
-    for policy in ("dots", "dots_no_batch"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PM.forward(pcfg, pparams, batch, remat=policy)
+    raises, naming ROADMAP: the dry-run's trees (parameter shapes and
+    axes, cache axes, train-state shapes), ``input_axes``."""
+    _rcfg, pcfg, _rparams, _pparams = model
     for fn in (PM.param_shapes, PM.param_axes, PM.cache_axes):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn(pcfg)

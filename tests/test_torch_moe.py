@@ -17,7 +17,13 @@ the one-hot cumsum of ``moe.py:80-85``) on the same router output.
 3. a router biased towards one expert: more than 128 (token, slot)
    pairs queue for it, the later ones are dropped, and a dropped slot
    adds nothing;
-4. the capacity rule: at least 128, rounded up to a multiple of 128.
+4. the capacity rule: at least 128, rounded up to a multiple of 128;
+5. the backward: the gradients with respect to the input and every
+   weight, with slots dropped, against ``jax.grad`` of the reference's
+   layer within 2e-4 of each leaf's largest entry; computed twice, the
+   same bits; and no op of the backward accumulates into an index
+   (``index_add_``, ``index_put_(accumulate=True)``, ``scatter_add``,
+   ``scatter_reduce``: float atomics on the card).
 """
 import dataclasses
 
@@ -184,3 +190,74 @@ def test_bf16_router_product_is_cast_after():
     f32 = torch.softmax(torch.from_numpy(x).reshape(32, -1)
                         @ pp["router"], dim=-1)
     assert not torch.equal(probs, f32)
+
+
+# The backward's ops that add into an index: float atomics on the card.
+ACCUMULATING = ("index_add", "scatter_add", "scatter_reduce",
+                "index_reduce", "_index_put_impl_", "index_put")
+
+
+class _BackwardOps:
+    """The aten ops the backward runs, as ``(name, accumulate)``."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        seen = self.seen = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                acc = kwargs.get("accumulate", args[3] if len(args) > 3
+                                 and isinstance(args[3], bool) else None)
+                seen.append((func.overloadpacket.__name__, acc))
+                return func(*args, **kwargs)
+
+        self.mode = Mode()
+
+
+@pytest.mark.parametrize("act", ["swiglu", "gelu"])
+def test_moe_backward_is_a_gather_and_repeats(act):
+    """With slots dropped (every token prefers expert 6): the gradients of
+    a weighted sum of the output plus the aux loss match the reference's
+    ``jax.grad``, repeat bit for bit, and the backward accumulates into
+    no index (the parent's ``index_put_``/gather backward did, through
+    ``index_put_(accumulate=True)`` and ``index_add_``)."""
+    rcfg, pcfg = _configs(act)
+    rp, pp = _params(rcfg)
+    router = np.array(rp["router"])
+    router[:, 6] += 0.2
+    rp = dict(rp, router=jnp.asarray(router))
+    pp = {k: v.clone().requires_grad_() for k, v in
+          dict(pp, router=torch.from_numpy(router.copy())).items()}
+    x = _x(12, 2, 100, pcfg.d_model, shift=1.0)
+    w = np.random.default_rng(5).standard_normal(x.shape).astype(np.float32)
+
+    def ref_loss(p, xx):
+        out, aux = RMOE.moe_block(rcfg, p, xx)
+        return jnp.sum(out * w) + aux
+
+    rgx, rgp = jax.grad(ref_loss, argnums=(1, 0))(rp, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    leaves = [xt] + list(pp.values())
+    runs = []
+    for _ in range(2):
+        out, aux = PMOE.moe_block(pcfg, pp, xt)
+        loss = (out * torch.from_numpy(w)).sum() + aux
+        ops = _BackwardOps()
+        with ops.mode:
+            grads = torch.autograd.grad(loss, leaves)
+        runs.append(grads)
+    _e, keep, _p = PMOE.queue(pcfg, PMOE.route(pcfg, pp, xt.reshape(
+        -1, pcfg.d_model))[2], 128)
+    assert not bool(keep.all())                # slots were dropped
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    acc = [(n, a) for n, a in ops.seen
+           if any(n.startswith(x) for x in ACCUMULATING) and a is not False]
+    assert not acc, acc
+    want = [np.asarray(rgx)] + [np.asarray(rgp[k]) for k in pp]
+    for name, g, wnt in zip(["x"] + list(pp), runs[0], want):
+        scale = max(float(np.abs(wnt).max()), 1e-30)
+        np.testing.assert_allclose(g.numpy(), wnt, rtol=0, atol=TOL * scale,
+                                   err_msg=name)

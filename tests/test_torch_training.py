@@ -6,7 +6,11 @@ them with ``from_jax_params`` / ``from_jax_train_state``. Token ids and
 optimizer inputs are drawn with numpy from a seed. Models are the
 reduced configs in float32: qwen1.5-0.5b (QKV bias, tied embeddings),
 qwen3-8b (qk-norm, MQA at that size) and its GQA-4 variant (4 layers,
-d_model 128, 8 query heads over 2 KV heads, head_dim 32).
+d_model 128, 8 query heads over 2 KV heads, head_dim 32), and one of
+each other attention family: hubert-xlarge (audio frame features,
+non-causal, no decode), internvl2-2b (patch features ahead of the text,
+labels over every position) and moonshot-v1-16b-a3b (MoE every layer,
+its aux loss in the loss).
 
 1. **Loss and gradients** — ``cross_entropy_loss``; the loss and every
    leaf's gradient of ``make_grad_fn`` (the port's attention through the
@@ -27,8 +31,11 @@ d_model 128, 8 query heads over 2 KV heads, head_dim 32).
    reference's, and all but 1 % within 1e-5; the first moments within
    1e-5 of their largest entry (under compression, a rare entry on a
    rounding boundary of its int8 grid may be one quantum apart).
-4. **Remat and state** — ``remat="full"`` gives ``"none"``'s loss and
-   gradients; ``"dots"`` raises; ``train_state_init`` and
+   The three families above take a 2-microbatch step too.
+4. **Remat and state** — ``remat="full"``, ``"dots"`` and
+   ``"dots_no_batch"`` give ``"none"``'s loss and gradients, and the
+   reference's under the same policy; the products each ``"dots"``
+   policy saves are the reference's classes; ``train_state_init`` and
    ``from_jax_train_state``; the dry-run trees raise.
 """
 import dataclasses
@@ -66,7 +73,11 @@ CONFIGS = {
     "qwen1.5-0.5b": ("qwen1.5-0.5b", None),
     "qwen3-8b-mqa": ("qwen3-8b", None),
     "qwen3-8b-gqa4": ("qwen3-8b", _gqa4),
+    "hubert-xlarge": ("hubert-xlarge", None),
+    "internvl2-2b": ("internvl2-2b", None),
+    "moonshot-v1-16b-a3b": ("moonshot-v1-16b-a3b", None),
 }
+FAMILIES = ("hubert-xlarge", "internvl2-2b", "moonshot-v1-16b-a3b")
 
 
 def _configs(name):
@@ -89,9 +100,35 @@ def model(request):
 
 
 def _batch(seed, cfg, b, s):
+    """A numpy training batch of ``s`` positions for ``cfg``'s family:
+    token ids with the next token as the label; for audio ``s`` frame
+    features; for vlm ``n_prefix`` patch features ahead of ``s -
+    n_prefix`` token ids; with a frontend, labels drawn for every
+    position."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
-    return toks[:, :-1], toks[:, 1:]
+    if cfg.frontend is None:
+        toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    if cfg.frontend is not None:
+        n_p = s if cfg.family == "audio" else cfg.frontend.n_prefix
+        out["feats"] = rng.standard_normal(
+            (b, n_p, cfg.frontend.feature_dim)).astype(np.float32)
+    if cfg.family != "audio":
+        n_t = s - out["feats"].shape[1] if "feats" in out else s
+        out["tokens"] = rng.integers(0, cfg.vocab_size, (b, n_t)
+                                     ).astype(np.int32)
+    out["labels"] = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    return out
+
+
+def _jax(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _torch(batch):
+    return {k: torch.from_numpy(v) if v.dtype == np.float32
+            else torch.from_numpy(v).long() for k, v in batch.items()}
 
 
 def _port_leaves(cfg, ref_tree):
@@ -134,13 +171,12 @@ def test_cross_entropy_matches_reference():
 @pytest.mark.parametrize("ref_impl", ["ref", "pallas"])
 def test_loss_and_gradients_match_reference(model, ref_impl):
     rcfg, pcfg, rparams, pparams = model
-    toks, labels = _batch(1, pcfg, 2, 32)
+    nb = _batch(1, pcfg, 2, 32)
     loss_fn = RLOOP.make_loss_fn(rcfg, RLOOP.TrainConfig(impl=ref_impl))
     (_, rmetrics), rgrads = jax.value_and_grad(loss_fn, has_aux=True)(
-        rparams, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
+        rparams, _jax(nb))
     want = _port_leaves(pcfg, rgrads)
-    batch = {"tokens": torch.from_numpy(toks).long(),
-             "labels": torch.from_numpy(labels).long()}
+    batch = _torch(nb)
     params = L.tree_from_leaves(pparams, L.tree_leaves(pparams),
                                 trainable=True)
     for impl in ("kernel", "ref"):
@@ -148,6 +184,8 @@ def test_loss_and_gradients_match_reference(model, ref_impl):
             pcfg, PLOOP.TrainConfig(impl=impl))(params, batch)
         np.testing.assert_allclose(float(metrics["loss"]),
                                    float(rmetrics["loss"]), rtol=2e-4)
+        np.testing.assert_allclose(float(metrics["moe_aux"]),
+                                   float(rmetrics["moe_aux"]), rtol=2e-4)
         _close_leaves(grads, want, 1e-4)
     assert all(p.grad is None for p in params.parameters())
 
@@ -266,12 +304,33 @@ def test_train_step_matches_reference(microbatches, compression):
     rstate = RLOOP.train_state_init(rcfg, jax.random.PRNGKey(3), rtc)
     pstate = from_jax_train_state(
         pcfg, jax.tree.map(np.asarray, rstate), device="cpu")
-    toks, labels = _batch(4, pcfg, 4, 24)
-    rnew, rmet = jax.jit(RLOOP.make_train_step(rcfg, rtc))(
-        rstate, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
-    pnew, pmet = PLOOP.make_train_step(pcfg, ptc)(
-        pstate, {"tokens": torch.from_numpy(toks).long(),
-                 "labels": torch.from_numpy(labels).long()})
+    nb = _batch(4, pcfg, 4, 24)
+    rnew, rmet = jax.jit(RLOOP.make_train_step(rcfg, rtc))(rstate, _jax(nb))
+    pnew, pmet = PLOOP.make_train_step(pcfg, ptc)(pstate, _torch(nb))
+    _check_step(pcfg, rstate, pstate, rnew, rmet, pnew, pmet, compression)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_train_step_matches_reference(name):
+    """One ``make_train_step`` of 2 microbatches (the audio and vlm
+    families' ``feats`` split with their labels; the MoE aux loss in the
+    loss) from a carried reference state, against the reference's."""
+    rcfg, pcfg = _configs(name)
+    rtc = RLOOP.TrainConfig(microbatches=2, learning_rate=LR)
+    ptc = PLOOP.TrainConfig(microbatches=2, learning_rate=LR)
+    rstate = RLOOP.train_state_init(rcfg, jax.random.PRNGKey(3), rtc)
+    pstate = from_jax_train_state(
+        pcfg, jax.tree.map(np.asarray, rstate), device="cpu")
+    nb = _batch(4, pcfg, 4, 24)
+    rnew, rmet = jax.jit(RLOOP.make_train_step(rcfg, rtc))(rstate, _jax(nb))
+    pnew, pmet = PLOOP.make_train_step(pcfg, ptc)(pstate, _torch(nb))
+    np.testing.assert_allclose(float(pmet["moe_aux"]),
+                               float(rmet["moe_aux"]), rtol=2e-4)
+    _check_step(pcfg, rstate, pstate, rnew, rmet, pnew, pmet, False)
+
+
+def _check_step(pcfg, rstate, pstate, rnew, rmet, pnew, pmet, compression):
+    """The port's step (``pnew``, ``pmet``) against the reference's."""
     np.testing.assert_allclose(float(pmet["loss"]), float(rmet["loss"]),
                                rtol=2e-4)
     np.testing.assert_allclose(float(pmet["grad_norm"]),
@@ -307,23 +366,89 @@ def test_train_step_matches_reference(microbatches, compression):
 # ---------------------------------------------------------------------------
 # 4. Remat and state
 # ---------------------------------------------------------------------------
-def test_remat_full_equals_none(model):
+@pytest.mark.parametrize("remat", ["full", "dots", "dots_no_batch"])
+def test_remat_full_equals_none(model, remat):
     _rcfg, pcfg, _rparams, pparams = model
-    toks, labels = _batch(2, pcfg, 2, 20)
-    batch = {"tokens": torch.from_numpy(toks).long(),
-             "labels": torch.from_numpy(labels).long()}
+    batch = _torch(_batch(2, pcfg, 2, 20))
     params = L.tree_from_leaves(pparams, L.tree_leaves(pparams),
                                 trainable=True)
     out = [PLOOP.make_grad_fn(pcfg, PLOOP.TrainConfig(remat=r))(params,
                                                                 batch)
-           for r in ("none", "full")]
+           for r in ("none", remat)]
     (g0, m0), (g1, m1) = out
     assert float(m0["loss"]) == float(m1["loss"])
     _close_leaves(g1, g0, 1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PM.forward(pcfg, params, batch, remat="dots")
     with pytest.raises(ValueError, match="remat"):
         PM.forward(pcfg, params, batch, remat="everything")
+
+
+@pytest.mark.parametrize("remat", ["dots", "dots_no_batch"])
+def test_remat_matches_reference(model, remat):
+    """The loss and gradients under a ``"dots"`` policy against the
+    reference's ``jax.grad`` under the same policy (its
+    ``_REMAT_POLICIES``), the oracles on both sides."""
+    rcfg, pcfg, rparams, pparams = model
+    nb = _batch(3, pcfg, 2, 16)
+    loss_fn = RLOOP.make_loss_fn(rcfg, RLOOP.TrainConfig(remat=remat))
+    (_, rmetrics), rgrads = jax.value_and_grad(loss_fn, has_aux=True)(
+        rparams, _jax(nb))
+    params = L.tree_from_leaves(pparams, L.tree_leaves(pparams),
+                                trainable=True)
+    grads, metrics = PLOOP.make_grad_fn(
+        pcfg, PLOOP.TrainConfig(remat=remat, impl="ref"))(params,
+                                                          _torch(nb))
+    np.testing.assert_allclose(float(metrics["loss"]),
+                               float(rmetrics["loss"]), rtol=2e-4)
+    _close_leaves(grads, _port_leaves(pcfg, rgrads), 1e-4)
+
+
+def test_dots_policies_save_the_reference_products():
+    """The products the dispatcher shows the policies, in a MoE model's
+    forward (the plain attention's own products aside: on the card B6 is
+    no product the dispatcher sees): every ``x @ w`` is an ``mm``, saved
+    by both policies, and the expert products a ``bmm`` with a batch of
+    experts, saved by ``"dots"`` only, as the reference's
+    ``checkpoint_dots`` and ``checkpoint_dots_with_no_batch_dims`` treat
+    ``einsum("bsd,df")`` and ``einsum("ecd,edf")``. A ``bmm`` of one
+    batch entry or with an operand broadcast along the batch (an unfolded
+    ``matmul`` of an activation by a weight) has no batch dimension."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    _rcfg, pcfg = _configs("moonshot-v1-16b-a3b")
+    params = PM.init_params(pcfg, 0, device="cpu")
+    params = L.tree_from_leaves(params, L.tree_leaves(params),
+                                trainable=True)
+    batch = _torch(_batch(5, pcfg, 2, 16))
+    for remat in ("dots", "dots_no_batch"):
+        seen = {}
+        policy = PM.dots_policy(remat)
+
+        def spy(ctx, op, *args, **kw):
+            decision = policy(ctx, op, *args, **kw)
+            if op.overloadpacket in PM._PRODUCTS and not ctx.is_recompute:
+                key = (op.overloadpacket.__name__, args[0].shape[0])
+                seen[key] = decision
+            return decision
+
+        orig = PM.dots_policy
+        PM.dots_policy = lambda r: spy
+        try:
+            PLOOP.make_grad_fn(pcfg, PLOOP.TrainConfig(
+                remat=remat, impl="ref"))(params, batch)
+        finally:
+            PM.dots_policy = orig
+        save = CheckpointPolicy.MUST_SAVE
+        experts = ("bmm", pcfg.moe.n_experts)
+        mms = {k: v for k, v in seen.items() if k[0] == "mm"}
+        assert mms and all(v == save for v in mms.values())
+        assert (seen[experts] == save) == (remat == "dots")
+    a = torch.randn(3, 4, 5)
+    w = torch.randn(5, 6)
+    for args, batched in (((a, a.transpose(1, 2)), True),
+                          ((a[:1], a[:1].transpose(1, 2)), False),
+                          ((a, w.expand(3, 5, 6)), False)):
+        assert PM.has_batch_dims(torch.ops.aten.bmm.default, args) is batched
+    assert not PM.has_batch_dims(torch.ops.aten.mm.default, (a[0], w))
 
 
 def test_train_state_init_and_conversion(model):
