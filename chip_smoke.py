@@ -125,16 +125,18 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 10. Attention backward: B7 (dK, dV) and B8 (dQ) against
    their plain versions on the card in bf16 and f32 on boundary inputs
    (causal or not, windows, sq < sk, ragged tiles, groups 1, 4 and 8,
-   head_dim 32, 64 and 128; bf16 2e-2, f32 2e-5), each launched twice
+   head_dim 32, 64, 80 and 128; bf16 2e-2, f32 2e-5), each launched twice
    with byte-identical results and counted on the body its inputs take
-   (``flash_dkv_tc``/``flash_dq_tc`` for bf16 at head_dim 64/128, one
-   ``flash_dkv_group_sum`` per such B7 launch with a group above 1), the
+   (``flash_dkv_tc``/``flash_dq_tc`` for bf16 at head_dim 64/80/128, one
+   ``flash_dkv_group_sum`` per such B7 launch with a group above 1; f32
+   at every head_dim and bf16 at 32 on the SIMT bodies), the
    f32 gradient of the op against autograd of the oracle (1e-3); then at
    Qwen1.5-0.5B's layer shape (no group sum), Qwen3-8B's head layout
    (one group sum per B7 launch) and hubert-xlarge's training layer (b 2,
-   s 4,096, 16/16 heads of 80, non-causal, the SIMT bodies; the boundary
-   inputs also hold head_dim 80 causal and not, a group of 2, windows and
-   sq < sk), launched twice byte-identical, timed
+   s 4,096, 16/16 heads of 80, non-causal, the Hopper bodies with their
+   five 16-column tiles; the boundary inputs also hold head_dim 80 causal
+   and not, groups of 2 and 8 (the group sum at 80), windows, sq < sk and sq
+   off the 64-row tile), launched twice byte-identical, timed
    beside the plain versions and the backward of
    ``scaled_dot_product_attention`` (dq, dk and dv in one call; the
    yardstick only) by CUDA events and by device time, and the port's
@@ -236,7 +238,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    device time by kernel):
    - audio: hubert-xlarge at full width and depth, 2 microbatches of 2 x
      4,096 frames, no remat: exactly 48 B6, B7 and B8 launches a
-     ``grad_fn`` call, all on the SIMT bodies (head_dim 80);
+     ``grad_fn`` call (head_dim 80), B6 on its SIMT body, B7 and B8 on
+     their Hopper bodies (48 ``flash_dkv_tc`` and 48 ``flash_dq_tc``), no
+     group sum;
    - vlm: internvl2-2b at full width and depth, 2 microbatches of 2 x
      (256 patches + 3,840 tokens), remat "dots": 48 B6 (24 and 24 in the
      recompute), 24 B7, 24 group sums and 24 B8 a call, on the Hopper
@@ -274,7 +278,10 @@ fault-free run, its hosts' heartbeat silences and the collector's
 pauses) through the port under SRC, and ``--assess-parent
 PATH`` (B1 to B4 of an earlier ``assess.cu`` at PATH against this
 checkout's, in turns, at the main path's snapshot; B1 also at N = 64 and
-at 10,000 nodes).
+at 10,000 nodes), and ``--attn-parent DIR`` (B7 and B8 of an earlier
+``flash_attention_bwd.cu`` and its headers in DIR against this
+checkout's, in turns at hubert-xlarge's training layer, beside SDPA's
+backward).
 ``--family-train NAME`` runs one family training path (phase 15) alone;
 the full run takes the moe path this way, in a child process whose
 allocator maps expandable segments (``family_train_child``).
@@ -2317,9 +2324,9 @@ def profile_serve(params, batch, prefill_step, serve_step=None,
 # Attention backward kernels B7 and B8
 # ---------------------------------------------------------------------------
 # Boundary inputs: (b, sq, sk, hq, hkv, d, causal, window); every query row
-# keeps at least one key. In bf16 every case at head_dim 64/128 runs the
+# keeps at least one key. In bf16 every case at head_dim 64/80/128 runs the
 # Hopper bodies (the GQA group above 1 through the group sum), the case at
-# head_dim 32 the SIMT bodies.
+# head_dim 32 the SIMT bodies; in f32 every case runs the SIMT bodies.
 BWD_CASES = [
     (1, 100, 300, 4, 1, 64, True, 0),      # sq < sk, ragged, a group of 4
     (2, 130, 130, 8, 8, 128, True, 0),     # group 1, sq = sk off the tile
@@ -2328,18 +2335,20 @@ BWD_CASES = [
     (1, 77, 256, 32, 8, 128, False, 40),   # a window without the band
     (1, 96, 96, 8, 1, 64, True, 16),       # a group of 8, a narrow window
     (1, 100, 300, 4, 1, 32, True, 0),      # head_dim 32: the SIMT bodies
-    # head_dim 80 (hubert-xlarge), the SIMT bodies in both types
+    # head_dim 80 (hubert-xlarge): in bf16 the Hopper bodies' five
+    # 16-column tiles, in f32 the SIMT bodies
     (2, 130, 130, 16, 16, 80, False, 0),   # the encoder's layout, ragged
     (1, 100, 300, 4, 2, 80, True, 0),      # sq < sk, a group of 2
     (1, 200, 200, 8, 4, 80, True, 64),     # a window, a group of 2
     (1, 64, 192, 4, 4, 80, False, 40),     # a window without the band
+    (1, 200, 300, 16, 2, 80, True, 64),    # a group of 8, sq off the tile
 ]
 # The f32 kernels against autograd of the oracle (tests/test_kernels.py:
 # 83-90): 1e-3.
 BWD_ORACLE_TOL = 1e-3
 # Training shapes: Qwen1.5-0.5B's layer (the main path), Qwen3-8B's head
 # layout, and hubert-xlarge's training layer (its audio training path's
-# microbatch, head_dim 80 on the SIMT bodies): (b, s, hq, hkv, d,
+# microbatch, head_dim 80 on the Hopper bodies): (b, s, hq, hkv, d,
 # causal), bf16.
 BWD_SHAPES = {"qwen1.5-0.5b": (1, 2048, 16, 16, 64, True),
               "qwen3-8b": (1, 4096, 32, 8, 128, True),
@@ -2445,8 +2454,8 @@ def attention_bwd_phase():
     torch.cuda.synchronize()
     errs = {f"{dtype} {name}": e for (dtype, name), e in worst.items()}
     print(f"attention backward boundary inputs: B7 and B8 ({len(BWD_CASES)} "
-          f"cases; bf16 at head_dim 64/128 on the Hopper bodies, the group "
-          f"sum where the group is above 1; each launched twice with "
+          f"cases; bf16 at head_dim 64/80/128 on the Hopper bodies, the "
+          f"group sum where the group is above 1; each launched twice with "
           f"byte-identical results) within tolerance of their plain "
           f"versions in float32 and bf16 (max_abs_err {errs}), f32 within "
           f"{BWD_ORACLE_TOL} of autograd of the oracle", flush=True)
@@ -4296,7 +4305,8 @@ def family_f32_check(tag, cfg, params, batch, ref) -> None:
 # 4 sequences of train_4k's 4,096 positions (configs/base.py:269-285).
 # - audio: hubert-xlarge at full width and depth, 2 microbatches of 2 x
 #   4,096 frames of 512 features, labels over its 504 entries, no remat;
-#   48 B6, B7 and B8 a grad_fn call, all on the SIMT bodies (head_dim 80).
+#   48 B6, B7 and B8 a grad_fn call (head_dim 80): B6 on its SIMT body,
+#   B7 and B8 on their Hopper bodies, no group sum (16/16 heads).
 # - vlm: internvl2-2b at full width and depth, 2 microbatches of 2
 #   sequences of 256 patch features (1,024-d) then 3,840 tokens, labels
 #   over all 4,096 positions, remat "dots": 24 B7 and B8 and 24 group
@@ -4878,27 +4888,33 @@ HOPPER_KERNELS = ("sm90", "group_sum", "decode_split", "decode_combine",
 def print_resource_usage(libs) -> None:
     """Registers and stack bytes (spills) of each Hopper kernel and of
     B1's to B4's, as ``cuobjdump -res-usage`` reads them from the built
-    libraries."""
+    libraries (B7's and B8's Hopper bodies at head_dim 64, 80 and 128
+    among them: ``flash_d*_sm90_kernel<D, ...>``)."""
+    for name in ("assess", "flash", "flash_bwd", "decode", "ssd"):
+        _print_resources(name, libs[name])
+
+
+def _print_resources(name: str, path) -> None:
+    """:func:`print_resource_usage` for the library at ``path``."""
     from repro_torch.accel import kernels as K
 
     tool = Path(K.nvcc()).with_name("cuobjdump")
-    for name in ("assess", "flash", "flash_bwd", "decode", "ssd"):
-        try:
-            out = subprocess.run([str(tool), "-res-usage", str(libs[name])],
-                                 check=True, capture_output=True,
-                                 text=True).stdout
-        except (OSError, subprocess.CalledProcessError) as e:
-            print(f"resources {name}: cuobjdump failed: {e}", flush=True)
-            continue
-        fn = None
-        for line in out.splitlines():
-            line = line.strip()
-            if line.startswith("Function "):
-                fn = line[len("Function "):].rstrip(":")
-            elif fn and line.startswith("REG:"):
-                if any(key in fn for key in HOPPER_KERNELS):
-                    print(f"resources {name}: {fn}: {line}", flush=True)
-                fn = None
+    try:
+        out = subprocess.run([str(tool), "-res-usage", str(path)],
+                             check=True, capture_output=True,
+                             text=True).stdout
+    except (OSError, subprocess.CalledProcessError) as e:
+        print(f"resources {name}: cuobjdump failed: {e}", flush=True)
+        return
+    fn = None
+    for line in out.splitlines():
+        line = line.strip()
+        if line.startswith("Function "):
+            fn = line[len("Function "):].rstrip(":")
+        elif fn and line.startswith("REG:"):
+            if any(key in fn for key in HOPPER_KERNELS):
+                print(f"resources {name}: {fn}: {line}", flush=True)
+            fn = None
 
 
 def decode_wall() -> None:
@@ -5233,6 +5249,119 @@ def assess_parent(source: str) -> None:
           f"parent {verdict}", flush=True)
 
 
+# The --attn-parent mode: B7 and B8 at this layout (BWD_SHAPES), the
+# parent's and this checkout's in turns: parent, change, change, parent.
+ATTN_PARENT_ARCH = "hubert-xlarge"
+
+
+@contextlib.contextmanager
+def _flash_bwd_library(lib):
+    """This checkout's B7/B8 wrappers launching the kernels of ``lib``."""
+    from repro_torch.accel import kernels as K
+
+    own = K._libs["flash_bwd"]
+    K._libs["flash_bwd"] = lib
+    try:
+        yield
+    finally:
+        K._libs["flash_bwd"] = own
+
+
+def attn_parent(source_dir: str) -> None:
+    """B7 and B8 of an earlier ``flash_attention_bwd.cu`` (with its
+    headers, in ``source_dir``) against this checkout's, at
+    hubert-xlarge's training layer (:data:`BWD_SHAPES`, bf16), in one
+    process: each library launched twice the same bits and within
+    ``ATTN_TOL`` of the plain versions, then timed in turns (parent,
+    change, change, parent) by device time and the host's time per call
+    (:func:`_device_host`) and by CUDA events, beside SDPA's backward by
+    device time before and after. The parent runs through this checkout's
+    wrappers, swapped in for the call: the layout has no GQA group, so an
+    earlier wrapper allocated the same outputs. Both libraries' kernels'
+    registers and stack are printed. Run as ``chip_smoke.py --attn-parent
+    DIR`` with DIR the earlier ``accel/csrc``, e.g. after ``git archive
+    HEAD src/repro_torch/accel/csrc | tar -x -C build/parent``:
+    ``build/parent/src/repro_torch/accel/csrc``."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from repro_torch.accel import kernels as K
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    libs = K.build()
+    for name in ("flash", "flash_bwd"):
+        K.library(name)
+    _print_resources("flash_bwd", libs["flash_bwd"])
+    out_dir = ROOT / "build" / "parent_kernels"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "libflash_bwd_parent.so"
+    t0 = time.perf_counter()
+    subprocess.run([K.nvcc(), *K.FLAGS["flash_bwd"], "-o", str(path),
+                    str(Path(source_dir) / "flash_attention_bwd.cu")],
+                   check=True)
+    print(f"attn parent: built in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    _print_resources("parent", path)
+    parent = ctypes.CDLL(str(path))
+    K.bind_flash_bwd(parent)
+    found = {"parent": parent, "change": K._libs["flash_bwd"]}
+
+    bf16 = torch.bfloat16
+    b, s, hq, hkv, d, causal = BWD_SHAPES[ATTN_PARENT_ARCH]
+    if hq != hkv:
+        raise ValueError("--attn-parent times a layout without a GQA group")
+    args = _bwd_case(300, bf16, b, s, s, hq, hkv, d, causal, 0)
+    q, k, v, do = args[:4]
+    scale = d ** -0.5
+    kargs = (*args, causal, 0, scale)
+    pdk, pdv = FA.flash_attention_dkv_plain(*args, causal=causal)
+    pdq = FA.flash_attention_dq_plain(*args, causal=causal)
+    errs = {}
+    for label, lib in found.items():
+        with _flash_bwd_library(lib):
+            runs = [(*K.launch_flash_dkv(*kargs), K.launch_flash_dq(*kargs))
+                    for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(*runs)):
+            raise RuntimeError(f"attn parent {label}: two launches on the "
+                               f"same inputs differ")
+        errs[label] = {name: _within(f"attn parent {label} {name}", got,
+                                     want, ATTN_TOL[bf16])
+                       for name, got, want in zip(
+                           ("dk", "dv", "dq"), runs[0], (pdk, pdv, pdq))}
+    del pdk, pdv, pdq, runs
+    qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_()
+                  for x in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    do_t = do.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
+                                   retain_graph=True)
+
+    sdpa = [_device_ms(sdpa_bwd, ())]
+    turns = ["parent", "change", "change", "parent"]
+    times = {label: [] for label in found}
+    for label in turns:
+        row = {}
+        with _flash_bwd_library(found[label]):
+            for name, fn in (("dkv", K.launch_flash_dkv),
+                             ("dq", K.launch_flash_dq)):
+                row[f"{name}_device_ms"], row[f"{name}_host_us"] = \
+                    _device_host(fn, kargs)
+                row[f"{name}_ms"] = _time_ms(fn, kargs)
+        times[label].append(row)
+    sdpa.append(_device_ms(sdpa_bwd, ()))
+    flops = 2.0 * b * hq * d * _causal_pairs(s, s, causal, 0)
+    bound = {"dkv": 4 * flops / BF16_OPS_PER_S * 1e3,
+             "dq": 3 * flops / BF16_OPS_PER_S * 1e3}
+    print(f"attn parent vs change at {ATTN_PARENT_ARCH}'s layout (b {b}, s "
+          f"{s}, {hq}/{hkv} heads, d {d}, bf16): " + json.dumps({
+              "turns": turns, "times": times, "sdpa_bwd_device_ms": sdpa,
+              "bound_ms": bound, "max_abs_err": errs}), flush=True)
+
+
 TRAIN_WALL_RUNS = 3
 
 
@@ -5462,6 +5591,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--assess-parent"]:
         print(f"card: {smi}", flush=True)
         assess_parent(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--attn-parent"]:
+        print(f"card: {smi}", flush=True)
+        attn_parent(sys.argv[2])
         return 0
     from repro_torch.accel import kernels as K
 

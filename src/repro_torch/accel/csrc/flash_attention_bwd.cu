@@ -15,15 +15,16 @@
 //
 // Two bodies each; the C entry points flash_bwd_dq and flash_bwd_dkv pick
 // one from the dtype and head_dim alone, never from a failure:
-//   - bf16 with head_dim 64 or 128 (every attention layer of the training
-//     path, and Qwen3-8B's layout): the Hopper bodies of
+//   - bf16 with head_dim 64, 80 or 128 (every attention layer of the
+//     training paths: Qwen1.5-0.5B's 64, internvl2's and moonshot's 128,
+//     hubert-xlarge's 80): the Hopper bodies of
 //     flash_attention_bwd_sm90.cuh, wgmma tensor-core products on TMA-fed
 //     tiles, p and dS rounded to bf16 before the products that take them
-//     (its note says why and what bounds them), the GQA group split
-//     across blocks and summed in head order by flash_dkv_group_sum;
-//   - float32, and bf16 with head_dim 16, 32 or 80: the SIMT bodies below.
-//     (hubert-xlarge's 16 heads of 80: a 160-byte bf16 row fits no
-//     128-byte swizzle of the Hopper bodies' tensor maps.)
+//     (its note says why, what bounds them, and how a 160-byte row of 80
+//     is laid out: five 16-column tiles), the GQA group split across
+//     blocks and summed in head order by flash_dkv_group_sum;
+//   - float32 at every head_dim, and bf16 with head_dim 16 or 32: the SIMT
+//     bodies below.
 //
 // The SIMT bodies. What bounds them on an H100: at the training path's
 // shape (Qwen1.5-0.5B: b 1, sq = sk = 2048, 16 heads over 16, head_dim
@@ -33,7 +34,7 @@
 // tensor cores: every product is a float32 FMA from shared memory, with
 // the reference's float32 arithmetic, so the f32 rate outside the tensor
 // cores (67 TFLOP/s) holds them: 0.919 and 0.708 ms there on an H100
-// 80GB HBM3 at 700 W (PERF.md), which is why bf16 at head_dim 64/128
+// 80GB HBM3 at 700 W (PERF.md), which is why bf16 at head_dim 64/80/128
 // takes the Hopper bodies.
 //
 // The SIMT bodies' design. The TPU kernel carries the GQA group and the
@@ -446,6 +447,18 @@ int dispatch_dkv(int d, const Args& a, void* dk, void* dv) {
   }
 }
 
+// The Hopper body of head_dim d, by an explicit switch (null for a
+// head_dim it does not take).
+template <typename F>
+F hopper_body(int d, F d64, F d80, F d128) {
+  switch (d) {
+    case 64: return d64;
+    case 80: return d80;
+    case 128: return d128;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -457,7 +470,8 @@ int flash_bwd_block_q() { return BQ; }
 int flash_bwd_block_k() { return BK; }
 int flash_bwd_tc_block_q() { return sm90::bwd::ROWS; }
 int flash_bwd_tc_block_k() { return sm90::bwd::ROWS; }
-// 1 where the Hopper bodies take the inputs: bf16 at head_dim 64 or 128.
+// 1 where the Hopper bodies take the inputs: bf16 at head_dim 64, 80 or
+// 128.
 int flash_bwd_tc(int is_bf16, int d) { return sm90::bwd::takes(is_bf16, d); }
 
 // q and dout (b, sq, hq, d), k/v (b, sk, hkv, d) contiguous, all bf16
@@ -471,10 +485,14 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
                  int causal, int window, float scale, int is_bf16,
                  void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (sm90::bwd::takes(is_bf16, d))
-    return (d == 64 ? sm90::bwd::launch_dq<64> : sm90::bwd::launch_dq<128>)(
-        q, k, v, dout, lse, delta, dq, b, sq, sk, hq, hkv, causal, window,
-        scale, st);
+  if (sm90::bwd::takes(is_bf16, d)) {
+    const auto launch = hopper_body(d, &sm90::bwd::launch_dq<64>,
+                                    &sm90::bwd::launch_dq<80>,
+                                    &sm90::bwd::launch_dq<128>);
+    if (launch == nullptr) return (int)cudaErrorInvalidValue;
+    return launch(q, k, v, dout, lse, delta, dq, b, sq, sk, hq, hkv, causal,
+                  window, scale, st);
+  }
   const Args a{q, k, v, dout, lse, delta, b, sq, sk, hq, hkv, causal,
                window, scale, st};
   return is_bf16 ? dispatch_dq<__nv_bfloat16>(d, a, dq)
@@ -491,11 +509,14 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   int d, int causal, int window, float scale, int is_bf16,
                   void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (sm90::bwd::takes(is_bf16, d))
-    return (d == 64 ? sm90::bwd::launch_dkv<64>
-                    : sm90::bwd::launch_dkv<128>)(
-        q, k, v, dout, lse, delta, dk, dv, b, sq, sk, hq, hkv, causal,
-        window, scale, st);
+  if (sm90::bwd::takes(is_bf16, d)) {
+    const auto launch = hopper_body(d, &sm90::bwd::launch_dkv<64>,
+                                    &sm90::bwd::launch_dkv<80>,
+                                    &sm90::bwd::launch_dkv<128>);
+    if (launch == nullptr) return (int)cudaErrorInvalidValue;
+    return launch(q, k, v, dout, lse, delta, dk, dv, b, sq, sk, hq, hkv,
+                  causal, window, scale, st);
+  }
   const Args a{q, k, v, dout, lse, delta, b, sq, sk, hq, hkv, causal,
                window, scale, st};
   return is_bf16 ? dispatch_dkv<__nv_bfloat16>(d, a, dk, dv)

@@ -1,5 +1,5 @@
 // B7's and B8's Hopper bodies: the GQA flash-attention backward for bf16
-// inputs with head_dim 64 or 128, on wgmma tensor-core products over
+// inputs with head_dim 64, 80 or 128, on wgmma tensor-core products over
 // TMA-fed tiles. Included by flash_attention_bwd.cu, whose C entry points
 // flash_bwd_dq and flash_bwd_dkv take these bodies for exactly those
 // inputs and the SIMT bodies for the others.
@@ -23,11 +23,22 @@
 // A consumer's pairs of (query tile, KV tile) are 64 x 64 and skip with
 // the reference's static conditions (:184-189) at those tiles, the same
 // pairs the plain versions walk. Every product is one of two operand
-// shapes (the 128-byte-swizzled tiles of sm90_primitives.cuh): both
-// operands K-major in shared memory (SS), or A from registers and B
+// shapes (the 128- or 32-byte-swizzled tiles of sm90_primitives.cuh):
+// both operands K-major in shared memory (SS), or A from registers and B
 // MN-major in shared memory (RS, the transpose bit, no transposed copy).
 // The accumulator's register layout is the A fragment's, so p and dS go
 // from one product to the next without shared memory.
+//
+// Head_dim 80 (hubert-xlarge: 16 heads of 80). A bf16 row of 80 is 160
+// bytes, no multiple of the 128-byte swizzle, so it is laid out as five
+// 16-column tiles with the 32-byte swizzle, each loaded as a 16-column TMA
+// box: five K-major steps for the scores, and one m64n80k16 product a
+// step of 16 rows for each output, its B operand the five tiles read
+// MN-major (the descriptor's leading offset from tile to tile). That is
+// exactly the head_dim-80 work, 40 accumulator floats a thread per
+// output, no spill. At hubert-xlarge's layer on an H100 it beat both a
+// 64-column block plus a 16-column tail and a row padded to 128 by TMA's
+// zero fill, B7 and B8 together (PERF.md).
 //
 // - B8 (dQ): one block per (128 query rows, query head, sequence). The
 //   producer thread loads the block's Q and dO once and streams the KV
@@ -86,6 +97,7 @@ constexpr int STAGES = 2;        // streamed tiles in flight
 constexpr int NT = 128 * (NCONS + 1);
 constexpr int ROW = 128;         // bytes of one swizzled row: 64 bf16
 constexpr int PART = ROWS * ROW; // 64 rows of one 64-column block
+constexpr int TROW = 32;         // bytes of one 16-column tile's row
 constexpr float LOG2E = 1.4426950408889634f;
 
 // The reference's static skip of a 64 x 64 (query tile, KV tile) pair
@@ -125,33 +137,65 @@ __device__ __forceinline__ void band(int n, F runs, int& lo, int& hi) {
   while (hi < n && runs(hi)) ++hi;
 }
 
+constexpr int TPART = ROWS * TROW;   // 64 rows of one 16-column tile
+
+// The layout of a row of D in shared memory: head_dim 64 and 128 as B128
+// blocks of 64 columns with the 128-byte swizzle (PART bytes for 64 rows
+// each), 80 as T32 = 5 tiles of 16 columns with the 32-byte swizzle (TPART
+// bytes for 64 rows each). OP, the bytes of 64 rows of one operand, a
+// multiple of 1024, so every tile stays 1024-byte aligned; the sizes of a
+// thread's accumulators, NB blocks of 32 floats and NT floats over the
+// 16-column tiles (one float where there are none).
+template <int D>
+struct Cols {
+  static_assert(D == 64 || D == 80 || D == 128,
+                "a head_dim the Hopper bodies lay out");
+  static constexpr int B128 = D % 64 == 0 ? D / 64 : 0;
+  static constexpr int T32 = D % 64 == 0 ? 0 : D / 16;
+  static constexpr int OP = B128 * PART + T32 * TPART;
+  static constexpr int NB = B128 > 0 ? B128 : 1;
+  static constexpr int NT = T32 > 0 ? 8 * T32 : 1;
+};
+
 // S = A.B^T over D, started: A's and B's 64 rows K-major in shared memory
-// (D/64 blocks of 64 columns, PART bytes apart); a step of 16 columns
-// moves the descriptors 32 B inside a swizzled row.
+// in Cols' layout; a step of 16 columns moves the descriptors 32 B inside
+// a 128-byte row, or to the next 16-column tile.
 template <int D>
 __device__ __forceinline__ void start_scores(float (&s)[32], uint32_t a,
                                              uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * PART + (kk % 4) * 32;
-    wgmma_ss_n64(s, desc_sw128(a + off, 16), desc_sw128(b + off, 16),
-                 kk > 0);
+    if constexpr (Cols<D>::T32 == 0) {
+      const uint32_t off = (kk / 4) * PART + (kk % 4) * 32;
+      wgmma_ss_n64(s, desc_sw128(a + off, 16), desc_sw128(b + off, 16),
+                   kk > 0);
+    } else {
+      const uint32_t off = kk * TPART;
+      wgmma_ss_n64(s, desc_sw32(a + off), desc_sw32(b + off), kk > 0);
+    }
   }
 }
 
-// acc += P.B, started: P (64 x 64 bf16) as A fragments of 16 columns, B's
-// 64 rows in shared memory read MN-major, one 64-column block of D per
-// product; a step of 16 rows moves B's descriptor 2048 B.
-template <int CB>
-__device__ __forceinline__ void start_update(float (&acc)[CB][32],
-                                             const uint32_t (&pa)[4][4],
-                                             uint32_t b) {
+// acc and tail += P.B, started: P (64 x 64 bf16) as A fragments of 16
+// columns, B's 64 rows in shared memory in Cols' layout read MN-major: one
+// product of N = 64 per 64-column block into acc, or one of N = 80 over
+// the five 16-column tiles (their leading offset TPART) into tail; a step
+// of 16 rows moves B's descriptor 2048 B in a block, 512 B in a tile.
+template <int D>
+__device__ __forceinline__ void start_update(
+    float (&acc)[Cols<D>::NB][32], float (&tail)[Cols<D>::NT],
+    const uint32_t (&pa)[4][4], uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < ROWS / 16; ++kk)
+  for (int kk = 0; kk < ROWS / 16; ++kk) {
+    if constexpr (Cols<D>::T32 == 0) {
 #pragma unroll
-    for (int cb = 0; cb < CB; ++cb)
-      wgmma_rs_n64(acc[cb], pa[kk],
-                   desc_sw128(b + cb * PART + kk * 16 * ROW, 1024));
+      for (int cb = 0; cb < Cols<D>::B128; ++cb)
+        wgmma_rs_n64(acc[cb], pa[kk],
+                     desc_sw128(b + cb * PART + kk * 16 * ROW, 1024));
+    } else {
+      wgmma_rs_n80(tail, pa[kk], desc_sw32(b + kk * 16 * TROW, TPART));
+    }
+  }
 }
 
 // An accumulator of 64 x 64 f32 rounded to bf16 A fragments: register j
@@ -175,22 +219,35 @@ __device__ __forceinline__ void clear(float (&x)[N]) {
   fence_regs(x);
 }
 
-template <int CB>
-__device__ __forceinline__ void fence_acc(float (&acc)[CB][32]) {
+template <int D>
+__device__ __forceinline__ void fence_acc(float (&acc)[Cols<D>::NB][32],
+                                          float (&tail)[Cols<D>::NT]) {
 #pragma unroll
-  for (int cb = 0; cb < CB; ++cb) fence_regs(acc[cb]);
+  for (int cb = 0; cb < Cols<D>::B128; ++cb) fence_regs(acc[cb]);
+  if constexpr (Cols<D>::T32 != 0) fence_regs(tail);
+}
+
+// Loads 64 rows of one operand in Cols' layout at dst through its map m,
+// whose boxes are the layout's 64-column blocks or 16-column tiles.
+template <int D>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* m,
+                                          uint32_t bar, int head, int row0,
+                                          int b) {
+  for (int cb = 0; cb < Cols<D>::B128; ++cb)
+    tma_load(dst + cb * PART, m, bar, cb * 64, head, row0, b);
+  for (int t = 0; t < Cols<D>::T32; ++t)
+    tma_load(dst + t * TPART, m, bar, 16 * t, head, row0, b);
 }
 
 // Shared memory of either kernel, each tile 1024-byte aligned (the
 // 128-byte swizzle's period): the block's own rows of two operands as
-// [consumer][64-column block][64 rows][128 B] (B8: Q, dO; B7: K, V), the
-// streamed tiles of two operands as [stage][64-column block][64 rows][128
-// B] (B8: K, V; B7: Q, dO), B7's lse and delta per stage, the mbarriers.
+// [consumer][64 rows in Cols' layout] (B8: Q, dO; B7: K, V), the streamed
+// tiles of two operands as [stage][64 rows in Cols' layout] (B8: K, V; B7:
+// Q, dO), B7's lse and delta per stage, the mbarriers.
 template <int D>
 struct Smem {
-  static constexpr int CB = D / 64;
-  static constexpr int OWN = NCONS * CB * PART;      // one operand's rows
-  static constexpr int TILE = CB * PART;             // one streamed tile
+  static constexpr int OWN = NCONS * Cols<D>::OP;   // one operand's rows
+  static constexpr int TILE = Cols<D>::OP;          // one streamed tile
   static constexpr int A_OFF = 0, B_OFF = OWN;
   static constexpr int X_OFF = 2 * OWN;              // streamed, first
   static constexpr int Y_OFF = X_OFF + STAGES * TILE;
@@ -214,7 +271,8 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                      int hkv, int causal, int window, float scale, int nqt,
                      int heads_batch) {
   using S = Smem<D>;
-  constexpr int CB = S::CB;
+  using C = Cols<D>;
+  constexpr int CB = C::B128, OP = C::OP;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_own = base + S::BAR_OFF;
@@ -258,28 +316,22 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (tid == NCONS * 128) {
       mbar_expect_tx(bar_own, 2 * S::OWN);
-      for (int w = 0; w < NCONS; ++w)
-        for (int cb = 0; cb < CB; ++cb) {
-          const int off = (w * CB + cb) * PART;
-          tma_load(base + S::A_OFF + off, &tm_q, bar_own, cb * 64, h,
-                   q0 + ROWS * w, b);
-          tma_load(base + S::B_OFF + off, &tm_do, bar_own, cb * 64, h,
-                   q0 + ROWS * w, b);
-        }
+      for (int w = 0; w < NCONS; ++w) {
+        load_rows<D>(base + S::A_OFF + w * OP, &tm_q, bar_own, h,
+                     q0 + ROWS * w, b);
+        load_rows<D>(base + S::B_OFF + w * OP, &tm_do, bar_own, h,
+                     q0 + ROWS * w, b);
+      }
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES;
         const int k0 = (lo + i) * ROWS;
         mbar_wait(bar_e + 8 * s, ((i / STAGES) & 1) ^ 1);
-        const uint32_t k_dst = base + S::X_OFF + s * S::TILE;
-        const uint32_t v_dst = base + S::Y_OFF + s * S::TILE;
         mbar_expect_tx(bar_k + 8 * s, S::TILE);
-        for (int cb = 0; cb < CB; ++cb)
-          tma_load(k_dst + cb * PART, &tm_k, bar_k + 8 * s, cb * 64, hk, k0,
-                   b);
+        load_rows<D>(base + S::X_OFF + s * S::TILE, &tm_k, bar_k + 8 * s,
+                     hk, k0, b);
         mbar_expect_tx(bar_v + 8 * s, S::TILE);
-        for (int cb = 0; cb < CB; ++cb)
-          tma_load(v_dst + cb * PART, &tm_v, bar_v + 8 * s, cb * 64, hk, k0,
-                   b);
+        load_rows<D>(base + S::Y_OFF + s * S::TILE, &tm_v, bar_v + 8 * s,
+                     hk, k0, b);
       }
     }
     return;
@@ -294,8 +346,8 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int r = 16 * warp + lane / 4, c2 = 2 * (lane % 4);
   const int qw0 = q0 + ROWS * w;
   const float sl2 = scale * LOG2E;
-  const uint32_t q_addr = base + S::A_OFF + w * CB * PART;
-  const uint32_t do_addr = base + S::B_OFF + w * CB * PART;
+  const uint32_t q_addr = base + S::A_OFF + w * OP;
+  const uint32_t do_addr = base + S::B_OFF + w * OP;
   const size_t stat = ((size_t)b * hq + h) * sq;
   float lse2[2], dl[2];
 #pragma unroll
@@ -305,11 +357,14 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     dl[rr] = row < sq ? delta[stat + row] : 0.f;
   }
 
-  float acc[CB][32];
+  // dQ's 64-column blocks and its 16-column tiles
+  float acc[C::NB][32], acct[C::NT];
 #pragma unroll
-  for (int cb = 0; cb < CB; ++cb)
+  for (int cb = 0; cb < C::NB; ++cb)
 #pragma unroll
     for (int j = 0; j < 32; ++j) acc[cb][j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < C::NT; ++j) acct[j] = 0.f;
   float x[32], dp[32];       // a tile's S then dS in f32, and its dP
   uint32_t pa[4][4];         // dS in bf16: dQ's A operand
 
@@ -348,12 +403,12 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         x[j] = p * (dp[j] - dl[rr]) * scale;
       }
       pack(x, pa);
-      fence_acc(acc);
+      fence_acc<D>(acc, acct);
       wgmma_fence();
-      start_update(acc, pa, k_addr);
+      start_update<D>(acc, acct, pa, k_addr);
       wgmma_commit();
       wgmma_wait_all();
-      fence_acc(acc);
+      fence_acc<D>(acc, acct);
     }
     if (lane == 0) mbar_arrive(bar_e + 8 * s);   // the stage is free
   }
@@ -372,6 +427,12 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         *reinterpret_cast<uint32_t*>(drow + cb * 64 + 8 * g + c2) =
             pack_bf16(acc[cb][j], acc[cb][j + 1]);
       }
+#pragma unroll
+    for (int g = 0; g < 2 * C::T32; ++g) {   // the 16-column tiles
+      const int j = 4 * g + 2 * rr;
+      *reinterpret_cast<uint32_t*>(drow + 8 * g + c2) =
+          pack_bf16(acct[j], acct[j + 1]);
+    }
   }
 }
 
@@ -391,7 +452,8 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       void* __restrict__ dv, int sq, int sk, int hq, int hkv,
                       int causal, int window, float scale, int heads_batch) {
   using S = Smem<D>;
-  constexpr int CB = S::CB;
+  using C = Cols<D>;
+  constexpr int CB = C::B128, OP = C::OP;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_own = base + S::BAR_OFF;
@@ -440,27 +502,21 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int pt = tid - NCONS * 128;
     if (pt == 0) {
       mbar_expect_tx(bar_own, 2 * S::OWN);
-      for (int w = 0; w < NCONS; ++w)
-        for (int cb = 0; cb < CB; ++cb) {
-          const int off = (w * CB + cb) * PART;
-          tma_load(base + S::A_OFF + off, &tm_k, bar_own, cb * 64, hk,
-                   k0 + ROWS * w, b);
-          tma_load(base + S::B_OFF + off, &tm_v, bar_own, cb * 64, hk,
-                   k0 + ROWS * w, b);
-        }
+      for (int w = 0; w < NCONS; ++w) {
+        load_rows<D>(base + S::A_OFF + w * OP, &tm_k, bar_own, hk,
+                     k0 + ROWS * w, b);
+        load_rows<D>(base + S::B_OFF + w * OP, &tm_v, bar_own, hk,
+                     k0 + ROWS * w, b);
+      }
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES;
         const int q0 = (lo + i) * ROWS;
         mbar_wait(bar_e + 8 * s, ((i / STAGES) & 1) ^ 1);
-        const uint32_t q_dst = base + S::X_OFF + s * S::TILE;
-        const uint32_t do_dst = base + S::Y_OFF + s * S::TILE;
         mbar_expect_tx(bar_f + 8 * s, 2 * S::TILE);
-        for (int cb = 0; cb < CB; ++cb) {
-          tma_load(q_dst + cb * PART, &tm_q, bar_f + 8 * s, cb * 64, h, q0,
-                   b);
-          tma_load(do_dst + cb * PART, &tm_do, bar_f + 8 * s, cb * 64, h,
-                   q0, b);
-        }
+        load_rows<D>(base + S::X_OFF + s * S::TILE, &tm_q, bar_f + 8 * s,
+                     h, q0, b);
+        load_rows<D>(base + S::Y_OFF + s * S::TILE, &tm_do, bar_f + 8 * s,
+                     h, q0, b);
       }
     } else if (pt >= 32 && pt < 64) {
       const int l = pt - 32;
@@ -490,14 +546,17 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int r = 16 * warp + lane / 4, c2 = 2 * (lane % 4);
   const int kw0 = k0 + ROWS * w;
   const float sl2 = scale * LOG2E;
-  const uint32_t k_addr = base + S::A_OFF + w * CB * PART;
-  const uint32_t v_addr = base + S::B_OFF + w * CB * PART;
+  const uint32_t k_addr = base + S::A_OFF + w * OP;
+  const uint32_t v_addr = base + S::B_OFF + w * OP;
 
-  float dka[CB][32], dva[CB][32];
+  // dK's and dV's 64-column blocks and their 16-column tiles
+  float dka[C::NB][32], dva[C::NB][32], dkt[C::NT], dvt[C::NT];
 #pragma unroll
-  for (int cb = 0; cb < CB; ++cb)
+  for (int cb = 0; cb < C::NB; ++cb)
 #pragma unroll
     for (int j = 0; j < 32; ++j) dka[cb][j] = dva[cb][j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < C::NT; ++j) dkt[j] = dvt[j] = 0.f;
   float x[32], dp[32];        // a tile's S^T then p^T, its dP^T then dS^T
   uint32_t pa[4][4], dsa[4][4];   // p^T and dS^T in bf16: the A operands
 
@@ -535,19 +594,37 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       pack(x, pa);
       pack(dp, dsa);
-      fence_acc(dva);
-      fence_acc(dka);
+      fence_acc<D>(dva, dvt);
+      fence_acc<D>(dka, dkt);
       wgmma_fence();
-      start_update(dva, pa, do_addr);
-      start_update(dka, dsa, q_addr);
+      start_update<D>(dva, dvt, pa, do_addr);
+      start_update<D>(dka, dkt, dsa, q_addr);
       wgmma_commit();
       wgmma_wait_all();
-      fence_acc(dva);
-      fence_acc(dka);
+      fence_acc<D>(dva, dvt);
+      fence_acc<D>(dka, dkt);
     }
     if (lane == 0) mbar_arrive(bar_e + 8 * s);   // the stage is free
   }
 
+  // columns col and col + 1 of one key's dK and dV
+  auto put = [&](int key, int col, float k0v, float k1v, float v0, float v1) {
+    if (PARTIAL) {
+      const size_t off =
+          ((size_t)b * sk + key) * hq * D + (size_t)h * D + col;
+      *reinterpret_cast<float2*>(static_cast<float*>(dk) + off) =
+          make_float2(k0v, k1v);
+      *reinterpret_cast<float2*>(static_cast<float*>(dv) + off) =
+          make_float2(v0, v1);
+    } else {
+      const size_t off =
+          ((size_t)b * sk + key) * hkv * D + (size_t)hk * D + col;
+      *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(dk) + off) =
+          pack_bf16(k0v, k1v);
+      *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(dv) + off) =
+          pack_bf16(v0, v1);
+    }
+  };
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int key = kw0 + r + 8 * rr;
@@ -556,25 +633,15 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int cb = 0; cb < CB; ++cb)
 #pragma unroll
       for (int g = 0; g < 8; ++g) {
-        const int j = 4 * g + 2 * rr, col = cb * 64 + 8 * g + c2;
-        if (PARTIAL) {
-          const size_t off = ((size_t)b * sk + key) * hq * D +
-                             (size_t)h * D + col;
-          *reinterpret_cast<float2*>(static_cast<float*>(dk) + off) =
-              make_float2(dka[cb][j], dka[cb][j + 1]);
-          *reinterpret_cast<float2*>(static_cast<float*>(dv) + off) =
-              make_float2(dva[cb][j], dva[cb][j + 1]);
-        } else {
-          const size_t off = ((size_t)b * sk + key) * hkv * D +
-                             (size_t)hk * D + col;
-          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(dk) +
-                                       off) =
-              pack_bf16(dka[cb][j], dka[cb][j + 1]);
-          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(dv) +
-                                       off) =
-              pack_bf16(dva[cb][j], dva[cb][j + 1]);
-        }
+        const int j = 4 * g + 2 * rr;
+        put(key, cb * 64 + 8 * g + c2, dka[cb][j], dka[cb][j + 1],
+            dva[cb][j], dva[cb][j + 1]);
       }
+#pragma unroll
+    for (int g = 0; g < 2 * C::T32; ++g) {   // the 16-column tiles
+      const int j = 4 * g + 2 * rr;
+      put(key, 8 * g + c2, dkt[j], dkt[j + 1], dvt[j], dvt[j + 1]);
+    }
   }
 }
 
@@ -618,6 +685,8 @@ flash_dkv_group_sum_kernel(const float* __restrict__ dk_part,
 // ---------------------------------------------------------------------------
 // Launches
 // ---------------------------------------------------------------------------
+// The four operands' maps, boxes of Cols' layout: 64 columns with the
+// 128-byte swizzle, or 16 with the 32-byte swizzle.
 struct Maps {
   CUtensorMap q, k, v, dout;
 };
@@ -625,10 +694,14 @@ struct Maps {
 template <int D>
 int maps(Maps& m, const void* q, const void* k, const void* v,
          const void* dout, int b, int sq, int sk, int hq, int hkv) {
-  int rc = make_map(&m.q, q, b, sq, hq, D, ROWS);
-  if (rc == 0) rc = make_map(&m.k, k, b, sk, hkv, D, ROWS);
-  if (rc == 0) rc = make_map(&m.v, v, b, sk, hkv, D, ROWS);
-  if (rc == 0) rc = make_map(&m.dout, dout, b, sq, hq, D, ROWS);
+  constexpr bool tiles = Cols<D>::T32 != 0;
+  const int cols = tiles ? 16 : 64;
+  const CUtensorMapSwizzle sw =
+      tiles ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B;
+  int rc = make_map(&m.q, q, b, sq, hq, D, ROWS, cols, sw);
+  if (rc == 0) rc = make_map(&m.k, k, b, sk, hkv, D, ROWS, cols, sw);
+  if (rc == 0) rc = make_map(&m.v, v, b, sk, hkv, D, ROWS, cols, sw);
+  if (rc == 0) rc = make_map(&m.dout, dout, b, sq, hq, D, ROWS, cols, sw);
   return rc;
 }
 
@@ -677,9 +750,9 @@ int launch_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// 1 where these bodies take the inputs: bf16 with head_dim 64 or 128.
+// 1 where these bodies take the inputs: bf16 with head_dim 64, 80 or 128.
 inline int takes(int is_bf16, int d) {
-  return is_bf16 && (d == 64 || d == 128);
+  return is_bf16 && (d == 64 || d == 80 || d == 128);
 }
 
 inline int group_sum(const void* dk_part, const void* dv_part, void* dk,

@@ -7,9 +7,11 @@
 // cuTensorMapEncodeTiled from the loaded driver library; wgmma
 // shared-memory descriptors for that swizzle, the wgmma fences and the
 // products the kernels run (m64n128k16 and m64n64k16 with both operands
-// in shared memory, K-major or both MN-major, m64n64k16 with A in
-// registers and B MN-major); the proxy fence that orders the threads'
-// own shared-memory stores before the products read them; bf16
+// in shared memory, K-major or both MN-major, m64n64k16 and m64n80k16
+// with A in registers and B MN-major); for B7/B8 at head_dim 80, tiles of
+// 16 columns with the 32-byte swizzle (their tensor maps and descriptors
+// beside the 128-byte ones); the proxy fence that orders the
+// threads' own shared-memory stores before the products read them; bf16
 // packing of an accumulator into an A fragment. The operand lists are
 // written out with compile-time register indices.
 #pragma once
@@ -91,6 +93,19 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
+}
+
+// The same for the 32-byte swizzle (layout type 3), the layout of tiles
+// 16 bf16 columns wide, one 32-byte row each: K-major (the 16 columns are
+// one step of the depth; the leading offset unused) or MN-major (16
+// columns of N a tile, the next tile lbo bytes on), 8-row groups 256 B
+// apart in either.
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr,
+                                              uint32_t lbo = 256) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) |
+         (static_cast<uint64_t>(3) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -212,6 +227,31 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 80 f32, registers) += A (64 x 16 bf16, registers) . B (16 x 80,
+// shared, MN-major, the 32-byte swizzle: five 16-column atoms, the
+// descriptor's leading offset apart).
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39}"
+      ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // .x = lo: low half
   return *reinterpret_cast<uint32_t*>(&h);
@@ -241,10 +281,12 @@ inline EncodeTiled encoder() {
 constexpr int DRIVER_ERROR = 10000;
 
 // The rank-4 map (d, heads, s, b) of a contiguous (b, s, heads, d) bf16
-// array, boxes of (64, 1, rows, 1) with the 128-byte swizzle; rows past s
-// read as zeros.
+// array, boxes of (cols, 1, rows, 1): 64 columns with the 128-byte swizzle
+// by default, or 16 with the 32-byte swizzle (cols 16,
+// CU_TENSOR_MAP_SWIZZLE_32B). Rows past s read as zeros.
 inline int make_map(CUtensorMap* map, const void* ptr, int b, int s,
-                    int heads, int d, int rows) {
+                    int heads, int d, int rows, int cols = 64,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return DRIVER_ERROR + CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
@@ -252,12 +294,12 @@ inline int make_map(CUtensorMap* map, const void* ptr, int b, int s,
   const cuuint64_t strides[3] = {(cuuint64_t)d * 2,
                                  (cuuint64_t)heads * d * 2,
                                  (cuuint64_t)s * heads * d * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult rc = enc(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : DRIVER_ERROR + (int)rc;
 }

@@ -18,12 +18,12 @@ head_dim 64 or 128 take the Hopper body (``csrc/flash_attention_sm90.cuh``:
 wgmma products on TMA-fed 128 x 128 tiles), float32 and bf16 at head_dim
 16, 32 or 80 the SIMT body (64 x 64 tiles); :func:`flash_fwd_tc` says
 which.
-B7 and B8 have two bodies each in the same way: bf16 at head_dim 64 or
-128 the Hopper bodies (``csrc/flash_attention_bwd_sm90.cuh``, sharing
-B6's TMA and wgmma primitives in ``csrc/sm90_primitives.cuh``), the rest
-(float32, and bf16 at head_dim 16, 32 or 80) the SIMT bodies;
-:func:`flash_bwd_tc` says which. With a GQA group above
-1, B7's Hopper body writes f32 partials per query head and a second
+B7 and B8 have two bodies each in the same way: bf16 at head_dim 64, 80
+or 128 the Hopper bodies (``csrc/flash_attention_bwd_sm90.cuh``, sharing
+B6's TMA and wgmma primitives in ``csrc/sm90_primitives.cuh``; a row of
+80 is five 16-column tiles), the rest (float32, and bf16 at head_dim 16
+or 32) the SIMT bodies; :func:`flash_bwd_tc` says which. With a GQA
+group above 1, B7's Hopper body writes f32 partials per query head and a second
 kernel of the same library, ``flash_dkv_group_sum``, adds each KV head's
 partials in head order. B9 is split-KV for every dtype and head_dim: a
 block per ``DECODE_SPLIT`` keys of a (KV head, sequence) writes float32
@@ -109,21 +109,23 @@ REAP_TILE = 1024
 # Tile sizes of B6–B9, which their plain versions walk too (checked
 # against the built library when it loads), and the head sizes they take.
 # B6's SIMT body (float32; bf16 at head_dim 16, 32, 80) and its Hopper body
-# (bf16 at FLASH_TC_HEAD_DIMS) have tiles of their own; B7 and B8 theirs,
-# for each of their two bodies the (query tile, KV tile) pairs that skip
-# (the Hopper bodies' blocks hold two 64-row consumers, each pairing its
-# rows with streamed tiles of 64).
+# (bf16 at FLASH_FWD_TC_HEAD_DIMS) have tiles of their own; B7 and B8
+# theirs, for each of their two bodies (the Hopper bodies: bf16 at
+# FLASH_BWD_TC_HEAD_DIMS) the (query tile, KV tile) pairs that skip (the
+# Hopper bodies' blocks hold two 64-row consumers, each pairing its rows
+# with streamed tiles of 64).
 FLASH_FWD_BLOCK_Q = 64
 FLASH_FWD_BLOCK_K = 64
 FLASH_FWD_TC_BLOCK_Q = 128
 FLASH_FWD_TC_BLOCK_K = 128
-FLASH_TC_HEAD_DIMS = (64, 128)
+FLASH_FWD_TC_HEAD_DIMS = (64, 128)
+FLASH_BWD_TC_HEAD_DIMS = (64, 80, 128)
 FLASH_BWD_BLOCK_Q = 64
 FLASH_BWD_BLOCK_K = 64
 FLASH_BWD_TC_BLOCK_Q = 64
 FLASH_BWD_TC_BLOCK_K = 64
-# Every head size B6–B9 take; head_dim 80 (hubert-xlarge) runs the SIMT
-# bodies of B6–B8 in both dtypes.
+# Every head size B6–B9 take; head_dim 80 (hubert-xlarge) runs B6's SIMT
+# body in both dtypes, and B7's and B8's Hopper bodies in bf16.
 HEAD_DIMS = (16, 32, 64, 80, 128)
 # B9's split-KV body: a block per DECODE_SPLIT keys of one (KV head,
 # sequence), streamed in tiles of DECODE_BLOCK_K keys through a ring of
@@ -175,7 +177,7 @@ build_seconds: Dict[str, float] = {}
 def flash_fwd_tc(dtype: torch.dtype, d: int) -> bool:
     """True where B6's Hopper body takes the inputs: bf16 at head_dim 64
     or 128. The SIMT body takes the rest."""
-    return dtype == torch.bfloat16 and d in FLASH_TC_HEAD_DIMS
+    return dtype == torch.bfloat16 and d in FLASH_FWD_TC_HEAD_DIMS
 
 
 def flash_fwd_tiles(dtype: torch.dtype, d: int) -> Tuple[int, int]:
@@ -187,8 +189,8 @@ def flash_fwd_tiles(dtype: torch.dtype, d: int) -> Tuple[int, int]:
 
 def flash_bwd_tc(dtype: torch.dtype, d: int) -> bool:
     """True where B7's and B8's Hopper bodies take the inputs: bf16 at
-    head_dim 64 or 128. The SIMT bodies take the rest."""
-    return dtype == torch.bfloat16 and d in FLASH_TC_HEAD_DIMS
+    head_dim 64, 80 or 128. The SIMT bodies take the rest."""
+    return dtype == torch.bfloat16 and d in FLASH_BWD_TC_HEAD_DIMS
 
 
 def flash_bwd_tiles(dtype: torch.dtype, d: int) -> Tuple[int, int]:
@@ -320,12 +322,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                  (lib.flash_fwd_tc_block_q, FLASH_FWD_TC_BLOCK_Q),
                  (lib.flash_fwd_tc_block_k, FLASH_FWD_TC_BLOCK_K)]
     elif name == "flash_bwd":
-        lib.flash_bwd_dq.argtypes = [P] * 7 + [I] * 8 + [F, I, P]
-        lib.flash_bwd_dkv.argtypes = [P] * 8 + [I] * 8 + [F, I, P]
-        lib.flash_bwd_group_sum.argtypes = [P] * 4 + [I] * 4 + [P]
-        lib.flash_bwd_tc.argtypes = [I, I]
-        fns = (lib.flash_bwd_dq, lib.flash_bwd_dkv, lib.flash_bwd_group_sum,
-               lib.flash_bwd_tc)
+        fns = bind_flash_bwd(lib)
         tiles = [(lib.flash_bwd_block_q, FLASH_BWD_BLOCK_Q),
                  (lib.flash_bwd_block_k, FLASH_BWD_BLOCK_K),
                  (lib.flash_bwd_tc_block_q, FLASH_BWD_TC_BLOCK_Q),
@@ -361,6 +358,22 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         check_bodies(name, getattr(lib, fn_name), wrappers)
     elif name == "ssd":
         check_ssd_bodies(lib.ssd_tc)
+
+
+def bind_flash_bwd(lib: ctypes.CDLL) -> tuple:
+    """Argument and result types of B7's and B8's C interface (unchanged
+    since their Hopper bodies came, so ``chip_smoke.py --attn-parent``
+    binds an earlier library with it too); returns the four functions."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_bwd_dq.argtypes = [P] * 7 + [I] * 8 + [F, I, P]
+    lib.flash_bwd_dkv.argtypes = [P] * 8 + [I] * 8 + [F, I, P]
+    lib.flash_bwd_group_sum.argtypes = [P] * 4 + [I] * 4 + [P]
+    lib.flash_bwd_tc.argtypes = [I, I]
+    fns = (lib.flash_bwd_dq, lib.flash_bwd_dkv, lib.flash_bwd_group_sum,
+           lib.flash_bwd_tc)
+    for fn in fns:
+        fn.restype = ctypes.c_int
+    return fns
 
 
 def bind_late(lib: ctypes.CDLL) -> tuple:
@@ -779,9 +792,10 @@ def launch_flash_dkv(q, k, v, dout, lse, delta, causal: bool, window: int,
     """B7: (dk, dv), each (b, sk, hkv, d) in k's type: the gradient of
     B6's attention for each KV head, summed over its query group, given
     the forward's lse and ``delta = rowsum(dout * out)``, both (b, hq, sq)
-    float32. bf16 at head_dim 64 or 128 runs the Hopper body (counted also
-    as ``flash_dkv_tc``); with a group above 1 it writes f32 partials per
-    query head, which :func:`launch_flash_dkv_group_sum` adds up."""
+    float32. bf16 at head_dim 64, 80 or 128 runs the Hopper body (counted
+    also as ``flash_dkv_tc``); with a group above 1 it writes f32
+    partials per query head, which :func:`launch_flash_dkv_group_sum`
+    adds up."""
     b, sq, sk, hq, hkv, d, is_bf16 = _flash_bwd_args(
         "flash_dkv", q, k, v, dout, lse, delta)
     tc = flash_bwd_tc(q.dtype, d)
@@ -835,7 +849,7 @@ def launch_flash_dkv_group_sum(dk_part, dv_part, hkv: int
 def launch_flash_dq(q, k, v, dout, lse, delta, causal: bool, window: int,
                     scale: float) -> torch.Tensor:
     """B8: dq (b, sq, hq, d) in q's type, with B7's arguments. bf16 at
-    head_dim 64 or 128 runs the Hopper body (counted also as
+    head_dim 64, 80 or 128 runs the Hopper body (counted also as
     ``flash_dq_tc``)."""
     b, sq, sk, hq, hkv, d, is_bf16 = _flash_bwd_args(
         "flash_dq", q, k, v, dout, lse, delta)

@@ -49,17 +49,17 @@ dropped by a floor-divided grid. The gradient does not depend on the
 tiles beyond summation order: a skipped pair's p is all zero. B7 and B8
 have two bodies each, chosen as B6's (``kernels.flash_bwd_tc``):
 
-- bf16 at head_dim 64 or 128: the Hopper bodies, wgmma products on
-  TMA-fed tiles. They round p to bf16 before ``pᵀ·dO`` and dS before
+- bf16 at head_dim 64, 80 or 128 (80: hubert-xlarge's training): the
+  Hopper bodies, wgmma products on TMA-fed tiles (a row of 80 as five
+  16-column tiles, which changes no product's value). They round p to bf16 before ``pᵀ·dO`` and dS before
   ``dSᵀ·q`` and ``dS·K`` (the tensor cores' operand type; the reference
   keeps both in float32), and B7 owns one query head per block: with a
   GQA group above 1 it writes float32 partials per query head, which
   ``flash_dkv_group_sum`` adds in head order
   (:func:`dkv_group_sum_plain`). The plain versions round and sum the
   same way for these inputs.
-- float32, and bf16 at head_dim 16, 32 or 80 (hubert-xlarge's
-  training): the SIMT bodies, float32 throughout, the group summed
-  inside B7's block.
+- float32 at every head_dim, and bf16 at head_dim 16 or 32: the SIMT
+  bodies, float32 throughout, the group summed inside B7's block.
 """
 from __future__ import annotations
 

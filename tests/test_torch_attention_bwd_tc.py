@@ -1,5 +1,5 @@
 """The Hopper bodies of the port's flash-attention backward (B7 and B8 for
-bf16 inputs at head_dim 64 and 128) against the reference package.
+bf16 inputs at head_dim 64, 80 and 128) against the reference package.
 
 On the CPU, ``flash_attention_bwd`` runs B7's and B8's plain versions;
 for these inputs they round p and dS to bf16 before the products that
@@ -12,13 +12,17 @@ Inputs are drawn with numpy from a seed and handed to both packages.
    ``flash_attention_bwd`` in interpret mode, in this process, on the
    port's lse and the same bf16 dO: head_dim 64, groups 1, 4 and 8,
    sq < sk off the port's 64-row tiles (the reference runs 32-row tiles,
-   which divide), a window, and not causal. Tolerance 2e-2 (relative and
+   which divide), a window, and not causal; head_dim 80 at hubert-xlarge's
+   layout (16/16 heads, not causal), groups 2 and 8, sq < sk off the
+   tiles and a window. Tolerance 2e-2 (relative and
    absolute): the reference keeps p and dS in float32, the port rounds
    each to bf16 (a relative error of at most 2^-9 in each term), and
    both outputs are bf16 (2^-9 again); the same limit holds the card's
    bf16 kernels to their plain versions (``chip_smoke.ATTN_TOL``).
 2. **Tiles** — other tiles change the plain gradient only by summation
-   order: within two bf16 units in the last place.
+   order: within two bf16 units in the last place. So does the padded
+   layout of head_dim 80 (zero columns up to 128, the head_dim-128
+   products, the first 80 columns kept).
 3. **Body choice and tiles** — ``flash_bwd_tc`` and the tile constants,
    and the load-time checks that hold the library to them.
 4. **The group sum** — a reduction in head order equals the plain
@@ -64,15 +68,28 @@ def _bwd(q, k, v, do, causal, window, **tiles):
 # ---------------------------------------------------------------------------
 # 1. Against the reference's Pallas backward (interpret mode)
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 1), (8, 1)])
-@pytest.mark.parametrize("sq,sk,causal,window", [
-    (96, 160, True, 0),       # sq < sk (q_offset 64), off the 64-row tiles
-    (128, 128, True, 40),     # a window
-    (64, 96, False, 0),       # not causal
-])
-def test_tc_plain_bwd_matches_reference_pallas(hq, hkv, sq, sk, causal,
+# (d, hq, hkv, sq, sk, causal, window): head_dim 64 at each (hq, hkv) and
+# (sq, sk, causal, window), then head_dim 80's cases
+PALLAS_CASES = [
+    pytest.param(64, hq, hkv, sq, sk, causal, window,
+                 id=f"{sq}-{sk}-{causal}-{window}-{hq}-{hkv}")
+    for sq, sk, causal, window in (
+        (96, 160, True, 0),       # sq < sk (q_offset 64), off the 64-row tiles
+        (128, 128, True, 40),     # a window
+        (64, 96, False, 0))       # not causal
+    for hq, hkv in ((4, 4), (4, 1), (8, 1))
+] + [
+    pytest.param(80, 16, 16, 128, 128, False, 0, id="d80-hubert"),
+    pytest.param(80, 4, 2, 96, 160, True, 0, id="d80-group2-offset"),
+    pytest.param(80, 8, 1, 96, 160, True, 0, id="d80-group8-offset"),
+    pytest.param(80, 8, 1, 128, 128, True, 40, id="d80-group8-window"),
+]
+
+
+@pytest.mark.parametrize("d,hq,hkv,sq,sk,causal,window", PALLAS_CASES)
+def test_tc_plain_bwd_matches_reference_pallas(d, hq, hkv, sq, sk, causal,
                                                window):
-    b, d = 1, 64
+    b = 1
     assert K.flash_bwd_tc(torch.bfloat16, d)
     q, k, v, do = _bf16(*_arrays(hq * 7 + sq + window, (b, sq, hq, d),
                                  (b, sk, hkv, d), (b, sk, hkv, d),
@@ -107,7 +124,8 @@ def test_tc_plain_rounds_p_and_ds():
 # ---------------------------------------------------------------------------
 # 2. Tiles change the gradient only by summation order
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("d,hq,hkv", [(64, 4, 2), (128, 8, 1)])
+@pytest.mark.parametrize("d,hq,hkv", [(64, 4, 2), (128, 8, 1), (80, 16, 16),
+                                     (80, 8, 1)])
 def test_tc_tiles_do_not_change_the_gradient(d, hq, hkv):
     """The plain versions on the Hopper body's 64 x 64 pairs and on 32 x 16
     pairs: p and dS are rounded element by element, a skipped pair's p is
@@ -123,15 +141,54 @@ def test_tc_tiles_do_not_change_the_gradient(d, hq, hkv):
                                    atol=1e-4)
 
 
+@pytest.mark.parametrize("hq,hkv,causal,window", [
+    (16, 16, False, 0),       # hubert-xlarge's layout
+    (8, 1, True, 40),         # a group of 8, a window
+])
+def test_tc_d80_equals_the_padded_layout(hq, hkv, causal, window):
+    """Where ``flash_bwd_tc`` holds at head_dim 80, its plain gradient is
+    the plain gradient of the same inputs zero-padded to head_dim 128 (the
+    padded layout's products, at 80's scale, lse and delta) with the first
+    80 columns kept: the zero columns add nothing to the scores, so only
+    the float32 sums' order differs — within two bf16 units in the last
+    place."""
+    d, pad = 80, 128
+    assert K.flash_bwd_tc(torch.bfloat16, d)
+    assert K.flash_bwd_tc(torch.bfloat16, pad)
+    q, k, v, do = _bf16(*_arrays(hq + window, (1, 96, hq, d), (1, 160, hkv, d),
+                                 (1, 160, hkv, d), (1, 96, hq, d)))
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    delta = FA.bwd_delta(out, do)
+    opts = dict(causal=causal, window=window, scale=d ** -0.5)
+
+    def padded(x):
+        return torch.nn.functional.pad(x, (0, pad - d)).contiguous()
+
+    wide = [padded(x) for x in (q, k, v, do)] + [lse, delta]
+    narrow = (q, k, v, do, lse, delta)
+    got = (FA.flash_attention_dq_plain(*narrow, **opts),
+           *FA.flash_attention_dkv_plain(*narrow, **opts))
+    want = (FA.flash_attention_dq_plain(*wide, **opts),
+            *FA.flash_attention_dkv_plain(*wide, **opts))
+    for x, y in zip(got, want):
+        assert x.shape[-1] == d and y.shape[-1] == pad
+        assert not y[..., d:].any()
+        torch.testing.assert_close(x.float(), y[..., :d].float(),
+                                   rtol=2 ** -7, atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # 3. Body choice and tiles
 # ---------------------------------------------------------------------------
 def test_tc_body_choice_and_tiles():
     for d in K.HEAD_DIMS:
-        assert K.flash_bwd_tc(torch.bfloat16, d) == (d in (64, 128))
+        assert K.flash_bwd_tc(torch.bfloat16, d) == (d in (64, 80, 128))
         assert not K.flash_bwd_tc(torch.float32, d)
+        # B6 keeps its SIMT body at head_dim 80
+        assert K.flash_fwd_tc(torch.bfloat16, d) == (d in (64, 128))
         want = (K.FLASH_BWD_TC_BLOCK_Q, K.FLASH_BWD_TC_BLOCK_K) \
-            if d in (64, 128) else (K.FLASH_BWD_BLOCK_Q, K.FLASH_BWD_BLOCK_K)
+            if d in (64, 80, 128) else (K.FLASH_BWD_BLOCK_Q,
+                                        K.FLASH_BWD_BLOCK_K)
         assert K.flash_bwd_tiles(torch.bfloat16, d) == want
         assert K.flash_bwd_tiles(torch.float32, d) == (K.FLASH_BWD_BLOCK_Q,
                                                        K.FLASH_BWD_BLOCK_K)
@@ -157,7 +214,7 @@ def _fake_bwd_library(**override):
     fns = dict(
         flash_bwd_dq=lambda *a: 0, flash_bwd_dkv=lambda *a: 0,
         flash_bwd_group_sum=lambda *a: 0,
-        flash_bwd_tc=lambda is_bf16, d: int(bool(is_bf16) and d in (64,
+        flash_bwd_tc=lambda is_bf16, d: int(bool(is_bf16) and d in (64, 80,
                                                                     128)),
         flash_bwd_block_q=lambda: 64, flash_bwd_block_k=lambda: 64,
         flash_bwd_tc_block_q=lambda: 64, flash_bwd_tc_block_k=lambda: 64)
@@ -175,6 +232,12 @@ def test_tc_library_checks_hold_the_wrappers():
     with pytest.raises(RuntimeError, match="body"):
         K._bind("flash_bwd", _fake_bwd_library(
             flash_bwd_tc=lambda is_bf16, d: int(bool(is_bf16))))
+    # a library whose Hopper bodies stop at 64/128 (an earlier build) is
+    # refused
+    with pytest.raises(RuntimeError, match="head_dim 80"):
+        K._bind("flash_bwd", _fake_bwd_library(
+            flash_bwd_tc=lambda is_bf16, d: int(bool(is_bf16) and d in (
+                64, 128))))
     with pytest.raises(RuntimeError, match="body"):
         K.check_bodies("flash", lambda is_bf16, d: 0, K.flash_fwd_tc)
 
@@ -252,6 +315,10 @@ TC_CASES = [
     (2, 64, 64, 4, 4, 64, False, 0),       # not causal, one block
     (1, 77, 256, 32, 8, 128, False, 40),   # a window without the band
     (1, 129, 129, 8, 2, 64, True, 0),      # one row and key past a block
+    # head_dim 80: five 16-column tiles
+    (2, 130, 130, 16, 16, 80, False, 0),   # hubert-xlarge's layout, ragged
+    (1, 200, 300, 16, 2, 80, True, 64),    # a group of 8, a window
+    (1, 77, 256, 8, 8, 80, False, 40),     # a window without the band
 ]
 
 
