@@ -10,10 +10,11 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    (timed, and each source's ``nvcc`` time): B1–B4 from
    ``src/repro_torch/accel/csrc/assess.cu``, B5 from ``csrc/bulk.cu``, B6
    from ``csrc/flash_attention.cu`` (its Hopper body for bf16 at head_dim
-   64/128 in ``csrc/flash_attention_sm90.cuh``, its SIMT body for the
+   64/80/128 in ``csrc/flash_attention_sm90.cuh``, its SIMT body for the
    rest), B7 and B8 from ``csrc/flash_attention_bwd.cu`` (their Hopper
-   bodies for bf16 at head_dim 64/128, with the GQA group sum, in
-   ``csrc/flash_attention_bwd_sm90.cuh``; the primitives the Hopper
+   bodies for bf16 at head_dim 64/80/128, with the GQA group sum, in
+   ``csrc/flash_attention_bwd_sm90.cuh``; the layout of a row the three
+   share in ``csrc/flash_rows_sm90.cuh``, the primitives the Hopper
    headers share in ``csrc/sm90_primitives.cuh``), B9 from
    ``csrc/decode_attention.cu`` (its split-KV kernel and the combine) and
    B10 from ``csrc/ssd.cu`` (its Hopper body for bf16 at head_dim and
@@ -88,13 +89,13 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    128 and 129, a q_offset off its 128-row tile, a window crossing a
    tile; for B9's split-KV body valid lengths at its 128-key split edges
    ±1, a ragged last split, groups of 48 and 64, head_dim 16; B6 at
-   head_dim 80, causal and not, on its SIMT body; B9 at head_dim 80 at
-   split and tile edges), within the
+   head_dim 80, causal and not, on its Hopper body in bf16 and its SIMT
+   body in f32; B9 at head_dim 80 at split and tile edges), within the
    tolerances of ``tests/test_kernels.py`` (bf16 2e-2, f32 2e-5; lse
    2e-5; B9's bf16 output within one bf16 unit, 2^-7 of itself, plus
    1e-2 of its sequence's RMS, which a combine that drops the last live
-   split must fail); every bf16 case at head_dim 64/128 counted once as
-   ``flash_fwd_tc``, no other; every B9 call one split launch and one
+   split must fail); every bf16 case at head_dim 64/80/128 counted once
+   as ``flash_fwd_tc``, no other; every B9 call one split launch and one
    combine; every B6 and B9 case launched twice gives byte-identical
    results. The same checks at the shapes the model-family paths (phase
    14) give B6 and B9: B6 over 4 x 2,048 positions at moonshot's 16/16,
@@ -104,11 +105,13 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    cache, valid lengths from the first decode step's to the last's.
    Then at the serving path's shapes, and B6
    also at Qwen1.5-0.5B's layer (the training path's) and at
-   hubert-xlarge's (head_dim 80, non-causal), and B9 at head_dim 80
-   (hubert's heads against the decode shape's cache), timed beside the
-   plain versions and ``F.scaled_dot_product_attention`` (the yardstick
-   only: the port never calls it), by CUDA events and, for B6 at the
-   training layer and B9, by device time (``_device_ms``).
+   hubert-xlarge's two (head_dim 80, non-causal, the Hopper body: its
+   serving forward, b 4 x 2,048, and its training microbatch, b 2 x
+   4,096; there B6's bf16 output is also held as B9's is, which a P.V
+   with p in fp8 must fail), and B9 at head_dim 80 (hubert's heads
+   against the decode shape's cache), timed beside the plain versions and
+   ``F.scaled_dot_product_attention`` (the yardstick only: the port never
+   calls it), by CUDA events and by device time (``_device_ms``).
 9. Serving path: Qwen3-8B at full width (36 layers, random
    bf16 weights from a seeded generator) serves 4 prompts of 2,048 token
    ids through ``make_prefill_step`` and 64 greedy steps of
@@ -220,7 +223,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      Mamba layer's final state within ``SSM_STATE_TOL``;
    - audio: hubert-xlarge at full width and depth (0.95 B parameters),
      ``forward`` over 4 x 2,048 frames: exactly 48 B6 launches,
-     non-causal at head_dim 80 on the SIMT body, no decode; the
+     non-causal at head_dim 80, all ``flash_fwd_tc``, no decode; the
      ``forward`` of an f32 copy of the weights within
      ``FAMILY_F32_TOL`` of the f32 reference (an fp8 probe must fail
      it);
@@ -234,12 +237,13 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    state freed before the next), ``make_train_step`` on random bf16
    weights from seed 0, a warm-up step and 3 timed steps of 4 sequences
    of 4,096 positions (step wall, tokens/s, peak memory, the bytes of
-   parameters and optimizer state, and a profiled step's busy share and
-   device time by kernel):
+   parameters and optimizer state, each timed step's collector pauses
+   and caching-allocator retries, device allocations and frees, and a
+   profiled step's busy share and device time by kernel):
    - audio: hubert-xlarge at full width and depth, 2 microbatches of 2 x
      4,096 frames, no remat: exactly 48 B6, B7 and B8 launches a
-     ``grad_fn`` call (head_dim 80), B6 on its SIMT body, B7 and B8 on
-     their Hopper bodies (48 ``flash_dkv_tc`` and 48 ``flash_dq_tc``), no
+     ``grad_fn`` call (head_dim 80), all three on their Hopper bodies
+     (48 ``flash_fwd_tc``, ``flash_dkv_tc`` and ``flash_dq_tc``), no
      group sum;
    - vlm: internvl2-2b at full width and depth, 2 microbatches of 2 x
      (256 patches + 3,840 tokens), remat "dots": 48 B6 (24 and 24 in the
@@ -278,10 +282,11 @@ fault-free run, its hosts' heartbeat silences and the collector's
 pauses) through the port under SRC, and ``--assess-parent
 PATH`` (B1 to B4 of an earlier ``assess.cu`` at PATH against this
 checkout's, in turns, at the main path's snapshot; B1 also at N = 64 and
-at 10,000 nodes), and ``--attn-parent DIR`` (B7 and B8 of an earlier
-``flash_attention_bwd.cu`` and its headers in DIR against this
-checkout's, in turns at hubert-xlarge's training layer, beside SDPA's
-backward).
+at 10,000 nodes), and ``--attn-parent DIR`` (B6, B7 and B8 of an
+earlier ``flash_attention.cu`` and ``flash_attention_bwd.cu`` and their
+headers in DIR against this checkout's, in turns: B6 at hubert-xlarge's
+serving and training layers beside SDPA's forward, B7 and B8 at its
+training layer beside SDPA's backward, and B7's and B8's bits compared).
 ``--family-train NAME`` runs one family training path (phase 15) alone;
 the full run takes the moe path this way, in a child process whose
 allocator maps expandable segments (``family_train_child``).
@@ -358,13 +363,14 @@ SERVE_CHECKS = (1, 16, 64)
 SERVE_TOL = 0.2
 # Attention kernels vs their plain versions (tests/test_kernels.py:21-23)
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
-# B9's bf16 output vs its plain version, tighter: both round a float32
-# result to bf16 once, so they differ by at most one unit in the last
-# place, 2^-7 of the value; values near 0 get 1e-2 of their sequence's
-# RMS. (ATTN_TOL's 2e-2 is about two thirds of a typical output at the
-# serving shape, whose RMS over 2,100 keys is about 0.03, and passes a
-# combine that drops a live split; this check must fail it.)
-DECODE_BF16_TOL = (2.0 ** -7, 1e-2)
+# B9's bf16 output, and B6's at hubert-xlarge's layers, vs the plain
+# version, tighter: both round a float32 result to bf16 once, so they
+# differ by at most one unit in the last place, 2^-7 of the value;
+# values near 0 get 1e-2 of their sequence's RMS. (ATTN_TOL's 2e-2 is
+# about two thirds of a typical output at these shapes, whose RMS over
+# 2,048-4,096 keys is about 0.03, and passes a combine that drops a live
+# split or a P.V with p in fp8; this check must fail both.)
+BF16_OUT_TOL = (2.0 ** -7, 1e-2)
 LSE_TOL = 2e-5
 
 WARMUP, REPS = 3, 50
@@ -1666,7 +1672,8 @@ FLASH_CASES = [
     (1, 129, 300, 48, 1, 128, True, 0),    # a group of 48, q_offset 171
     (2, 300, 300, 16, 4, 128, True, 0),    # a group of 4, ragged
     (1, 300, 300, 16, 16, 64, True, 100),  # a window crossing a tile
-    # head_dim 80 (hubert-xlarge), on the SIMT body in both types
+    # head_dim 80 (hubert-xlarge): in bf16 the Hopper body's five
+    # 16-column tiles a row, in f32 the SIMT body
     (1, 130, 130, 16, 16, 80, False, 0),   # the encoder's layout, ragged
     (2, 64, 64, 4, 4, 80, False, 0),       # exactly one tile
     (1, 100, 200, 8, 2, 80, True, 0),      # causal, GQA-4, q_offset 100
@@ -1691,9 +1698,11 @@ FLASH_SOURCE = "src/repro_torch/accel/csrc/flash_attention_sm90.cuh"
 # Qwen1.5-0.5B's attention layer, the training path's B6 shape: (b, s,
 # hq, hkv, d), causal, bf16.
 FLASH_TRAIN_SHAPE = (1, 2048, 16, 16, 64)
-# hubert-xlarge's attention layer as the audio path runs it: (b, s, hq,
-# hkv, d), non-causal, bf16, on the SIMT body.
+# hubert-xlarge's attention layer as the audio serving path runs it and
+# as its training path's microbatch does: (b, s, hq, hkv, d), non-causal,
+# bf16, on the Hopper body.
 FLASH_HD80_SHAPE = (4, 2048, 16, 16, 80)
+FLASH_HD80_TRAIN_SHAPE = (2, 4096, 16, 16, 80)
 DECODE_SOURCE = "src/repro_torch/accel/csrc/decode_attention.cu"
 FLASH_REPLACES = ("src/repro/kernels/flash_attention/flash_attention.py:38 "
                   "_fwd_kernel (pallas_call :141)")
@@ -1722,23 +1731,48 @@ def _within(what: str, got, want, tol: float) -> float:
     return err
 
 
-def _within_decode(what: str, got, want) -> float:
-    """max |got - want| of B9's bf16 output (b, hq, d); raises unless
-    |got - want| <= 2^-7 |want| + 1e-2 RMS(want over its sequence)
-    everywhere (``DECODE_BF16_TOL``; NaN where both are NaN counts as
-    equal)."""
-    rel, frac = DECODE_BF16_TOL
+def _within_bf16(what: str, got, want) -> float:
+    """max |got - want| of a bf16 attention output (b, ...): B9's (b, hq,
+    d) or B6's (b, s, hq, d); raises unless |got - want| <= 2^-7 |want| +
+    1e-2 RMS(want over its sequence) everywhere (``BF16_OUT_TOL``; NaN
+    where both are NaN counts as equal)."""
+    err, share = _bf16_share(got, want)
+    if not share <= 1.0 or err != err:
+        rel, frac = BF16_OUT_TOL
+        raise RuntimeError(f"{what}: kernel vs plain version max_abs_err "
+                           f"{err} ({share} of the limit), tolerance {rel} "
+                           f"|ref| + {frac} RMS")
+    return err
+
+
+def _bf16_share(got, want) -> tuple[float, float]:
+    """(max |got - want|, the largest share of its ``BF16_OUT_TOL`` limit
+    that one element's |got - want| takes) for :func:`_within_bf16`."""
+    rel, frac = BF16_OUT_TOL
     got, want = got.float(), want.float()
     both_nan = torch.isnan(got) & torch.isnan(want)
     diff = torch.where(both_nan, 0.0, (got - want).abs())
     w = want.nan_to_num()
     rms = w.pow(2).mean(dim=tuple(range(1, w.dim())), keepdim=True).sqrt()
-    ok = bool((diff <= rel * w.abs() + frac * rms).all())
-    err = float(diff.max()) if diff.numel() else 0.0
-    if not ok or err != err:
-        raise RuntimeError(f"{what}: kernel vs plain version max_abs_err "
-                           f"{err}, tolerance {rel} |ref| + {frac} RMS")
-    return err
+    limit = rel * w.abs() + frac * rms
+    share = torch.where(diff == 0.0, 0.0, diff / limit)
+    if not diff.numel():
+        return 0.0, 0.0
+    return float(diff.max()), float(share.max())
+
+
+def _pv_control(q, k, v, p_dtype):
+    """Non-causal attention (hq == hkv) over the whole row at once, with
+    p = exp(s - max) rounded to ``p_dtype`` before P.V and l summed from
+    the f32 p: with bf16 the plain version's rounding on other tiles,
+    with fp8 (e4m3) a lower-precision P.V that :func:`_within_bf16` must
+    fail."""
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+    s = qf @ kf.transpose(-1, -2) * q.shape[-1] ** -0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    del s
+    out = (p.to(p_dtype).float() @ vf) / p.sum(-1, keepdim=True)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def _causal_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
@@ -1769,6 +1803,90 @@ def _attn_row(name, ms, plain_ms, library_ms, bytes_, ops, dtype, err,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms, "bytes": bytes_, "ops": ops,
     }
+
+
+def _flash_hd80_row(shape, seed: int) -> dict:
+    """B6 at one of hubert-xlarge's layers (``shape`` = (b, s, hq, hkv,
+    80), non-causal, bf16): one launch on the Hopper body, the same bits
+    twice, within ``ATTN_TOL`` of the plain version (lse ``LSE_TOL``) and
+    within ``BF16_OUT_TOL`` of it, which :func:`_pv_control` with p in
+    fp8 must fail (with p in bf16 its reading is printed: the whole-row
+    softmax's own rounding, ungated). Then timed beside the
+    plain version and SDPA's forward by CUDA events and by device time.
+    Returns the row's numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch.accel import kernels as K
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    bf16 = torch.bfloat16
+    b, s, hq, hkv, d = shape
+    q, k, v = _randn(seed, bf16, (b, s, hq, d), (b, s, hkv, d),
+                     (b, s, hkv, d))
+    before = dict(K.launches)
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    got = {key: K.launches[key] - before[key]
+           for key in ("flash_fwd", "flash_fwd_tc")}
+    if got != {"flash_fwd": 1, "flash_fwd_tc": 1}:
+        raise RuntimeError(f"flash_fwd at head_dim 80 {shape}: launches "
+                           f"{got}, the Hopper body expected")
+    again = FA.flash_attention_fwd(q, k, v, causal=False)
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        raise RuntimeError(f"flash_fwd at head_dim 80 {shape}: two launches "
+                           f"differ")
+    what = f"flash_fwd at head_dim 80 {shape}"
+    pout, plse = FA.flash_attention_plain(q, k, v, causal=False)
+    err = _within(what, out, pout, ATTN_TOL[bf16])
+    _within(f"{what}, lse", lse, plse, LSE_TOL)
+    _within_bf16(what, out, pout)
+    share = _bf16_share(out, pout)[1]
+    ctl_err, ctl_share = _bf16_share(_pv_control(q, k, v, bf16), pout)
+    fp8 = _pv_control(q, k, v, torch.float8_e4m3fn)
+    fp8_err, fp8_share = _bf16_share(fp8, pout)
+    if fp8_share <= 1.0:
+        raise RuntimeError(f"{what}: a P.V with p in fp8 passes the bf16 "
+                           f"check (max_abs_err {fp8_err}, {fp8_share} of "
+                           f"the limit)")
+    try:
+        _within(f"{what}, P.V control in fp8", fp8, pout, ATTN_TOL[bf16])
+        fp8_in_attn_tol = True
+    except RuntimeError:
+        fp8_in_attn_tol = False
+    print(f"{what} vs the plain version: max_abs_err {err}, {share} of the "
+          f"bf16 check's limit; P.V control in bf16 {ctl_err} ({ctl_share} "
+          f"of the limit); in fp8 {fp8_err} ({fp8_share} of the limit, "
+          f"fails it as it must; within ATTN_TOL: {fp8_in_attn_tol})",
+          flush=True)
+    del again, pout, plse, fp8
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+
+    def b6(q, k, v):
+        return FA.flash_attention_fwd(q, k, v, causal=False)
+
+    def plain(q, k, v):
+        return FA.flash_attention_plain(q, k, v, causal=False)
+
+    lib_err = float((sdpa().transpose(1, 2).float() - out.float())
+                    .abs().max())
+    row = _attn_row(
+        f"flash_fwd (head_dim 80, {shape})", _time_ms(b6, (q, k, v)),
+        _time_ms(plain, (q, k, v), reps=3), _time_ms(sdpa, ()),
+        sum(_nbytes(x) for x in (q, k, v, out, lse)),
+        4.0 * b * hq * d * s * s, bf16, err, FLASH_SOURCE, FLASH_REPLACES)
+    return {"shape": list(shape), "ms": row["ms"],
+            "device_ms": _device_ms(b6, (q, k, v)),
+            "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+            "library_device_ms": _device_ms(sdpa, ()),
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "max_abs_err": err, "library_max_abs_err": lib_err,
+            "bf16_check_share": share, "bf16_control_share": ctl_share,
+            "fp8_control_max_abs_err": fp8_err,
+            "fp8_control_share": fp8_share,
+            "fp8_control_within_attn_tol": fp8_in_attn_tol}
 
 
 def attention_kernel_phase():
@@ -1825,13 +1943,13 @@ def attention_kernel_phase():
                                    f"on the same inputs differ")
             want = DA.decode_attention_plain(q, k, v, vl)
             if dtype == torch.bfloat16:
-                _within_decode(f"decode {case} {dtype}", out, want)
+                _within_bf16(f"decode {case} {dtype}", out, want)
             else:
                 _within(f"decode {case} {dtype}", out, want, tol)
     torch.cuda.synchronize()
     print(f"attention boundary inputs: B6 ({len(FLASH_CASES)} cases, each "
           f"launched twice with byte-identical results, bf16 at head_dim "
-          f"64/128 on the Hopper body) and B9 ({len(DECODE_CASES)} cases, "
+          f"64/80/128 on the Hopper body) and B9 ({len(DECODE_CASES)} cases, "
           f"the split kernel and its combine launched once a call, each "
           f"call twice with byte-identical results) within tolerance of "
           f"their plain versions in float32 and bf16", flush=True)
@@ -1916,59 +2034,20 @@ def attention_kernel_phase():
           f"{train['library_ms']:.6f} ms", flush=True)
     del q, k, v, out, lse, pout, plse, qt, kt, vt
 
-    # B6 at hubert-xlarge's layer (head_dim 80, non-causal, SIMT body)
-    hb, hs, hhq, hhkv, hd = FLASH_HD80_SHAPE
-    q, k, v = _randn(103, bf16, (hb, hs, hhq, hd), (hb, hs, hhkv, hd),
-                     (hb, hs, hhkv, hd))
-    before = dict(K.launches)
-    out, lse = FA.flash_attention_fwd(q, k, v, causal=False)
-    torch.cuda.synchronize()
-    got = {key: K.launches[key] - before[key]
-           for key in ("flash_fwd", "flash_fwd_tc")}
-    if got != {"flash_fwd": 1, "flash_fwd_tc": 0}:
-        raise RuntimeError(f"flash_fwd at head_dim 80: launches {got}, the "
-                           f"SIMT body expected")
-    again = FA.flash_attention_fwd(q, k, v, causal=False)
-    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
-        raise RuntimeError("flash_fwd at head_dim 80: two launches differ")
-    pout, plse = FA.flash_attention_plain(q, k, v, causal=False)
-    h_err = _within("flash_fwd at head_dim 80", out, pout, ATTN_TOL[bf16])
-    _within("flash_fwd lse at head_dim 80", lse, plse, LSE_TOL)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-
-    def sdpa_hd80():
-        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
-
-    def b6_hd80(q, k, v):
-        return FA.flash_attention_fwd(q, k, v, causal=False)
-
-    def plain_hd80(q, k, v):
-        return FA.flash_attention_plain(q, k, v, causal=False)
-
-    h_lib_err = float((sdpa_hd80().transpose(1, 2).float()
-                       - out.float()).abs().max())
-    hd80 = _attn_row(
-        "flash_fwd (head_dim 80)", _time_ms(b6_hd80, (q, k, v)),
-        _time_ms(plain_hd80, (q, k, v), reps=3),
-        _time_ms(sdpa_hd80, ()), sum(_nbytes(x) for x in (q, k, v, out, lse)),
-        4.0 * hb * hhq * hd * hs * hs, bf16, h_err, FLASH_SOURCE,
-        FLASH_REPLACES)
-    hd80_dev = _device_ms(b6_hd80, (q, k, v))
-    hd80_lib_dev = _device_ms(sdpa_hd80, ())
-    rows["flash_fwd"].update(
-        hd80_shape=list(FLASH_HD80_SHAPE), hd80_ms=hd80["ms"],
-        hd80_device_ms=hd80_dev, hd80_plain_ms=hd80["plain_ms"],
-        hd80_library_ms=hd80["library_ms"],
-        hd80_library_device_ms=hd80_lib_dev,
-        hd80_bound_ms=hd80["bound_ms"], hd80_bound_by=hd80["bound_by"],
-        hd80_max_abs_err=h_err)
-    print(f"flash_fwd at head_dim 80 {FLASH_HD80_SHAPE} (non-causal, SIMT "
-          f"body): device time {hd80_dev:.6f} ms per call, SDPA's "
-          f"{hd80_lib_dev:.6f} ms (events behind a sleep kernel); event time "
-          f"{hd80['ms']:.6f} and {hd80['library_ms']:.6f} ms; bound "
-          f"{hd80['bound_ms']:.6f} ms ({hd80['bound_by']}); vs SDPA "
-          f"max_abs_err {h_lib_err}", flush=True)
-    del q, k, v, out, lse, pout, plse, qt, kt, vt
+    # B6 at hubert-xlarge's layers (head_dim 80, non-causal, the Hopper
+    # body): the audio serving path's and its training path's microbatch
+    for tag, shape, seed in (("hd80", FLASH_HD80_SHAPE, 103),
+                             ("hd80_train", FLASH_HD80_TRAIN_SHAPE, 105)):
+        row = _flash_hd80_row(shape, seed)
+        rows["flash_fwd"].update(
+            {f"{tag}_{key}": val for key, val in row.items()})
+        print(f"flash_fwd at head_dim 80 {shape} (non-causal, Hopper body):"
+              f" device time {row['device_ms']:.6f} ms per call, SDPA's "
+              f"{row['library_device_ms']:.6f} ms (events behind a sleep "
+              f"kernel); event time {row['ms']:.6f} and "
+              f"{row['library_ms']:.6f} ms; bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']}); vs SDPA max_abs_err "
+              f"{row['library_max_abs_err']}", flush=True)
 
     # B9 at the decode shape: a 4,096-slot cache filled to 2,100
     n = 2100
@@ -1981,13 +2060,13 @@ def attention_kernel_phase():
     if K.launches["decode"] != before + 1:
         raise RuntimeError("decode: the wrapper did not launch")
     want = DA.decode_attention_plain(q, k, v, vl)
-    err = _within_decode("decode at the serving shape", out, want)
+    err = _within_bf16("decode at the serving shape", out, want)
     # a planted fault: a combine that skips the last live split gives the
     # attention over the keys before that split; it must fail the check
     cut = (vl - 1) // DA.SPLIT * DA.SPLIT
     dropped = DA.decode_attention_plain(q, k, v, cut)
     try:
-        _within_decode("decode, last live split dropped", dropped, want)
+        _within_bf16("decode, last live split dropped", dropped, want)
     except RuntimeError as e:
         print(f"decode probe (the last live split dropped) fails the bf16 "
               f"check, as it must: {e}", flush=True)
@@ -2033,7 +2112,7 @@ def attention_kernel_phase():
     out = DA.decode_attention_fwd(q, k, v, vl)
     if not _same_bits(out, DA.decode_attention_fwd(q, k, v, vl)):
         raise RuntimeError("decode at head_dim 80: two launches differ")
-    h_err = _within_decode("decode at head_dim 80",
+    h_err = _within_bf16("decode at head_dim 80",
                            out, DA.decode_attention_plain(q, k, v, vl))
     q4 = q[:, :, None].contiguous()
     k4, v4 = (x[:, :n].transpose(1, 2).contiguous() for x in (k, v))
@@ -3682,7 +3761,7 @@ def family_attention_checks() -> None:
     decoder's heads against a FAMILY_MAX_LEN-slot cache, valid lengths
     from the first decode step's to the last's. Each call twice with the
     same bits; B6 within ATTN_TOL and LSE_TOL, B9 within one bf16 unit
-    and 1e-2 of the RMS (``_within_decode``)."""
+    and 1e-2 of the RMS (``_within_bf16``)."""
     from repro_torch.accel import kernels as K
     from repro_torch.kernels.decode_attention import decode_attention as DA
     from repro_torch.kernels.flash_attention import flash_attention as FA
@@ -3735,7 +3814,7 @@ def family_attention_checks() -> None:
             raise RuntimeError(f"{what}: launches {got}")
         if not _same_bits(out, DA.decode_attention_fwd(q, k, v, vl)):
             raise RuntimeError(f"{what}: two launches differ")
-        err = _within_decode(what, out, DA.decode_attention_plain(q, k, v,
+        err = _within_bf16(what, out, DA.decode_attention_plain(q, k, v,
                                                                    vl))
         done.append(f"B9 {name} ({B}, {FAMILY_MAX_LEN} slots, {hq}/{hkv}, "
                     f"{d}, valid {vl.tolist()}) {err}")
@@ -4305,8 +4384,8 @@ def family_f32_check(tag, cfg, params, batch, ref) -> None:
 # 4 sequences of train_4k's 4,096 positions (configs/base.py:269-285).
 # - audio: hubert-xlarge at full width and depth, 2 microbatches of 2 x
 #   4,096 frames of 512 features, labels over its 504 entries, no remat;
-#   48 B6, B7 and B8 a grad_fn call (head_dim 80): B6 on its SIMT body,
-#   B7 and B8 on their Hopper bodies, no group sum (16/16 heads).
+#   48 B6, B7 and B8 a grad_fn call (head_dim 80), all on their Hopper
+#   bodies, no group sum (16/16 heads).
 # - vlm: internvl2-2b at full width and depth, 2 microbatches of 2
 #   sequences of 256 patch features (1,024-d) then 3,840 tokens, labels
 #   over all 4,096 positions, remat "dots": 24 B7 and B8 and 24 group
@@ -4680,6 +4759,31 @@ def _leaf_marks(params) -> dict:
     return out
 
 
+def _gc_timer(pauses: list):
+    """A ``gc.callbacks`` entry that appends each collection's (seconds,
+    generation) to ``pauses``."""
+    t0 = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+        else:
+            pauses.append((time.perf_counter() - t0[0], info["generation"]))
+    return on_gc
+
+
+def _alloc_counts(on_card: bool) -> dict:
+    """The caching allocator's retries (a cache flush and a second try),
+    device allocations and frees so far (``torch.cuda.memory_stats``);
+    empty off the card."""
+    if not on_card:
+        return {}
+    stats = torch.cuda.memory_stats()
+    return {k: stats.get(k, 0) for k in ("num_alloc_retries",
+                                         "num_device_alloc",
+                                         "num_device_free")}
+
+
 def _profile_train_step(tag, step_fn):
     """One training step under the profiler (device activity only): its
     wall, the device's busy share of it and the device time by kernel;
@@ -4779,18 +4883,29 @@ def family_train_path(name: str, cfg=None, device="cuda",
         _sync(device)
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        walls = []
-        for s in range(1, 1 + steps):
-            if on_card and s == steps:
-                (state, metrics), wall = _profile_train_step(
-                    tag, lambda: step_fn(state, batches[s]))
-            else:
-                t0 = time.perf_counter()
-                state, metrics = step_fn(state, batches[s])
-                _sync(device)
-                wall = time.perf_counter() - t0
-            walls.append(wall)
-            losses.append(float(metrics["loss"]))
+        walls, stalls, gc_pauses = [], [], []
+        gc_timer = _gc_timer(gc_pauses)
+        gc.callbacks.append(gc_timer)
+        try:
+            for s in range(1, 1 + steps):
+                n_gc, alloc = len(gc_pauses), _alloc_counts(on_card)
+                if on_card and s == steps:
+                    (state, metrics), wall = _profile_train_step(
+                        tag, lambda: step_fn(state, batches[s]))
+                else:
+                    t0 = time.perf_counter()
+                    state, metrics = step_fn(state, batches[s])
+                    _sync(device)
+                    wall = time.perf_counter() - t0
+                walls.append(wall)
+                mine = gc_pauses[n_gc:]
+                stalls.append({"gc": len(mine), "gc_longest_s": round(
+                    max((x for x, _gen in mine), default=0.0), 6), **{
+                    k: v - alloc[k]
+                    for k, v in _alloc_counts(on_card).items()}})
+                losses.append(float(metrics["loss"]))
+        finally:
+            gc.callbacks.remove(gc_timer)
     peak = torch.cuda.max_memory_allocated() if on_card else None
     step_counts = {k: K.launches[k] - before[k] for k in ATTN_KEYS}
     want_steps = {k: v * n_mb * (1 + steps)
@@ -4799,6 +4914,9 @@ def family_train_path(name: str, cfg=None, device="cuda",
     want = {k: made[k] + want_steps[k] for k in ATTN_KEYS}
     others = {k: c for k, c in counts.items() if k not in want and c}
     tokens = n_seq * seq
+    print(f"{tag}: by timed step, the collector's pauses and the caching "
+          f"allocator's retries, device allocations and frees: {stalls}",
+          flush=True)
     print(f"{tag}: step walls {[round(w, 6) for w in walls]} s (the last "
           f"profiled), mean of the unprofiled "
           f"{np.mean(walls[:-1] if len(walls) > 1 else walls):.6f} s "
@@ -4888,8 +5006,9 @@ HOPPER_KERNELS = ("sm90", "group_sum", "decode_split", "decode_combine",
 def print_resource_usage(libs) -> None:
     """Registers and stack bytes (spills) of each Hopper kernel and of
     B1's to B4's, as ``cuobjdump -res-usage`` reads them from the built
-    libraries (B7's and B8's Hopper bodies at head_dim 64, 80 and 128
-    among them: ``flash_d*_sm90_kernel<D, ...>``)."""
+    libraries (B6's, B7's and B8's Hopper bodies at head_dim 64, 80 and
+    128 among them: ``flash_fwd_sm90_kernel<D>``,
+    ``flash_d*_sm90_kernel<D, ...>``)."""
     for name in ("assess", "flash", "flash_bwd", "decode", "ssd"):
         _print_resources(name, libs[name])
 
@@ -5249,38 +5368,58 @@ def assess_parent(source: str) -> None:
           f"parent {verdict}", flush=True)
 
 
-# The --attn-parent mode: B7 and B8 at this layout (BWD_SHAPES), the
-# parent's and this checkout's in turns: parent, change, change, parent.
+# The --attn-parent mode: B6 at hubert-xlarge's serving and training
+# layers and at the serving and training paths' (head_dim 128 and 64,
+# causal), B7 and B8 at hubert's training layer (BWD_SHAPES), the parent's
+# and this checkout's in turns: parent, change, change, parent.
 ATTN_PARENT_ARCH = "hubert-xlarge"
+ATTN_PARENT_FWD = {
+    "hubert-xlarge serving": (FLASH_HD80_SHAPE, False),
+    "hubert-xlarge training": (FLASH_HD80_TRAIN_SHAPE, False),
+    "qwen3-8b prefill": ((SERVE_BATCH, SERVE_PROMPT, 32, 8, 128), True),
+    "qwen1.5-0.5b training": (FLASH_TRAIN_SHAPE, True),
+}
+ATTN_PARENT_TURNS = ("parent", "change", "change", "parent")
+# B7's and B8's bits, parent against change, at every head_dim their Hopper
+# bodies take (a group of 1 and one above 1, windows, ragged tiles).
+ATTN_PARENT_BITS_CASES = [c for c in BWD_CASES if c[5] in (64, 80, 128)]
 
 
 @contextlib.contextmanager
-def _flash_bwd_library(lib):
-    """This checkout's B7/B8 wrappers launching the kernels of ``lib``."""
+def _flash_libraries(libs: dict):
+    """This checkout's B6-B8 wrappers launching the kernels of ``libs``
+    (``{"flash": lib, "flash_bwd": lib}``)."""
     from repro_torch.accel import kernels as K
 
-    own = K._libs["flash_bwd"]
-    K._libs["flash_bwd"] = lib
+    own = {name: K._libs[name] for name in libs}
+    K._libs.update(libs)
     try:
         yield
     finally:
-        K._libs["flash_bwd"] = own
+        K._libs.update(own)
 
 
 def attn_parent(source_dir: str) -> None:
-    """B7 and B8 of an earlier ``flash_attention_bwd.cu`` (with its
-    headers, in ``source_dir``) against this checkout's, at
-    hubert-xlarge's training layer (:data:`BWD_SHAPES`, bf16), in one
-    process: each library launched twice the same bits and within
-    ``ATTN_TOL`` of the plain versions, then timed in turns (parent,
-    change, change, parent) by device time and the host's time per call
-    (:func:`_device_host`) and by CUDA events, beside SDPA's backward by
-    device time before and after. The parent runs through this checkout's
-    wrappers, swapped in for the call: the layout has no GQA group, so an
-    earlier wrapper allocated the same outputs. Both libraries' kernels'
-    registers and stack are printed. Run as ``chip_smoke.py --attn-parent
-    DIR`` with DIR the earlier ``accel/csrc``, e.g. after ``git archive
-    HEAD src/repro_torch/accel/csrc | tar -x -C build/parent``:
+    """B6, B7 and B8 of an earlier ``flash_attention.cu`` and
+    ``flash_attention_bwd.cu`` (with their headers, in ``source_dir``)
+    against this checkout's, in one process. B6 at the layers of
+    :data:`ATTN_PARENT_FWD` (bf16), B7 and B8 at hubert-xlarge's
+    training layer (:data:`BWD_SHAPES`): each library launched
+    twice the same bits and within ``ATTN_TOL`` of the plain versions (B6's
+    lse within ``LSE_TOL``; the parent's body may round p otherwise),
+    then timed in turns (parent, change, change, parent) by device time
+    and the host's time per call (:func:`_device_host`) and by CUDA
+    events, beside SDPA's forward or backward by device time before and
+    after. B7's and B8's outputs of the two libraries are also compared
+    bit for bit at hubert's layer and on :data:`ATTN_PARENT_BITS_CASES`
+    (printed, not gated: a parent with other arithmetic differs).
+    The parent runs through this checkout's wrappers, swapped in for the
+    call: the C interfaces are unchanged since the Hopper bodies came,
+    and B7/B8's timed layout has no GQA group, so an earlier wrapper
+    allocated the same outputs. Both libraries' kernels' registers and
+    stack are printed. Run as ``chip_smoke.py --attn-parent DIR`` with DIR the
+    earlier ``accel/csrc``, e.g. after ``git archive HEAD
+    src/repro_torch/accel/csrc | tar -x -C build/parent``:
     ``build/parent/src/repro_torch/accel/csrc``."""
     import ctypes
 
@@ -5292,22 +5431,95 @@ def attn_parent(source_dir: str) -> None:
     libs = K.build()
     for name in ("flash", "flash_bwd"):
         K.library(name)
-    _print_resources("flash_bwd", libs["flash_bwd"])
+        _print_resources(name, libs[name])
     out_dir = ROOT / "build" / "parent_kernels"
     out_dir.mkdir(parents=True, exist_ok=True)
-    path = out_dir / "libflash_bwd_parent.so"
     t0 = time.perf_counter()
-    subprocess.run([K.nvcc(), *K.FLAGS["flash_bwd"], "-o", str(path),
-                    str(Path(source_dir) / "flash_attention_bwd.cu")],
-                   check=True)
+    procs = {}
+    for name in ("flash", "flash_bwd"):
+        path = out_dir / f"lib{name}_parent.so"
+        procs[name] = (path, subprocess.Popen(
+            [K.nvcc(), *K.FLAGS[name], "-o", str(path),
+             str(Path(source_dir) / K.SOURCES[name].name)]))
+    for name, (path, proc) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"attn parent: nvcc failed for {name}")
     print(f"attn parent: built in {time.perf_counter() - t0:.3f} s",
           flush=True)
-    _print_resources("parent", path)
-    parent = ctypes.CDLL(str(path))
-    K.bind_flash_bwd(parent)
-    found = {"parent": parent, "change": K._libs["flash_bwd"]}
-
+    parent = {}
+    for name, (path, _proc) in procs.items():
+        _print_resources(f"parent {name}", path)
+        parent[name] = ctypes.CDLL(str(path))
+    K.bind_flash_fwd(parent["flash"])
+    K.bind_flash_bwd(parent["flash_bwd"])
+    found = {"parent": parent,
+             "change": {name: K._libs[name] for name in parent}}
     bf16 = torch.bfloat16
+
+    # B6 at each layer of ATTN_PARENT_FWD
+    fwd = {}
+    for seed, (name, (shape, causal)) in enumerate(ATTN_PARENT_FWD.items(),
+                                                   310):
+        b, s, hq, hkv, d = shape
+        q, k, v = _randn(seed, bf16, (b, s, hq, d), (b, s, hkv, d),
+                         (b, s, hkv, d))
+        kargs = (q, k, v, causal, 0, d ** -0.5)
+        pout, plse = FA.flash_attention_plain(q, k, v, causal=causal)
+        errs = {}
+        for label, found_libs in found.items():
+            with _flash_libraries(found_libs):
+                runs = [K.launch_flash_fwd(*kargs) for _ in range(2)]
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(*runs)):
+                raise RuntimeError(f"attn parent {label} flash_fwd {name}: "
+                                   f"two launches on the same inputs differ")
+            errs[label] = _within(f"attn parent {label} flash_fwd {name}",
+                                  runs[0][0], pout, ATTN_TOL[bf16])
+            _within(f"attn parent {label} flash_fwd lse {name}", runs[0][1],
+                    plse, LSE_TOL)
+        del pout, plse, runs
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+
+        sdpa = [_device_ms(sdpa_fwd, ())]
+        times = {label: [] for label in found}
+        for label in ATTN_PARENT_TURNS:
+            with _flash_libraries(found[label]):
+                dev, host = _device_host(K.launch_flash_fwd, kargs)
+                times[label].append({"device_ms": dev, "host_us": host,
+                                     "ms": _time_ms(K.launch_flash_fwd,
+                                                    kargs)})
+        sdpa.append(_device_ms(sdpa_fwd, ()))
+        ops = 4.0 * b * hq * d * _causal_pairs(s, s, causal, 0)
+        fwd[name] = {"shape": list(shape), "causal": causal, "times": times,
+                     "sdpa_fwd_device_ms": sdpa,
+                     "bound_ms": ops / BF16_OPS_PER_S * 1e3,
+                     "max_abs_err": errs}
+        del q, k, v, qt, kt, vt
+    print("attn parent vs change, flash_fwd (bf16): " + json.dumps(
+        {"turns": ATTN_PARENT_TURNS, "layers": fwd}), flush=True)
+
+    # B7 and B8: the same bits as the parent's?
+    def bwd_outputs(label, args, causal, window):
+        scale = args[0].shape[-1] ** -0.5
+        with _flash_libraries(found[label]):
+            return (*K.launch_flash_dkv(*args, causal, window, scale),
+                    K.launch_flash_dq(*args, causal, window, scale))
+
+    same = {}
+    for seed, case in enumerate(ATTN_PARENT_BITS_CASES, 320):
+        b, sq, sk, hq, hkv, d, causal, window = case
+        args = _bwd_case(seed, bf16, b, sq, sk, hq, hkv, d, causal, window)
+        outs = [bwd_outputs(label, args, causal, window)
+                for label in ("parent", "change")]
+        same[str(case)] = all(torch.equal(x, y) for x, y in zip(*outs))
+    print(f"attn parent vs change, B7 and B8 the same bits: "
+          f"{json.dumps(same)}", flush=True)
+
     b, s, hq, hkv, d, causal = BWD_SHAPES[ATTN_PARENT_ARCH]
     if hq != hkv:
         raise ValueError("--attn-parent times a layout without a GQA group")
@@ -5315,11 +5527,11 @@ def attn_parent(source_dir: str) -> None:
     q, k, v, do = args[:4]
     scale = d ** -0.5
     kargs = (*args, causal, 0, scale)
-    pdk, pdv = FA.flash_attention_dkv_plain(*args, causal=causal)
-    pdq = FA.flash_attention_dq_plain(*args, causal=causal)
-    errs = {}
-    for label, lib in found.items():
-        with _flash_bwd_library(lib):
+    pdk, pdv, pdq = (*FA.flash_attention_dkv_plain(*args, causal=causal),
+                     FA.flash_attention_dq_plain(*args, causal=causal))
+    errs, firsts = {}, {}
+    for label, found_libs in found.items():
+        with _flash_libraries(found_libs):
             runs = [(*K.launch_flash_dkv(*kargs), K.launch_flash_dq(*kargs))
                     for _ in range(2)]
         torch.cuda.synchronize()
@@ -5330,7 +5542,10 @@ def attn_parent(source_dir: str) -> None:
                                      want, ATTN_TOL[bf16])
                        for name, got, want in zip(
                            ("dk", "dv", "dq"), runs[0], (pdk, pdv, pdq))}
-    del pdk, pdv, pdq, runs
+        firsts[label] = runs[0]
+    same_layer = all(torch.equal(x, y)
+                     for x, y in zip(firsts["parent"], firsts["change"]))
+    del pdk, pdv, pdq, runs, firsts
     qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_()
                   for x in (q, k, v))
     o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
@@ -5341,11 +5556,10 @@ def attn_parent(source_dir: str) -> None:
                                    retain_graph=True)
 
     sdpa = [_device_ms(sdpa_bwd, ())]
-    turns = ["parent", "change", "change", "parent"]
     times = {label: [] for label in found}
-    for label in turns:
+    for label in ATTN_PARENT_TURNS:
         row = {}
-        with _flash_bwd_library(found[label]):
+        with _flash_libraries(found[label]):
             for name, fn in (("dkv", K.launch_flash_dkv),
                              ("dq", K.launch_flash_dq)):
                 row[f"{name}_device_ms"], row[f"{name}_host_us"] = \
@@ -5358,8 +5572,9 @@ def attn_parent(source_dir: str) -> None:
              "dq": 3 * flops / BF16_OPS_PER_S * 1e3}
     print(f"attn parent vs change at {ATTN_PARENT_ARCH}'s layout (b {b}, s "
           f"{s}, {hq}/{hkv} heads, d {d}, bf16): " + json.dumps({
-              "turns": turns, "times": times, "sdpa_bwd_device_ms": sdpa,
-              "bound_ms": bound, "max_abs_err": errs}), flush=True)
+              "turns": ATTN_PARENT_TURNS, "times": times,
+              "sdpa_bwd_device_ms": sdpa, "bound_ms": bound,
+              "max_abs_err": errs, "same_bits": same_layer}), flush=True)
 
 
 TRAIN_WALL_RUNS = 3
@@ -5428,7 +5643,7 @@ class _HeartbeatWatch:
 
         self._cls, self._orig = C.Coordinator, C.Coordinator._on_heartbeat
         self.silences, self.pauses = {}, []
-        last, lock, orig, t0 = {}, threading.Lock(), self._orig, [0.0]
+        last, lock, orig = {}, threading.Lock(), self._orig
 
         def on_heartbeat(coord, host_id, now):
             with lock:
@@ -5438,16 +5653,9 @@ class _HeartbeatWatch:
                 last[host_id] = now
             orig(coord, host_id, now)
 
-        def on_gc(phase, info):
-            if phase == "start":
-                t0[0] = time.perf_counter()
-            else:
-                self.pauses.append((time.perf_counter() - t0[0],
-                                    info["generation"]))
-
-        self._on_gc = on_gc
+        self._on_gc = _gc_timer(self.pauses)
         C.Coordinator._on_heartbeat = on_heartbeat
-        gc.callbacks.append(on_gc)
+        gc.callbacks.append(self._on_gc)
 
     def stop(self) -> None:
         """Stop timing the collector and leave runtimes created from now

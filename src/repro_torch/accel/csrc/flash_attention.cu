@@ -8,14 +8,15 @@
 //
 // Two bodies; the C entry point flash_fwd picks one from the dtype and
 // head_dim alone, never from a failure:
-//   - bf16 with head_dim 64 or 128 (every attention layer of the serving
-//     and training paths): the Hopper body of flash_attention_sm90.cuh,
-//     wgmma tensor-core products on TMA-fed tiles of 128 x 128, p rounded
-//     to bf16 before P.V (its note says why and what bounds it);
-//   - float32, and bf16 with head_dim 16, 32 or 80: the SIMT body below,
-//     float32 FMAs on 64 x 64 tiles. It keeps the reference's f32
-//     arithmetic (q, k and v upcast before both dots, p in f32); TF32
-//     tensor cores would miss the f32 limits.
+//   - bf16 with head_dim 64, 80 or 128 (every attention layer of the
+//     serving and training paths; 80 is hubert-xlarge's): the Hopper body
+//     of flash_attention_sm90.cuh, wgmma tensor-core products on TMA-fed
+//     tiles of 128 x 128, p rounded to bf16 before P.V (its note says why
+//     and what bounds it);
+//   - float32 at every head_dim, and bf16 with head_dim 16 or 32: the
+//     SIMT body below, float32 FMAs on 64 x 64 tiles. It keeps the
+//     reference's f32 arithmetic (q, k and v upcast before both dots, p
+//     in f32); TF32 tensor cores would miss the f32 limits.
 //
 // The SIMT body. What bounds it on an H100: at the serving path's
 // prefill shape (b 4, sq = sk = 2048, 32 query heads over 8 KV heads,
@@ -23,7 +24,7 @@
 // against about 169 MB of traffic, so arithmetic bounds it; this body
 // does not reach the tensor cores, so the f32 rate outside them (67
 // TFLOP/s) does: about 5.30 ms there (PERF.md), which is why bf16 at
-// head_dim 64/128 takes the Hopper body.
+// head_dim 64, 80 and 128 takes the Hopper body.
 //
 // Design. One block of 256 threads per (query tile of 64 rows, query
 // head, batch). The block loops over KV tiles of 64 keys staged in
@@ -257,14 +258,13 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* out,
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window, scale, stream);
     case 32: return launch<T, 32>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window, scale, stream);
-    // hubert-xlarge's layers (1280 / 16 heads); 80 is no 128-byte swizzle
-    // width, so bf16 at 80 stays on this body too
-    case 80: return launch<T, 80>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window, scale, stream);
   }
-  // bf16 at head_dim 64 and 128 runs the Hopper body (flash_fwd)
+  // bf16 at head_dim 64, 80 and 128 runs the Hopper body (flash_fwd)
   if constexpr (std::is_same<T, float>::value) {
     switch (d) {
       case 64: return launch<T, 64>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window, scale, stream);
+      // hubert-xlarge's layers (1,280 over 16 heads)
+      case 80: return launch<T, 80>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window, scale, stream);
       case 128: return launch<T, 128>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window, scale, stream);
     }
   }

@@ -23,22 +23,16 @@
 // A consumer's pairs of (query tile, KV tile) are 64 x 64 and skip with
 // the reference's static conditions (:184-189) at those tiles, the same
 // pairs the plain versions walk. Every product is one of two operand
-// shapes (the 128- or 32-byte-swizzled tiles of sm90_primitives.cuh):
+// shapes (over the rows' layout of flash_rows_sm90.cuh):
 // both operands K-major in shared memory (SS), or A from registers and B
 // MN-major in shared memory (RS, the transpose bit, no transposed copy).
 // The accumulator's register layout is the A fragment's, so p and dS go
 // from one product to the next without shared memory.
 //
-// Head_dim 80 (hubert-xlarge: 16 heads of 80). A bf16 row of 80 is 160
-// bytes, no multiple of the 128-byte swizzle, so it is laid out as five
-// 16-column tiles with the 32-byte swizzle, each loaded as a 16-column TMA
-// box: five K-major steps for the scores, and one m64n80k16 product a
-// step of 16 rows for each output, its B operand the five tiles read
-// MN-major (the descriptor's leading offset from tile to tile). That is
-// exactly the head_dim-80 work, 40 accumulator floats a thread per
-// output, no spill. At hubert-xlarge's layer on an H100 it beat both a
-// 64-column block plus a 16-column tail and a row padded to 128 by TMA's
-// zero fill, B7 and B8 together (PERF.md).
+// Head_dim 80 (hubert-xlarge: 16 heads of 80) lies as five 16-column
+// tiles with the 32-byte swizzle, 64 and 128 as 64-column blocks with the
+// 128-byte swizzle: the layout and the products over it are B6's too
+// (flash_rows_sm90.cuh, whose note says why).
 //
 // - B8 (dQ): one block per (128 query rows, query head, sequence). The
 //   producer thread loads the block's Q and dO once and streams the KV
@@ -85,6 +79,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_rows_sm90.cuh"   // the rows' layout and products
 #include "sm90_primitives.cuh"   // TMA, mbarriers, wgmma, tensor maps
 
 namespace sm90 {
@@ -95,9 +90,6 @@ constexpr int NCONS = 2;         // consumer warpgroups
 constexpr int BLOCK = NCONS * ROWS;   // query rows (B8) or keys (B7) a block
 constexpr int STAGES = 2;        // streamed tiles in flight
 constexpr int NT = 128 * (NCONS + 1);
-constexpr int ROW = 128;         // bytes of one swizzled row: 64 bf16
-constexpr int PART = ROWS * ROW; // 64 rows of one 64-column block
-constexpr int TROW = 32;         // bytes of one 16-column tile's row
 constexpr float LOG2E = 1.4426950408889634f;
 
 // The reference's static skip of a 64 x 64 (query tile, KV tile) pair
@@ -137,108 +129,6 @@ __device__ __forceinline__ void band(int n, F runs, int& lo, int& hi) {
   while (hi < n && runs(hi)) ++hi;
 }
 
-constexpr int TPART = ROWS * TROW;   // 64 rows of one 16-column tile
-
-// The layout of a row of D in shared memory: head_dim 64 and 128 as B128
-// blocks of 64 columns with the 128-byte swizzle (PART bytes for 64 rows
-// each), 80 as T32 = 5 tiles of 16 columns with the 32-byte swizzle (TPART
-// bytes for 64 rows each). OP, the bytes of 64 rows of one operand, a
-// multiple of 1024, so every tile stays 1024-byte aligned; the sizes of a
-// thread's accumulators, NB blocks of 32 floats and NT floats over the
-// 16-column tiles (one float where there are none).
-template <int D>
-struct Cols {
-  static_assert(D == 64 || D == 80 || D == 128,
-                "a head_dim the Hopper bodies lay out");
-  static constexpr int B128 = D % 64 == 0 ? D / 64 : 0;
-  static constexpr int T32 = D % 64 == 0 ? 0 : D / 16;
-  static constexpr int OP = B128 * PART + T32 * TPART;
-  static constexpr int NB = B128 > 0 ? B128 : 1;
-  static constexpr int NT = T32 > 0 ? 8 * T32 : 1;
-};
-
-// S = A.B^T over D, started: A's and B's 64 rows K-major in shared memory
-// in Cols' layout; a step of 16 columns moves the descriptors 32 B inside
-// a 128-byte row, or to the next 16-column tile.
-template <int D>
-__device__ __forceinline__ void start_scores(float (&s)[32], uint32_t a,
-                                             uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    if constexpr (Cols<D>::T32 == 0) {
-      const uint32_t off = (kk / 4) * PART + (kk % 4) * 32;
-      wgmma_ss_n64(s, desc_sw128(a + off, 16), desc_sw128(b + off, 16),
-                   kk > 0);
-    } else {
-      const uint32_t off = kk * TPART;
-      wgmma_ss_n64(s, desc_sw32(a + off), desc_sw32(b + off), kk > 0);
-    }
-  }
-}
-
-// acc and tail += P.B, started: P (64 x 64 bf16) as A fragments of 16
-// columns, B's 64 rows in shared memory in Cols' layout read MN-major: one
-// product of N = 64 per 64-column block into acc, or one of N = 80 over
-// the five 16-column tiles (their leading offset TPART) into tail; a step
-// of 16 rows moves B's descriptor 2048 B in a block, 512 B in a tile.
-template <int D>
-__device__ __forceinline__ void start_update(
-    float (&acc)[Cols<D>::NB][32], float (&tail)[Cols<D>::NT],
-    const uint32_t (&pa)[4][4], uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < ROWS / 16; ++kk) {
-    if constexpr (Cols<D>::T32 == 0) {
-#pragma unroll
-      for (int cb = 0; cb < Cols<D>::B128; ++cb)
-        wgmma_rs_n64(acc[cb], pa[kk],
-                     desc_sw128(b + cb * PART + kk * 16 * ROW, 1024));
-    } else {
-      wgmma_rs_n80(tail, pa[kk], desc_sw32(b + kk * 16 * TROW, TPART));
-    }
-  }
-}
-
-// An accumulator of 64 x 64 f32 rounded to bf16 A fragments: register j
-// holds row r + 8 ((j / 2) % 2), column 8 (j / 4) + c2 + j % 2, which is
-// the A fragment's layout, 16 columns a step.
-__device__ __forceinline__ void pack(const float (&x)[32],
-                                     uint32_t (&pa)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    pa[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void clear(float (&x)[N]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) x[j] = 0.f;
-  fence_regs(x);
-}
-
-template <int D>
-__device__ __forceinline__ void fence_acc(float (&acc)[Cols<D>::NB][32],
-                                          float (&tail)[Cols<D>::NT]) {
-#pragma unroll
-  for (int cb = 0; cb < Cols<D>::B128; ++cb) fence_regs(acc[cb]);
-  if constexpr (Cols<D>::T32 != 0) fence_regs(tail);
-}
-
-// Loads 64 rows of one operand in Cols' layout at dst through its map m,
-// whose boxes are the layout's 64-column blocks or 16-column tiles.
-template <int D>
-__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* m,
-                                          uint32_t bar, int head, int row0,
-                                          int b) {
-  for (int cb = 0; cb < Cols<D>::B128; ++cb)
-    tma_load(dst + cb * PART, m, bar, cb * 64, head, row0, b);
-  for (int t = 0; t < Cols<D>::T32; ++t)
-    tma_load(dst + t * TPART, m, bar, 16 * t, head, row0, b);
-}
-
 // Shared memory of either kernel, each tile 1024-byte aligned (the
 // 128-byte swizzle's period): the block's own rows of two operands as
 // [consumer][64 rows in Cols' layout] (B8: Q, dO; B7: K, V), the streamed
@@ -246,8 +136,8 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* m,
 // Q, dO), B7's lse and delta per stage, the mbarriers.
 template <int D>
 struct Smem {
-  static constexpr int OWN = NCONS * Cols<D>::OP;   // one operand's rows
-  static constexpr int TILE = Cols<D>::OP;          // one streamed tile
+  static constexpr int TILE = Cols<D, ROWS>::BYTES;   // one streamed tile
+  static constexpr int OWN = NCONS * TILE;             // one operand's rows
   static constexpr int A_OFF = 0, B_OFF = OWN;
   static constexpr int X_OFF = 2 * OWN;              // streamed, first
   static constexpr int Y_OFF = X_OFF + STAGES * TILE;
@@ -271,8 +161,8 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                      int hkv, int causal, int window, float scale, int nqt,
                      int heads_batch) {
   using S = Smem<D>;
-  using C = Cols<D>;
-  constexpr int CB = C::B128, OP = C::OP;
+  using C = Cols<D, ROWS>;
+  constexpr int CB = C::B128, OP = C::BYTES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_own = base + S::BAR_OFF;
@@ -317,9 +207,9 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (tid == NCONS * 128) {
       mbar_expect_tx(bar_own, 2 * S::OWN);
       for (int w = 0; w < NCONS; ++w) {
-        load_rows<D>(base + S::A_OFF + w * OP, &tm_q, bar_own, h,
+        C::load(base + S::A_OFF + w * OP, &tm_q, bar_own, h,
                      q0 + ROWS * w, b);
-        load_rows<D>(base + S::B_OFF + w * OP, &tm_do, bar_own, h,
+        C::load(base + S::B_OFF + w * OP, &tm_do, bar_own, h,
                      q0 + ROWS * w, b);
       }
       for (int i = 0; i < n_tiles; ++i) {
@@ -327,10 +217,10 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int k0 = (lo + i) * ROWS;
         mbar_wait(bar_e + 8 * s, ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(bar_k + 8 * s, S::TILE);
-        load_rows<D>(base + S::X_OFF + s * S::TILE, &tm_k, bar_k + 8 * s,
+        C::load(base + S::X_OFF + s * S::TILE, &tm_k, bar_k + 8 * s,
                      hk, k0, b);
         mbar_expect_tx(bar_v + 8 * s, S::TILE);
-        load_rows<D>(base + S::Y_OFF + s * S::TILE, &tm_v, bar_v + 8 * s,
+        C::load(base + S::Y_OFF + s * S::TILE, &tm_v, bar_v + 8 * s,
                      hk, k0, b);
       }
     }
@@ -385,8 +275,8 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       clear(x);
       clear(dp);
       wgmma_fence();
-      start_scores<D>(x, q_addr, k_addr);
-      start_scores<D>(dp, do_addr, v_addr);
+      start_scores<D, ROWS>(x, q_addr, k_addr);
+      start_scores<D, ROWS>(dp, do_addr, v_addr);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(x);
@@ -403,12 +293,12 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         x[j] = p * (dp[j] - dl[rr]) * scale;
       }
       pack(x, pa);
-      fence_acc<D>(acc, acct);
+      fence_acc<D, ROWS>(acc, acct);
       wgmma_fence();
-      start_update<D>(acc, acct, pa, k_addr);
+      start_update<D, ROWS>(acc, acct, pa, k_addr);
       wgmma_commit();
       wgmma_wait_all();
-      fence_acc<D>(acc, acct);
+      fence_acc<D, ROWS>(acc, acct);
     }
     if (lane == 0) mbar_arrive(bar_e + 8 * s);   // the stage is free
   }
@@ -452,8 +342,8 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       void* __restrict__ dv, int sq, int sk, int hq, int hkv,
                       int causal, int window, float scale, int heads_batch) {
   using S = Smem<D>;
-  using C = Cols<D>;
-  constexpr int CB = C::B128, OP = C::OP;
+  using C = Cols<D, ROWS>;
+  constexpr int CB = C::B128, OP = C::BYTES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_own = base + S::BAR_OFF;
@@ -503,9 +393,9 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (pt == 0) {
       mbar_expect_tx(bar_own, 2 * S::OWN);
       for (int w = 0; w < NCONS; ++w) {
-        load_rows<D>(base + S::A_OFF + w * OP, &tm_k, bar_own, hk,
+        C::load(base + S::A_OFF + w * OP, &tm_k, bar_own, hk,
                      k0 + ROWS * w, b);
-        load_rows<D>(base + S::B_OFF + w * OP, &tm_v, bar_own, hk,
+        C::load(base + S::B_OFF + w * OP, &tm_v, bar_own, hk,
                      k0 + ROWS * w, b);
       }
       for (int i = 0; i < n_tiles; ++i) {
@@ -513,9 +403,9 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int q0 = (lo + i) * ROWS;
         mbar_wait(bar_e + 8 * s, ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(bar_f + 8 * s, 2 * S::TILE);
-        load_rows<D>(base + S::X_OFF + s * S::TILE, &tm_q, bar_f + 8 * s,
+        C::load(base + S::X_OFF + s * S::TILE, &tm_q, bar_f + 8 * s,
                      h, q0, b);
-        load_rows<D>(base + S::Y_OFF + s * S::TILE, &tm_do, bar_f + 8 * s,
+        C::load(base + S::Y_OFF + s * S::TILE, &tm_do, bar_f + 8 * s,
                      h, q0, b);
       }
     } else if (pt >= 32 && pt < 64) {
@@ -575,8 +465,8 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       clear(x);
       clear(dp);
       wgmma_fence();
-      start_scores<D>(x, k_addr, q_addr);
-      start_scores<D>(dp, v_addr, do_addr);
+      start_scores<D, ROWS>(x, k_addr, q_addr);
+      start_scores<D, ROWS>(dp, v_addr, do_addr);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(x);
@@ -594,15 +484,15 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       pack(x, pa);
       pack(dp, dsa);
-      fence_acc<D>(dva, dvt);
-      fence_acc<D>(dka, dkt);
+      fence_acc<D, ROWS>(dva, dvt);
+      fence_acc<D, ROWS>(dka, dkt);
       wgmma_fence();
-      start_update<D>(dva, dvt, pa, do_addr);
-      start_update<D>(dka, dkt, dsa, q_addr);
+      start_update<D, ROWS>(dva, dvt, pa, do_addr);
+      start_update<D, ROWS>(dka, dkt, dsa, q_addr);
       wgmma_commit();
       wgmma_wait_all();
-      fence_acc<D>(dva, dvt);
-      fence_acc<D>(dka, dkt);
+      fence_acc<D, ROWS>(dva, dvt);
+      fence_acc<D, ROWS>(dka, dkt);
     }
     if (lane == 0) mbar_arrive(bar_e + 8 * s);   // the stage is free
   }
@@ -694,14 +584,11 @@ struct Maps {
 template <int D>
 int maps(Maps& m, const void* q, const void* k, const void* v,
          const void* dout, int b, int sq, int sk, int hq, int hkv) {
-  constexpr bool tiles = Cols<D>::T32 != 0;
-  const int cols = tiles ? 16 : 64;
-  const CUtensorMapSwizzle sw =
-      tiles ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B;
-  int rc = make_map(&m.q, q, b, sq, hq, D, ROWS, cols, sw);
-  if (rc == 0) rc = make_map(&m.k, k, b, sk, hkv, D, ROWS, cols, sw);
-  if (rc == 0) rc = make_map(&m.v, v, b, sk, hkv, D, ROWS, cols, sw);
-  if (rc == 0) rc = make_map(&m.dout, dout, b, sq, hq, D, ROWS, cols, sw);
+  using C = Cols<D, ROWS>;
+  int rc = C::map(&m.q, q, b, sq, hq);
+  if (rc == 0) rc = C::map(&m.k, k, b, sk, hkv);
+  if (rc == 0) rc = C::map(&m.v, v, b, sk, hkv);
+  if (rc == 0) rc = C::map(&m.dout, dout, b, sq, hq);
   return rc;
 }
 

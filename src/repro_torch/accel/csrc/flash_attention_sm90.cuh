@@ -1,7 +1,8 @@
 // B6's Hopper body: the GQA flash-attention forward for bf16 inputs with
-// head_dim 64 or 128, on wgmma tensor-core products over TMA-fed tiles.
-// Included by flash_attention.cu, whose C entry point flash_fwd takes this
-// body for exactly those inputs and the SIMT body for the others.
+// head_dim 64, 80 or 128, on wgmma tensor-core products over TMA-fed
+// tiles. Included by flash_attention.cu, whose C entry point flash_fwd
+// takes this body for exactly those inputs and the SIMT body for the
+// others.
 //
 // Replaces src/repro/kernels/flash_attention/flash_attention.py:38
 // `_fwd_kernel` (its pallas_call at :141) for those inputs.
@@ -10,8 +11,10 @@
 // sq = sk = 2048, 32 query heads over 8 KV heads, head_dim 128, causal) the
 // two products are 137.5 GFLOP over the causal pairs against about 169 MB
 // of traffic, so the bf16 tensor-core rate (989 TFLOP/s), not the memory
-// (3.35 TB/s), bounds it: 0.139 ms. The SIMT body's f32 FMAs cannot pass
-// the card's 67 TFLOP/s outside the tensor cores (>= 2 ms there).
+// (3.35 TB/s), bounds it: 0.139 ms. At hubert-xlarge's layer (b 4, 2,048
+// frames, 16/16 heads of 80, non-causal) the products are 85.9 GFLOP
+// against 84 MB: 0.0869 ms. The SIMT body's f32 FMAs cannot pass the
+// card's 67 TFLOP/s outside the tensor cores (>= 2 ms and 1.3 ms there).
 //
 // Design (after FlashAttention-3, arXiv:2407.08608). One block of three
 // warpgroups per (128 query rows, query head, sequence): warpgroups 0 and
@@ -19,12 +22,16 @@
 // producer; setmaxnreg moves registers from the producer (24 a thread) to
 // the consumers (240). One producer thread starts TMA loads
 // (cp.async.bulk.tensor) of the block's Q once and of K and V tiles of 128
-// keys into a ring of 2 stages, with an mbarrier per stage for K full, V
-// full and the stage empty again. The tensor maps are rank 4 over (d,
-// heads, s, b), so a ragged tile's rows past s read as zeros of this
-// sequence, never the next one's keys; a 128-byte swizzle box is 64 bf16
-// columns wide, so a row of 128 is two boxes, and the wgmma shared-memory
-// descriptors carry the same 128-byte swizzle. Per KV tile a consumer
+// keys into a ring of stages (3 at head_dim 64 and 80, 2 at 128: below),
+// with an mbarrier per stage for K full, V full and the stage empty again.
+// The tensor maps are rank 4 over (d, heads, s, b), so a ragged tile's
+// rows past s read as zeros of this sequence, never the next one's keys. A row lies in shared memory as
+// flash_rows_sm90.cuh lays it out for every Hopper body, and the wgmma
+// descriptors carry its swizzle: head_dim 64 and 128 as 64-column blocks
+// with the 128-byte swizzle (one TMA box each), 80 as five 16-column
+// tiles with the 32-byte swizzle (one box each; five K-major steps for
+// the scores, and one N = 80 product a 16-key step for O, over V's five
+// tiles, 4,096 B apart at 128 keys). Per KV tile a consumer
 //   - runs S = Q.K^T as wgmma with both operands in shared memory (bf16 x
 //     bf16 products are exact in f32, so this is the reference's
 //     upcast-then-dot up to summation order), f32 accumulators in
@@ -58,30 +65,37 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_rows_sm90.cuh"   // the rows' layout and products
 #include "sm90_primitives.cuh"   // TMA, mbarriers, wgmma, tensor maps
 
 namespace sm90 {
 
 constexpr int BQ = 128;          // query rows per block
 constexpr int BK = 128;          // keys per KV tile
-constexpr int STAGES = 2;        // KV tiles in flight
 constexpr int NCONS = 2;         // consumer warpgroups of 64 rows
 constexpr int NT = 128 * (NCONS + 1);
-constexpr int ROW = 128;         // bytes of one swizzled row: 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float MASKED = -1e30f;
 
-// Shared memory, each tile 1024-byte aligned (the 128-byte swizzle's
-// period): Q as [consumer][64-column block][64 rows][128 B], K and V as
-// [stage][64-column block][BK rows][128 B], then the mbarriers.
+// KV tiles in flight. On an H100 3 stages ran 4-7 % ahead of 2 at head_dim
+// 64 and at hubert-xlarge's training layer (d 80), and 6 % behind at
+// Qwen3-8B's prefill (d 128, where Q and three stages take 224 KB of the
+// 227 a block may have): PERF.md.
+template <int D>
+constexpr int stages() {
+  return D == 128 ? 2 : 3;
+}
+
+// Shared memory, each block or tile 1024-byte aligned: Q as [consumer][64
+// rows in Cols' layout], K and V as [stage][BK rows in Cols' layout], then
+// the mbarriers.
 template <int D>
 struct Smem {
-  static constexpr int CB = D / 64;
-  static constexpr int Q_PART = 64 * ROW;            // 64 rows of one block
-  static constexpr int KV_PART = BK * ROW;           // BK rows of one block
-  static constexpr int Q_BYTES = NCONS * CB * Q_PART;
-  static constexpr int KV_BYTES = CB * KV_PART;      // one K or V tile
+  static constexpr int STAGES = stages<D>();
+  static constexpr int Q_PART = Cols<D, 64>::BYTES;   // a consumer's Q
+  static constexpr int KV_BYTES = Cols<D, BK>::BYTES;  // one K or V tile
+  static constexpr int Q_BYTES = NCONS * Q_PART;
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
@@ -98,7 +112,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       int hkv, int causal, int window, float scale, int nqt,
                       int heads_batch) {
   using S = Smem<D>;
-  constexpr int CB = S::CB;
+  constexpr int STAGES = S::STAGES;
+  using CQ = Cols<D, 64>;
+  using CK = Cols<D, BK>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = base + S::BAR_OFF;
@@ -144,23 +160,17 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (tid == NCONS * 128) {
       mbar_expect_tx(bar_q, S::Q_BYTES);
       for (int w = 0; w < NCONS; ++w)
-        for (int cb = 0; cb < CB; ++cb)
-          tma_load(base + (w * CB + cb) * S::Q_PART, &tm_q, bar_q, cb * 64,
-                   h, q0 + 64 * w, b);
+        CQ::load(base + w * S::Q_PART, &tm_q, bar_q, h, q0 + 64 * w, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES;
         const int k0 = (lo + i) * BK;
         mbar_wait(bar_e + 8 * s, ((i / STAGES) & 1) ^ 1);
-        const uint32_t k_dst = base + S::K_OFF + s * S::KV_BYTES;
-        const uint32_t v_dst = base + S::V_OFF + s * S::KV_BYTES;
         mbar_expect_tx(bar_k + 8 * s, S::KV_BYTES);
-        for (int cb = 0; cb < CB; ++cb)
-          tma_load(k_dst + cb * S::KV_PART, &tm_k, bar_k + 8 * s, cb * 64,
-                   hk, k0, b);
+        CK::load(base + S::K_OFF + s * S::KV_BYTES, &tm_k, bar_k + 8 * s, hk,
+                 k0, b);
         mbar_expect_tx(bar_v + 8 * s, S::KV_BYTES);
-        for (int cb = 0; cb < CB; ++cb)
-          tma_load(v_dst + cb * S::KV_PART, &tm_v, bar_v + 8 * s, cb * 64,
-                   hk, k0, b);
+        CK::load(base + S::V_OFF + s * S::KV_BYTES, &tm_v, bar_v + 8 * s, hk,
+                 k0, b);
       }
     }
     return;
@@ -175,46 +185,22 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int r = 16 * warp + lane / 4, c2 = 2 * (lane % 4);
   const int qw0 = q0 + 64 * w;
   const float sl2 = scale * LOG2E;
-  const uint32_t q_addr = base + w * CB * S::Q_PART;
+  const uint32_t q_addr = base + w * S::Q_PART;
 
-  float o[CB][32];
+  // O's 64-column blocks, or its row of 80 over the 16-column tiles (40
+  // floats: register j holds row r + 8 ((j / 2) % 2), column 8 (j / 4) +
+  // c2 + j % 2)
+  float o[CK::NB][32], ot[CK::NT];
 #pragma unroll
-  for (int cb = 0; cb < CB; ++cb)
+  for (int cb = 0; cb < CK::NB; ++cb)
 #pragma unroll
     for (int j = 0; j < 32; ++j) o[cb][j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < CK::NT; ++j) ot[j] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float x[64];               // a tile's scores, then its p in f32
   uint32_t pa[BK / 16][4];   // p in bf16: P.V's A operand
 
-  // Every register write lands before the wgmma.fence that precedes the
-  // products reading or writing those registers.
-  auto clear_x = [&]() {
-#pragma unroll
-    for (int j = 0; j < 64; ++j) x[j] = 0.f;
-    fence_regs(x);
-  };
-  // S = Q.K^T, started: D/16 steps of 16 columns of d; a step advances the
-  // K-major descriptors 32 B inside a swizzled row, 4 steps a block
-  auto start_qk = [&](uint32_t k_addr) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;
-      wgmma_ss_n128(x, desc_sw128(q_addr + (kk / 4) * S::Q_PART + off, 16),
-                    desc_sw128(k_addr + (kk / 4) * S::KV_PART + off, 16),
-                    kk > 0);
-    }
-  };
-  // O += P.V, started: BK/16 steps of 16 keys (2048 B of V rows a step),
-  // one 64-column block of d per product
-  auto start_pv = [&](uint32_t v_addr) {
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int cb = 0; cb < CB; ++cb)
-        wgmma_rs_n64(o[cb], pa[kk],
-                     desc_sw128(v_addr + cb * S::KV_PART + kk * 16 * ROW,
-                                1024));
-  };
   // Tile k0's scores in x: masks (only where the band, the window or the
   // end of the keys crosses the tile), scale, online softmax; x becomes
   // p in f32, l sums it, and corr is what O must be rescaled by.
@@ -257,19 +243,15 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) l[rr] = corr[rr] * l[rr] + sum[rr];
   };
-  // O *= corr, and p rounded to bf16 pairs as the A operand: the
-  // accumulator's layout is the A fragment's, 16 keys a step
-  auto rescale_and_pack = [&](const float (&corr)[2]) {
+  // O *= corr (a register's row is (j / 2) % 2 in either accumulator)
+  auto rescale = [&](const float (&corr)[2]) {
 #pragma unroll
-    for (int cb = 0; cb < CB; ++cb)
+    for (int cb = 0; cb < CK::B128; ++cb)
 #pragma unroll
       for (int j = 0; j < 32; ++j) o[cb][j] *= corr[(j / 2) % 2];
+    if constexpr (CK::T32 != 0) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      pa[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);      // row r
-      pa[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);  // row r + 8
-      pa[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);  // row r, + 8
-      pa[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);  // r + 8, + 8
+      for (int j = 0; j < CK::NT; ++j) ot[j] *= corr[(j / 2) % 2];
     }
   };
 
@@ -281,24 +263,24 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     float corr[2];
     mbar_wait(bar_k + 8 * s, ph);
     __syncwarp();
-    clear_x();
+    clear(x);
     wgmma_fence();
-    start_qk(base + S::K_OFF + s * S::KV_BYTES);
+    start_scores<D, BK>(x, q_addr, base + S::K_OFF + s * S::KV_BYTES);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(x);
     softmax((lo + i) * BK, corr);
-    rescale_and_pack(corr);
+    rescale(corr);
+    pack(x, pa);   // p rounded to bf16 pairs: the accumulator's layout
+                   // is the A fragment's, 16 keys a step
     mbar_wait(bar_v + 8 * s, ph);
     __syncwarp();
-#pragma unroll
-    for (int cb = 0; cb < CB; ++cb) fence_regs(o[cb]);
+    fence_acc<D, BK>(o, ot);
     wgmma_fence();
-    start_pv(base + S::V_OFF + s * S::KV_BYTES);
+    start_update<D, BK>(o, ot, pa, base + S::V_OFF + s * S::KV_BYTES);
     wgmma_commit();
     wgmma_wait_all();
-#pragma unroll
-    for (int cb = 0; cb < CB; ++cb) fence_regs(o[cb]);
+    fence_acc<D, BK>(o, ot);
     if (lane == 0) mbar_arrive(bar_e + 8 * s);   // the stage is free
   }
 
@@ -317,13 +299,19 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     __nv_bfloat16* orow =
         out + ((size_t)b * sq + row) * hq * D + (size_t)h * D;
 #pragma unroll
-    for (int cb = 0; cb < CB; ++cb)
+    for (int cb = 0; cb < CK::B128; ++cb)
 #pragma unroll
       for (int g = 0; g < 8; ++g) {
         const int j = 4 * g + 2 * rr;
         *reinterpret_cast<uint32_t*>(orow + cb * 64 + 8 * g + c2) =
             pack_bf16(o[cb][j] * inv, o[cb][j + 1] * inv);
       }
+#pragma unroll
+    for (int g = 0; g < 2 * CK::T32; ++g) {   // the 16-column tiles
+      const int j = 4 * g + 2 * rr;
+      *reinterpret_cast<uint32_t*>(orow + 8 * g + c2) =
+          pack_bf16(ot[j] * inv, ot[j + 1] * inv);
+    }
     if (lane % 4 == 0)
       lse[((size_t)b * hq + h) * sq + row] = m[rr] * LN2 + logf(l_safe);
   }
@@ -334,9 +322,9 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            int b, int sq, int sk, int hq, int hkv, int causal, int window,
            float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  int rc = make_map(&mq, q, b, sq, hq, D, 64);
-  if (rc == 0) rc = make_map(&mk, k, b, sk, hkv, D, BK);
-  if (rc == 0) rc = make_map(&mv, v, b, sk, hkv, D, BK);
+  int rc = Cols<D, 64>::map(&mq, q, b, sq, hq);
+  if (rc == 0) rc = Cols<D, BK>::map(&mk, k, b, sk, hkv);
+  if (rc == 0) rc = Cols<D, BK>::map(&mv, v, b, sk, hkv);
   if (rc != 0) return rc;
   auto kern = flash_fwd_sm90_kernel<D>;
   const int smem = Smem<D>::ALLOC;
@@ -350,20 +338,27 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   return (int)cudaGetLastError();
 }
 
-// 1 where this body takes the inputs: bf16 with head_dim 64 or 128.
+// 1 where this body takes the inputs: bf16 with head_dim 64, 80 or 128.
 inline int takes(int is_bf16, int d) {
-  return is_bf16 && (d == 64 || d == 128);
+  return is_bf16 && (d == 64 || d == 80 || d == 128);
 }
 
 inline int dispatch(int d, const void* q, const void* k, const void* v,
                     void* out, void* lse, int b, int sq, int sk, int hq,
                     int hkv, int causal, int window, float scale,
                     cudaStream_t stream) {
-  if (d == 64)
-    return launch<64>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window,
-                      scale, stream);
-  return launch<128>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal, window,
-                     scale, stream);
+  switch (d) {
+    case 64:
+      return launch<64>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal,
+                        window, scale, stream);
+    case 80:
+      return launch<80>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal,
+                        window, scale, stream);
+    case 128:
+      return launch<128>(q, k, v, out, lse, b, sq, sk, hq, hkv, causal,
+                         window, scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace sm90

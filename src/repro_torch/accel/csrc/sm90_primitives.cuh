@@ -8,9 +8,10 @@
 // shared-memory descriptors for that swizzle, the wgmma fences and the
 // products the kernels run (m64n128k16 and m64n64k16 with both operands
 // in shared memory, K-major or both MN-major, m64n64k16 and m64n80k16
-// with A in registers and B MN-major); for B7/B8 at head_dim 80, tiles of
-// 16 columns with the 32-byte swizzle (their tensor maps and descriptors
-// beside the 128-byte ones); the proxy fence that orders the
+// with A in registers and B MN-major); for rows of head_dim 80
+// (flash_rows_sm90.cuh), tiles of 16 columns with the 32-byte swizzle
+// (their tensor maps and descriptors beside the 128-byte ones); the proxy
+// fence that orders the
 // threads' own shared-memory stores before the products read them; bf16
 // packing of an accumulator into an A fragment. The operand lists are
 // written out with compile-time register indices.

@@ -14,15 +14,16 @@ header or flag rebuilds — and :func:`library` loads them with
 ``ctypes``. B1–B5 are bit-exact against numpy and build with
 ``-fmad=false``; B6–B10 are held to tolerances and let ``nvcc`` fuse
 multiply-adds. B6 has two bodies in one library: bf16 inputs with
-head_dim 64 or 128 take the Hopper body (``csrc/flash_attention_sm90.cuh``:
-wgmma products on TMA-fed 128 x 128 tiles), float32 and bf16 at head_dim
-16, 32 or 80 the SIMT body (64 x 64 tiles); :func:`flash_fwd_tc` says
-which.
+head_dim 64, 80 or 128 take the Hopper body
+(``csrc/flash_attention_sm90.cuh``: wgmma products on TMA-fed 128 x 128
+tiles), float32 and bf16 at head_dim 16 or 32 the SIMT body (64 x 64
+tiles); :func:`flash_fwd_tc` says which.
 B7 and B8 have two bodies each in the same way: bf16 at head_dim 64, 80
 or 128 the Hopper bodies (``csrc/flash_attention_bwd_sm90.cuh``, sharing
-B6's TMA and wgmma primitives in ``csrc/sm90_primitives.cuh``; a row of
-80 is five 16-column tiles), the rest (float32, and bf16 at head_dim 16
-or 32) the SIMT bodies; :func:`flash_bwd_tc` says which. With a GQA
+B6's TMA and wgmma primitives in ``csrc/sm90_primitives.cuh`` and B6's
+layout of a row in ``csrc/flash_rows_sm90.cuh``: a row of 80 is five
+16-column tiles), the rest (float32, and bf16 at head_dim 16 or 32) the
+SIMT bodies; :func:`flash_bwd_tc` says which. With a GQA
 group above 1, B7's Hopper body writes f32 partials per query head and a second
 kernel of the same library, ``flash_dkv_group_sum``, adds each KV head's
 partials in head order. B9 is split-KV for every dtype and head_dim: a
@@ -108,7 +109,7 @@ LATE_MAX_CAP = 1 << 29
 REAP_TILE = 1024
 # Tile sizes of B6–B9, which their plain versions walk too (checked
 # against the built library when it loads), and the head sizes they take.
-# B6's SIMT body (float32; bf16 at head_dim 16, 32, 80) and its Hopper body
+# B6's SIMT body (float32; bf16 at head_dim 16, 32) and its Hopper body
 # (bf16 at FLASH_FWD_TC_HEAD_DIMS) have tiles of their own; B7 and B8
 # theirs, for each of their two bodies (the Hopper bodies: bf16 at
 # FLASH_BWD_TC_HEAD_DIMS) the (query tile, KV tile) pairs that skip (the
@@ -118,14 +119,14 @@ FLASH_FWD_BLOCK_Q = 64
 FLASH_FWD_BLOCK_K = 64
 FLASH_FWD_TC_BLOCK_Q = 128
 FLASH_FWD_TC_BLOCK_K = 128
-FLASH_FWD_TC_HEAD_DIMS = (64, 128)
+FLASH_FWD_TC_HEAD_DIMS = (64, 80, 128)
 FLASH_BWD_TC_HEAD_DIMS = (64, 80, 128)
 FLASH_BWD_BLOCK_Q = 64
 FLASH_BWD_BLOCK_K = 64
 FLASH_BWD_TC_BLOCK_Q = 64
 FLASH_BWD_TC_BLOCK_K = 64
-# Every head size B6–B9 take; head_dim 80 (hubert-xlarge) runs B6's SIMT
-# body in both dtypes, and B7's and B8's Hopper bodies in bf16.
+# Every head size B6–B9 take; head_dim 80 (hubert-xlarge) runs the Hopper
+# bodies of B6, B7 and B8 in bf16 and their SIMT bodies in float32.
 HEAD_DIMS = (16, 32, 64, 80, 128)
 # B9's split-KV body: a block per DECODE_SPLIT keys of one (KV head,
 # sequence), streamed in tiles of DECODE_BLOCK_K keys through a ring of
@@ -175,8 +176,8 @@ build_seconds: Dict[str, float] = {}
 
 
 def flash_fwd_tc(dtype: torch.dtype, d: int) -> bool:
-    """True where B6's Hopper body takes the inputs: bf16 at head_dim 64
-    or 128. The SIMT body takes the rest."""
+    """True where B6's Hopper body takes the inputs: bf16 at head_dim 64,
+    80 or 128. The SIMT body takes the rest."""
     return dtype == torch.bfloat16 and d in FLASH_FWD_TC_HEAD_DIMS
 
 
@@ -314,9 +315,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.bulk_price.argtypes = [P] * 3 + [I, I, P, P]
         fns = (lib.bulk_price,)
     elif name == "flash":
-        lib.flash_fwd.argtypes = [P] * 5 + [I] * 8 + [F, I, P]
-        lib.flash_fwd_tc.argtypes = [I, I]
-        fns = (lib.flash_fwd, lib.flash_fwd_tc)
+        fns = bind_flash_fwd(lib)
         tiles = [(lib.flash_fwd_block_q, FLASH_FWD_BLOCK_Q),
                  (lib.flash_fwd_block_k, FLASH_FWD_BLOCK_K),
                  (lib.flash_fwd_tc_block_q, FLASH_FWD_TC_BLOCK_Q),
@@ -358,6 +357,19 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         check_bodies(name, getattr(lib, fn_name), wrappers)
     elif name == "ssd":
         check_ssd_bodies(lib.ssd_tc)
+
+
+def bind_flash_fwd(lib: ctypes.CDLL) -> tuple:
+    """Argument and result types of B6's C interface (unchanged since its
+    Hopper body came, so ``chip_smoke.py --attn-parent`` binds an earlier
+    library with it too); returns its two functions."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_fwd.argtypes = [P] * 5 + [I] * 8 + [F, I, P]
+    lib.flash_fwd_tc.argtypes = [I, I]
+    fns = (lib.flash_fwd, lib.flash_fwd_tc)
+    for fn in fns:
+        fn.restype = ctypes.c_int
+    return fns
 
 
 def bind_flash_bwd(lib: ctypes.CDLL) -> tuple:
@@ -696,8 +708,8 @@ def launch_flash_fwd(q, k, v, causal: bool, window: int,
                      scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """B6: (out (b, sq, hq, d) in q's type, lse (b, hq, sq) float32) of
     causal and/or windowed GQA attention, query head h on KV head
-    ``h // (hq // hkv)``, rows offset by ``sk - sq``. bf16 at head_dim 64
-    or 128 runs the Hopper body (counted also as ``flash_fwd_tc``), the
+    ``h // (hq // hkv)``, rows offset by ``sk - sq``. bf16 at head_dim 64,
+    80 or 128 runs the Hopper body (counted also as ``flash_fwd_tc``), the
     rest the SIMT body."""
     dev = q.device
     b, sq, hq, d = q.shape
@@ -711,7 +723,7 @@ def launch_flash_fwd(q, k, v, causal: bool, window: int,
                          f"heads {hq}/{hkv}, b {b}, sq {sq}, sk {sk}")
     # The Hopper body's TMA maps take 16-byte-aligned bases (checked here)
     # and strides in multiples of 16 bytes (contiguous bf16 rows of
-    # head_dim 64 or 128 are).
+    # head_dim 64, 80 or 128 are).
     _aligned("flash_fwd", q=q, k=k, v=v)
     tc = flash_fwd_tc(q.dtype, d)
     lib = library("flash")

@@ -9,17 +9,18 @@ flash_attention.cu``), on CPU tensors it runs
 in torch on the same tiles. B6 has two bodies, chosen by dtype and
 head_dim alone (``kernels.flash_fwd_tc``):
 
-- bf16 at head_dim 64 or 128 (every attention layer of the serving and
-  training paths): the Hopper body, wgmma tensor-core products on
-  TMA-fed tiles (one block per 128 query rows, query head and sequence,
-  looping over KV tiles of 128 keys). It departs from the reference on
-  purpose in one place: p is rounded to bf16 before ``p @ v`` (the
-  tensor cores' operand type; the reference keeps p in float32), while l
-  sums the float32 p, as the reference does. The plain version rounds p
-  the same way for these inputs.
-- float32, and bf16 at head_dim 16, 32 or 80 (hubert-xlarge's 1,280 over
-  16 heads): the SIMT body, float32 FMAs on tiles of 64 x 64, with p in
-  float32 throughout.
+- bf16 at head_dim 64, 80 or 128 (every attention layer of the serving
+  and training paths; 80 is hubert-xlarge's 1,280 over 16 heads): the
+  Hopper body, wgmma tensor-core products on TMA-fed tiles (one block per
+  128 query rows, query head and sequence, looping over KV tiles of 128
+  keys; a row of 80 as five 16-column tiles, which changes no product's
+  value). It departs from the reference on purpose in one place: p is
+  rounded to bf16 before ``p @ v`` (the tensor cores' operand type; the
+  reference keeps p in float32), while l sums the float32 p, as the
+  reference does. The plain version rounds p the same way for these
+  inputs.
+- float32 at every head_dim, and bf16 at head_dim 16 or 32: the SIMT
+  body, float32 FMAs on tiles of 64 x 64, with p in float32 throughout.
 
 Otherwise both keep the reference kernel's arithmetic: q, k and v upcast
 to float32 (exact: a bf16 product is exact in float32), the scale applied

@@ -12,10 +12,11 @@ on the kernel's tiles.
    grid of ``tests/test_kernels.py`` (MHA, MQA, GQA, sq < sk, causal on
    and off, a window), plus ragged shapes the reference cannot take, at
    its tolerances (bf16 2e-2, f32 2e-5). For the Hopper body's inputs
-   (bf16 at head_dim 64 and 128) the plain version rounds p to bf16
+   (bf16 at head_dim 64, 80 and 128) the plain version rounds p to bf16
    before ``p @ v`` and walks 128 x 128 tiles: held against the Pallas
    kernel (p in f32) and the oracle at the same bf16 limits; which body,
-   and so which tiles, each (dtype, head_dim) takes.
+   and so which tiles, each (dtype, head_dim) takes; at head_dim 80 the
+   same function as on inputs zero-padded to 128.
 2. **B9 plain version** — against ``decode_attention_reference`` and
    ``decode_attention_pallas`` in interpret mode, valid lengths at 1, at
    tile edges and at the cache size (head_dim 80 too); NaN for a
@@ -30,9 +31,9 @@ on the kernel's tiles.
    are held in ``tests/test_torch_attention_bwd.py``.
 5. **On the card** (marked ``cuda``; they skip without one) — each CUDA
    kernel against its plain version on boundary inputs; B6's Hopper body
-   at its tile edges, repeat launches byte-identical, and its launches
-   counted as ``flash_fwd_tc`` (f32 and head_dim 16/32 stay on the SIMT
-   body).
+   at its tile edges (head_dim 80 too), repeat launches byte-identical,
+   and its launches counted as ``flash_fwd_tc`` (f32 and bf16 at head_dim
+   16/32 stay on the SIMT body).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -124,9 +125,14 @@ def test_flash_plain_matches_reference(b, sq, sk, hq, hkv, d, causal,
 def test_flash_plain_head_dim_80_matches_reference(b, sq, sk, hq, hkv, d,
                                                    causal, dtype):
     """head_dim 80 (hubert-xlarge: 1,280 over 16 heads, non-causal) on
-    the SIMT body's tiles, against the reference's Pallas forward in
-    interpret mode (which takes any head_dim) and its oracle."""
-    assert d in K.HEAD_DIMS and not K.flash_fwd_tc(DTYPES[dtype][1], d)
+    the tiles of the body that takes it (bf16: the Hopper body's 128 x
+    128, p rounded to bf16; f32: the SIMT body's 64 x 64), against the
+    reference's Pallas forward in interpret mode (which takes any
+    head_dim) and its oracle."""
+    tc = K.flash_fwd_tc(DTYPES[dtype][1], d)
+    assert d in K.HEAD_DIMS and tc == (dtype == "bfloat16")
+    assert K.flash_fwd_tiles(DTYPES[dtype][1], d) == \
+        ((128, 128) if tc else (64, 64))
     (jq, q), (jk, k), (jv, v) = _inputs(
         16, dtype, (b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d))
     out, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
@@ -176,7 +182,7 @@ def test_flash_plain_ragged_tiles(b, sq, sk, hq, hkv, d, causal):
                                atol=2e-5)
 
 
-# The Hopper body's inputs: bf16 at head_dim 64 and 128, p rounded to
+# The Hopper body's inputs: bf16 at head_dim 64, 80 and 128, p rounded to
 # bf16 before p @ v; the Pallas kernel keeps p in f32. Its grid divides:
 # blocks of 64 x 128 (the reference's divisibility), the port's 128 x 128.
 TC_SHAPES = [
@@ -185,6 +191,11 @@ TC_SHAPES = [
     (2, 128, 256, 8, 2, 64, True, 0),      # sq < sk: q_offset 128
     (1, 256, 256, 4, 2, 128, False, 0),    # not causal
     (1, 256, 256, 2, 2, 64, True, 96),     # a window crossing a tile
+    # head_dim 80 (hubert-xlarge): five 16-column tiles a row on the card
+    (1, 256, 256, 16, 16, 80, False, 0),   # hubert's layout, non-causal
+    (1, 256, 256, 8, 2, 80, True, 0),      # a group of 4
+    (2, 128, 256, 4, 2, 80, True, 0),      # sq < sk: q_offset 128
+    (1, 256, 256, 2, 2, 80, True, 96),     # a window crossing a tile
 ]
 
 
@@ -226,14 +237,46 @@ def test_flash_plain_rounds_p_only_for_the_hopper_body():
     torch.testing.assert_close(out.float(), f_out, rtol=2e-2, atol=2e-2)
 
 
+def _bf16_ulps(got, want):
+    """|got - want| in units in the last place of bf16 at ``want``."""
+    _, e = torch.frexp(want.float())
+    return (got.float() - want.float()).abs() / torch.ldexp(
+        torch.ones_like(want.float()), e - 8)
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,causal,window", [
+    (1, 200, 200, 4, 4, False, 0),    # hubert's layout, ragged tiles
+    (1, 130, 256, 8, 2, True, 40),    # a group of 4, sq < sk, a window
+])
+def test_flash_plain_head_dim_80_is_the_padded_function(b, sq, sk, hq, hkv,
+                                                        causal, window):
+    """bf16 at head_dim 80 (the Hopper body's five 16-column tiles on the
+    card) computes the function of the inputs zero-padded to 128 and
+    cropped: zero columns change neither the scores nor the kept
+    columns. Out within two bf16 units in the last place, lse equal."""
+    d, pad = 80, 128
+    assert K.flash_fwd_tc(torch.bfloat16, d)
+    assert K.flash_fwd_tc(torch.bfloat16, pad)
+    (_, q), (_, k), (_, v) = _inputs(
+        22, "bfloat16", (b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d))
+    opts = dict(causal=causal, window=window, scale=d ** -0.5)
+    out, lse = FA.flash_attention_plain(q, k, v, **opts)
+    wide = [torch.nn.functional.pad(x, (0, pad - d)) for x in (q, k, v)]
+    w_out, w_lse = FA.flash_attention_plain(*wide, **opts)
+    assert out.shape[-1] == d and w_out.shape[-1] == pad
+    assert not w_out[..., d:].any()
+    assert float(_bf16_ulps(out, w_out[..., :d]).max()) <= 2.0
+    assert torch.equal(lse, w_lse)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", K.HEAD_DIMS)
 def test_flash_fwd_tiles_follow_the_body(dtype, d):
-    """bf16 at head_dim 64/128 takes the Hopper body's 128 x 128 tiles,
-    every other input the SIMT body's 64 x 64; the backward's stay 64 x
-    64 whatever the forward's. The library is checked against the same
-    choice when it loads (``kernels._bind``)."""
-    tc = dtype == torch.bfloat16 and d in (64, 128)
+    """bf16 at head_dim 64/80/128 takes the Hopper body's 128 x 128
+    tiles, every other input the SIMT body's 64 x 64; the backward's stay
+    64 x 64 whatever the forward's. The library is checked against the
+    same choice when it loads (``kernels._bind``)."""
+    tc = dtype == torch.bfloat16 and d in (64, 80, 128)
     assert K.flash_fwd_tc(dtype, d) == tc
     assert K.flash_fwd_tiles(dtype, d) == ((128, 128) if tc else (64, 64))
     assert (FA.BWD_BLOCK_Q, FA.BWD_BLOCK_K) == (64, 64)
@@ -513,6 +556,7 @@ def _on_card(pairs):
     (1, 77, 256, 8, 2, 64, False, 0),
     (1, 200, 300, 48, 1, 128, True, 64),
     (2, 130, 130, 32, 8, 128, True, 0),
+    (1, 130, 200, 8, 2, 80, True, 0),
 ])
 def test_flash_kernel_matches_plain_on_card(dtype, b, sq, sk, hq, hkv, d,
                                             causal, window):
@@ -548,7 +592,7 @@ def test_decode_kernel_matches_plain_on_card(dtype, b, sk, hq, hkv, d):
     torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
 
 
-# The Hopper body (bf16 at head_dim 64/128) at its 128 x 128 tile edges.
+# The Hopper body (bf16 at head_dim 64/80/128) at its 128 x 128 tile edges.
 TC_EDGE_CASES = [
     (1, 127, 127, 8, 2, 128, True, 0),     # one row and key short
     (1, 128, 128, 8, 2, 128, True, 0),     # exactly one tile
@@ -558,6 +602,11 @@ TC_EDGE_CASES = [
     (2, 300, 300, 16, 4, 128, True, 0),    # a group of 4, ragged
     (1, 300, 300, 16, 16, 64, True, 100),  # a window crossing a tile
     (1, 77, 256, 32, 8, 128, False, 40),   # a window without the band
+    # head_dim 80 (hubert-xlarge): five 16-column tiles a row
+    (1, 127, 129, 16, 16, 80, False, 0),   # hubert's layout, ragged
+    (1, 128, 128, 4, 4, 80, True, 0),      # exactly one tile
+    (1, 129, 300, 8, 2, 80, True, 0),      # a group of 4, q_offset 171
+    (2, 300, 300, 4, 4, 80, True, 100),    # a window crossing a tile
 ]
 
 
@@ -586,10 +635,11 @@ def test_flash_hopper_body_matches_plain_on_card(b, sq, sk, hq, hkv, d,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [("float32", 64), ("float32", 128),
                                      ("bfloat16", 16), ("bfloat16", 32),
-                                     ("float32", 80), ("bfloat16", 80)])
+                                     ("float32", 80)])
 def test_flash_simt_body_keeps_its_inputs_on_card(dtype, d):
-    """float32 (any head_dim) and bf16 at head_dim 16/32/80 stay on the
-    SIMT body: counted as ``flash_fwd`` only."""
+    """float32 (any head_dim) and bf16 at head_dim 16/32 stay on the SIMT
+    body: counted as ``flash_fwd`` only (bf16 at head_dim 80 runs the
+    Hopper body: ``TC_EDGE_CASES``)."""
     _need_card()
     q, k, v = _on_card(_inputs(15, dtype, (1, 129, 4, d), (1, 129, 2, d),
                                (1, 129, 2, d)))

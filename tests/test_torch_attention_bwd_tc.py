@@ -184,8 +184,8 @@ def test_tc_body_choice_and_tiles():
     for d in K.HEAD_DIMS:
         assert K.flash_bwd_tc(torch.bfloat16, d) == (d in (64, 80, 128))
         assert not K.flash_bwd_tc(torch.float32, d)
-        # B6 keeps its SIMT body at head_dim 80
-        assert K.flash_fwd_tc(torch.bfloat16, d) == (d in (64, 128))
+        # B6 takes its Hopper body at the same head_dims
+        assert K.flash_fwd_tc(torch.bfloat16, d) == (d in (64, 80, 128))
         want = (K.FLASH_BWD_TC_BLOCK_Q, K.FLASH_BWD_TC_BLOCK_K) \
             if d in (64, 80, 128) else (K.FLASH_BWD_BLOCK_Q,
                                         K.FLASH_BWD_BLOCK_K)
@@ -240,6 +240,10 @@ def test_tc_library_checks_hold_the_wrappers():
                 64, 128))))
     with pytest.raises(RuntimeError, match="body"):
         K.check_bodies("flash", lambda is_bf16, d: 0, K.flash_fwd_tc)
+    # so is a B6 library whose Hopper body stops at 64/128
+    with pytest.raises(RuntimeError, match="head_dim 80"):
+        K.check_bodies("flash", lambda is_bf16, d: int(bool(is_bf16) and d in (
+            64, 128)), K.flash_fwd_tc)
 
 
 def test_group_sum_wrapper_checks_arguments():
