@@ -70,8 +70,17 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    racks, the kernel shuffle engine and drain-boundary re-pricing, plus a
    rack switch degrade — bino with assessment and the bulk solver on the
    card, then both on numpy. Byte-identical traces, launches and results;
-   B5 launched and transfers re-priced. B5 is then held against its plain
-   version on every pricing call of the card run and timed.
+   B5 launched and transfers re-priced; the water-fill kernel launched
+   once a solve, one host read a solve, and the rounds it counted on the
+   card those of numpy (printed: solves, rounds, the water-fill and
+   pricing walls). B5 is then held against its plain version on every
+   pricing call of the card run and timed; the water-fill kernel against
+   ``NumpyBulk.waterfill`` on every solve of the card run (share and rate
+   the same bits, the same rounds) and on :data:`WATERFILL_CASES` at ε 0
+   and 0.05 (no flows, one link for every flow, exact ties, ties within
+   ε, a zero-capacity link, flags off the leading slots, a table past
+   shared memory), a NaN capacity and a bad link id raising, then timed
+   on the largest solve.
 6. Sweep path: the fair card run's snapshot at 120 s, 64 fault
    scenarios of all five kinds; ``BatchedSweep.run_batched`` on the card
    (one call each of B1, B3 and B4 with a scenario axis) equals
@@ -145,8 +154,11 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    yardstick only) by CUDA events and by device time, and the port's
    whole backward (``bwd_delta``, B7, B8) beside that yardstick by device
    time.
-11. Training path: Qwen1.5-0.5B at full width and depth (random bf16
-   weights from seed 0) trained by ``TrainerRuntime`` under the
+11. Training path, in a fresh child process (``--train``; its output
+   echoed, its launch counts returned on one line, a non-zero exit fails
+   the run; the child freezes what each run builds before its steps, so
+   that no collection walks it): Qwen1.5-0.5B at full width and depth
+   (random bf16 weights from seed 0) trained by ``TrainerRuntime`` under the
    binocular-speculation coordinator, 4 hosts x 4 microbatches of 2,048
    tokens: a warm-up step and 5 timed steps (wall, tokens/s, loss, peak
    memory, the reports' detections, recoveries and executed microbatches);
@@ -274,7 +286,7 @@ training, serving and family checks, launch outside those windows.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
 
-Four modes time one part against another checkout, so that two versions
+These modes time one part against another checkout, so that two versions
 compare in one call on one card: ``--decode-wall [SRC]`` (the Qwen3-8B
 decode), ``--sim-wall [SRC]`` (the flat main path's ticks/s and the
 device's busy share), ``--train-wall [SRC]`` (the training path's
@@ -287,12 +299,19 @@ earlier ``flash_attention.cu`` and ``flash_attention_bwd.cu`` and their
 headers in DIR against this checkout's, in turns: B6 at hubert-xlarge's
 serving and training layers beside SDPA's forward, B7 and B8 at its
 training layer beside SDPA's backward, and B7's and B8's bits compared).
+``--bulk-parent SRC`` runs ``--bulk-wall`` (the fair path's card run
+alone: its water-fill and pricing walls, wall and ticks/s, and B5's host
+microseconds and device ms) through the port under SRC and through this
+checkout's, each in its own process, in turns parent, change, change,
+parent.
 ``--family-train NAME`` runs one family training path (phase 15) alone;
 the full run takes the moe path this way, in a child process whose
-allocator maps expandable segments (``family_train_child``).
+allocator maps expandable segments (``family_train_child``). ``--train``
+runs the training phase (phase 11) alone, as the full run's child.
 ``--train-context [RUNS]`` runs every phase before the training phase,
-then the training phase RUNS times (3 by default) in the same process,
-each printing its fault-free run's heartbeat silences and collector
+then the training phase RUNS times (3 by default), each in its child:
+this process's and the child's tracked objects and forced-collection
+times, then the fault-free run's heartbeat silences and collector
 pauses.
 """
 from __future__ import annotations
@@ -433,14 +452,17 @@ def fair_scenario(assess, bulk, *, racks: int = N_RACKS, **kw):
                     degrade=DEGRADE, **kw)
 
 
-def timed_bulk(base, *args, prices=None):
+def timed_bulk(base, *args, prices=None, fills=None):
     """An instance of bulk backend class ``base`` that adds the host wall
     time of its water-fill and pricing calls (each returns host arrays,
     so the device work is inside) to ``.wall``, and appends every
-    non-empty pricing call's inputs to ``prices`` when given."""
+    non-empty pricing call's inputs to ``prices`` and every solve's
+    (``eff``, ``links``, ``valid``, ``eps``) to ``fills`` when given."""
 
     class Timed(base):
         def waterfill(self, eff, links, valid, eps):
+            if fills is not None and len(links):
+                fills.append((eff.copy(), links.copy(), valid.copy(), eps))
             t0 = time.perf_counter()
             out = super().waterfill(eff, links, valid, eps)
             self.wall["waterfill"] += time.perf_counter() - t0
@@ -462,13 +484,13 @@ def timed_bulk(base, *args, prices=None):
 def recording_backends(device, at: float = CAPTURE_AT):
     """Torch assessment and bulk backends on ``device`` that record: the
     snapshot at the first spatial pass at or after ``at``, and every
-    pricing call's inputs (the bulk backend is :func:`timed_bulk`).
-    Returns (assess, bulk, record dict)."""
+    pricing call's and water-fill solve's inputs (the bulk backend is
+    :func:`timed_bulk`). Returns (assess, bulk, record dict)."""
     from repro_torch.accel.bulk import TorchBulk
     from repro_torch.accel.torch_backend import TorchBackend
     from repro_torch.core.arrays import snapshot_state
 
-    got = {"prices": []}
+    got = {"prices": [], "fills": []}
 
     class Assess(TorchBackend):
         def spatial_hits(self, arr, now, active, neighborhoods):
@@ -477,7 +499,8 @@ def recording_backends(device, at: float = CAPTURE_AT):
             return super().spatial_hits(arr, now, active, neighborhoods)
 
     return Assess(device), timed_bulk(TorchBulk, device,
-                                      prices=got["prices"]), got
+                                      prices=got["prices"],
+                                      fills=got["fills"]), got
 
 
 def capture_snapshot(cap: float = CAPTURE_AT, **kw):
@@ -937,6 +960,8 @@ def _ops(name, args) -> float:
     if name == "price":
         # a compare per valid link and the max with 1.0 per row
         return float(args[2].sum()) + args[1].shape[0]
+    if name == "waterfill":
+        return _waterfill_ops(*args)
     if name == "spatial":
         running, nh, jcap = args[4], args[5], args[6]
         n, k = nh.shape
@@ -1437,7 +1462,8 @@ def _fig_predictor_run(policy, script, kw, ckpt, assess):
 
 def fair_path():
     """Bino on the ε-fair network, card then numpy; returns the card
-    run's launch counts and its records (pricing calls, snapshot)."""
+    run's launch counts and its records (pricing calls, water-fill
+    solves, snapshot)."""
     from repro_torch.accel import kernels as K
 
     from repro_torch.accel.bulk import NumpyBulk
@@ -1459,6 +1485,18 @@ def fair_path():
     if counts["price"] == 0 or len(got["prices"]) != counts["price"]:
         raise RuntimeError(f"fair: B5 launched {counts['price']} times for "
                            f"{len(got['prices'])} pricing calls")
+    solves = len(got["fills"])
+    if not solves or counts["waterfill"] != solves \
+            or bulk.n_calls != solves:
+        raise RuntimeError(f"fair: the water-fill kernel launched "
+                           f"{counts['waterfill']} times for {solves} "
+                           f"solves ({bulk.n_calls} counted)")
+    if bulk.n_reads != solves:
+        raise RuntimeError(f"fair: {bulk.n_reads} host reads of the "
+                           f"water-fill for {solves} solves")
+    if bulk.n_rounds != ref_bulk.n_rounds:
+        raise RuntimeError(f"fair: {bulk.n_rounds} water-fill rounds on "
+                           f"the card, {ref_bulk.n_rounds} on numpy")
     if card.shuffle.n_reallocs == 0:
         raise RuntimeError("fair: no transfer was re-priced")
     if "state" not in got:
@@ -1467,16 +1505,20 @@ def fair_path():
     print(f"fair path bino ({N_WORKERS} nodes, {N_RACKS} racks): identical "
           f"traces ({len(card.action_trace)} actions, {len(c_launch)} "
           f"attempt launches, {len(c_key)} jobs finished); re-priced "
-          f"transfers {card.shuffle.n_reallocs}; card: water-fill calls "
-          f"{bulk.n_calls}, rounds {bulk.n_rounds}, wall "
-          f"{bulk.wall['waterfill']:.6f} s, pricing calls {bulk.n_prices}, "
-          f"wall {bulk.wall['price']:.6f} s, solver recomputes "
+          f"transfers {card.shuffle.n_reallocs}; card: water-fill solves "
+          f"{bulk.n_calls} (one launch and one host read each: "
+          f"{counts['waterfill']} launches, {bulk.n_reads} reads), rounds "
+          f"counted on the card {bulk.n_rounds}, water-fill wall "
+          f"{bulk.wall['waterfill']:.6f} s, pricing calls {bulk.n_prices} "
+          f"({bulk.n_reused} on the solved shares left on the card), "
+          f"pricing wall {bulk.wall['price']:.6f} s, solver recomputes "
           f"{net.n_recomputes}, {card.assess_ticks} assess ticks, "
           f"assess_wall "
           f"{card.assess_wall:.6f} s, "
           f"{card.assess_ticks / card.assess_wall:.3f} ticks/s, wall "
           f"{c_wall:.6f} s; numpy: solver recomputes "
-          f"{ref_net.n_recomputes}, water-fill wall "
+          f"{ref_net.n_recomputes}, water-fill rounds "
+          f"{ref_bulk.n_rounds}, water-fill wall "
           f"{ref_bulk.wall['waterfill']:.6f} s, pricing wall "
           f"{ref_bulk.wall['price']:.6f} s, re-priced "
           f"{ref.shuffle.n_reallocs}, "
@@ -1512,6 +1554,196 @@ def price_phase(prices):
                      "src/repro_torch/accel/csrc/bulk.cu",
                      "src/repro/accel/bulk.py:252 "
                      "PallasBulk._price_core.kernel")
+
+
+# The water-fill kernel's boundary cases (:func:`waterfill_inputs`), each
+# at ε 0 and 0.05: no flows; one link shared by every flow; exact ties
+# (equal capacities, equal counts); ties within ε (capacities 0-6 %
+# apart); a zero-capacity link; valid flags off the leading slots with
+# junk ids under the invalid ones; and a table past shared memory (12,000
+# nodes in 400 racks: nL = 24,400, 13 nL + k bytes beyond the 227 KB
+# opt-in).
+WATERFILL_CASES = ("no_flows", "one_link", "ties", "ties_eps", "zero_cap",
+                   "slots", "past_smem")
+WATERFILL_EPS = (0.0, 0.05)
+WATERFILL_SOURCE = "src/repro_torch/accel/csrc/bulk.cu"
+WATERFILL_REPLACES = ("src/repro/accel/bulk.py:187 _make_waterfill (jnp "
+                      "lax.while_loop; no pallas_call)")
+
+
+def fair_table(rng, n: int, racks: int, k: int):
+    """A fair-network flow table as ``FairNetwork`` builds one: NICs,
+    disks and uplinks of ``n`` nodes in ``racks`` racks (some uplinks
+    degraded); ``k`` local (disk only), intra-rack (two NICs) and
+    inter-rack (two NICs, two uplinks) flows, ids -1 past a flow's links.
+    Returns (eff, links, valid)."""
+    nL = 2 * n + racks
+    eff = np.concatenate([np.full(n, 125.0), np.full(n, 400.0),
+                          np.full(racks, 125.0 * n / racks / 2)])
+    eff[2 * n:] *= rng.choice([1.0, 0.3, 0.05], racks)
+    rack = np.arange(n) * racks // n
+    src, dst = rng.integers(0, n, (2, k))
+    links = np.full((k, 4), -1, dtype=np.int32)
+    local = src == dst
+    links[local, 0] = n + src[local]
+    links[~local, 0], links[~local, 1] = src[~local], dst[~local]
+    inter = ~local & (rack[src] != rack[dst])
+    links[inter, 2] = 2 * n + rack[src[inter]]
+    links[inter, 3] = 2 * n + rack[dst[inter]]
+    assert eff.shape == (nL,)
+    return eff, links, links >= 0
+
+
+def waterfill_inputs(case: str, seed: int):
+    """One boundary case of the water-fill kernel as numpy arrays (eff,
+    links, valid) as ``FairNetwork`` passes them to the bulk solver."""
+    rng = np.random.default_rng(seed)
+    if case == "no_flows":
+        eff, links, valid = fair_table(rng, 64, 4, 1)
+        return eff, links[:0], valid[:0]
+    if case == "one_link":
+        eff = rng.choice([125.0, 400.0], 130)
+        links = np.full((3000, 4), -1, dtype=np.int32)
+        links[:, 0] = 7
+        return eff, links, links >= 0
+    if case == "ties":
+        # every NIC and uplink alike: flows between distinct pairs leave
+        # many links with exactly the same share
+        eff, links, valid = fair_table(rng, 256, 8, 2048)
+        eff[:] = 125.0
+        return eff, links, valid
+    if case == "ties_eps":
+        eff, links, valid = fair_table(rng, 256, 8, 2048)
+        eff *= 1.0 + rng.choice([0.0, 0.01, 0.049, 0.05, 0.051, 0.06],
+                                len(eff))
+        return eff, links, valid
+    if case == "zero_cap":
+        eff, links, valid = fair_table(rng, 128, 4, 1024)
+        eff[rng.choice(len(eff), 3, replace=False)] = 0.0
+        eff[links[0, 0]] = 0.0
+        return eff, links, valid
+    if case == "slots":
+        eff, links, valid = fair_table(rng, 128, 4, 1024)
+        valid = rng.permuted(valid, axis=1)
+        junk = rng.integers(-5, 10 ** 6, links.shape).astype(np.int32)
+        links = np.where(valid, rng.integers(0, len(eff), links.shape),
+                         junk).astype(np.int32)
+        return eff, links, valid
+    if case == "past_smem":
+        return fair_table(rng, 12_000, 400, 40_000)
+    raise ValueError(case)
+
+
+def _waterfill_ops(eff, links, valid, eps) -> float:
+    """Operations the solve needs on these inputs (float64 and integer,
+    against the float64 rate): per round, an add per alive flow's valid
+    slot (the counts), a division and a comparison per counted link twice
+    (the minimum and the bottleneck test), a comparison per alive flow's
+    slot (the hit test), an add per hit flow's slot, and a product, a
+    subtraction and a maximum per link; the numpy rounds replayed."""
+    eff, links, valid = (np.asarray(x.cpu()) if torch.is_tensor(x) else x
+                         for x in (eff, links, valid))
+    nL = len(eff)
+    flat = np.where(valid, links, 0)
+    rem, alive = eff.copy(), valid.any(axis=1)
+    ops = 0.0
+    while alive.any():
+        slots = int(valid[alive].sum())
+        cnt = np.bincount(flat[alive][valid[alive]], minlength=nL)
+        live = cnt > 0
+        s_all = np.where(live, rem / np.maximum(cnt, 1), np.inf)
+        s = float(s_all.min())
+        bott = live & (s_all <= s * (1.0 + eps))
+        hit = alive & (bott[flat] & valid).any(axis=1)
+        rem = np.maximum(rem - np.bincount(flat[hit][valid[hit]],
+                                           minlength=nL) * s, 0.0)
+        alive &= ~hit
+        ops += 2 * slots + 4 * int(live.sum()) + int(valid[hit].sum()) \
+            + 3 * nL
+    return ops
+
+
+def _check_waterfill(what, dev, eps, ref) -> int:
+    """The kernel on ``dev`` = (eff, links, valid) against ``NumpyBulk``
+    ``ref`` on the same arrays: share and rate with ``torch.equal``, the
+    rounds equal; returns the rounds."""
+    from repro_torch.accel import bulk as B
+
+    arrays = tuple(x.cpu().numpy() for x in dev)
+    before = ref.n_rounds
+    want = ref.waterfill(*arrays, eps)
+    share, rate, rounds = B.waterfill(*dev, eps)
+    want_rounds = ref.n_rounds - before
+    for name, got, w in (("share", share, want[0]), ("rate", rate, want[1])):
+        if not torch.equal(got.cpu(), torch.from_numpy(w)):
+            raise RuntimeError(f"waterfill: kernel {name} != numpy on "
+                               f"{what}")
+    if rounds != want_rounds:
+        raise RuntimeError(f"waterfill: {rounds} rounds on the card, "
+                           f"{want_rounds} on numpy, on {what}")
+    return rounds
+
+
+def waterfill_phase(fills):
+    """The water-fill kernel against ``NumpyBulk.waterfill`` on every
+    solve of the fair card run and on :data:`WATERFILL_CASES` at each ε of
+    :data:`WATERFILL_EPS` (share and rate the same bits, the same rounds);
+    a NaN capacity and a link id past the table must raise, not hang;
+    then timed on the largest recorded solve beside its plain version
+    (the eager rounds, one host read each)."""
+    from repro_torch.accel import bulk as B
+    from repro_torch.accel import kernels as K
+
+    def card(eff, links, valid):
+        return tuple(torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                     for x in (eff, np.asarray(links, dtype=np.int32),
+                               valid))
+
+    ref = B.NumpyBulk()
+    rounds, largest = 0, None
+    for eff, links, valid, eps in fills:
+        dev = card(eff, links, valid)
+        rounds += _check_waterfill(f"a recorded solve (k {len(links)})",
+                                   dev, eps, ref)
+        if largest is None or len(links) > len(largest[0][1]):
+            largest = (dev, eps)
+    print(f"waterfill: kernel equal to numpy on {len(fills)} recorded "
+          f"solves ({rounds} rounds; largest k {largest[0][1].shape[0]}, "
+          f"nL {largest[0][0].shape[0]})", flush=True)
+    lib = K.library("bulk")
+    for case in WATERFILL_CASES:
+        for eps in WATERFILL_EPS:
+            dev = card(*waterfill_inputs(case, 0))
+            n = _check_waterfill(f"{case}, eps {eps}", dev, eps, ref)
+            work = lib.bulk_waterfill_work_bytes(dev[1].shape[0],
+                                                 dev[0].shape[0])
+            print(f"waterfill {case} eps {eps}: equal, {n} rounds, k "
+                  f"{dev[1].shape[0]}, nL {dev[0].shape[0]}, tables in "
+                  f"{'device memory' if work else 'shared memory'}",
+                  flush=True)
+            if case == "past_smem" and not work:
+                raise RuntimeError("waterfill: the past_smem case fits in "
+                                   "shared memory")
+    eff, links, valid = card(*waterfill_inputs("ties_eps", 1))
+    for what, args in (
+            ("a NaN capacity", (torch.where(
+                torch.arange(len(eff), device="cuda") == 3,
+                torch.nan, eff), links, valid)),
+            ("a link id past the table", (eff, torch.where(
+                valid, links + len(eff), links), valid))):
+        try:
+            B.waterfill(*args, 0.05)
+        except RuntimeError as e:
+            print(f"waterfill on {what}: raised ({e})", flush=True)
+        else:
+            raise RuntimeError(f"waterfill: no error on {what}")
+    torch.cuda.synchronize()
+    dev, eps = largest
+    args = (*dev, eps)
+    got = K.launch_waterfill(*args)
+    row = timed_row("waterfill", K.launch_waterfill, B.waterfill_ref, args,
+                    got, 0.0, WATERFILL_SOURCE, WATERFILL_REPLACES)
+    return row
 
 
 def sweep_path(state, now, device="cuda", n_scen=N_SCENARIOS,
@@ -2813,8 +3045,11 @@ def train_path(cfg=None, device="cuda", steps=TRAIN_STEPS, seq=TRAIN_SEQ,
     """Qwen1.5-0.5B at full width (or ``cfg``) trained through
     ``TrainerRuntime`` on ``device``; checkpoints go to a temporary
     directory under ``ckpt_root`` (default: the repository's git-ignored
-    ``build/``), removed at the end. Returns the fault-free timed steps'
-    launch counts."""
+    ``build/``), removed at the end. Every object alive once a run's
+    runtime, model and data are built moves to the collector's permanent
+    generation (``gc.freeze()``) before the run's steps, and back before
+    the run is freed, so that no collection during the steps walks them.
+    Returns the fault-free timed steps' launch counts."""
     import shutil
     import tempfile
 
@@ -2829,6 +3064,7 @@ def train_path(cfg=None, device="cuda", steps=TRAIN_STEPS, seq=TRAIN_SEQ,
         return _train_runs(cfg or get_config(TRAIN_ARCH), device, steps,
                            seq, ckpt_dir)
     finally:
+        gc.unfreeze()
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
@@ -2875,9 +3111,15 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
         frees, once :func:`finish` has joined every thread that refers to
         it: three runs' parameters and optimizer states left behind (about
         16 GB) ran the last run out of memory."""
+        gc.unfreeze()
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
+
+    def settle():
+        """Before a run's steps: take every object alive now out of the
+        collector's walks (ROADMAP.md, C3)."""
+        gc.freeze()
 
     def finish(calls):
         """After :func:`_hosts_joined` (a losing speculative attempt may
@@ -2918,6 +3160,7 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
                          (FA, "flash_attention_dq_plain"),
                          (FREF, "attention_reference")])
     K.reset_launches()
+    settle()
     w0 = time.perf_counter()
     with plain, _hosts_joined(t):
         try:
@@ -2989,6 +3232,7 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
         t = runtime(recovery, "crash", horizon,
                     ckpt_every=2 if recovery == "bino" else None)
         calls = _host_calls(t)
+        settle()
         with _hosts_joined(t):
             reports = t.run(n_steps)
         counts = finish(calls)
@@ -3018,6 +3262,7 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
         if k > start:   # as if the run had died before writing them
             shutil.rmtree(os.path.join(ckpt_dir, f"step_{k:09d}"))
     t = runtime(ckpt_every=0)
+    settle()
     with _hosts_joined(t):
         if t._start_step != start:
             raise RuntimeError(f"train: resumed at {t._start_step}, not "
@@ -4729,18 +4974,25 @@ def family_train_child(name: str) -> dict:
           f"{torch.cuda.memory_allocated()} bytes of device memory "
           f"({torch.cuda.memory_reserved()} reserved)", flush=True)
     env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    proc = subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--family-train",
-         name], env=env, stdout=subprocess.PIPE, text=True)
-    counts = None
+    return run_child([sys.executable, str(Path(__file__).resolve()),
+                      "--family-train", name], FAMILY_TRAIN_COUNTS,
+                     f"{name} train", env)
+
+
+def run_child(cmd, marker: str, what: str, env=None):
+    """Run ``cmd`` in a child process, echo its output here line by line,
+    and return the JSON that follows ``marker`` on a line of its own;
+    raises if the child exits non-zero or prints no such line."""
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, text=True)
+    got = None
     for line in proc.stdout:
         print(line, end="", flush=True)
-        if line.startswith(FAMILY_TRAIN_COUNTS):
-            counts = json.loads(line[len(FAMILY_TRAIN_COUNTS):])
-    if proc.wait() or counts is None:
-        raise RuntimeError(f"{name} train: the child process exited with "
+        if line.startswith(marker):
+            got = json.loads(line[len(marker):])
+    if proc.wait() or got is None:
+        raise RuntimeError(f"{what}: the child process exited with "
                            f"{proc.returncode}")
-    return counts
+    return got
 
 
 def _leaf_marks(params) -> dict:
@@ -5720,7 +5972,9 @@ def _phases_before_training(phase):
     predict = phase("predictor", predictor_path)
     fair_launches, fair = phase("fair path", fair_path)
     launches["price"] = fair_launches["price"]
+    launches["waterfill"] = fair_launches["waterfill"]
     rows["price"] = price_phase(fair["prices"])
+    rows["waterfill"] = waterfill_phase(fair["fills"])
     sweep, sweep_launches = phase("sweep", sweep_path, fair["state"],
                                   fair["now"])
     launches.update((k, sweep_launches[k])
@@ -5735,15 +5989,47 @@ def _phases_before_training(phase):
 
 
 TRAIN_CONTEXT_RUNS = 3
+# The line the training phase's child process prints its launch counts on.
+TRAIN_COUNTS = "train counts "
+
+
+def forced_collection() -> tuple:
+    """(the objects the collector tracks, the seconds one full collection
+    takes) in this process."""
+    n = len(gc.get_objects())
+    t = time.perf_counter()
+    gc.collect()
+    return n, time.perf_counter() - t
+
+
+def train_child() -> dict:
+    """The training phase (:func:`train_path`) in a fresh child process
+    (``chip_smoke.py --train``), so that no collection during its steps
+    walks the objects of the phases before it: a full collection in this
+    process, which holds them all, once paused every host's heartbeat
+    past Eq. 4's threshold (ROADMAP.md, C3). :func:`train_path` freezes
+    what each run builds before its steps. Prints
+    this process's tracked objects and a forced collection's time (the
+    child prints its own); the child's output is echoed here; returns its
+    fault-free run's launch counts, and raises if it exits non-zero."""
+    n, secs = forced_collection()
+    torch.cuda.empty_cache()
+    print(f"train: in a child process; this process tracks {n} objects, "
+          f"a forced collection here took {secs:.6f} s", flush=True)
+    return run_child([sys.executable, str(Path(__file__).resolve()),
+                      "--train"], TRAIN_COUNTS, "train")
 
 
 def train_context(runs: int = TRAIN_CONTEXT_RUNS) -> int:
     """The training phase where a fault-free run once lost quorum
     (ROADMAP.md, C3): after every phase before it (their heaps and
-    threads), ``runs`` times in one process, each printing its fault-free
-    run's heartbeat silences and collector pauses. A run that raises prints its traceback (its hosts
-    joined) and the next one starts; returns the number that raised. Run
-    as ``chip_smoke.py --train-context [RUNS]``."""
+    threads), ``runs`` times, each in its own child process as the main
+    run takes it (:func:`train_child`): each prints this process's and
+    the child's tracked objects and forced-collection times beside the
+    child's fault-free run's heartbeat silences and collector pauses. A
+    run that fails prints why and the next one starts; returns the
+    number that failed. Run as ``chip_smoke.py --train-context
+    [RUNS]``."""
     import traceback
 
     from repro_torch.accel import kernels as K
@@ -5755,16 +6041,66 @@ def train_context(runs: int = TRAIN_CONTEXT_RUNS) -> int:
     failed = 0
     for run in range(runs):
         try:
-            phase(f"training (run {run})", train_path)
+            phase(f"training (run {run})", train_child)
         except Exception:
             failed += 1
-            print(f"train context run {run} raised:", flush=True)
+            print(f"train context run {run} failed:", flush=True)
             traceback.print_exc()
             sys.stdout.flush()
-        _free()
     print(f"train context: {runs} runs of the training phase after the "
-          f"earlier phases, {failed} raised", flush=True)
+          f"earlier phases, {failed} failed", flush=True)
     return failed
+
+
+BULK_PARENT_TURNS = ("parent", "change", "change", "parent")
+
+
+def bulk_wall() -> None:
+    """The fair path's card run alone, through the port whose ``src``
+    directory comes first on ``sys.path``: its solves and rounds, the
+    water-fill and pricing walls, the run's wall and assessment ticks/s;
+    then B5 on the run's largest pricing call, the host's microseconds to
+    enqueue a call and the device ms (``_device_host``). Run as
+    ``chip_smoke.py --bulk-wall [SRC]``; ``--bulk-parent`` runs it for
+    two checkouts in turns. The kernels are built and loaded first, so
+    that the run's wall holds no build."""
+    from repro_torch.accel import bulk as B
+    from repro_torch.accel import kernels as K
+
+    for name in K.build():
+        K.library(name)
+    assess, bulk, got = recording_backends("cuda")
+    sim, _l, _k, wall = fair_scenario(assess, bulk)
+    torch.cuda.synchronize()
+    share, links, valid = max(got["prices"], key=lambda c: len(c[1]))
+    args = tuple(torch.from_numpy(x).cuda()
+                 for x in (share, *B.pad_flows(links, valid)))
+    device_ms, host_us = _device_host(B.price, args)
+    print(f"bulk wall {sys.path[0]}: water-fill solves {bulk.n_calls}, "
+          f"rounds {bulk.n_rounds}, host reads "
+          f"{getattr(bulk, 'n_reads', bulk.n_rounds)}, water-fill wall "
+          f"{bulk.wall['waterfill']:.6f} s; pricing calls {bulk.n_prices}, "
+          f"pricing wall {bulk.wall['price']:.6f} s; wall {wall:.6f} s, "
+          f"{sim.assess_ticks} assess ticks, "
+          f"{sim.assess_ticks / sim.assess_wall:.3f} ticks/s; B5 on its "
+          f"largest call (cap {args[1].shape[0]}): host_us {host_us:.3f}, "
+          f"device_ms {device_ms:.6f}", flush=True)
+
+
+def bulk_parent(src: str) -> None:
+    """``--bulk-wall`` through the port under ``src`` (the parent) and
+    this checkout's (the change), each in its own process, in turns
+    parent, change, change, parent. Run as ``chip_smoke.py --bulk-parent
+    SRC`` with SRC a parent's ``src`` directory (``git archive HEAD src |
+    tar -x -C build/parent``)."""
+    for turn in BULK_PARENT_TURNS:
+        path = Path(src).resolve() if turn == "parent" else ROOT / "src"
+        print(f"bulk parent turn: {turn} ({path})", flush=True)
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--bulk-wall", str(path)])
+        if proc.returncode:
+            raise RuntimeError(f"--bulk-wall {path} exited with "
+                               f"{proc.returncode}")
 
 
 def main() -> int:
@@ -5776,7 +6112,7 @@ def main() -> int:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
     modes = {"--decode-wall": decode_wall, "--sim-wall": sim_wall,
-             "--train-wall": train_wall}
+             "--train-wall": train_wall, "--bulk-wall": bulk_wall}
     if sys.argv[1:2] and sys.argv[1] in modes:
         if len(sys.argv) > 2:
             sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
@@ -5791,6 +6127,22 @@ def main() -> int:
             K.library(name)
         counts = family_train_path(sys.argv[2])
         print(FAMILY_TRAIN_COUNTS + json.dumps(counts), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--train"]:
+        from repro_torch.accel import kernels as K
+
+        print(f"card: {smi}", flush=True)
+        for name in K.build():
+            K.library(name)
+        n, secs = forced_collection()
+        print(f"train child: this process tracks {n} objects, a forced "
+              f"collection took {secs:.6f} s", flush=True)
+        counts = train_path()
+        print(TRAIN_COUNTS + json.dumps(counts), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--bulk-parent"]:
+        print(f"card: {smi}", flush=True)
+        bulk_parent(sys.argv[2])
         return 0
     if sys.argv[1:2] == ["--train-context"]:
         print(f"card: {smi}", flush=True)
@@ -5823,7 +6175,7 @@ def main() -> int:
     phase = _phase_clock()
     rows, launches, predict, sweep_launches, serve_launches = \
         _phases_before_training(phase)
-    train_launches = phase("training", train_path)
+    train_launches = phase("training", train_child)
     launches.update((k, train_launches[k]) for k in ("flash_dkv",
                                                      "flash_dq"))
     gc.collect()    # the earlier models' last references

@@ -1,7 +1,8 @@
 """Build, load and launch the port's CUDA kernels.
 
 The assessment kernels B1–B4 live in ``csrc/assess.cu``, the ε-fair
-network's pricing kernel B5 in ``csrc/bulk.cu``, the flash-attention
+network's pricing kernel B5 and its one-launch water-fill in
+``csrc/bulk.cu``, the flash-attention
 forward B6 in ``csrc/flash_attention.cu``, its backward B7 (dK, dV) and
 B8 (dQ) in ``csrc/flash_attention_bwd.cu``, the decode attention B9 in
 ``csrc/decode_attention.cu`` and the Mamba-2 SSD chunked scan B10 in
@@ -11,9 +12,9 @@ together, into ``build/kernels/`` at the repository root —
 each file name carries a hash of its source, of the shared headers
 (``csrc/*.cuh``) and of the flags it is built with, so an edited source,
 header or flag rebuilds — and :func:`library` loads them with
-``ctypes``. B1–B5 are bit-exact against numpy and build with
-``-fmad=false``; B6–B10 are held to tolerances and let ``nvcc`` fuse
-multiply-adds. B6 has two bodies in one library: bf16 inputs with
+``ctypes``. B1–B5 and the water-fill are bit-exact against numpy and
+build with ``-fmad=false``; B6–B10 are held to tolerances and let
+``nvcc`` fuse multiply-adds. B6 has two bodies in one library: bf16 inputs with
 head_dim 64, 80 or 128 take the Hopper body
 (``csrc/flash_attention_sm90.cuh``: wgmma products on TMA-fed 128 x 128
 tiles), float32 and bf16 at head_dim 16 or 32 the SIMT body (64 x 64
@@ -57,7 +58,8 @@ launch (counted as ``spatial``/``late``/``reap``), (N, cap) columns are
 the batched sweep's one launch for all N scenarios (counted as
 ``*_sweep``). B1, B2 and B3 are two launches each, a row pass and a job
 pass; the second counts as ``spatial_jobs``/``spatial_sweep_jobs``,
-``temporal_jobs`` and ``late_jobs``/``late_sweep_jobs``. B3 keeps its
+``temporal_jobs`` and ``late_jobs``/``late_sweep_jobs``; a water-fill
+solve counts as ``waterfill``. B3 keeps its
 records in a work buffer held per (device, stream, N, cap) across calls
 (:func:`late_work`), B1 and B2 theirs in one held per (device, stream,
 shape) (:func:`glance_work`); B4 is one launch and needs none. The plain
@@ -107,6 +109,8 @@ LATE_ROWS = 256
 LATE_SMEM_CANDS = 1024
 LATE_MAX_CAP = 1 << 29
 REAP_TILE = 1024
+# The water-fill kernel's block (one block a solve).
+WATERFILL_THREADS = 1024
 # Tile sizes of B6–B9, which their plain versions walk too (checked
 # against the built library when it loads), and the head sizes they take.
 # B6's SIMT body (float32; bf16 at head_dim 16, 32) and its Hopper body
@@ -151,7 +155,8 @@ SSD_TC_KEYS = ("ssd", "ssd_tc", "ssd_prep", "ssd_state", "ssd_out")
 # Launches per kernel since the last reset_launches(): the proof that a
 # run went through the kernels.
 launches: Dict[str, int] = {"spatial": 0, "temporal": 0, "late": 0,
-                            "reap": 0, "price": 0, "spatial_sweep": 0,
+                            "reap": 0, "price": 0, "waterfill": 0,
+                            "spatial_sweep": 0,
                             "late_sweep": 0, "reap_sweep": 0,
                             "spatial_jobs": 0, "spatial_sweep_jobs": 0,
                             "temporal_jobs": 0,
@@ -313,7 +318,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                  (lib.assess_reap_tile, REAP_TILE)]
     elif name == "bulk":
         lib.bulk_price.argtypes = [P] * 3 + [I, I, P, P]
-        fns = (lib.bulk_price,)
+        lib.bulk_waterfill.argtypes = [P] * 3 + [I, I, ctypes.c_double] \
+            + [P] * 5
+        lib.bulk_waterfill_work_bytes.argtypes = [I, I]
+        lib.bulk_waterfill_work_bytes.restype = ctypes.c_size_t
+        fns = (lib.bulk_price, lib.bulk_waterfill)
+        tiles = [(lib.bulk_waterfill_threads, WATERFILL_THREADS)]
     elif name == "flash":
         fns = bind_flash_fwd(lib)
         tiles = [(lib.flash_fwd_block_q, FLASH_FWD_BLOCK_Q),
@@ -663,6 +673,56 @@ def launch_reap(a_state, tseg, live) -> torch.Tensor:
                          _stream(dev))
     _raise_on(rc, "reap")
     count_launch(key)
+    return out
+
+
+# The water-fill kernel's statuses (csrc/bulk.cu, FILL_*).
+WATERFILL_ERRORS = {1: "no progress in k + 1 rounds (a NaN capacity?)",
+                    2: "a valid link id outside [0, nL)"}
+
+
+def waterfill_views(out: torch.Tensor, nL: int, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(info, share, rate) of :func:`launch_waterfill`'s result buffer:
+    int32 (rounds, status), then float64 (nL,) shares and (k,) rates."""
+    return (out[:8].view(torch.int32), out[8:8 + 8 * nL].view(torch.float64),
+            out[8 + 8 * nL:8 + 8 * (nL + k)].view(torch.float64))
+
+
+def launch_waterfill(eff, links, valid, eps: float) -> torch.Tensor:
+    """The ε-fair water-fill: every round of ``NumpyBulk.waterfill`` for
+    ``k`` flows over ``nL`` links in one single-block launch. ``eff``
+    (nL,) float64 capacities, ``links`` (k, 4) int32 link ids, ``valid``
+    (k, 4) bool flags. Returns one uint8 buffer of ``8 + 8 * (nL + k)``
+    bytes, split by :func:`waterfill_views` into int32 (rounds, status),
+    the (nL,) shares and the (k,) rates, so that one copy brings the whole
+    solve back; the caller reads the status (0, or a key of
+    :data:`WATERFILL_ERRORS`) before it trusts the rest."""
+    dev = eff.device
+    nL = eff.shape[0] if eff.dim() == 1 else -1
+    k = links.shape[0] if links.dim() == 2 else -1
+    _check(eff, "eff", torch.float64, (nL,), dev)
+    _check(links, "links", torch.int32, (k, 4), dev)
+    _check(valid, "valid", torch.bool, (k, 4), dev)
+    for name, t, align in (("eff", eff, 8), ("links", links, 16),
+                           ("valid", valid, 4)):
+        if t.data_ptr() % align:
+            raise ValueError(f"waterfill: {name} is not {align}-byte "
+                             f"aligned")
+    lib = library("bulk")
+    out = torch.empty(8 + 8 * (nL + k), dtype=torch.uint8, device=dev)
+    base = out.data_ptr()          # the views of waterfill_views
+    work_bytes = lib.bulk_waterfill_work_bytes(k, nL)
+    # past shared memory the tables live in a work buffer (in L2)
+    work = (torch.empty(work_bytes, dtype=torch.uint8, device=dev)
+            if work_bytes else None)
+    rc = lib.bulk_waterfill(eff.data_ptr(), links.data_ptr(),
+                            valid.data_ptr(), k, nL, 1.0 + float(eps),
+                            None if work is None else work.data_ptr(),
+                            base + 8, base + 8 + 8 * nL, base,
+                            _stream(dev))
+    _raise_on(rc, "waterfill")
+    count_launch("waterfill")
     return out
 
 
