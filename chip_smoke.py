@@ -81,16 +81,30 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    ε, a zero-capacity link, flags off the leading slots, a table past
    shared memory), a NaN capacity and a bad link id raising, then timed
    on the largest solve.
-6. Sweep path: the fair card run's snapshot at 120 s, 64 fault
+6. Corpus phase: the reference's pinned fault corpus
+   (``tests/test_fuzz_equivalence.py``; the script keeps its own copy)
+   on the card and on numpy, 166 runs in groups (:func:`corpus_groups`):
+   ``PINNED`` (10 scripts, 1 GB) under each of the four shuffle engines;
+   ``PINNED_NET`` (6 scripts, 6 GB) on the flat and the 4-rack topo
+   network under each engine; ``PINNED`` under the bulk, scalar and
+   legacy-FIFO dispatchers on the batch and kernel engines; the
+   three-job matrix under each engine and four tenants under bulk and
+   scalar dispatch; ``PINNED_FAIR`` on the kernel engine, 4 racks,
+   frozen and re-priced, with ``TorchBulk`` against ``NumpyBulk``.
+   Every run's traces, attempt launches and job results byte-identical;
+   each group's launches read around it: B1–B4 (row and job passes) by
+   its bino runs, B3 by its yarn runs, the water-fill and B5 in the fair
+   group. Prints each group's runs, launches by policy and wall.
+7. Sweep path: the fair card run's snapshot at 120 s, 64 fault
    scenarios of all five kinds; ``BatchedSweep.run_batched`` on the card
    (one call each of B1, B3 and B4 with a scenario axis) equals
    ``run_serial`` on numpy exactly. The batched kernels are then held
    against their plain versions and against 64 per-scenario launches,
    and timed as in phase 2.
-7. Profile: the flat bino card run once more under
+8. Profile: the flat bino card run once more under
    ``torch.profiler`` — device time by kernel and the device's busy share
    of the run's wall time.
-8. Attention kernels: B6 (flash-attention forward) and
+9. Attention kernels: B6 (flash-attention forward) and
    B9 (decode attention) against their plain torch versions on the card,
    in bf16 and f32, on boundary inputs (sq < sk, ragged tiles, a window,
    groups 1, 4 and 48, head_dim 64 and 128, valid lengths at 1, at tile
@@ -107,7 +121,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    as ``flash_fwd_tc``, no other; every B9 call one split launch and one
    combine; every B6 and B9 case launched twice gives byte-identical
    results. The same checks at the shapes the model-family paths (phase
-   14) give B6 and B9: B6 over 4 x 2,048 positions at moonshot's 16/16,
+   16) give B6 and B9: B6 over 4 x 2,048 positions at moonshot's 16/16,
    the jamba cut's 64/8 and internvl2's 16/8 heads of 128 (causal,
    bf16) and hubert's 16/16 of 80 (non-causal, bf16 and, as its f32 copy
    runs it, f32); B9 at the three decoders' heads against a 4,096-slot
@@ -121,7 +135,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    against the decode shape's cache), timed beside the plain versions and
    ``F.scaled_dot_product_attention`` (the yardstick only: the port never
    calls it), by CUDA events and by device time (``_device_ms``).
-9. Serving path: Qwen3-8B at full width (36 layers, random
+10. Serving path: Qwen3-8B at full width (36 layers, random
    bf16 weights from a seeded generator) serves 4 prompts of 2,048 token
    ids through ``make_prefill_step`` and 64 greedy steps of
    ``make_serve_step``: exactly 36 B6 launches, all on its Hopper body
@@ -134,7 +148,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    how much of the error is bf16 rounding. Prints prefill ms, decode ms
    per step, tokens/s, peak device memory, and a profile of the device
    time by kernel.
-10. Attention backward: B7 (dK, dV) and B8 (dQ) against
+11. Attention backward: B7 (dK, dV) and B8 (dQ) against
    their plain versions on the card in bf16 and f32 on boundary inputs
    (causal or not, windows, sq < sk, ragged tiles, groups 1, 4 and 8,
    head_dim 32, 64, 80 and 128; bf16 2e-2, f32 2e-5), each launched twice
@@ -154,7 +168,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    yardstick only) by CUDA events and by device time, and the port's
    whole backward (``bwd_delta``, B7, B8) beside that yardstick by device
    time.
-11. Training path, in a fresh child process (``--train``; its output
+12. Training path, in a fresh child process (``--train``; its output
    echoed, its launch counts returned on one line, a non-zero exit fails
    the run; the child freezes what each run builds before its steps, so
    that no collection walks it): Qwen1.5-0.5B at full width and depth
@@ -172,10 +186,32 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    pinned ``crash`` script with bino (checkpointing every 2 steps) and with
    gang restart, and a fresh runtime resumes from the bino run's last
    checkpoint before the end: each must end byte-identical to the
-   fault-free run, and the crash runs must show a recovery. The last
-   resumed step is profiled (device time by kernel, busy share, device
+   fault-free run, and the crash runs must show a recovery; the bino
+   crash run's scorecard is printed beside the sim world's core under the
+   same script (reported, not gated: real clock, four hosts on one
+   card). The last resumed step is profiled (device time by kernel, busy share, device
    time per ``grad_fn`` call, B6/B7/B8's shares).
-12. SSD scan: B10 against its plain version on the card, y and final
+13. Runtime gates, in a fresh child process (``--runtime``), each in
+   the shape of the reference's benchmark, reduced Qwen1.5-0.5B (4
+   layers, float32: B6–B8 on their SIMT bodies) on 4 hosts x 4
+   microbatches of 2 x 32 tokens, B1–B4 on the bino ticks: (a) sim ≡
+   runtime (``benchmarks/fig_scorecard.py``): for both of its scripts the
+   port's simulator and the port's ``TrainerRuntime`` on the card, on an
+   auto-advancing ``FakeClock``, run until every scripted step has fired
+   and two steps more (:func:`run_until_fired`; the reference's 3 steps
+   can end before its crash fires, ROADMAP.md C4): equal comparable
+   scorecard cores, bino's recall 1.0, every time-to-detect above 0,
+   detections those of the metrics plane, every scripted step fired;
+   (b) recovery (``benchmarks/perf_runtime.py``): real clock, compute
+   delay 0.08 s, 2 warm-up steps, then the crash released and 8
+   measured steps: bino's recovery (its slowest step's excess over the
+   fault-free p50) below gang restart's, both runs' final parameters the
+   fault-free run's bytes. Each world of (a) launches B1–B4 and B6–B8,
+   the three runs of (b) together B1, B2, B4 and B6–B8 (they never reach
+   B3), and none runs a plain version.
+   Prints the worlds' steps, virtual seconds, cores and TTDs, p50/p99
+   step latency, both recoveries, step walls and ``mb_executed``.
+14. SSD scan: B10 against its plain version on the card, y and final
    state, in bf16 and f32, on boundary inputs (the shapes of
    ``tests/test_kernels.py``, s < chunk, ragged tails, 1, 2 and 8 groups,
    head_dim 16 to 128 with d_state 128, A near 0 and decays that
@@ -193,7 +229,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    path's layer (the jamba cut: 256 heads of 64, 8 groups, d_state 128,
    chunk 256, 4 x 2,048 tokens, bf16), launched twice byte-identical,
    within the same tolerances of its plain version.
-13. SSM serving path: Mamba2-2.7B at full width and depth (64 layers,
+15. SSM serving path: Mamba2-2.7B at full width and depth (64 layers,
    random bf16 weights from a seeded generator, about 2.70 B parameters)
    serves 4 prompts of 2,048 token ids through ``make_prefill_step`` and
    64 greedy steps of ``make_serve_step``: exactly 64 B10 launches in
@@ -211,7 +247,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    it), each layer's final state within ``SSM_STATE_TOL``. Prints prefill ms, decode ms per
    step, tokens/s, peak device memory, the parameters' and the cache's
    bytes, and a profile of the device time by kernel.
-14. Model families (one path each, its weights freed before the next;
+16. Model families (one path each, its weights freed before the next;
    each prints prefill ms, decode ms per step, tokens/s, peak device
    memory, the parameters' and the cache's bytes, and a profile of the
    device time by kernel), random bf16 weights from seed 0, no
@@ -245,7 +281,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      launches with combines; the logits of the prefill and decode steps
      1, 16, 64 within ``SERVE_TOL`` of the f32 reference (an fp8 probe
      must fail it).
-15. Family training paths (``family_train_path``; each its own run, its
+17. Family training paths (``family_train_path``; each its own run, its
    state freed before the next), ``make_train_step`` on random bf16
    weights from seed 0, a warm-up step and 3 timed steps of 4 sequences
    of 4,096 positions (step wall, tokens/s, peak memory, the bytes of
@@ -276,11 +312,11 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    the same bits twice; every loss finite, the AdamW count the number of
    steps, every leaf changed but those bf16 cannot move
    (``FROZEN_IN_BF16``) and the audio family's unreached embedding.
-16. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
+18. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Each path is driven with the launch counts set to 0 just before it and
-read just after; the comparisons of phases 2, 4, 5, 6, 8, 10 and 12, and the
+read just after; the comparisons of phases 2, 4, 5, 6, 7, 9, 11 and 14, and the
 training, serving and family checks, launch outside those windows.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -304,10 +340,12 @@ alone: its water-fill and pricing walls, wall and ticks/s, and B5's host
 microseconds and device ms) through the port under SRC and through this
 checkout's, each in its own process, in turns parent, change, change,
 parent.
-``--family-train NAME`` runs one family training path (phase 15) alone;
+``--family-train NAME`` runs one family training path (phase 17) alone;
 the full run takes the moe path this way, in a child process whose
 allocator maps expandable segments (``family_train_child``). ``--train``
-runs the training phase (phase 11) alone, as the full run's child.
+runs the training phase (phase 12) alone, as the full run's child;
+``--runtime`` runs the runtime gates (phase 13) alone, as the full run's
+child.
 ``--train-context [RUNS]`` runs every phase before the training phase,
 then the training phase RUNS times (3 by default), each in its child:
 this process's and the child's tracked objects and forced-collection
@@ -1746,6 +1784,231 @@ def waterfill_phase(fills):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Corpus phase: the reference's pinned fault corpus on the card
+# ---------------------------------------------------------------------------
+# The corpus of tests/test_fuzz_equivalence.py, kept here so that this
+# script imports nothing of tests/ (tests/test_torch_chip_corpus.py holds
+# each copy equal to that module's): (name, policy, seed, script), every
+# step (kind, node_idx, x, y).
+PINNED = [
+    ("crash_mid_map", "yarn", 1,
+     [("crash", 3, 0.15, 0.0)]),
+    ("crash_during_shuffle", "bino", 3,
+     [("crash", 7, 0.45, 0.0)]),
+    ("crash_restore_rejoin", "bino", 2,
+     [("crash_restore", 5, 0.2, 0.6)]),
+    ("slow_straggler", "yarn", 1,
+     [("slow", 11, 0.1, 0.3)]),
+    ("hb_outage_confusion", "bino", 4,
+     [("hb", 9, 0.25, 0.8)]),
+    ("mof_loss_stall", "yarn", 2,
+     [("mof", 0, 0.9, 0.9)]),
+    ("disk_exception_rollback", "bino", 5,
+     [("disk", 2, 0.0, 0.5)]),
+    ("mof_plus_slowdown", "bino", 2,
+     [("mof", 0, 0.85, 1.0), ("slow", 4, 0.3, 0.2)]),
+    ("crash_after_disk_exception", "yarn", 3,
+     [("disk", 1, 0.0, 0.9), ("crash", 6, 0.5, 0.0)]),
+    ("triple_fault", "bino", 1,
+     [("crash_restore", 2, 0.12, 0.4), ("mof", 0, 0.8, 0.6),
+      ("hb", 14, 0.5, 0.5)]),
+]
+NET_GB = 6.0
+PINNED_NET = [
+    ("rack_degrade_yarn", "yarn", 2, [("degrade", 0, 0.2, 0.3)]),
+    ("rack_degrade_bino", "bino", 3,
+     [("degrade", 0, 0.25, 0.1), ("slow", 2, 0.3, 0.4)]),
+    ("link_cut_recovery", "bino", 1, [("cut", 1, 0.25, 0.5)]),
+    ("rack_partition_heal", "yarn", 4, [("part", 1, 0.3, 0.7)]),
+    ("cut_plus_mof", "bino", 2,
+     [("cut", 3, 0.3, 0.4), ("mof", 0, 0.85, 0.8)]),
+    ("cut_then_crash", "yarn", 3,
+     [("cut", 4, 0.2, 0.9), ("crash", 4, 0.5, 0.0)]),
+]
+FAIR_RACKS = 4
+PINNED_FAIR = [PINNED[1], PINNED[2], PINNED[3], PINNED[4], PINNED[9]]
+DISPATCH_VARIANTS = (
+    ("default", None),
+    ("bulk", {"bulk": True, "bulk_min": 1}),
+    ("scalar", {"bulk": False}),
+    ("legacy-fifo", {"fair": False, "bulk": False}),
+)
+# The multi-job cells (test_multi_job_matrix_equivalence and
+# test_multi_job_bulk_scalar_dispatch_equivalence): extra jobs as
+# (job_id, bench, GB, submit time), under one crash.
+MULTI_SCRIPT = [("crash", 6, 0.3, 0.0)]
+MULTI_JOB = (("j1", "wordcount", 0.5, 25.0), ("j2", "grep", 0.5, 40.0))
+MULTI_TENANT = (("j1", "wordcount", 0.5, 6.0), ("j2", "grep", 1.0, 8.0),
+                ("j3", "terasort", 0.5, 9.0))
+CORPUS_SHUFFLES = ("rescan", "event", "batch", "kernel")
+# What each policy's runs must reach in every group: B1–B4 (each row
+# pass with its job pass) on the bino ticks, B3 on the yarn ticks; the
+# fair group also the water-fill and B5 (its re-priced runs).
+CORPUS_NEEDS = {"bino": ("spatial", "spatial_jobs", "temporal",
+                         "temporal_jobs", "late", "late_jobs", "reap"),
+                "yarn": ("late", "late_jobs")}
+CORPUS_KEYS = CORPUS_NEEDS["bino"] + ("price", "waterfill")
+
+
+def corpus_groups():
+    """Every cell of the corpus phase as (group, runs), each run (label,
+    policy, seed, script, keywords of :func:`corpus_run`): ``PINNED`` ×
+    the four engines; ``PINNED_NET`` × flat and 4-rack topo × the four
+    engines; ``PINNED`` under each non-default dispatcher configuration
+    on the batch and kernel engines (the default is the pinned group);
+    the multi-job cells, one group (the three-job matrix, and four
+    tenants under bulk and scalar dispatch); ``PINNED_FAIR`` on the
+    kernel engine, frozen and re-priced."""
+    groups = [(f"pinned/{mode}",
+               [(name, policy, seed, script, dict(mode=mode, gb=1.0))
+                for name, policy, seed, script in PINNED])
+              for mode in CORPUS_SHUFFLES]
+    groups += [(f"pinned_net/{net}/{mode}",
+                [(name, policy, seed, script,
+                  dict(mode=mode, gb=NET_GB, net=net, racks=racks))
+                 for name, policy, seed, script in PINNED_NET])
+               for net, racks in (("flat", 0), ("topo", 4))
+               for mode in CORPUS_SHUFFLES]
+    groups += [(f"dispatch/{mode}/{label}",
+                [(name, policy, seed, script,
+                  dict(mode=mode, gb=1.0, dispatch_opts=opts))
+                 for name, policy, seed, script in PINNED])
+               for mode in ("batch", "kernel")
+               for label, opts in DISPATCH_VARIANTS[1:]]
+    groups.append(("multi_job", [
+        (f"matrix/{mode}", "bino", 4, MULTI_SCRIPT,
+         dict(mode=mode, gb=1.0, extra_jobs=MULTI_JOB))
+        for mode in CORPUS_SHUFFLES] + [
+        (f"tenants/{mode}/{label}", "bino", 4, MULTI_SCRIPT,
+         dict(mode=mode, gb=1.0, extra_jobs=MULTI_TENANT, dispatch_opts=opts))
+        for mode in ("batch", "kernel")
+        for label, opts in DISPATCH_VARIANTS[1:3]]))
+    groups.append(("fair", [
+        (f"{name}/{'realloc' if realloc else 'frozen'}", policy, seed,
+         script, dict(mode="kernel", gb=NET_GB, net="fair",
+                      racks=FAIR_RACKS, realloc=realloc))
+        for name, policy, seed, script in PINNED_FAIR
+        for realloc in (False, True)]))
+    return groups
+
+
+def corpus_run(policy, seed, script, assess, bulk, *, mode, gb, net="flat",
+               racks=0, realloc=False, dispatch_opts=None, extra_jobs=()):
+    """One corpus run through the port, instrumented as the reference's
+    harness instruments it (``tests/conftest.py``'s ``run_traced``):
+    returns (action trace, attempt launches, job results). ``bulk`` is
+    the fair network's solver (unused on the others)."""
+    from repro_torch import sim as S
+
+    net_opts = ({"realloc": realloc, "bulk_backend": bulk}
+                if net == "fair" else None)
+    sim = S.Simulation(policy=policy, seed=seed, shuffle=mode,
+                       assess_backend=assess, net=net, racks=racks,
+                       net_opts=net_opts, record_actions=True,
+                       dispatch_opts=dispatch_opts)
+    launches = []
+    orig = sim._start_attempt
+
+    def logged(req, node_id):
+        launches.append((sim.engine.now, req.task.task_id, node_id,
+                         req.reason, req.speculative, req.rollback))
+        return orig(req, node_id)
+
+    sim._start_attempt = logged
+    job = sim.submit(S.JobSpec("j0", "terasort", gb))
+    for spec in extra_jobs:
+        sim.submit(S.JobSpec(*spec))
+    S.faults.apply_script(sim, job, script)
+    results = sim.run()
+    return sim.action_trace, launches, [
+        (r.job_id, r.finish_time, r.n_attempts, r.n_spec_attempts,
+         r.n_fetch_failures) for r in results]
+
+
+def _first_difference(a, b) -> str:
+    if len(a) != len(b):
+        return f"length {len(a)} against {len(b)}"
+    k = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    return f"element {k}: {a[k]!r} against {b[k]!r}"
+
+
+def corpus_phase(device="cuda", only=None):
+    """Every cell of :func:`corpus_groups` (those named in ``only``, if
+    given) on ``device`` — assessment on ``TorchBackend(device)``, the
+    fair network's solver ``TorchBulk(device)`` — and on numpy (and
+    ``NumpyBulk``): traces, attempt launches and job results must be
+    byte-identical. Each group's launches are read around it, by policy:
+    every bino group must have launched B1–B4, every yarn group B3, the
+    fair group the water-fill and B5. On the CPU (the kernels' plain
+    versions, which count nothing) the wrappers' calls and the solver's
+    solves and pricing calls stand in for the launches. Returns the
+    launches (on the CPU those stand-ins) summed over the phase."""
+    from repro_torch.accel import bulk as B
+    from repro_torch.accel import kernels as K
+    from repro_torch.accel import torch_backend as TB
+
+    on_card = torch.device(device).type == "cuda"
+    wrappers = _CountCalls([(TB, name) for name in
+                            ("spatial", "temporal", "late", "reap")])
+    total = dict.fromkeys(CORPUS_KEYS, 0)
+    t0 = time.perf_counter()
+    n_runs = 0
+    for group, runs in corpus_groups():
+        if only is not None and group not in only:
+            continue
+        seen = {policy: dict.fromkeys(CORPUS_KEYS, 0)
+                for policy in CORPUS_NEEDS}
+        g0 = time.perf_counter()
+        for label, policy, seed, script, kw in runs:
+            bulk = B.TorchBulk(device)
+            K.reset_launches()
+            wrappers.calls.clear()
+            with wrappers:
+                card = corpus_run(policy, seed, script,
+                                  TB.TorchBackend(device), bulk, **kw)
+            if on_card:
+                got = {k: K.launches[k] for k in CORPUS_KEYS}
+            else:
+                got = {k: wrappers.calls.get(f"{TB.__name__}.{k}", 0)
+                       for k in ("spatial", "temporal", "late", "reap")}
+                got.update(spatial_jobs=got["spatial"],
+                           temporal_jobs=got["temporal"],
+                           late_jobs=got["late"], waterfill=bulk.n_calls,
+                           price=bulk.n_prices)
+            ref = corpus_run(policy, seed, script, "numpy", "numpy", **kw)
+            for what, a, b in zip(("action traces", "attempt launches",
+                                   "job results"), card, ref):
+                if a != b:
+                    raise RuntimeError(
+                        f"corpus {group} {label}: {what} differ, "
+                        f"{device} against numpy: "
+                        f"{_first_difference(a, b)}")
+            if not ref[1]:
+                raise RuntimeError(f"corpus {group} {label}: launched "
+                                   f"nothing, not probing")
+            for k in CORPUS_KEYS:
+                seen[policy][k] += got[k]
+                total[k] += got[k]
+            n_runs += 1
+        policies = {policy for _l, policy, *_ in runs}
+        for policy in policies:
+            needs = CORPUS_NEEDS[policy] + (
+                ("waterfill", "price") if group == "fair" else ())
+            missing = [k for k in needs if not seen[policy][k]]
+            if missing:
+                raise RuntimeError(f"corpus {group}: {policy} runs never "
+                                   f"reached {missing} ({seen[policy]})")
+        print(f"corpus {group}: {len(runs)} runs, {device} ≡ numpy; "
+              f"{'launches' if on_card else 'wrapper calls'} by policy "
+              f"{ {p: seen[p] for p in sorted(policies)} }; "
+              f"{time.perf_counter() - g0:.3f} s", flush=True)
+    print(f"corpus phase: {n_runs} runs byte-identical between {device} "
+          f"and numpy in {time.perf_counter() - t0:.3f} s; launches "
+          f"{total}", flush=True)
+    return total
+
+
 def sweep_path(state, now, device="cuda", n_scen=N_SCENARIOS,
                racks=N_RACKS):
     """The batched sweep on the fair run's snapshot: ``run_batched`` on
@@ -3075,11 +3338,10 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
     gang restart, then resumed from a checkpoint."""
     import shutil
 
+    from repro_torch import obs as O
     from repro_torch.accel import kernels as K
     from repro_torch.accel.torch_backend import TorchBackend
     from repro_torch.data.pipeline import DataState
-    from repro_torch.kernels.flash_attention import flash_attention as FA
-    from repro_torch.kernels.flash_attention import ref as FREF
     from repro_torch.runtime import (PINNED_SCRIPTS, ChaosController,
                                      RuntimeConfig, TrainerRuntime)
     from repro_torch.train.loop import TrainConfig
@@ -3091,7 +3353,7 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
     assess_keys = ("spatial", "temporal", "late", "reap")
 
     def runtime(recovery="bino", script=None, horizon=0.0, ckpt_every=None,
-                **kw):
+                obs=None, **kw):
         """``ckpt_every``: None for no checkpoints, 0 to restore only."""
         rt = RuntimeConfig(
             n_hosts=TRAIN_HOSTS, microbatches_per_shard=TRAIN_MB,
@@ -3101,9 +3363,13 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
             checkpoint_every=ckpt_every or 0, **kw)
         chaos = (ChaosController(PINNED_SCRIPTS[script], horizon=horizon,
                                  seed=7) if script else None)
+        if chaos is not None and obs is None:
+            # its fired steps (:func:`fired_steps`); with ``obs`` the
+            # coordinator wires that recorder in
+            chaos.obs = O.TraceRecorder(thread_safe=True)
         return TrainerRuntime(cfg, TrainConfig(), rt, seq_len=seq,
                               per_shard_batch=1, seed=TRAIN_SEED,
-                              chaos=chaos, device=device)
+                              chaos=chaos, obs=obs, device=device)
 
     def release():
         """Free a finished runtime's device memory. A runtime is a web of
@@ -3155,10 +3421,7 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
     # shutdown: a losing speculative attempt may still be computing when
     # its step ends, so no instant between steps is free of launches.
     calls = _host_calls(t)
-    plain = _CountCalls([(FA, "flash_attention_plain"),
-                         (FA, "flash_attention_dkv_plain"),
-                         (FA, "flash_attention_dq_plain"),
-                         (FREF, "attention_reference")])
+    plain = train_plain_calls()
     K.reset_launches()
     settle()
     w0 = time.perf_counter()
@@ -3229,8 +3492,10 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
     horizon = ff_wall
     for recovery in ("bino", "restart"):
         K.reset_launches()
+        rec = O.TraceRecorder(thread_safe=True) if recovery == "bino" \
+            else None
         t = runtime(recovery, "crash", horizon,
-                    ckpt_every=2 if recovery == "bino" else None)
+                    ckpt_every=2 if recovery == "bino" else None, obs=rec)
         calls = _host_calls(t)
         settle()
         with _hosts_joined(t):
@@ -3248,9 +3513,22 @@ def _train_runs(cfg, device, steps, seq, ckpt_dir):
               f"{counts}", flush=True)
         if not same:
             raise RuntimeError(f"train: {recovery} crash run diverged")
+        if fired_steps(t.coord.chaos) != 1:
+            raise RuntimeError(f"train: the {recovery} run's crash never "
+                               f"fired")
         if not any(r.recoveries or r.restarts for r in reports):
             raise RuntimeError(f"train: {recovery} crash run shows no "
                                f"recovery")
+        if rec is not None:
+            # reported, not gated: four hosts share one card on the real
+            # clock, and bino re-executes work fault-free (PERF.md, §7)
+            card = O.scorecard(rec, policy="bino")
+            core = O.comparable_core(sim_card(PINNED_SCRIPTS["crash"],
+                                              "numpy"))
+            print(f"train bino crash scorecard (real clock, reported): "
+                  f"core {O.comparable_core(card)}, TTD {card['ttd']}; "
+                  f"the sim world's core under the same script {core}",
+                  flush=True)
         del t
         release()
 
@@ -3334,6 +3612,350 @@ def profile_train(trainer, calls):
     print(events.table(sort_by="self_device_time_total", row_limit=20,
                        max_name_column_width=60), flush=True)
     return reports
+
+
+# ---------------------------------------------------------------------------
+# The runtime's two gates, each in its reference benchmark's shape
+# ---------------------------------------------------------------------------
+# fig_scorecard's sim ≡ runtime gate (benchmarks/fig_scorecard.py) and
+# perf_runtime's recovery gate, bino against gang restart
+# (benchmarks/perf_runtime.py), kept here so that this script imports
+# nothing of benchmarks/. Both train reduced Qwen1.5-0.5B (4 layers,
+# d_model 64, 4 heads of 16, float32: B6–B8 on their SIMT bodies) on
+# 4 hosts x 4 microbatches of 2 sequences of 32 tokens.
+RUNTIME_ARCH = "qwen1.5-0.5b"
+RUNTIME_HOSTS = 4
+RUNTIME_MB = 4
+RUNTIME_SEQ = 32
+CROSS_SCRIPTS = {
+    "one_crash": [("crash", 1, 0.2, 0.0)],
+    "two_crashes": [("crash", 1, 0.2, 0.0), ("crash", 2, 0.3, 0.0)],
+}
+CROSS_HORIZON = 6.0
+CROSS_DELAY = 0.02
+# The reference gates run 3 steps and pass only because jax's compile
+# time moves the FakeClock past the crash (ROADMAP.md, C4): the runtime
+# world runs until its script has fired, then CROSS_AFTER steps for
+# detection and recovery, at least CROSS_MIN_STEPS in all. CROSS_CAP
+# steps hold at least 3.2 virtual s of compute delay alone, past the
+# latest fire time (1.8 s); reaching it fails.
+CROSS_MIN_STEPS = 3
+CROSS_AFTER = 2
+CROSS_CAP = 40
+RECOVERY_DELAY = 0.08
+RECOVERY_WARMUP = 2
+RECOVERY_STEPS = 8
+RECOVERY_SCRIPT = [("crash", 1, 0.02, 0.0)]
+RECOVERY_HORIZON = 5.0
+RESTART_TIMEOUT = 2.5
+REPAIR_TIMEOUT = 0.6
+RUNTIME_KEYS = ("spatial", "temporal", "late", "reap", "flash_fwd",
+                "flash_dkv", "flash_dq")
+# The recovery gate's runs: bino reaches B3 only through ``winning``, and
+# these runs never called it on the card (0 launches of B3 in all three).
+RECOVERY_KEYS = tuple(k for k in RUNTIME_KEYS if k != "late")
+# The line the runtime gates' child process prints its launch counts on.
+RUNTIME_COUNTS = "runtime counts "
+
+
+def fired_steps(chaos) -> int:
+    """The steps of ``chaos``'s script that have fired: the controller
+    emits one ``K_FAULT`` record a step, at its fire time, into its
+    recorder (``chaos.obs``, which must be set)."""
+    from repro_torch.obs.trace import K_FAULT
+
+    return len(chaos.obs.by_kind(K_FAULT))
+
+
+def run_until_fired(step, chaos, *, min_steps=CROSS_MIN_STEPS,
+                    after=CROSS_AFTER, cap=CROSS_CAP):
+    """Call ``step()`` (one training step; it returns the step's reports)
+    until every step of ``chaos``'s script has fired, then ``after`` times
+    more, and at least ``min_steps`` times in all. Raises once ``cap``
+    steps have run first: a run whose fault never lands must fail a gate,
+    never pass it or fail it by chance. Returns the reports and the
+    number of steps run when the last scripted step had fired."""
+    reports, fired_at = [], None
+    n = len(chaos.script)
+    while (len(reports) < min_steps or fired_at is None
+           or len(reports) < fired_at + after):
+        if len(reports) >= cap:
+            raise RuntimeError(f"{fired_steps(chaos)} of the script's {n} "
+                               f"steps fired in {cap} training steps")
+        reports += step()
+        if fired_at is None and fired_steps(chaos) >= n:
+            fired_at = len(reports)
+    return reports, fired_at
+
+
+def train_plain_calls():
+    """A counter of the calls of B6's, B7's and B8's plain versions and
+    of the attention oracle: none may run on a training path on the
+    card."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as FREF
+
+    return _CountCalls([(FA, "flash_attention_plain"),
+                        (FA, "flash_attention_dkv_plain"),
+                        (FA, "flash_attention_dq_plain"),
+                        (FREF, "attention_reference")])
+
+
+def sim_card(script, assess=None) -> dict:
+    """fig_scorecard's sim world: the port's ``Simulation`` (bino, seed
+    1, 4 workers, a 2 GB terasort, assessing on ``assess``) under
+    ``script``; returns its scorecard."""
+    from repro_torch import obs as O
+    from repro_torch.sim import JobSpec, Simulation, faults
+
+    rec = O.TraceRecorder()
+    sim = Simulation(policy="bino", seed=1, n_workers=RUNTIME_HOSTS,
+                     obs=rec, assess_backend=assess)
+    faults.apply_script(sim, sim.submit(JobSpec("j0", "terasort", 2.0)),
+                        script)
+    sim.run()
+    return O.scorecard(rec, policy="bino")
+
+
+def cross_world(script, device="cuda", assess=None, sim_assess=None,
+                cap=CROSS_CAP):
+    """fig_scorecard's two worlds under ``script``: :func:`sim_card`
+    (assessing on ``sim_assess``), and the port's
+    ``TrainerRuntime`` on ``device`` (bino, compute delay 0.02 s,
+    assessing on ``assess``) on an auto-advancing ``FakeClock``, the
+    script interpreted by a ``ChaosController`` of horizon 6.0, run by
+    :func:`run_until_fired`. Returns both scorecards, the runtime's
+    metrics snapshot and detections, its steps, virtual seconds, the
+    steps when the script had fired, and its launches and plain-version
+    calls."""
+    from repro_torch import obs as O
+    from repro_torch.accel import kernels as K
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.runtime import (ChaosController, FakeClock,
+                                     RuntimeConfig, TrainerRuntime)
+    from repro_torch.train.loop import TrainConfig
+
+    card_sim = sim_card(script, sim_assess)
+    rec_rt = O.TraceRecorder(thread_safe=True)
+    clock = FakeClock(auto_advance=True)
+    chaos = ChaosController(script, horizon=CROSS_HORIZON, seed=7)
+    rt = RuntimeConfig(n_hosts=RUNTIME_HOSTS,
+                       microbatches_per_shard=RUNTIME_MB, recovery="bino",
+                       compute_delay=CROSS_DELAY, assess_backend=assess)
+    plain = train_plain_calls()
+    K.reset_launches()
+    t = TrainerRuntime(reduced_config(get_config(RUNTIME_ARCH)),
+                       TrainConfig(), rt, seq_len=RUNTIME_SEQ,
+                       per_shard_batch=2, seed=0, clock=clock, chaos=chaos,
+                       obs=rec_rt, device=device)
+    v0 = clock.time()
+    try:
+        with plain, _hosts_joined(t):
+            reports, fired_at = run_until_fired(lambda: t.run(1), chaos,
+                                                cap=cap)
+            snap = t.coord.metrics.snapshot()
+            virtual = clock.time() - v0
+    finally:
+        clock.close()
+    detect = rec_rt.by_kind(O.K_DETECT)
+    return {"sim": card_sim,
+            "runtime": O.scorecard(rec_rt, policy="bino"),
+            "snapshot": snap, "detections": int((detect["b"] == 1).sum()),
+            "steps": len(reports), "fired_at": fired_at,
+            "virtual_s": virtual, "fired": fired_steps(chaos),
+            "fire_s": [x * CROSS_HORIZON for _k, _i, x, _y in script],
+            "mb_executed": [r.mb_executed for r in reports],
+            "launches": dict(K.launches), "plain": dict(plain.calls)}
+
+
+def scorecard_gate(device="cuda", assess=None, sim_assess=None,
+                   scripts=None, cap=CROSS_CAP) -> dict:
+    """fig_scorecard's gate on the port, for each of ``scripts``
+    (:data:`CROSS_SCRIPTS`): the sim world's and the runtime world's
+    comparable cores equal (victims, tp, fp, fn, precision, recall),
+    bino's recall 1.0, every time-to-detect above 0 in both worlds, the
+    runtime's detections those of its metrics plane and a recovery, every
+    scripted step fired. On the card B1–B4 and B6–B8 must have launched
+    in the runtime world and no plain version run. Returns the launches
+    summed over the scripts."""
+    from repro_torch import obs as O
+
+    on_card = torch.device(device).type == "cuda"
+    total = dict.fromkeys(RUNTIME_KEYS, 0)
+    for name, script in (scripts or CROSS_SCRIPTS).items():
+        w = cross_world(script, device, assess, sim_assess, cap)
+        core_sim = O.comparable_core(w["sim"])
+        core_rt = O.comparable_core(w["runtime"])
+        counts = {k: w["launches"][k] for k in RUNTIME_KEYS}
+        bodies = {k: w["launches"][k] for k in ("flash_fwd_tc",
+                                                "flash_dkv_tc",
+                                                "flash_dq_tc")}
+        print(f"sim ≡ runtime {name}: {w['steps']} steps, the script "
+              f"fired by step {w['fired_at']} ({w['fired']} of "
+              f"{len(script)} steps; fire times {w['fire_s']} s after "
+              f"arming), {w['virtual_s']:.4f} virtual s; sim core "
+              f"{core_sim}, runtime core {core_rt}; TTD sim "
+              f"{w['sim']['ttd']}, runtime {w['runtime']['ttd']}; "
+              f"detections {w['detections']} (metrics plane "
+              f"{w['snapshot'].get('detections')}), recoveries "
+              f"{w['snapshot'].get('recoveries')}; mb_executed "
+              f"{w['mb_executed']}; launches {counts}, Hopper bodies "
+              f"{bodies}; plain-version calls {w['plain']}", flush=True)
+        if core_sim != core_rt:
+            raise RuntimeError(f"sim ≡ runtime {name}: comparable cores "
+                               f"differ: {core_sim} against {core_rt}")
+        if w["sim"]["recall"] != 1.0:
+            raise RuntimeError(f"sim ≡ runtime {name}: bino's recall "
+                               f"{w['sim']['recall']}")
+        for world in ("sim", "runtime"):
+            if not all(v > 0 for v in w[world]["ttd"].values()):
+                raise RuntimeError(f"sim ≡ runtime {name}: a {world} "
+                                   f"time-to-detect is not above 0: "
+                                   f"{w[world]['ttd']}")
+        if w["snapshot"].get("detections") != w["detections"]:
+            raise RuntimeError(f"sim ≡ runtime {name}: {w['detections']} "
+                               f"detections traced, the metrics plane "
+                               f"counts {w['snapshot'].get('detections')}")
+        if not w["snapshot"].get("recoveries"):
+            raise RuntimeError(f"sim ≡ runtime {name}: no recovery")
+        if w["fired"] != len(script):
+            raise RuntimeError(f"sim ≡ runtime {name}: {w['fired']} of "
+                               f"{len(script)} scripted steps fired")
+        if on_card:
+            missing = [k for k, c in counts.items() if not c]
+            if missing or any(w["plain"].values()):
+                raise RuntimeError(f"sim ≡ runtime {name}: kernels never "
+                                   f"launched {missing}, plain-version "
+                                   f"calls {w['plain']}")
+        for k in RUNTIME_KEYS:
+            total[k] += counts[k]
+    return total
+
+
+def _recovery_run(policy, script, device, assess, n_meas):
+    """perf_runtime's ``_measure``: ``RECOVERY_WARMUP`` fault-free steps,
+    then the script released (``defer_arm``) and ``n_meas`` measured
+    steps, on the real clock. Returns the measured walls, the metrics
+    plane's counters, the final parameters' bytes, the scripted steps
+    fired and the launches."""
+    from repro_torch import obs as O
+    from repro_torch.accel import kernels as K
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.runtime import (ChaosController, RuntimeConfig,
+                                     TrainerRuntime)
+    from repro_torch.train.loop import TrainConfig
+
+    chaos = None
+    if script is not None:
+        chaos = ChaosController(script, horizon=RECOVERY_HORIZON, seed=0,
+                                defer_arm=True)
+        chaos.obs = O.TraceRecorder(thread_safe=True)
+    rt = RuntimeConfig(n_hosts=RUNTIME_HOSTS,
+                       microbatches_per_shard=RUNTIME_MB, recovery=policy,
+                       compute_delay=RECOVERY_DELAY,
+                       restart_timeout=RESTART_TIMEOUT,
+                       repair_timeout=REPAIR_TIMEOUT, assess_backend=assess)
+    plain = train_plain_calls()
+    K.reset_launches()
+    t = TrainerRuntime(reduced_config(get_config(RUNTIME_ARCH)),
+                       TrainConfig(), rt, seq_len=RUNTIME_SEQ,
+                       per_shard_batch=2, seed=0, chaos=chaos, device=device)
+    with plain, _hosts_joined(t):
+        reports = t.run(RECOVERY_WARMUP)
+        if chaos is not None:
+            chaos.release()
+        reports += t.run(n_meas)
+        snap = t.coord.metrics.snapshot()
+        final = _param_bytes(t.state["params"]).clone()
+    counters = {k: int(snap.get(k, 0)) for k in (
+        "recoveries", "detections", "expiry_declares", "restarts", "wedges",
+        "mb_executed", "resends")}
+    counters["mb_needed"] = sum(r.mb_needed for r in reports)
+    fired = fired_steps(chaos) if chaos is not None else 0
+    return ([r.wall_s for r in reports[RECOVERY_WARMUP:]], counters, final,
+            fired, dict(K.launches), dict(plain.calls))
+
+
+def recovery_gate(device="cuda", assess=None, n_meas=RECOVERY_STEPS
+                  ) -> dict:
+    """perf_runtime's gate on the port: a fault-free run gives the p50
+    and p99 step latency; under the crash script (released after the
+    warm-up) each policy's recovery is its slowest measured step's excess
+    over that p50. bino's must be below gang restart's, and both runs'
+    final parameters the fault-free run's bytes; the crash must have
+    fired and shown a recovery (bino) or a restart. On the card B1, B2,
+    B4 and B6–B8 must have launched over the three runs
+    (:data:`RECOVERY_KEYS`) and no plain version run. Returns the
+    launches summed over the three runs."""
+    on_card = torch.device(device).type == "cuda"
+    total = dict.fromkeys(RUNTIME_KEYS, 0)
+    base, base_ctr, base_final, _f, launches, plain = _recovery_run(
+        "bino", None, device, assess, n_meas)
+    p50 = float(np.percentile(base, 50))
+    p99 = float(np.percentile(base, 99))
+    print(f"recovery fault-free: step walls {base}; p50 {p50 * 1e3:.3f} "
+          f"ms, p99 {p99 * 1e3:.3f} ms over {n_meas} steps; counters "
+          f"{base_ctr}; launches "
+          f"{ {k: launches[k] for k in RUNTIME_KEYS} }", flush=True)
+    runs = {None: (launches, plain)}
+    recovery = {}
+    for policy in ("bino", "restart"):
+        walls, ctr, final, fired, launches, plain = _recovery_run(
+            policy, RECOVERY_SCRIPT, device, assess, n_meas)
+        runs[policy] = (launches, plain)
+        recovery[policy] = max(walls) - p50
+        same = torch.equal(final, base_final)
+        print(f"recovery {policy}: step walls {walls}; recovery_s "
+              f"{recovery[policy]:.6f}; final params "
+              f"{'byte-identical to' if same else 'DIFFER from'} the "
+              f"fault-free run; scripted steps fired {fired}; counters "
+              f"{ctr} (waste {ctr['mb_executed'] - ctr['mb_needed']} "
+              f"microbatches)", flush=True)
+        if not same:
+            raise RuntimeError(f"recovery {policy}: final parameters "
+                               f"differ from the fault-free run")
+        if fired != len(RECOVERY_SCRIPT):
+            raise RuntimeError(f"recovery {policy}: the crash never fired")
+        if not ctr["recoveries" if policy == "bino" else "restarts"]:
+            raise RuntimeError(f"recovery {policy}: no recovery shown")
+    b, r = recovery["bino"], recovery["restart"]
+    print(f"recovery gate: bino {b:.6f} s, gang restart {r:.6f} s "
+          f"(restart / bino {r / max(b, 1e-9):.3f}; gate bino < restart)",
+          flush=True)
+    for policy, (launches, plain) in runs.items():
+        if on_card and any(plain.values()):
+            raise RuntimeError(f"recovery {policy or 'fault-free'}: "
+                               f"plain-version calls {plain}")
+        for k in RUNTIME_KEYS:
+            total[k] += launches[k]
+    print(f"recovery launches over the three runs: {total}", flush=True)
+    if on_card and not all(total[k] for k in RECOVERY_KEYS):
+        raise RuntimeError(f"recovery: kernels never launched: {total}")
+    if not b < r:
+        raise RuntimeError(f"recovery gate failed: bino {b:.6f} s >= "
+                           f"restart {r:.6f} s under {RECOVERY_SCRIPT}")
+    return total
+
+
+def runtime_gates(device="cuda", assess=None, sim_assess=None) -> dict:
+    """The sim ≡ runtime gate, then the recovery gate, each a phase;
+    returns each one's launches."""
+    phase = _phase_clock()
+    return {"scorecard": phase("sim ≡ runtime", scorecard_gate, device,
+                               assess, sim_assess),
+            "recovery": phase("recovery", recovery_gate, device, assess)}
+
+
+def runtime_child() -> dict:
+    """:func:`runtime_gates` in a fresh child process (``chip_smoke.py
+    --runtime``), as the training phase runs (:func:`train_child`): the
+    recovery gate times steps on the real clock, where a collection of
+    this process's objects would pause the hosts. Returns its launch
+    counts; raises if it exits non-zero."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run_child([sys.executable, str(Path(__file__).resolve()),
+                      "--runtime"], RUNTIME_COUNTS, "runtime")
 
 
 # ---------------------------------------------------------------------------
@@ -5074,8 +5696,6 @@ def family_train_path(name: str, cfg=None, device="cuda",
     then the optimizer state, a warm-up step and ``steps`` timed steps of
     ``make_train_step``. Returns the launch counts of the path."""
     from repro_torch.accel import kernels as K
-    from repro_torch.kernels.flash_attention import flash_attention as FA
-    from repro_torch.kernels.flash_attention import ref as FREF
     from repro_torch.models import layers as L
     from repro_torch.models import model as PM
     from repro_torch.optim.adamw import adamw_init
@@ -5111,10 +5731,7 @@ def family_train_path(name: str, cfg=None, device="cuda",
           f"({param_bytes} bytes); {n_mb} microbatches of {per_mb} x {seq} "
           f"positions a step, remat {remat!r}", flush=True)
 
-    plain = _CountCalls([(FA, "flash_attention_plain"),
-                         (FA, "flash_attention_dkv_plain"),
-                         (FA, "flash_attention_dq_plain"),
-                         (FREF, "attention_reference")])
+    plain = train_plain_calls()
     # -- the checks on the initial weights (before the optimizer state) --
     checks, made = family_train_checks(tag, cfg, params, mbs, tc, device,
                                        plain)
@@ -5975,6 +6592,10 @@ def _phases_before_training(phase):
     launches["waterfill"] = fair_launches["waterfill"]
     rows["price"] = price_phase(fair["prices"])
     rows["waterfill"] = waterfill_phase(fair["fills"])
+    corpus = phase("corpus", corpus_phase)
+    for name in ("spatial", "temporal", "late", "reap", "price",
+                 "waterfill"):
+        rows[name]["corpus_launches"] = corpus[name]
     sweep, sweep_launches = phase("sweep", sweep_path, fair["state"],
                                   fair["now"])
     launches.update((k, sweep_launches[k])
@@ -6140,6 +6761,15 @@ def main() -> int:
         counts = train_path()
         print(TRAIN_COUNTS + json.dumps(counts), flush=True)
         return 0
+    if sys.argv[1:2] == ["--runtime"]:
+        from repro_torch.accel import kernels as K
+
+        print(f"card: {smi}", flush=True)
+        for name in K.build():
+            K.library(name)
+        counts = runtime_gates()
+        print(RUNTIME_COUNTS + json.dumps(counts), flush=True)
+        return 0
     if sys.argv[1:2] == ["--bulk-parent"]:
         print(f"card: {smi}", flush=True)
         bulk_parent(sys.argv[2])
@@ -6178,6 +6808,10 @@ def main() -> int:
     train_launches = phase("training", train_child)
     launches.update((k, train_launches[k]) for k in ("flash_dkv",
                                                      "flash_dq"))
+    runtime = phase("runtime gates", runtime_child)
+    for gate, counts in runtime.items():
+        for name in RUNTIME_KEYS:
+            rows[name][f"{gate}_gate_launches"] = counts[name]
     gc.collect()    # the earlier models' last references
     torch.cuda.empty_cache()
     rows.update(phase("ssd", ssd_kernel_phase))

@@ -14,9 +14,13 @@ reference package's (``repro_torch.obs.export``, ``.scorecard``).
    alone: the port's simulator and the port's ``TrainerRuntime`` (reduced
    qwen1.5-0.5b on a ``FakeClock``, ``device="cpu"``, assessing on
    numpy), fed the same fault script, give scorecards with the same
-   comparable core.
+   comparable core. The runtime world runs until every scripted step has
+   fired, then two steps more, and fails if a step never fires; the same
+   world of the reference's ``TrainerRuntime`` gives the same core.
 """
 import json
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -27,6 +31,7 @@ import repro_torch.obs as P
 import repro_torch.sim as port_sim
 from repro_torch.accel.torch_backend import TorchBackend
 
+ROOT = Path(__file__).resolve().parents[1]
 SHUFFLES = ("rescan", "event", "batch", "kernel")
 # tests/test_obs.py's scripts: (name, policy, seed, script)
 OBS_SCENARIOS = [
@@ -186,6 +191,7 @@ CROSS_SCRIPTS = [
     [("crash", 1, 0.2, 0.0)],
     [("crash", 1, 0.2, 0.0), ("crash", 2, 0.3, 0.0)],
 ]
+CROSS_IDS = ["one_crash", "two_crashes"]
 
 
 @pytest.fixture
@@ -196,14 +202,50 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("script", CROSS_SCRIPTS,
-                         ids=["one_crash", "two_crashes"])
-def test_scorecard_identical_across_worlds(script, one_thread):
+@pytest.fixture(scope="module")
+def chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    return chip_smoke
+
+
+def _port_runtime_world(chip_smoke, script):
+    """The port's ``TrainerRuntime`` (reduced qwen1.5-0.5b on a
+    ``FakeClock``, ``device="cpu"``, assessing on numpy) under
+    ``script``, run until every scripted step has fired and then two
+    steps more (``chip_smoke.run_until_fired``): the reference gate's
+    ``t.run(3)`` can end before its crash fires on a fast host
+    (ROADMAP.md, C4). Returns the recorder, the metrics snapshot and the
+    scripted steps fired."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.runtime import (ChaosController, FakeClock,
                                      RuntimeConfig, TrainerRuntime)
-    from repro_torch.sim import JobSpec, Simulation, faults
     from repro_torch.train.loop import TrainConfig
+
+    rec = P.TraceRecorder(thread_safe=True)
+    rt = RuntimeConfig(n_hosts=4, microbatches_per_shard=4,
+                       recovery="bino", compute_delay=0.02,
+                       assess_backend="numpy")
+    chaos = ChaosController(script, horizon=6.0, seed=7)
+    t = TrainerRuntime(
+        reduced_config(get_config("qwen1.5-0.5b")), TrainConfig(), rt,
+        seq_len=32, per_shard_batch=2, seed=0,
+        clock=FakeClock(auto_advance=True), chaos=chaos, obs=rec,
+        device="cpu")
+    try:
+        chip_smoke.run_until_fired(lambda: t.run(1), chaos)
+        snap = t.coord.metrics.snapshot()
+    finally:
+        t.shutdown()
+    return rec, snap, chip_smoke.fired_steps(chaos)
+
+
+@pytest.mark.parametrize("script", CROSS_SCRIPTS, ids=CROSS_IDS)
+def test_scorecard_identical_across_worlds(script, one_thread, chip_smoke):
+    from repro_torch.sim import JobSpec, Simulation, faults
 
     # -- sim world ----------------------------------------------------
     rec_sim = P.TraceRecorder()
@@ -215,23 +257,10 @@ def test_scorecard_identical_across_worlds(script, one_thread):
     card_sim = P.scorecard(rec_sim, policy="bino")
 
     # -- live runtime world -------------------------------------------
-    rec_rt = P.TraceRecorder(thread_safe=True)
-    rt = RuntimeConfig(n_hosts=4, microbatches_per_shard=4,
-                       recovery="bino", compute_delay=0.02,
-                       assess_backend="numpy")
-    t = TrainerRuntime(
-        reduced_config(get_config("qwen1.5-0.5b")), TrainConfig(), rt,
-        seq_len=32, per_shard_batch=2, seed=0,
-        clock=FakeClock(auto_advance=True),
-        chaos=ChaosController(script, horizon=6.0, seed=7), obs=rec_rt,
-        device="cpu")
-    try:
-        t.run(3)
-        snap = t.coord.metrics.snapshot()
-    finally:
-        t.shutdown()
+    rec_rt, snap, fired = _port_runtime_world(chip_smoke, script)
     card_rt = P.scorecard(rec_rt, policy="bino")
 
+    assert fired == len(script), "a scripted fault never fired"
     assert P.comparable_core(card_sim) == P.comparable_core(card_rt)
     assert card_sim["recall"] == 1.0
     for card in (card_sim, card_rt):
@@ -240,3 +269,41 @@ def test_scorecard_identical_across_worlds(script, one_thread):
     detect = rec_rt.by_kind(P.K_DETECT)
     assert snap["detections"] == len(detect[detect["b"] == 1])
     assert snap["recoveries"] > 0
+
+
+@pytest.mark.parametrize("script", CROSS_SCRIPTS, ids=CROSS_IDS)
+def test_runtime_scorecard_equals_reference_runtime(script, one_thread,
+                                                    chip_smoke):
+    """The port's runtime world and the reference's ``TrainerRuntime``
+    (jax on the CPU, the same model, script, seeds and FakeClock), each
+    run until its script has fired and two steps more: the same
+    comparable core, every scripted step fired in both."""
+    from repro.configs import get_config, reduced_config
+    from repro.runtime import (ChaosController, FakeClock, RuntimeConfig,
+                               TrainerRuntime)
+    from repro.train.loop import TrainConfig
+
+    assert P.K_FAULT == R.K_FAULT     # fired_steps reads either recorder
+    rec_port, _snap, fired_port = _port_runtime_world(chip_smoke, script)
+    rec_ref = R.TraceRecorder(thread_safe=True)
+    chaos = ChaosController(script, horizon=6.0, seed=7)
+    t = TrainerRuntime(
+        reduced_config(get_config("qwen1.5-0.5b")), TrainConfig(),
+        RuntimeConfig(n_hosts=4, microbatches_per_shard=4, recovery="bino",
+                      compute_delay=0.02),
+        seq_len=32, per_shard_batch=2, seed=0,
+        clock=FakeClock(auto_advance=True), chaos=chaos, obs=rec_ref)
+    step = iter(range(1 << 30))
+    try:
+        # the reference's ``run`` restarts its step labels on every call
+        chip_smoke.run_until_fired(lambda: [t.coord.run_step(next(step))],
+                                   chaos)
+    finally:
+        t.shutdown()
+    assert fired_port == chip_smoke.fired_steps(chaos) == len(script)
+    card_port = P.scorecard(rec_port, policy="bino")
+    card_ref = R.scorecard(rec_ref, policy="bino")
+    assert P.comparable_core(card_port) == R.comparable_core(card_ref)
+    assert card_ref["recall"] == 1.0
+    for card in (card_port, card_ref):
+        assert all(v > 0 for v in card["ttd"].values())

@@ -10,8 +10,10 @@ attention runs through B6/B7/B8's plain versions.
 
 1. **Chaos subset** — the pinned crash, hang, drop, dup, cut and
    crash_plus_drop scripts under bino, crash under gang restart, on an
-   auto-advancing ``FakeClock`` as the reference's tests run them: final
-   parameters byte-identical to the fault-free run's.
+   auto-advancing ``FakeClock`` as the reference's tests run them, until
+   every scripted step has fired (and at least ``STEPS`` steps): every
+   step fired, final parameters byte-identical to as many fault-free
+   steps.
 2. **Checkpoint restart** resumes exactly; quorum loss raises
    ``StepWedged``; consecutive ``run`` calls continue the step count.
 3. **Against the reference** — from the reference's initial weights
@@ -30,8 +32,10 @@ attention runs through B6/B7/B8's plain versions.
 ``chip_smoke.py``'s training phase is rehearsed on the CPU in
 ``tests/test_torch_train_smoke.py``.
 """
+import sys
 import threading
 import time
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -48,11 +52,13 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.models import layers as L
 from repro_torch.models import model as PM
 from repro_torch.models.convert import from_jax_params
+from repro_torch.obs import K_FAULT, TraceRecorder
 from repro_torch.runtime import (ChaosController, FakeClock, RuntimeConfig,
                                  StepWedged, TrainerRuntime)
 from repro_torch.runtime.chaos import PINNED_SCRIPTS, parse_script
 from repro_torch.train.loop import TrainConfig
 
+ROOT = Path(__file__).resolve().parents[1]
 CFG = reduced_config(get_config("qwen1.5-0.5b"))
 TC = TrainConfig()
 HORIZON = 6.0
@@ -67,8 +73,11 @@ def _params_vec(trainer):
 def _trainer(recovery="bino", *, script=None, fake_clock=False,
              params=None, assess="numpy", **kw):
     clock = FakeClock(auto_advance=True) if fake_clock else None
-    chaos = (ChaosController(script, horizon=HORIZON, seed=7)
-             if script is not None else None)
+    chaos = None
+    if script is not None:
+        chaos = ChaosController(script, horizon=HORIZON, seed=7)
+        # one K_FAULT record a scripted step, at its fire time
+        chaos.obs = TraceRecorder(thread_safe=True)
     kw.setdefault("compute_delay", 0.02)
     rt = RuntimeConfig(n_hosts=4, microbatches_per_shard=4,
                        recovery=recovery, assess_backend=assess, **kw)
@@ -107,6 +116,36 @@ def fault_free():
     return vec, reports
 
 
+@pytest.fixture(scope="module")
+def fault_free_at():
+    """``at(n)``: the fault-free parameters after ``n`` steps, from one
+    run on the real clock assessed on numpy, extended a step at a time
+    on demand (a chaos cell runs until its script has fired, so its
+    number of steps varies)."""
+    t = _trainer()
+    vecs = []
+
+    def at(n):
+        while len(vecs) < n:
+            t.run(1)
+            vecs.append(_params_vec(t))
+        return vecs[n - 1]
+    try:
+        yield at
+    finally:
+        t.shutdown()
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    return chip_smoke
+
+
 def test_fault_free_full_work(fault_free):
     _vec, reports = fault_free
     assert [r.step for r in reports] == list(range(STEPS))
@@ -123,18 +162,39 @@ CHAOS = [("crash", "bino"), ("hang", "bino"), ("drop", "bino"),
          ("crash", "restart")]
 
 
+def test_fault_free_steps_are_one_run(fault_free, fault_free_at):
+    """The chaos cells' golden runs, a step at a time on numpy, end where
+    the golden run of ``STEPS`` in one call does."""
+    vec_ff, _ = fault_free
+    assert torch.equal(vec_ff.view(torch.uint8),
+                       fault_free_at(STEPS).view(torch.uint8))
+
+
 @pytest.mark.parametrize("name,policy", CHAOS,
                          ids=[f"{n}-{p}" for n, p in CHAOS])
-def test_chaos_exactly_once(fault_free, name, policy):
-    vec_ff, _ = fault_free
+def test_chaos_exactly_once(fault_free_at, chip_smoke, name, policy):
+    """At least ``STEPS`` steps, and until every step of the script has
+    fired and two steps more (``chip_smoke.run_until_fired``; on a fast
+    host ``STEPS`` steps can end before a fault fires, ROADMAP.md, C4);
+    then byte-identical to as many fault-free steps."""
+    script = PINNED_SCRIPTS[name]
     kw = dict(restart_timeout=1.5)
     if policy == "bino":
         kw.update(repair_timeout=0.5, verify_columnar=True)
-    vec, reports, _ = _run(policy, script=PINNED_SCRIPTS[name],
-                           fake_clock=True, **kw)
-    assert len(reports) == STEPS
+    t = _trainer(policy, script=script, fake_clock=True, **kw)
+    try:
+        reports, _fired_at = chip_smoke.run_until_fired(
+            lambda: t.run(1), t.coord.chaos, min_steps=STEPS)
+        vec = _params_vec(t)
+    finally:
+        t.shutdown()
+    assert chip_smoke.fired_steps(t.coord.chaos) == len(script), \
+        f"{name}/{policy}: a scripted fault never fired"
+    assert len(reports) >= STEPS
+    assert [r.step for r in reports] == list(range(len(reports)))
     for r in reports:
         assert r.mb_executed >= r.mb_needed
+    vec_ff = fault_free_at(len(reports))
     assert torch.equal(vec_ff.view(torch.uint8), vec.view(torch.uint8)), \
         f"{name}/{policy}: faulted params diverged from fault-free"
     if name.startswith("crash"):
@@ -193,6 +253,8 @@ def test_quorum_loss_raises_step_wedged():
             t.run(2)
     finally:
         t.shutdown()
+    fired = t.coord.chaos.obs.by_kind(K_FAULT)
+    assert sorted(fired["a"].tolist()) == [1, 2, 3], "a crash never fired"
 
 
 # ---------------------------------------------------------------------------

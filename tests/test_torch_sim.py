@@ -21,12 +21,13 @@ The same harness code drives both packages: it takes the package's
 import hashlib
 import sys
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import pytest
 
 import repro.sim as ref_sim
 import repro_torch.sim as port_sim
+from conftest import check_invariants
 from repro_torch.accel.torch_backend import TorchBackend
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -37,15 +38,24 @@ def run_traced(pkg, policy: str, fault: Optional[Callable] = None,
                seed: int = 1, gb: float = 2.0, mode: str = "batch",
                assess_backend=None, extra_jobs=(), net="flat",
                racks: int = 0, net_opts: Optional[dict] = None,
-               sim_out: Optional[list] = None):
+               sim_out: Optional[list] = None,
+               checks: Optional[Sequence[float]] = None,
+               dispatch_opts: Optional[dict] = None,
+               generic_drain: bool = False):
     """One seeded run with launch instrumentation (the conftest harness,
     for either package); returns everything the gates compare.
     ``net``/``racks``/``net_opts`` select the network model; the
-    simulation is appended to ``sim_out`` when given."""
+    simulation is appended to ``sim_out`` when given. As in the conftest
+    harness, ``checks`` schedules mid-run invariant sweeps
+    (``check_invariants``), ``dispatch_opts`` configures the dispatcher
+    and ``generic_drain`` forces the batch lane's record-at-a-time
+    drain."""
     sim = pkg.Simulation(policy=policy, seed=seed, shuffle=mode,
                          assess_backend=assess_backend, net=net,
                          racks=racks, net_opts=net_opts,
-                         record_actions=True)
+                         record_actions=True, dispatch_opts=dispatch_opts)
+    if generic_drain:
+        sim.shuffle.batches._drain_impl = sim.shuffle.batches._generic_drain
     if sim_out is not None:
         sim_out.append(sim)
     launches = []
@@ -62,6 +72,8 @@ def run_traced(pkg, policy: str, fault: Optional[Callable] = None,
         sim.submit(pkg.JobSpec(*spec))
     if fault is not None:
         fault(pkg, sim, job)
+    for t in checks or ():
+        sim.engine.at(float(t), check_invariants, sim)
     results = sim.run()
     key = [(r.job_id, r.finish_time, r.n_attempts, r.n_spec_attempts,
             r.n_fetch_failures) for r in results]
