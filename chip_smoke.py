@@ -121,7 +121,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    as ``flash_fwd_tc``, no other; every B9 call one split launch and one
    combine; every B6 and B9 case launched twice gives byte-identical
    results. The same checks at the shapes the model-family paths (phase
-   16) give B6 and B9: B6 over 4 x 2,048 positions at moonshot's 16/16,
+   17) give B6 and B9: B6 over 4 x 2,048 positions at moonshot's 16/16,
    the jamba cut's 64/8 and internvl2's 16/8 heads of 128 (causal,
    bf16) and hubert's 16/16 of 80 (non-causal, bf16 and, as its f32 copy
    runs it, f32); B9 at the three decoders' heads against a 4,096-slot
@@ -211,7 +211,32 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    B3), and none runs a plain version.
    Prints the worlds' steps, virtual seconds, cores and TTDs, p50/p99
    step latency, both recoveries, step walls and ``mb_executed``.
-14. SSD scan: B10 against its plain version on the card, y and final
+14. The sequence-parallel decode (``impl="dist"``), in a fresh child
+   process (``--dist``) that spawns ``DIST_WORLD`` = 4 rank processes on
+   the one card, joined over gloo (:func:`dist_path`): (b) in the child,
+   ``decode_step(impl="dist")`` of Qwen3-8B at full width on a one-rank
+   ``model`` mesh for the serving path's traffic (4 prompts of 2,048, 64
+   greedy steps): every step's logits and the cache the same bits as
+   ``impl="kernel"`` on the same tokens (w = 1, a denominator of 1), a
+   cache write one slot late must change them; 2,304 B9 launches, each in
+   the lse mode (``decode_lse``) with its combine, no plain call. Then
+   the ranks: (a) the operation at Qwen3-8B's attention width in
+   decode_32k's layout (4 sequences, 32/8 heads of 128, bf16, 32,768
+   slots, 8,192 a rank, ``pos`` 0, 8,191, 8,192, 32,767): the output
+   against one process's B9 over the whole cache within
+   ``BF16_OUT_TOL``, each chunk the oracle's write, a chunk without a
+   sequence's key lse -inf and weight 0, one ``decode`` and one
+   ``decode_combine`` a rank, no plain call; dropping rank 0's partials
+   from the combine must fail the output gate; B9's lse mode at the
+   chunk's shape against its plain version, timed beside the serving
+   mode and SDPA, and the whole op's wall a call; (c) Qwen3-8B cut to 4
+   of its 36 layers, every width kept, prefilled as the serving path is,
+   its cache sharded by ``shard_cache``, 64 greedy ``impl="dist"`` steps
+   over the 4 ranks: logits within ``DIST_MODEL_TOL`` of the same cut in
+   one process fed the same tokens (the probe from (a) must exceed it),
+   256 B9 launches a rank in the lse mode, no plain call; whether the
+   greedy tokens stay equal is printed, not gated.
+15. SSD scan: B10 against its plain version on the card, y and final
    state, in bf16 and f32, on boundary inputs (the shapes of
    ``tests/test_kernels.py``, s < chunk, ragged tails, 1, 2 and 8 groups,
    head_dim 16 to 128 with d_state 128, A near 0 and decays that
@@ -229,7 +254,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    path's layer (the jamba cut: 256 heads of 64, 8 groups, d_state 128,
    chunk 256, 4 x 2,048 tokens, bf16), launched twice byte-identical,
    within the same tolerances of its plain version.
-15. SSM serving path: Mamba2-2.7B at full width and depth (64 layers,
+16. SSM serving path: Mamba2-2.7B at full width and depth (64 layers,
    random bf16 weights from a seeded generator, about 2.70 B parameters)
    serves 4 prompts of 2,048 token ids through ``make_prefill_step`` and
    64 greedy steps of ``make_serve_step``: exactly 64 B10 launches in
@@ -247,7 +272,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    it), each layer's final state within ``SSM_STATE_TOL``. Prints prefill ms, decode ms per
    step, tokens/s, peak device memory, the parameters' and the cache's
    bytes, and a profile of the device time by kernel.
-16. Model families (one path each, its weights freed before the next;
+17. Model families (one path each, its weights freed before the next;
    each prints prefill ms, decode ms per step, tokens/s, peak device
    memory, the parameters' and the cache's bytes, and a profile of the
    device time by kernel), random bf16 weights from seed 0, no
@@ -281,7 +306,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      launches with combines; the logits of the prefill and decode steps
      1, 16, 64 within ``SERVE_TOL`` of the f32 reference (an fp8 probe
      must fail it).
-17. Family training paths (``family_train_path``; each its own run, its
+18. Family training paths (``family_train_path``; each its own run, its
    state freed before the next), ``make_train_step`` on random bf16
    weights from seed 0, a warm-up step and 3 timed steps of 4 sequences
    of 4,096 positions (step wall, tokens/s, peak memory, the bytes of
@@ -312,11 +337,11 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    the same bits twice; every loss finite, the AdamW count the number of
    steps, every leaf changed but those bf16 cannot move
    (``FROZEN_IN_BF16``) and the audio family's unreached embedding.
-18. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
+19. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Each path is driven with the launch counts set to 0 just before it and
-read just after; the comparisons of phases 2, 4, 5, 6, 7, 9, 11 and 14, and the
+read just after; the comparisons of phases 2, 4, 5, 6, 7, 9, 11, 14 and 15, and the
 training, serving and family checks, launch outside those windows.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -340,12 +365,13 @@ alone: its water-fill and pricing walls, wall and ticks/s, and B5's host
 microseconds and device ms) through the port under SRC and through this
 checkout's, each in its own process, in turns parent, change, change,
 parent.
-``--family-train NAME`` runs one family training path (phase 17) alone;
+``--family-train NAME`` runs one family training path (phase 18) alone;
 the full run takes the moe path this way, in a child process whose
 allocator maps expandable segments (``family_train_child``). ``--train``
 runs the training phase (phase 12) alone, as the full run's child;
 ``--runtime`` runs the runtime gates (phase 13) alone, as the full run's
-child.
+child; ``--dist`` the sequence-parallel decode (phase 14) alone, as the
+full run's child.
 ``--train-context [RUNS]`` runs every phase before the training phase,
 then the training phase RUNS times (3 by default), each in its child:
 this process's and the child's tracked objects and forced-collection
@@ -5866,6 +5892,560 @@ def family_train_path(name: str, cfg=None, device="cuda",
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The sequence-parallel decode (impl="dist")
+# ---------------------------------------------------------------------------
+# (a) The operation at Qwen3-8B's attention width in decode_32k's layout:
+# 4 sequences, 32/8 heads of 128, bf16, a cache of 32,768 slots over
+# DIST_WORLD ranks of 8,192 on the one card (gloo); DIST_POS puts the
+# only key of sequence 0 in chunk 0, writes on a chunk boundary (8,191
+# and 8,192) and into the last slot.
+DIST_WORLD = 4
+DIST_SLOTS = 32768
+DIST_SEED = 0
+# (c) Qwen3-8B cut to 4 of its 36 layers, every width kept (about 2.0 B
+# parameters, 4 GB in bf16 a rank), served as the serving path is (4
+# prompts of 2,048, a 4,096-slot cache: chunks of 1,024 slots, so ranks 2
+# and 3 hold no key until the decode reaches them), over DIST_WORLD
+# ranks against the same cut in one process.
+DIST_CUT_LAYERS = 4
+# (c)'s tolerance on max |logits - one process's| / RMS over every step.
+# Both run in bf16; the 4 ranks' combine adds the chunks' float32 rows
+# in another order than one B9 call over the whole cache and rounds each
+# layer's output to bf16 once more, and 4 layers compound that. Measured
+# on an H100 80GB HBM3 at 700 W (PERF.md): 0.0238-0.0357 over the
+# 64 steps; the probe that drops rank 0's partials from every combine at
+# 0.404. The limit is 2.2x the largest step and 5x below the probe.
+DIST_MODEL_TOL = 0.08
+# The lines the dist child prints its results and each rank its report
+# on.
+DIST_COUNTS = "dist counts "
+DIST_KEYS = ("decode", "decode_combine", "decode_lse")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _plain_decode_calls():
+    """Counts of B9's plain version and the oracles while a path runs."""
+    from repro_torch.kernels.decode_attention import decode_attention as DA
+    from repro_torch.kernels.decode_attention import ref as DREF
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as FREF
+
+    return _CountCalls([(FA, "flash_attention_plain"),
+                        (DA, "decode_attention_plain"),
+                        (FREF, "attention_reference"),
+                        (DREF, "decode_attention_reference")])
+
+
+def _dist_counts(want: dict, what: str, plain, on_card: bool) -> dict:
+    """The launch counts of a dist path's run; raises unless they are
+    ``want`` (every other count 0) and, on the card, no plain version
+    ran."""
+    from repro_torch.accel import kernels as K
+
+    counts = {k: K.launches[k] for k in DIST_KEYS}
+    others = {k: c for k, c in K.launches.items()
+              if k not in want and c}
+    if on_card and (counts != want or others):
+        raise RuntimeError(f"{what}: launches {dict(K.launches)}, expected "
+                           f"{want}")
+    if on_card and any(plain.calls.values()):
+        raise RuntimeError(f"{what}: plain versions called on the card's "
+                           f"path: {plain.calls}")
+    return counts
+
+
+def _prompts(cfg, device, batch=SERVE_BATCH, prompt=SERVE_PROMPT):
+    rng = np.random.default_rng(SERVE_SEED)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt))
+                            .astype(np.int32)).to(device)
+
+
+def dist_one_rank(cfg=None, device="cuda", prompt=SERVE_PROMPT,
+                  max_len=SERVE_MAX_LEN, steps=SERVE_STEPS) -> dict:
+    """(b) ``decode_step(impl="dist")`` on a one-rank ``model`` mesh for
+    Qwen3-8B's serving traffic (or ``cfg``): the serving path's prefill,
+    then ``steps`` greedy steps; the same tokens through ``impl="kernel"``
+    from a copy of the prefilled cache must give the same logits, bit for
+    bit, and the same cache (at one shard w = 1 and the denominator is
+    1). Probe: a cache write one slot late must change the logits.
+    Returns the run's launch counts and walls."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import distributed as D
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as PM
+    from repro_torch.parallel.sharding import use_mesh
+
+    from repro_torch.accel import kernels as K
+
+    cfg = cfg or get_config(SERVE_ARCH)
+    on_card = torch.device(device).type == "cuda"
+    mesh = D.init_decode_mesh(0, 1, f"tcp://localhost:{_free_port()}",
+                              device=torch.device(device))
+    try:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SERVE_SEED)
+        params = PM.init_params(cfg, gen, device=device)
+        prompts = _prompts(cfg, device, prompt=prompt)
+        logits0, cache = PM.prefill(cfg, params, {"tokens": prompts},
+                                    max_len=max_len)
+        kcache = {"attn": {k: v.clone() for k, v in cache["attn"].items()}}
+        B, P = prompts.shape
+        plain = _plain_decode_calls()
+        K.reset_launches()
+        tok = logits0.argmax(-1).to(torch.int32)
+        toks, got = [], []
+        pos = torch.full((B,), P, dtype=torch.int32, device=device)
+        with plain, use_mesh(mesh):
+            _sync(device)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                toks.append(tok)
+                logits, _ = PM.decode_step(cfg, params, cache, tok, pos,
+                                           impl="dist")
+                got.append(logits)
+                tok = logits.argmax(-1).to(torch.int32)
+                pos = pos + 1
+            _sync(device)
+            dist_s = time.perf_counter() - t0
+        n = cfg.n_layers * steps if on_card else 0
+        counts = _dist_counts(dict.fromkeys(DIST_KEYS, n), "dist (b)",
+                              plain, on_card)
+        pos = torch.full((B,), P, dtype=torch.int32, device=device)
+        same = 0
+        _sync(device)
+        t0 = time.perf_counter()
+        for step in range(steps):
+            logits, _ = PM.decode_step(cfg, params, kcache, toks[step], pos)
+            same += _same_bits(logits, got[step])
+            pos = pos + 1
+        _sync(device)
+        kernel_s = time.perf_counter() - t0
+        caches = all(_same_bits(cache["attn"][k], kcache["attn"][k])
+                     for k in ("k", "v"))
+        print(f"dist (b): {cfg.n_layers} layers, {B} x {P} prompts, "
+              f"{steps} greedy steps on a one-rank mesh: {same} of {steps} "
+              f"steps' logits the same bits as impl=\"kernel\", caches the "
+              f"same bits: {caches}; decode {dist_s * 1e3 / steps:.3f} "
+              f"ms/step (impl=\"kernel\" {kernel_s * 1e3 / steps:.3f}); "
+              f"launches {counts}; plain-version calls {plain.calls}",
+              flush=True)
+        if same != steps or not caches:
+            raise RuntimeError("dist (b): impl=\"dist\" on one rank is not "
+                               "impl=\"kernel\" bit for bit")
+        # the probe: this token's K/V written one slot late
+        orig = L.dist_decode_update_attend
+
+        def late(q, k, v, ck, cv, p, **kw):
+            return orig(q, k, v, ck, cv, p + 1, **kw)
+
+        want, _ = PM.decode_step(cfg, params, kcache, tok, pos)
+        L.dist_decode_update_attend = late
+        try:
+            with use_mesh(mesh):
+                probe, _ = PM.decode_step(cfg, params, cache, tok, pos,
+                                          impl="dist")
+        finally:
+            L.dist_decode_update_attend = orig
+        if _same_bits(probe, want):
+            raise RuntimeError("dist (b): a cache write one slot late "
+                               "passes the bit-for-bit gate")
+        print(f"dist (b) probe (the write one slot late) fails the gate, as "
+              f"it must: max|diff|/rms {_rel_err(probe, want)}", flush=True)
+        return {"launches": counts, "ms_per_step": dist_s * 1e3 / steps,
+                "kernel_ms_per_step": kernel_s * 1e3 / steps}
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_ranks(narrow: bool = False) -> dict:
+    """(a) and (c): ``DIST_WORLD`` rank processes on the one card (gloo),
+    spawned together (:func:`dist_rank`); returns rank 0's report, with
+    every rank's launch counts. ``narrow``: a reduced Qwen3-8B on the
+    CPU (the tests' rehearsal)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_dist_rank_main,
+                         args=(r, DIST_WORLD, port, out, narrow))
+             for r in range(DIST_WORLD)]
+    for p in procs:
+        p.start()
+    reports, failed = {}, []
+    try:
+        for _ in procs:
+            rank, rep, err = out.get(timeout=900)
+            if err is not None:
+                failed.append(f"rank {rank}:\n{err}")
+            reports[rank] = rep
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if failed or any(p.exitcode for p in procs):
+        raise RuntimeError("dist: " + "\n".join(failed or [
+            f"rank exit codes {[p.exitcode for p in procs]}"]))
+    rep = reports[0]
+    rep["rank_launches"] = {r: reports[r]["launches"] for r in reports}
+    return rep
+
+
+def _dist_rank_main(rank, world, port, out, narrow):
+    """One rank's process: :func:`dist_rank`, its report (or its
+    traceback) put on ``out``."""
+    import traceback
+
+    try:
+        out.put((rank, dist_rank(rank, world, port, narrow), None))
+    except BaseException:
+        out.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def dist_rank(rank: int, world: int, port: int, narrow: bool) -> dict:
+    """One rank of (a) and (c). Every rank makes the same inputs and
+    weights from their seeds and keeps its chunk of the cache; rank 0
+    also holds the whole cache for the one-process references."""
+    import torch.distributed as dist
+
+    from repro_torch.accel import kernels as K
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels.decode_attention import distributed as D
+
+    device = "cpu" if narrow else "cuda"
+    on_card = not narrow
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for name in K.build():
+            K.library(name)
+    full = get_config(SERVE_ARCH)
+    cfg = reduced_config(full) if narrow else dataclasses.replace(
+        full, n_layers=DIST_CUT_LAYERS)
+    slots = 64 * world if narrow else DIST_SLOTS
+    prompt, max_len, steps = ((16, 32, 4) if narrow else
+                              (SERVE_PROMPT, SERVE_MAX_LEN, SERVE_STEPS))
+    mesh = D.init_decode_mesh(rank, world, f"tcp://localhost:{port}",
+                              device=torch.device(device))
+    group = mesh.get_group("model")
+    rep = {"rank": rank}
+    try:
+        rep.update(_dist_op(rank, world, cfg, slots, device, mesh, group))
+        rep.update(_dist_model(rank, world, cfg, prompt, max_len, steps,
+                               device, mesh, group))
+        rep["launches"] = {"a": rep.pop("a_launches"),
+                           "c": rep.pop("c_launches")}
+        return rep
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_op(rank, world, cfg, slots, device, mesh, group) -> dict:
+    """(a) on this rank; rank 0 also times B9's lse mode at the chunk's
+    shape. Gates: the output against one process's B9 over the whole
+    cache within ``BF16_OUT_TOL``; the chunk's bytes those of the
+    oracle's write; a chunk without a sequence's key gives lse = -inf and
+    weight 0; one ``decode`` and one ``decode_combine`` (lse mode) per
+    rank, no plain call. Probe: rank 0's partials dropped from the
+    combine must fail the output gate."""
+    import torch.distributed as dist
+
+    from repro_torch.accel import kernels as K
+    from repro_torch.kernels.decode_attention import decode_attention as DA
+    from repro_torch.kernels.decode_attention import distributed as D
+
+    on_card = torch.device(device).type == "cuda"
+    bf16 = torch.bfloat16
+    b, hq, hkv, d = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim()
+    chunk = slots // world
+    pos = torch.tensor((0, chunk - 1, chunk, slots - 1), dtype=torch.int32,
+                       device=device)
+    g = torch.Generator(device=device)
+    g.manual_seed(DIST_SEED)
+    q, nk, nv, ck, cv = (torch.randn(s, generator=g, device=device).to(bf16)
+                         for s in ((b, hq, d), (b, hkv, d), (b, hkv, d),
+                                   (b, slots, hkv, d), (b, slots, hkv, d)))
+    lo, hi = D.chunk_bounds(slots, world, rank)
+    my_k, my_v = ck[:, lo:hi].clone(), cv[:, lo:hi].clone()
+    plain = _plain_decode_calls()
+    K.reset_launches()
+    with plain:
+        out, my_k, my_v = D.dist_decode_update_attend(q, nk, nv, my_k, my_v,
+                                                      pos, mesh=mesh)
+        _sync(device)
+    counts = _dist_counts(dict.fromkeys(DIST_KEYS, int(on_card)),
+                          f"dist (a) rank {rank}", plain, on_card)
+    # the oracle: the write and B9 over the whole cache in one process
+    bidx = torch.arange(b, device=device)
+    ck[bidx, pos.long()] = nk
+    cv[bidx, pos.long()] = nv
+    want = DA.decode_attention_fwd(q, ck, cv, pos + 1)
+    err = _within_bf16(f"dist (a) rank {rank}", out, want)
+    if not (_same_bits(my_k, ck[:, lo:hi]) and
+            _same_bits(my_v, cv[:, lo:hi])):
+        raise RuntimeError(f"dist (a) rank {rank}: the chunk is not the "
+                           f"oracle's write")
+    # the keyless chunks: lse -inf, weight 0
+    local = torch.clamp(pos.long() + 1 - lo, 0, chunk).to(torch.int32)
+    scale = d ** -0.5
+    o_l, lse_l = D.local_attend(q, my_k, my_v, local, scale)
+    m = lse_l.clone()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(lse_l - m)
+    w = torch.where(torch.isfinite(w), w, 0.0)
+    empty = local == 0
+    if not (bool(torch.isneginf(lse_l[empty]).all())
+            and float(w[empty].abs().sum()) == 0.0
+            and float(o_l[empty].abs().sum()) == 0.0):
+        raise RuntimeError(f"dist (a) rank {rank}: a chunk without the "
+                           f"key does not give lse -inf and weight 0")
+    # the probe: rank 0's partials dropped from the combine
+    if rank == 0:
+        o_l, lse_l = torch.zeros_like(o_l), torch.full_like(lse_l,
+                                                            float("-inf"))
+    dropped = D._combine(o_l, lse_l, group).to(bf16)
+    try:
+        _within_bf16("dist (a), rank 0's partials dropped", dropped, want)
+    except RuntimeError as e:
+        probe = str(e)
+    else:
+        raise RuntimeError("dist (a): dropping rank 0's partials passes the "
+                           "output gate")
+    rep = {"a_launches": counts, "a_max_abs_err": err}
+    if rank == 0:
+        print(f"dist (a): {b} sequences, {hq}/{hkv} heads of {d}, {slots} "
+              f"slots over {world} ranks of {chunk}, pos {pos.tolist()}: "
+              f"max_abs_err vs one process's B9 {err}; chunks the oracle's "
+              f"bytes; keyless chunks lse -inf, weight 0; launches {counts} "
+              f"a rank; probe (rank 0's partials dropped) fails the gate, "
+              f"as it must: {probe}", flush=True)
+    if on_card:
+        dist.barrier(group)
+        if rank == 0:
+            rep["row"] = _dist_lse_row(q, my_k, my_v, chunk)
+        dist.barrier(group)
+        # the whole op on every rank at once, per call
+        for _ in range(WARMUP):
+            D.dist_decode_update_attend(q, nk, nv, my_k, my_v, pos,
+                                        mesh=mesh)
+        torch.cuda.synchronize()
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            D.dist_decode_update_attend(q, nk, nv, my_k, my_v, pos,
+                                        mesh=mesh)
+        torch.cuda.synchronize()
+        rep["op_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        dist.barrier(group)
+    del ck, cv, my_k, my_v
+    return rep
+
+
+def _dist_lse_row(q, k, v, chunk) -> dict:
+    """B9's lse mode at the local chunk's shape (every slot valid: a
+    sequence past the last chunk's start), against its plain version on
+    the card, timed beside it, beside B9's serving mode on the same chunk
+    and beside SDPA's output over it (SDPA gives no lse)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention as DA
+
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    vl = torch.full((b,), chunk, dtype=torch.int32, device="cuda")
+
+    def lse_mode():
+        return DA.decode_attention_fwd(q, k, v, vl, lse=True)
+
+    def plain():
+        return DA.decode_attention_plain(q, k, v, vl, lse=True)
+
+    o, lse = lse_mode()
+    po, pl = plain()
+    if not (_same_bits(o, lse_mode()[0]) and _same_bits(lse, lse_mode()[1])):
+        raise RuntimeError("decode_lse: two launches differ")
+    err = _within("decode_lse out", o, po, LSE_TOL)
+    lse_err = _within("decode_lse lse", lse, pl, LSE_TOL)
+    q4 = q[:, :, None].contiguous()
+    k4, v4 = (x.transpose(1, 2).contiguous() for x in (k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True)
+
+    kv_bytes = 2 * b * chunk * hkv * d * k.element_size()
+    row = _attn_row(
+        "decode_lse", _time_ms(lse_mode, ()), _time_ms(plain, (), reps=10),
+        _time_ms(sdpa, ()),
+        _nbytes(q) + kv_bytes + _nbytes(vl) + _nbytes(o) + _nbytes(lse),
+        4.0 * b * hq * d * chunk, torch.bfloat16, max(err, lse_err),
+        DECODE_SOURCE, DECODE_REPLACES)
+
+    def serving():
+        return DA.decode_attention_fwd(q, k, v, vl)
+
+    row.update(device_ms=_device_ms(lse_mode, ()),
+               serving_device_ms=_device_ms(serving, ()),
+               serving_ms=_time_ms(serving, ()),
+               library_device_ms=_device_ms(sdpa, ()),
+               shape=[b, chunk, hq, hkv, d], lse_max_abs_err=lse_err)
+    print(f"decode_lse at the chunk's shape (b {b}, {chunk} slots, "
+          f"{hq}/{hkv} heads of {d}): device time {row['device_ms']:.6f} ms "
+          f"per call, serving mode {row['serving_device_ms']:.6f} ms, SDPA "
+          f"{row['library_device_ms']:.6f} ms; bound {row['bound_ms']:.6f} "
+          f"ms ({row['bound_by']})", flush=True)
+    return row
+
+
+def _dist_model(rank, world, cfg, prompt, max_len, steps, device, mesh,
+                group) -> dict:
+    """(c) on this rank: the cut's prefill (every rank the same bits),
+    this rank's chunk of the cache (``shard_cache``), ``steps`` greedy
+    ``decode_step(impl="dist")`` steps; rank 0 then feeds the same tokens
+    to the cut in one process (``impl="kernel"`` over the whole cache)
+    and holds the logits to ``DIST_MODEL_TOL``; the probe from (a) (rank
+    0's partials dropped from every combine) must exceed it. Whether the
+    greedy tokens stay equal is reported, not gated."""
+    import torch.distributed as dist
+
+    from repro_torch.accel import kernels as K
+    from repro_torch.kernels.decode_attention import distributed as D
+    from repro_torch.models import model as PM
+    from repro_torch.parallel.sharding import use_mesh
+
+    on_card = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SERVE_SEED)
+    params = PM.init_params(cfg, gen, device=device)
+    prompts = _prompts(cfg, device, prompt=prompt)
+    B, P = prompts.shape
+    logits0, cache = PM.prefill(cfg, params, {"tokens": prompts},
+                                max_len=max_len)
+    mine = D.shard_cache(cache, world, rank)
+    if rank:
+        del cache
+    plain = _plain_decode_calls()
+    K.reset_launches()
+    tok = logits0.argmax(-1).to(torch.int32)
+    toks, got = [], []
+    pos = torch.full((B,), P, dtype=torch.int32, device=device)
+    with plain, use_mesh(mesh):
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            toks.append(tok)
+            logits, _ = PM.decode_step(cfg, params, mine, tok, pos,
+                                       impl="dist")
+            got.append(logits)
+            tok = logits.argmax(-1).to(torch.int32)
+            pos = pos + 1
+        _sync(device)
+        dist_s = time.perf_counter() - t0
+    n = cfg.n_layers * steps if on_card else 0
+    counts = _dist_counts(dict.fromkeys(DIST_KEYS, n),
+                          f"dist (c) rank {rank}", plain, on_card)
+    rep = {"c_launches": counts, "c_ms_per_step": dist_s * 1e3 / steps}
+    # the probe's step, from copies, on every rank: rank 0's partials
+    # dropped from every combine
+    orig = D._combine
+
+    def dropped(o, lse, grp):
+        if rank == 0:
+            o, lse = torch.zeros_like(o), torch.full_like(lse, float("-inf"))
+        return orig(o, lse, grp)
+
+    probe_cache = {"attn": {k: t.clone() for k, t in mine["attn"].items()}}
+    D._combine = dropped
+    try:
+        with use_mesh(mesh):
+            probe, _ = PM.decode_step(cfg, params, probe_cache, tok, pos,
+                                      impl="dist")
+    finally:
+        D._combine = orig
+    del probe_cache
+    if rank == 0:
+        errs, agree = [], 0
+        rpos = torch.full((B,), P, dtype=torch.int32, device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        for step in range(steps):
+            want, _ = PM.decode_step(cfg, params, cache, toks[step], rpos)
+            errs.append(_rel_err(got[step], want))
+            agree += int(torch.equal(want.argmax(-1), got[step].argmax(-1)))
+            rpos = rpos + 1
+        _sync(device)
+        one_s = time.perf_counter() - t0
+        want, _ = PM.decode_step(cfg, params, cache, tok, rpos)
+        probe_err = _rel_err(probe, want)
+        worst = max(errs)
+        print(f"dist (c): {cfg.arch_id} cut to {cfg.n_layers} layers, "
+              f"{B} x {P} prompts, {steps} greedy steps over {world} ranks: "
+              f"logits vs one process max|diff|/rms {worst} (first step "
+              f"{errs[0]}, last {errs[-1]}); tolerance {DIST_MODEL_TOL}; "
+              f"probe (rank 0's partials dropped) {probe_err}; greedy "
+              f"tokens equal at {agree} of {steps} steps (not gated); "
+              f"decode {dist_s * 1e3 / steps:.3f} ms/step over {world} "
+              f"ranks, {one_s * 1e3 / steps:.3f} in one process; launches "
+              f"{counts} a rank", flush=True)
+        if not worst <= DIST_MODEL_TOL:
+            raise RuntimeError(f"dist (c): logits {worst} past the "
+                               f"tolerance {DIST_MODEL_TOL}")
+        if not probe_err > DIST_MODEL_TOL:
+            raise RuntimeError(f"dist (c): the probe ({probe_err}) passes "
+                               f"the tolerance {DIST_MODEL_TOL}")
+        rep.update(c_max_rel_err=worst, c_rel_errs=errs,
+                   c_probe_rel_err=probe_err, c_greedy_equal=agree,
+                   c_one_process_ms_per_step=one_s * 1e3 / steps)
+    dist.barrier(group)
+    return rep
+
+
+def dist_path(narrow: bool = False) -> dict:
+    """(b), then (a) and (c) (:func:`dist_ranks`); returns the counts and
+    the ``decode_lse`` kernel row."""
+    from repro_torch.configs import get_config, reduced_config
+
+    device = "cpu" if narrow else "cuda"
+    t0 = time.perf_counter()
+    if narrow:
+        b = dist_one_rank(reduced_config(get_config(SERVE_ARCH)), "cpu",
+                          prompt=16, max_len=32, steps=4)
+    else:
+        b = dist_one_rank()
+    b_s = time.perf_counter() - t0
+    gc.collect()
+    if not narrow:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dist_ranks(narrow)
+    ranks_s = time.perf_counter() - t0
+    print(f"dist: (b) took {b_s:.1f} s, (a) and (c) in {DIST_WORLD} rank "
+          f"processes {ranks_s:.1f} s", flush=True)
+    return {"b": b, "ranks": ranks, "b_s": b_s, "ranks_s": ranks_s}
+
+
+def dist_child() -> dict:
+    """The dist phase (:func:`dist_path`) in a fresh child process
+    (``chip_smoke.py --dist``), which spawns the rank processes; returns
+    what it reports."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run_child([sys.executable, str(Path(__file__).resolve()),
+                      "--dist"], DIST_COUNTS, "dist")
+
+
 # Name parts of the kernels whose resources the build phase prints.
 HOPPER_KERNELS = ("sm90", "group_sum", "decode_split", "decode_combine",
                   "ssd_prep", "ssd_state", "ssd_out", "spatial_",
@@ -6761,6 +7341,14 @@ def main() -> int:
         counts = train_path()
         print(TRAIN_COUNTS + json.dumps(counts), flush=True)
         return 0
+    if sys.argv[1:2] == ["--dist"]:
+        from repro_torch.accel import kernels as K
+
+        print(f"card: {smi}", flush=True)
+        for name in K.build():
+            K.library(name)
+        print(DIST_COUNTS + json.dumps(dist_path()), flush=True)
+        return 0
     if sys.argv[1:2] == ["--runtime"]:
         from repro_torch.accel import kernels as K
 
@@ -6812,6 +7400,21 @@ def main() -> int:
     for gate, counts in runtime.items():
         for name in RUNTIME_KEYS:
             rows[name][f"{gate}_gate_launches"] = counts[name]
+    dist = phase("dist", dist_child)
+    # B9's lse mode: its launches on (b), the full-width one-rank run
+    rows["decode_lse"] = dist["ranks"]["row"]
+    launches["decode_lse"] = dist["b"]["launches"]["decode_lse"]
+    rows["decode_lse"].update(
+        op_rank_launches=dist["ranks"]["rank_launches"],
+        one_rank_ms_per_step=dist["b"]["ms_per_step"],
+        one_rank_kernel_ms_per_step=dist["b"]["kernel_ms_per_step"],
+        op_ms=dist["ranks"]["op_ms"],
+        cut_ms_per_step=dist["ranks"]["c_ms_per_step"],
+        cut_one_process_ms_per_step=dist["ranks"][
+            "c_one_process_ms_per_step"],
+        cut_max_rel_err=dist["ranks"]["c_max_rel_err"],
+        cut_probe_rel_err=dist["ranks"]["c_probe_rel_err"],
+        cut_greedy_equal=dist["ranks"]["c_greedy_equal"])
     gc.collect()    # the earlier models' last references
     torch.cuda.empty_cache()
     rows.update(phase("ssd", ssd_kernel_phase))

@@ -46,6 +46,13 @@
 // the reference gives NaN (exp(-inf - -inf)); the combine writes NaN for
 // that sequence too. valid[b] > S reads the whole cache, as the
 // reference's mask does.
+// The lse mode (decode_attn_lse) serves the sequence-parallel decode
+// (src/repro_torch/kernels/decode_attention/distributed.py), where each
+// rank runs B9 over its own chunk of the cache and the ranks combine
+// their rows by log-sum-exp: the combine writes the row in float32 and
+// its lse = M + log(L) beside it, and a row with valid <= 0 (a chunk
+// that holds no key yet) is o = 0, lse = -inf. The split kernel is the
+// same; decode_attn's output and its NaN rows are untouched.
 // expf, not the fast intrinsic; built without -use_fast_math.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -303,21 +310,33 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // One block per (query head, sequence): the live splits' partials added
-// in split order, the splits' m and l staged in shared memory.
+// in split order, the splits' m and l staged in shared memory. TO is the
+// output's type: T for serving, float32 in the lse mode (LSE), which also
+// writes the row's log-sum-exp M + log(L) for a combine across chunks of a
+// cache (the sequence-parallel decode): there a sequence whose chunk
+// holds no key yet is normal, and its row is o = 0 with lse = -inf (a
+// weight of exp(-inf - m) = 0 in the cross-chunk combine), where serving
+// writes NaN.
 
-template <typename T>
+template <typename TO, bool LSE>
 __global__ void __launch_bounds__(COMBINE_NT)
 decode_combine_kernel(const float* __restrict__ part_acc,
                       const float* __restrict__ part_m,
                       const float* __restrict__ part_l,
-                      const int* __restrict__ valid, T* __restrict__ out,
-                      int S, int hq, int d, int nsplit) {
+                      const int* __restrict__ valid, TO* __restrict__ out,
+                      float* __restrict__ lse, int S, int hq, int d,
+                      int nsplit) {
   extern __shared__ float sw[];   // m_s, then w_s, and l_s of the splits
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  T* ob = out + ((size_t)b * hq + h) * d;
+  TO* ob = out + ((size_t)b * hq + h) * d;
   const int n = min(valid[b], S);
-  if (n <= 0) {   // no key: the reference's softmax over all -inf
-    for (int c = tid; c < d; c += COMBINE_NT) ob[c] = from_f<T>(NAN);
+  if (n <= 0) {
+    if (LSE) {    // an empty chunk: no weight in the cross-chunk combine
+      for (int c = tid; c < d; c += COMBINE_NT) ob[c] = from_f<TO>(0.f);
+      if (tid == 0) lse[(size_t)b * hq + h] = -INFINITY;
+    } else {      // no key: the reference's softmax over all -inf
+      for (int c = tid; c < d; c += COMBINE_NT) ob[c] = from_f<TO>(NAN);
+    }
     return;
   }
   const int live = (n + SPLIT - 1) / SPLIT;
@@ -336,19 +355,22 @@ decode_combine_kernel(const float* __restrict__ part_acc,
   float L = 0.f;
   for (int s = 0; s < live; ++s) L = fmaf(sw[s], sl[s], L);
   const float inv = 1.f / (L == 0.f ? 1.f : L);
+  if (LSE && tid == 0) lse[(size_t)b * hq + h] = M + logf(L);
   for (int c = tid; c < d; c += COMBINE_NT) {
     float o = 0.f;
 #pragma unroll 4
     for (int s = 0; s < live; ++s)
       o = fmaf(sw[s], part_acc[(row0 + s) * d + c], o);
-    ob[c] = from_f<T>(o * inv);
+    ob[c] = from_f<TO>(o * inv);
   }
 }
 
+// The split kernel, then the combine; `lse` null for serving (out in T),
+// else the lse mode (out float32).
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* valid,
-           void* out, void* part_acc, void* part_m, void* part_l, int b,
-           int S, int hq, int hkv, float scale, cudaStream_t stream) {
+           void* out, void* lse, void* part_acc, void* part_m, void* part_l,
+           int b, int S, int hq, int hkv, float scale, cudaStream_t stream) {
   const size_t smem = Layout<T, D>::bytes(hq / hkv);
   auto kern = decode_split_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -364,26 +386,49 @@ int launch(const void* q, const void* k, const void* v, const void* valid,
   if (err != cudaSuccess) return (int)err;
   // the splits' m (then w) and l: under 48 KB up to S of 1.5 M keys
   const size_t csmem = 2 * (size_t)nsplit * sizeof(float);
-  decode_combine_kernel<T><<<dim3(hq, b), COMBINE_NT, csmem, stream>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_m),
-      static_cast<const float*>(part_l), static_cast<const int*>(valid),
-      static_cast<T*>(out), S, hq, D, nsplit);
+  const float* pa = static_cast<const float*>(part_acc);
+  const float* pm = static_cast<const float*>(part_m);
+  const float* pl = static_cast<const float*>(part_l);
+  const int* vb = static_cast<const int*>(valid);
+  if (lse == nullptr)
+    decode_combine_kernel<T, false><<<dim3(hq, b), COMBINE_NT, csmem,
+                                      stream>>>(
+        pa, pm, pl, vb, static_cast<T*>(out), nullptr, S, hq, D, nsplit);
+  else
+    decode_combine_kernel<float, true><<<dim3(hq, b), COMBINE_NT, csmem,
+                                         stream>>>(
+        pa, pm, pl, vb, static_cast<float*>(out), static_cast<float*>(lse),
+        S, hq, D, nsplit);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int d, const void* q, const void* k, const void* v,
-             const void* valid, void* out, void* pa, void* pm, void* pl,
-             int b, int S, int hq, int hkv, float scale,
+             const void* valid, void* out, void* lse, void* pa, void* pm,
+             void* pl, int b, int S, int hq, int hkv, float scale,
              cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, valid, out, pa, pm, pl, b, S, hq, hkv, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, valid, out, pa, pm, pl, b, S, hq, hkv, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, valid, out, pa, pm, pl, b, S, hq, hkv, scale, stream);
-    case 80: return launch<T, 80>(q, k, v, valid, out, pa, pm, pl, b, S, hq, hkv, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, valid, out, pa, pm, pl, b, S, hq, hkv, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, valid, out, lse, pa, pm, pl, b, S, hq, hkv, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, valid, out, lse, pa, pm, pl, b, S, hq, hkv, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, valid, out, lse, pa, pm, pl, b, S, hq, hkv, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, valid, out, lse, pa, pm, pl, b, S, hq, hkv, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, valid, out, lse, pa, pm, pl, b, S, hq, hkv, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+int run(const void* q, const void* k, const void* v, const void* valid,
+        void* out, void* lse, void* part_acc, void* part_m, void* part_l,
+        int b, int S, int hq, int hkv, int d, float scale, int is_bf16,
+        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hkv < 1 || hq % hkv != 0 || hq / hkv > MAX_GROUP || b < 1 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return dispatch<__nv_bfloat16>(d, q, k, v, valid, out, lse, part_acc,
+                                   part_m, part_l, b, S, hq, hkv, scale, st);
+  return dispatch<float>(d, q, k, v, valid, out, lse, part_acc, part_m,
+                         part_l, b, S, hq, hkv, scale, st);
 }
 
 }  // namespace
@@ -404,14 +449,19 @@ int decode_attn(const void* q, const void* k, const void* v,
                 const void* valid, void* out, void* part_acc, void* part_m,
                 void* part_l, int b, int S, int hq, int hkv, int d,
                 float scale, int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hkv < 1 || hq % hkv != 0 || hq / hkv > MAX_GROUP || b < 1 || S < 1)
-    return (int)cudaErrorInvalidValue;
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(d, q, k, v, valid, out, part_acc, part_m,
-                                   part_l, b, S, hq, hkv, scale, st);
-  return dispatch<float>(d, q, k, v, valid, out, part_acc, part_m, part_l,
-                         b, S, hq, hkv, scale, st);
+  return run(q, k, v, valid, out, nullptr, part_acc, part_m, part_l, b, S,
+             hq, hkv, d, scale, is_bf16, stream);
+}
+
+// The lse mode: as decode_attn, but out (b, hq, d) is float32 and lse
+// (b, hq) float32 gets each row's log-sum-exp; a sequence with
+// valid <= 0 gets out = 0 and lse = -inf.
+int decode_attn_lse(const void* q, const void* k, const void* v,
+                    const void* valid, void* out, void* lse, void* part_acc,
+                    void* part_m, void* part_l, int b, int S, int hq, int hkv,
+                    int d, float scale, int is_bf16, void* stream) {
+  return run(q, k, v, valid, out, lse, part_acc, part_m, part_l, b, S, hq,
+             hkv, d, scale, is_bf16, stream);
 }
 
 }  // extern "C"

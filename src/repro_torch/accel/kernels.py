@@ -30,7 +30,8 @@ kernel of the same library, ``flash_dkv_group_sum``, adds each KV head's
 partials in head order. B9 is split-KV for every dtype and head_dim: a
 block per ``DECODE_SPLIT`` keys of a (KV head, sequence) writes float32
 partials, and a combine kernel of the same library adds the live splits
-in split order. B10 has two bodies: bf16 with head_dim and d_state 64
+in split order (in the lse mode it also writes each row's
+log-sum-exp). B10 has two bodies: bf16 with head_dim and d_state 64
 or 128 and a chunk of 64 to 256 rows in steps of 64 take the Hopper body
 (``csrc/ssd_sm90.cuh``: three kernels on wgmma), the rest the SIMT body;
 :func:`ssd_tc` says which.
@@ -49,7 +50,8 @@ store that a thread switch can split. Every B6 launch counts as
 ``flash_fwd``, and a launch of its Hopper body also as ``flash_fwd_tc``;
 B7 and B8 in the same way (``flash_dkv``/``flash_dkv_tc``,
 ``flash_dq``/``flash_dq_tc``), the group sum as ``flash_dkv_group_sum``.
-A B9 call counts ``decode`` and ``decode_combine``; a B10 call ``ssd``,
+A B9 call counts ``decode`` and ``decode_combine``, and in its lse mode
+(the sequence-parallel decode's) also ``decode_lse``; a B10 call ``ssd``,
 and on the Hopper body also ``ssd_tc`` and its kernels' ``ssd_prep``,
 ``ssd_state``, ``ssd_out``.
 B1, B3 and B4
@@ -166,6 +168,7 @@ launches: Dict[str, int] = {"spatial": 0, "temporal": 0, "late": 0,
                             "flash_dkv_group_sum": 0, "flash_dq": 0,
                             "flash_dq_tc": 0,
                             "decode": 0, "decode_combine": 0,
+                            "decode_lse": 0,
                             "ssd": 0, "ssd_tc": 0, "ssd_prep": 0,
                             "ssd_state": 0, "ssd_out": 0}
 _launch_lock = threading.Lock()
@@ -338,7 +341,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                  (lib.flash_bwd_tc_block_k, FLASH_BWD_TC_BLOCK_K)]
     elif name == "decode":
         lib.decode_attn.argtypes = [P] * 8 + [I] * 5 + [F, I, P]
-        fns = (lib.decode_attn,)
+        lib.decode_attn_lse.argtypes = [P] * 9 + [I] * 5 + [F, I, P]
+        fns = (lib.decode_attn, lib.decode_attn_lse)
         tiles = [(lib.decode_block_k, DECODE_BLOCK_K),
                  (lib.decode_split, DECODE_SPLIT),
                  (lib.decode_stages, DECODE_STAGES),
@@ -800,12 +804,15 @@ def launch_flash_fwd(q, k, v, causal: bool, window: int,
     return out, lse
 
 
-def launch_decode(q, k, v, valid, scale: float) -> torch.Tensor:
+def launch_decode(q, k, v, valid, scale: float, *, lse: bool = False):
     """B9: (b, hq, d) attention of one query token per sequence over the
     first ``valid[b]`` slots of a (b, S, hkv, d) cache; NaN rows where
     ``valid[b] <= 0``. Two launches: the split kernel (counted as
     ``decode``) writes float32 partials per query head and split, the
-    combine (``decode_combine``) adds the live splits in split order."""
+    combine (``decode_combine``) adds the live splits in split order.
+    With ``lse`` (the sequence-parallel decode's mode): (out (b, hq, d)
+    float32, lse (b, hq) float32), rows with ``valid[b] <= 0`` o = 0 and
+    lse = -inf."""
     dev = q.device
     b, hq, d = q.shape
     S, hkv = k.shape[1], k.shape[2]
@@ -822,21 +829,26 @@ def launch_decode(q, k, v, valid, scale: float) -> torch.Tensor:
     _aligned("decode", k=k, v=v)
     lib = library("decode")
     splits = decode_splits(S)
-    out = torch.empty_like(q)
     # the partials, one allocation: acc (b, hq, splits, d), m and l (b, hq,
     # splits)
     rows = b * hq * splits
     part = torch.empty(rows * (d + 2), dtype=torch.float32, device=dev)
     part_acc, part_m, part_l = part.split((rows * d, rows, rows))
-    rc = lib.decode_attn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         valid.data_ptr(), out.data_ptr(),
-                         part_acc.data_ptr(), part_m.data_ptr(),
-                         part_l.data_ptr(), b, S, hq, hkv, d, float(scale),
-                         is_bf16, _stream(dev))
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr())
+    tail = (part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), b, S,
+            hq, hkv, d, float(scale), is_bf16, _stream(dev))
+    if lse:
+        out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
+        out_lse = torch.empty((b, hq), dtype=torch.float32, device=dev)
+        rc = lib.decode_attn_lse(*head, out.data_ptr(), out_lse.data_ptr(),
+                                 *tail)
+    else:
+        out = torch.empty_like(q)
+        rc = lib.decode_attn(*head, out.data_ptr(), *tail)
     _raise_on(rc, "decode")
-    count_launch("decode")
-    count_launch("decode_combine")
-    return out
+    count_launch("decode", "decode_combine", *(("decode_lse",) if lse
+                                                else ()))
+    return (out, out_lse) if lse else out
 
 
 def _flash_bwd_args(kernel, q, k, v, dout, lse, delta):

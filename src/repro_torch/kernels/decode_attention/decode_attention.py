@@ -16,7 +16,10 @@ valid key adds nothing, ``l == 0`` guarded.
 
 Precondition: ``kv_valid_len >= 1``. A sequence with ``valid <= 0`` has
 no key; the oracle, the reference kernel, the plain version and B9 all
-give NaN for it.
+give NaN for it. The lse mode (``lse=True``: the sequence-parallel
+decode's local attention over one rank's chunk of the cache, where a
+chunk without a key is normal) returns the float32 output and each
+row's log-sum-exp, and gives such a sequence o = 0 and lse = -inf.
 """
 from __future__ import annotations
 
@@ -34,14 +37,16 @@ SPLIT = K.DECODE_SPLIT
 def decode_attention_plain(q, k, v, kv_valid_len, *,
                            scale: Optional[float] = None,
                            block_k: int = BLOCK_K,
-                           split: int = SPLIT) -> torch.Tensor:
+                           split: int = SPLIT, lse: bool = False):
     """B9's plain version: (b, h, d) in q's type. Each split of ``split``
     keys runs its own online softmax over tiles of ``block_k`` keys (all
     splits at once); tiles past a sequence's valid length add exactly 0
     with ``corr = 1``, the same bits as the kernel's skipping them. Then
     the live splits (those that start before ``min(valid, S)``) are added
     in split order: ``w_s = exp(m_s - M)``, ``L = sum w_s l_s``, ``out =
-    sum w_s acc_s / L``."""
+    sum w_s acc_s / L``. With ``lse`` (the kernel's lse mode): (out (b, h,
+    d) float32, lse = M + log L (b, h) float32), and a sequence with no
+    valid key gets o = 0 and lse = -inf instead of NaN."""
     b, hq, d = q.shape
     _, S, hkv, _ = k.shape
     if hq % hkv:
@@ -90,22 +95,29 @@ def decode_attention_plain(q, k, v, kv_valid_len, *,
         L = L + w * l[:, :, sp]
         out = out + w * acc[:, :, sp]
     out = out / torch.where(L == 0.0, 1.0, L)
-    out = torch.where((n <= 0)[:, None, None, None], float("nan"), out)
+    empty = (n <= 0)[:, None, None, None]
+    if lse:
+        out = torch.where(empty, 0.0, out).reshape(b, hq, d)
+        row_lse = torch.where(empty, ninf, M + torch.log(L))
+        return out, row_lse.reshape(b, hq)
+    out = torch.where(empty, float("nan"), out)
     return out.reshape(b, hq, d).to(q.dtype)
 
 
 def decode_attention_fwd(q, k, v, kv_valid_len, *,
                          scale: Optional[float] = None,
-                         block_k: int = BLOCK_K) -> torch.Tensor:
+                         block_k: int = BLOCK_K, lse: bool = False):
     """q: (b, h, d); k/v: (b, S, hkv, d); kv_valid_len: (b,) int32. B9 on
     CUDA tensors (splits of ``SPLIT`` keys, tiles of ``BLOCK_K``), the
-    plain version on CPU tensors."""
+    plain version on CPU tensors. ``lse``: the lse mode, (out float32,
+    lse (b, h) float32), as :func:`decode_attention_plain` says."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if on_cpu(q, k, v, kv_valid_len):
         return decode_attention_plain(q, k, v, kv_valid_len, scale=scale,
-                                      block_k=block_k)
+                                      block_k=block_k, lse=lse)
     if block_k != BLOCK_K:
         raise ValueError(f"decode_attention_fwd: the CUDA kernel's tile is "
                          f"{BLOCK_K} keys, got {block_k}")
-    return K.launch_decode(q, k, v, kv_valid_len.to(torch.int32), scale)
+    return K.launch_decode(q, k, v, kv_valid_len.to(torch.int32), scale,
+                           lse=lse)

@@ -34,36 +34,50 @@ def to_tensor(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _tree(node: Mapping[str, Any], device, index=()):
-    """A nested dict of numpy leaves as tensors, each leaf indexed by
-    ``index`` on its leading axes first."""
+def _tree(node: Mapping[str, Any], leaf, index=()):
+    """A nested dict of the reference's leaves as the port's: each leaf
+    ``leaf(value, index)``, ``index`` the position on the leaf's leading
+    (stacked) axes."""
     out = {}
     for name, value in node.items():
         if isinstance(value, Mapping):
-            out[name] = _tree(value, device, index)
+            out[name] = _tree(value, leaf, index)
         else:
-            out[name] = to_tensor(value[index], device)
+            out[name] = leaf(value, index)
     return out
 
 
-def _first_leaf(node: Mapping[str, Any]):
-    value = next(iter(node.values()))
-    return _first_leaf(value) if isinstance(value, Mapping) else value
-
-
-def _block(tree: Mapping[str, Any], device, i: int) -> dict:
+def _block(cfg: ModelConfig, tree: Mapping[str, Any], leaf, i: int) -> dict:
     """Hybrid block ``i`` of the reference's ``blocks`` (every leaf stacked
     on blocks; ``mamba``, ``moe`` and ``mlp`` then on the block's layers of
     that kind; ``lns`` on its layers, then on the norm pair)."""
-    block = {"attn": _tree(tree["attn"], device, (i,))}
-    for kind in ("mamba", "moe", "mlp"):
-        n = _first_leaf(tree[kind]).shape[1] if tree.get(kind) else 0
-        block[kind] = [_tree(tree[kind], device, (i, j)) for j in range(n)]
-    n = _first_leaf(tree["lns"]).shape[1]
-    block["lns"] = [{"ln1": _tree(tree["lns"], device, (i, j, 0)),
-                     "ln2": _tree(tree["lns"], device, (i, j, 1))}
-                    for j in range(n)]
+    hb = cfg.hybrid
+    n_moe = sum(1 for j in range(hb.block_len)
+                if cfg.moe is not None and cfg.moe.is_moe_layer(j))
+    counts = {"mamba": hb.block_len - 1, "moe": n_moe,
+              "mlp": hb.block_len - n_moe}
+    block = {"attn": _tree(tree["attn"], leaf, (i,))}
+    for kind, n in counts.items():
+        block[kind] = [_tree(tree[kind], leaf, (i, j)) for j in range(n)]
+    block["lns"] = [{"ln1": _tree(tree["lns"], leaf, (i, j, 0)),
+                     "ln2": _tree(tree["lns"], leaf, (i, j, 1))}
+                    for j in range(hb.block_len)]
     return block
+
+
+def _convert(cfg: ModelConfig, tree: Mapping[str, Any], leaf) -> dict:
+    """The reference's weights-shaped tree in the port's layout (nested
+    dicts and lists), each leaf ``leaf(value, index)``."""
+    out = _tree({name: value for name, value in tree.items()
+                 if name not in ("layers", "blocks")}, leaf)
+    if cfg.hybrid is not None:
+        nb = cfg.n_layers // cfg.hybrid.block_len
+        out["blocks"] = [_block(cfg, tree["blocks"], leaf, i)
+                         for i in range(nb)]
+    else:
+        out["layers"] = [_tree(tree["layers"], leaf, (i,))
+                         for i in range(cfg.n_layers)]
+    return out
 
 
 def from_jax_params(cfg: ModelConfig, tree: Mapping[str, Any], *,
@@ -74,16 +88,16 @@ def from_jax_params(cfg: ModelConfig, tree: Mapping[str, Any], *,
     hybrid ``blocks`` one sub-tree per block; the ``frontend`` projection
     as it is."""
     dev = require_device(str(device), "from_jax_params")
-    params = {name: value for name, value in tree.items()
-              if name not in ("layers", "blocks")}
-    params = _tree(params, dev)
-    if cfg.hybrid is not None:
-        nb = cfg.n_layers // cfg.hybrid.block_len
-        params["blocks"] = [_block(tree["blocks"], dev, i) for i in range(nb)]
-    else:
-        params["layers"] = [_tree(tree["layers"], dev, (i,))
-                            for i in range(cfg.n_layers)]
-    return ParamTree(params)
+    return ParamTree(_convert(
+        cfg, tree, lambda value, index: to_tensor(value[index], dev)))
+
+
+def from_jax_axes(cfg: ModelConfig, axes: Mapping[str, Any]) -> dict:
+    """The reference's ``param_axes`` tree in the port's layout
+    (``param_axes``'s): each leaf without the stacked axes' leading names
+    (``"layers"``; the hybrid's ``"layers"``, ``"layers"``, and for its
+    norms ``"norm_pair"``), which the port's lists stand for."""
+    return _convert(cfg, axes, lambda value, index: tuple(value[len(index):]))
 
 
 def from_jax_train_state(cfg: ModelConfig, tree: Mapping[str, Any], *,

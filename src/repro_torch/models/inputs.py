@@ -9,8 +9,9 @@ precomputed frame features, VLM cells precomputed patch features and a
 text stream shortened so that patches and text make ``shape.seq_len``
 positions.
 
-``input_axes`` serves the sharding rules of the launch-tooling slice
-(its decode tree needs the model's ``cache_axes``) and raises.
+``input_axes`` names each input dimension's logical axis
+(``parallel.sharding``), the decode cache's through the model's
+``cache_axes``.
 """
 from __future__ import annotations
 
@@ -75,10 +76,15 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
 
 
 def input_axes(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
-    raise NotImplementedError(
-        "input_axes serves the launch-tooling slice's sharding rules (with "
-        "the model's cache_axes), which is not ported yet (see ROADMAP.md "
-        "Queue A)")
+    """Logical-axis tree matching ``input_specs``'s structure."""
+    if shape.kind == "train" or shape.kind == "prefill":
+        return {name: ("batch",) + (None,) * (leaf.ndim - 1)
+                for name, leaf in input_specs(cfg, shape).items()}
+    return {
+        "cache": MODEL.cache_axes(cfg),
+        "tokens": ("batch",),
+        "pos": ("batch",),
+    }
 
 
 def materialize(specs, generator: torch.Generator, vocab_size: int):

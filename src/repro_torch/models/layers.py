@@ -3,9 +3,14 @@
 Parameters live in :class:`ParamTree` modules that keep the reference
 package's nested-dict layout and names (``p["wq"]`` is (d, hq, hd),
 ``p["wo"]`` (hq, hd, d), ...), so converting a reference tree is a copy.
-The reference's ``init_*`` also return logical sharding axes and its
-blocks call ``constrain``, a no-op off a mesh; one GPU has no mesh, so the
-port drops both (``parallel/`` comes with the launch-tooling slice).
+Every ``init_*`` draws through a :class:`ParamFactory` and names each
+leaf's logical axes at the draw, as the reference's do; the factory
+decides what a leaf is: a seeded tensor (:class:`ParamFactory`), a
+``meta`` tensor (:class:`MetaFactory`) or the axes themselves
+(:class:`AxesFactory`), so one init walk gives the weights, their shapes
+and their axes trees. The blocks call
+:func:`~repro_torch.parallel.sharding.constrain` where the reference
+does: the identity off a mesh and on plain tensors.
 """
 from __future__ import annotations
 
@@ -16,8 +21,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention.distributed import \
+    dist_decode_update_attend
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.parallel.sharding import constrain, is_dtensor
 
 Params = Mapping[str, Any]
 
@@ -48,23 +56,30 @@ class ParamTree(nn.Module):
         return getattr(self, name)
 
 
+_NODES = (ParamTree, nn.ModuleList, dict, list)
+
+
 def _children(node) -> Iterator[Tuple[str, Any]]:
-    if isinstance(node, ParamTree):
-        for name in sorted((*node._parameters, *node._modules)):
+    if isinstance(node, (ParamTree, dict)):
+        names = (sorted((*node._parameters, *node._modules))
+                 if isinstance(node, ParamTree) else sorted(node))
+        for name in names:
             yield name, node[name]
-    else:   # nn.ModuleList: index order
+    else:   # nn.ModuleList or a list: index order
         for i, child in enumerate(node):
             yield str(i), child
 
 
-def tree_leaves(tree: ParamTree) -> Dict[str, torch.Tensor]:
-    """Every tensor of a :class:`ParamTree` by ``/``-joined path, in the
-    reference's flattening order: names sorted, list entries by index
-    (``layers/0/ffn/w_up``, ..., ``layers/10/...``)."""
-    out: Dict[str, torch.Tensor] = {}
+def tree_leaves(tree) -> Dict[str, Any]:
+    """Every tensor of a :class:`ParamTree` (or every leaf of a tree of
+    dicts and lists: ``param_shapes``'s, ``param_axes``'s) by
+    ``/``-joined path, in the reference's flattening order: names
+    sorted, list entries by index (``layers/0/ffn/w_up``, ...,
+    ``layers/10/...``)."""
+    out: Dict[str, Any] = {}
 
     def walk(node, prefix):
-        if isinstance(node, torch.Tensor):
+        if not isinstance(node, _NODES):
             out[prefix] = node
             return
         for name, child in _children(node):
@@ -107,7 +122,8 @@ def cast_tree(p, dtype: torch.dtype):
 class ParamFactory:
     """Weights drawn from a ``torch.Generator`` on ``device``: normal ×
     fan-in^-½ unless a scale is given, as the reference's factory (the
-    same distributions, not JAX's bits)."""
+    same distributions, not JAX's bits). ``axes`` names each dimension's
+    logical axis (``parallel.sharding``); this factory drops them."""
 
     def __init__(self, generator: torch.Generator, dtype: torch.dtype,
                  device: torch.device):
@@ -115,21 +131,54 @@ class ParamFactory:
         self.dtype = dtype
         self.device = device
 
-    def normal(self, shape, scale: Optional[float] = None) -> torch.Tensor:
+    def normal(self, shape, axes, scale: Optional[float] = None):
         if scale is None:
             scale = shape[0] ** -0.5  # fan-in
         w = torch.randn(shape, generator=self.generator, dtype=torch.float32,
                         device=self.device) * scale
         return w.to(self.dtype)
 
-    def zeros(self, shape) -> torch.Tensor:
+    def zeros(self, shape, axes):
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
-    def ones(self, shape) -> torch.Tensor:
+    def ones(self, shape, axes):
         return torch.ones(shape, dtype=self.dtype, device=self.device)
 
-    def const(self, value: torch.Tensor) -> torch.Tensor:
+    def const(self, value: torch.Tensor, axes):
         return value.to(device=self.device, dtype=self.dtype)
+
+
+class MetaFactory(ParamFactory):
+    """Leaves as ``meta`` tensors: shapes and dtypes, no memory (the
+    reference's ``AbstractFactory``)."""
+
+    def __init__(self, dtype: torch.dtype):
+        super().__init__(None, dtype, torch.device("meta"))
+
+    def normal(self, shape, axes, scale: Optional[float] = None):
+        return torch.empty(shape, dtype=self.dtype, device=self.device)
+
+    zeros = ones = normal
+
+    def const(self, value: torch.Tensor, axes):
+        return self.normal(value.shape, axes)
+
+
+class AxesFactory(ParamFactory):
+    """Leaves as their logical axes: the init walk gives the axes tree."""
+
+    def __init__(self):
+        super().__init__(None, torch.float32, torch.device("meta"))
+
+    def normal(self, shape, axes, scale: Optional[float] = None):
+        if len(axes) != len(shape):
+            raise ValueError(f"axes {axes} for a leaf of shape {shape}")
+        return tuple(axes)
+
+    zeros = ones = normal
+
+    def const(self, value: torch.Tensor, axes):
+        return self.normal(value.shape, axes)
 
 
 # ---------------------------------------------------------------------------
@@ -137,9 +186,9 @@ class ParamFactory:
 # ---------------------------------------------------------------------------
 def init_norm(cfg: ModelConfig, f: ParamFactory) -> Dict[str, torch.Tensor]:
     if cfg.norm == "layernorm":
-        return {"scale": f.ones((cfg.d_model,)),
-                "bias": f.zeros((cfg.d_model,))}
-    return {"scale": f.ones((cfg.d_model,))}
+        return {"scale": f.ones((cfg.d_model,), (None,)),
+                "bias": f.zeros((cfg.d_model,), (None,))}
+    return {"scale": f.ones((cfg.d_model,), (None,))}
 
 
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -198,18 +247,19 @@ def init_attention(cfg: ModelConfig, f: ParamFactory):
     d, hq, hkv, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                       cfg.resolved_head_dim())
     p = {
-        "wq": f.normal((d, hq, hd)),
-        "wk": f.normal((d, hkv, hd)),
-        "wv": f.normal((d, hkv, hd)),
-        "wo": f.normal((hq, hd, d), scale=(hq * hd) ** -0.5),
+        "wq": f.normal((d, hq, hd), ("embed", "heads", "head_dim")),
+        "wk": f.normal((d, hkv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": f.normal((d, hkv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": f.normal((hq, hd, d), ("heads", "head_dim", "embed"),
+                       scale=(hq * hd) ** -0.5),
     }
     if cfg.qkv_bias:
-        p["bq"] = f.zeros((hq, hd))
-        p["bk"] = f.zeros((hkv, hd))
-        p["bv"] = f.zeros((hkv, hd))
+        p["bq"] = f.zeros((hq, hd), ("heads", "head_dim"))
+        p["bk"] = f.zeros((hkv, hd), ("kv_heads", "head_dim"))
+        p["bv"] = f.zeros((hkv, hd), ("kv_heads", "head_dim"))
     if cfg.qk_norm:
-        p["q_norm"] = f.ones((hd,))
-        p["k_norm"] = f.ones((hd,))
+        p["q_norm"] = f.ones((hd,), (None,))
+        p["k_norm"] = f.ones((hd,), (None,))
     return p
 
 
@@ -254,9 +304,25 @@ def attention_block(
                             cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
+    k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
+    v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
     attn = flash_attention(q, k, v.contiguous(), causal=cfg.causal,
                            window=cfg.window, impl=impl)
-    return _out_proj(attn, p["wo"]), {"k": k, "v": v}
+    out = _out_proj(attn, p["wo"])
+    return constrain(out, "batch", "seq", "embed"), {"k": k, "v": v}
+
+
+def _write_rows(t: torch.Tensor, index, new: torch.Tensor) -> None:
+    """``t[index] = new`` in place. DTensor (the dry run) has no in-place
+    rule for ``index_put_`` on a sharded cache; there the write is the
+    reference's functional ``.at[].set`` (DTensor lays it out) copied
+    back."""
+    new = new.to(t.dtype)
+    if is_dtensor(t):
+        t.copy_(t.index_put(index, new))
+    else:
+        t[index] = new
 
 
 def attention_decode(
@@ -270,20 +336,30 @@ def attention_decode(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token's attention. Writes this token's K/V into ``cache`` at
     ``pos`` in place (the reference returns an updated copy) and returns
-    (output (b, 1, d), cache)."""
+    (output (b, 1, d), cache). ``impl="dist"``: ``cache`` holds this
+    rank's chunk of the sequence, on the active mesh's ``model`` axis
+    (the sequence-parallel decode, :mod:`repro_torch.kernels.
+    decode_attention.distributed`)."""
     b = h.shape[0]
     q, k, v = _project_qkv(cfg, p, h)
     sin, cos = rope_sin_cos(pos[:, None], cfg.resolved_head_dim(),
                             cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
-    bidx = torch.arange(b, device=h.device)
-    rows = pos.long()
-    cache["k"][bidx, rows] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, rows] = v[:, 0].to(cache["v"].dtype)
-    attn = decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
-                            (pos + 1).to(torch.int32), impl=impl)
-    return _out_proj(attn, p["wo"])[:, None], cache
+    if impl == "dist":
+        attn, ck, cv = dist_decode_update_attend(
+            q[:, 0].contiguous(), k[:, 0], v[:, 0], cache["k"], cache["v"],
+            pos)
+    else:
+        bidx = torch.arange(b, device=h.device)
+        rows = pos.long()
+        for name, new in (("k", k), ("v", v)):
+            _write_rows(cache[name], (bidx, rows), new[:, 0])
+        ck = constrain(cache["k"], "batch", "kv_seq", "kv_heads", "head_dim")
+        cv = constrain(cache["v"], "batch", "kv_seq", "kv_heads", "head_dim")
+        attn = decode_attention(q[:, 0].contiguous(), ck, cv,
+                                (pos + 1).to(torch.int32), impl=impl)
+    return _out_proj(attn, p["wo"])[:, None], {"k": ck, "v": cv}
 
 
 # ---------------------------------------------------------------------------
@@ -292,15 +368,21 @@ def attention_decode(
 def init_mlp(cfg: ModelConfig, f: ParamFactory):
     d, ff = cfg.d_model, cfg.d_ff
     if cfg.mlp_act == "swiglu":
-        return {"w_gate": f.normal((d, ff)), "w_up": f.normal((d, ff)),
-                "w_down": f.normal((ff, d))}
-    return {"w_in": f.normal((d, ff)), "w_out": f.normal((ff, d))}
+        return {"w_gate": f.normal((d, ff), ("embed", "mlp")),
+                "w_up": f.normal((d, ff), ("embed", "mlp")),
+                "w_down": f.normal((ff, d), ("mlp", "embed"))}
+    return {"w_in": f.normal((d, ff), ("embed", "mlp")),
+            "w_out": f.normal((ff, d), ("mlp", "embed"))}
 
 
 def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.mlp_act == "swiglu":
         y = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-        return y @ p["w_down"]
-    # jax.nn.gelu's default is the tanh approximation
-    y = F.gelu(x @ p["w_in"], approximate="tanh")
-    return y @ p["w_out"]
+        y = constrain(y, "batch", "seq", "mlp")
+        out = y @ p["w_down"]
+    else:
+        # jax.nn.gelu's default is the tanh approximation
+        y = F.gelu(x @ p["w_in"], approximate="tanh")
+        y = constrain(y, "batch", "seq", "mlp")
+        out = y @ p["w_out"]
+    return constrain(out, "batch", "seq", "embed")

@@ -2,8 +2,8 @@
 scan + gated RMSNorm + output projection, plus the single-token decode
 recurrence — the port of the reference's ``repro/models/mamba2.py``. The
 scan itself lives in :mod:`repro_torch.kernels.ssd` (kernel B10 with
-``impl="kernel"``). The reference's ``constrain`` is a no-op off a mesh
-and is dropped, as in :mod:`repro_torch.models.layers`.
+``impl="kernel"``). It calls ``constrain`` where the reference does
+(:mod:`repro_torch.parallel.sharding`: the identity off a mesh).
 
 Two differences from the reference, both for serving from a cache that
 is allocated once: :func:`mamba_block` writes its conv tail and final
@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd.ops import ssd, ssd_decode_step, ssd_with_state
 from repro_torch.models.layers import ParamFactory
+from repro_torch.parallel.sharding import constrain
 
 Params = Any
 
@@ -36,20 +37,21 @@ def init_mamba(cfg: ModelConfig, f: ParamFactory) -> Dict[str, torch.Tensor]:
     gs = s.n_groups * s.d_state
     conv_dim = din + 2 * gs
     return {
-        "wz": f.normal((d, din)),
-        "wx": f.normal((d, din)),
-        "wB": f.normal((d, gs)),
-        "wC": f.normal((d, gs)),
-        "wdt": f.normal((d, nh)),
-        "dt_bias": f.zeros((nh,)),
+        "wz": f.normal((d, din), ("embed", "mamba_inner")),
+        "wx": f.normal((d, din), ("embed", "mamba_inner")),
+        "wB": f.normal((d, gs), ("embed", "mamba_group_state")),
+        "wC": f.normal((d, gs), ("embed", "mamba_group_state")),
+        "wdt": f.normal((d, nh), ("embed", "mamba_heads")),
+        "dt_bias": f.zeros((nh,), ("mamba_heads",)),
         # A ∈ [-A_max, 0): init A_log ~ U(log 1, log 16) per mamba-2 defaults
-        "A_log": f.const(torch.log(torch.linspace(1.0, 16.0, nh))),
-        "D": f.ones((nh,)),
-        "conv_w": f.normal((s.conv_kernel, conv_dim),
+        "A_log": f.const(torch.log(torch.linspace(1.0, 16.0, nh)),
+                         ("mamba_heads",)),
+        "D": f.ones((nh,), ("mamba_heads",)),
+        "conv_w": f.normal((s.conv_kernel, conv_dim), (None, None),
                            scale=s.conv_kernel ** -0.5),
-        "conv_b": f.zeros((conv_dim,)),
-        "gate_norm": f.ones((din,)),
-        "wo": f.normal((din, d)),
+        "conv_b": f.zeros((conv_dim,), (None,)),
+        "gate_norm": f.ones((din,), ("mamba_inner",)),
+        "wo": f.normal((din, d), ("mamba_inner", "embed")),
     }
 
 
@@ -120,7 +122,8 @@ def mamba_block(cfg: ModelConfig, p: Params, h: torch.Tensor, *,
     x, B, C = _split_xbc(cfg, xbc)
 
     bsz, slen = h.shape[0], h.shape[1]
-    x = x.reshape(bsz, slen, nh, s.head_dim)
+    x = constrain(x.reshape(bsz, slen, nh, s.head_dim),
+                  "batch", "seq", "mamba_heads", "head_dim")
     B = B.reshape(bsz, slen, s.n_groups, s.d_state)
     C = C.reshape(bsz, slen, s.n_groups, s.d_state)
     A = -torch.exp(p["A_log"].float())
@@ -139,7 +142,7 @@ def mamba_block(cfg: ModelConfig, p: Params, h: torch.Tensor, *,
         y = ssd(x, dt, A, B, C, p["D"], chunk=s.chunk_size, impl=impl)
     y = y.reshape(bsz, slen, din)
     y = _gated_norm(y, z, p["gate_norm"], cfg.norm_eps)
-    return y @ p["wo"], cache
+    return constrain(y @ p["wo"], "batch", "seq", "embed"), cache
 
 
 def mamba_decode(cfg: ModelConfig, p: Params, h: torch.Tensor,

@@ -38,8 +38,10 @@ without a batch dimension (``checkpoint_dots_with_no_batch_dims``), each
 through a selective-checkpoint policy (:func:`dots_policy`). The attention
 kernels are not products the dispatcher sees, so B6 runs again in the
 recompute under every policy but ``"none"``, as the reference's Pallas
-forward does. The ``param_shapes``/``param_axes``/``cache_axes`` trees
-serve the launch-tooling slice and raise.
+forward does. ``param_shapes``, ``param_axes`` and ``cache_axes`` give
+the weights' ``meta`` tensors and the logical axes of the weights and of
+the cache (``parallel.sharding``) without allocating: the dry run
+(``launch/dryrun.py``) lays them out on a mesh.
 
 Encoder-only configurations (hubert-xlarge) have no decode step, as the
 reference's shape list has none for them (``configs.base.skip_reason``):
@@ -65,6 +67,8 @@ from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
+from repro_torch.parallel.sharding import (constrain, gather_dim, lay_out,
+                                           tree_map_axes)
 
 Params = L.ParamTree
 
@@ -118,6 +122,25 @@ def n_blocks(cfg: ModelConfig) -> int:
     return cfg.n_layers // cfg.hybrid.block_len
 
 
+def _build(cfg: ModelConfig, f: L.ParamFactory) -> Dict[str, Any]:
+    """The weights tree as nested dicts and lists, each leaf drawn by
+    ``f`` in the reference's order."""
+    d, v = cfg.d_model, cfg.vocab_size
+    tree: Dict[str, Any] = {
+        "embed": f.normal((v, d), ("vocab", "embed"), scale=1.0)}
+    if cfg.frontend is not None:
+        tree["frontend"] = {"w": f.normal((cfg.frontend.feature_dim, d),
+                                          ("frontend_feature", "embed"))}
+    if cfg.hybrid is not None:
+        tree["blocks"] = [_init_block(cfg, f) for _ in range(n_blocks(cfg))]
+    else:
+        tree["layers"] = [_init_layer(cfg, f) for _ in range(cfg.n_layers)]
+    tree["final_norm"] = L.init_norm(cfg, f)
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = f.normal((v, d), ("vocab", "embed"))
+    return tree
+
+
 def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator],
                 *, device: str = "cuda") -> Params:
     """Random weights with the reference's distributions, drawn from
@@ -128,34 +151,39 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator],
         seed, generator = generator, torch.Generator(device=dev)
         generator.manual_seed(seed)
     f = L.ParamFactory(generator, L.DTYPES[cfg.param_dtype], dev)
-    d, v = cfg.d_model, cfg.vocab_size
-    tree: Dict[str, Any] = {"embed": f.normal((v, d), scale=1.0)}
-    if cfg.frontend is not None:
-        tree["frontend"] = {"w": f.normal((cfg.frontend.feature_dim, d))}
+    return L.ParamTree(_build(cfg, f))
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The weights tree (nested dicts and lists, the layout of
+    :func:`init_params`) with ``meta`` tensors as leaves: shapes and
+    dtypes, nothing allocated."""
+    return _build(cfg, L.MetaFactory(L.DTYPES[cfg.param_dtype]))
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of every leaf of :func:`param_shapes`, in the same
+    structure. The reference stacks the layers (the hybrid's blocks, and
+    within a block its layers of one kind) on leading ``"layers"`` axes
+    (``"layers"``, ``"norm_pair"`` for the hybrid's norms); the port keeps
+    a list of them, so its axes leave those names out."""
+    return _build(cfg, L.AxesFactory())
+
+
+def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical-axis tree matching :func:`init_cache`'s structure. The
+    cache is stacked on its leading layer (block) axes as in the
+    reference, so these axes are the reference's."""
+    kv = {"k": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+          "v": ("layers", "batch", "kv_seq", "kv_heads", "head_dim")}
+    mamba = {"conv": ("batch", None, None),
+             "state": ("batch", "mamba_heads", "head_dim", "state")}
     if cfg.hybrid is not None:
-        tree["blocks"] = [_init_block(cfg, f) for _ in range(n_blocks(cfg))]
-    else:
-        tree["layers"] = [_init_layer(cfg, f) for _ in range(cfg.n_layers)]
-    tree["final_norm"] = L.init_norm(cfg, f)
-    if not cfg.tie_embeddings:
-        tree["lm_head"] = f.normal((v, d))
-    return L.ParamTree(tree)
-
-
-_LAUNCH = ("serves the launch-tooling slice (the dry-run and the sharding "
-           "rules), which is not ported yet (see ROADMAP.md Queue A)")
-
-
-def param_shapes(cfg: ModelConfig):
-    raise NotImplementedError(f"param_shapes {_LAUNCH}")
-
-
-def param_axes(cfg: ModelConfig):
-    raise NotImplementedError(f"param_axes {_LAUNCH}")
-
-
-def cache_axes(cfg: ModelConfig):
-    raise NotImplementedError(f"cache_axes {_LAUNCH}")
+        return {"attn": kv, "mamba": {
+            k: ("layers", "inner_layers", *a) for k, a in mamba.items()}}
+    if cfg.family == "ssm":
+        return {"mamba": {k: ("layers", *a) for k, a in mamba.items()}}
+    return {"attn": kv}
 
 
 # ---------------------------------------------------------------------------
@@ -165,8 +193,15 @@ def _embed(params: Params, tokens: torch.Tensor,
            dtype: torch.dtype) -> torch.Tensor:
     # F.embedding's backward sums repeated tokens in a fixed order on the
     # card (no atomics), so a microbatch's gradient is the same bits on
-    # every run, as the runtime's exactly-once reduce needs
-    return F.embedding(tokens.long(), params["embed"]).to(dtype)
+    # every run, as the runtime's exactly-once reduce needs. Training on
+    # a mesh (the dry run) gathers the table's vocab axis first: DTensor
+    # lays a lookup into a vocab-sharded table out as a MaskPartial and
+    # cannot take its gradient from the Partial sums the first layer
+    # returns
+    table = params["embed"]
+    if table.requires_grad:
+        table = gather_dim(table, 0)
+    return F.embedding(tokens.long(), table).to(dtype)
 
 
 def _frontend(params: Params, feats: torch.Tensor,
@@ -180,18 +215,19 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     """The stack's input (b, s, d): audio frames projected, VLM patches
     projected ahead of the embedded text, token embeddings otherwise."""
     if cfg.family == "audio":
-        return _frontend(params, batch["feats"], dtype)
-    text = _embed(params, batch["tokens"], dtype)
-    if cfg.family == "vlm":
-        return torch.cat([_frontend(params, batch["feats"], dtype), text],
-                         dim=1)
-    return text
+        h = _frontend(params, batch["feats"], dtype)
+    else:
+        h = _embed(params, batch["tokens"], dtype)
+        if cfg.family == "vlm":
+            h = torch.cat([_frontend(params, batch["feats"], dtype), h],
+                          dim=1)
+    return constrain(h, "batch", "seq", "embed")
 
 
 def _lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor
              ) -> torch.Tensor:
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return h @ w.to(h.dtype).T
+    return constrain(h @ w.to(h.dtype).T, "batch", "seq", "vocab")
 
 
 def ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, moe: bool):
@@ -448,10 +484,15 @@ def _cache(cfg: ModelConfig, batch: int, max_len: int,
 
     if cfg.hybrid is not None:
         nb = n_blocks(cfg)
-        return {"attn": kv(nb), "mamba": mamba(nb, cfg.hybrid.block_len - 1)}
-    if cfg.family == "ssm":
-        return {"mamba": mamba(cfg.n_layers)}
-    return {"attn": kv(cfg.n_layers)}
+        cache = {"attn": kv(nb),
+                 "mamba": mamba(nb, cfg.hybrid.block_len - 1)}
+    elif cfg.family == "ssm":
+        cache = {"mamba": mamba(cfg.n_layers)}
+    else:
+        cache = {"attn": kv(cfg.n_layers)}
+    # on a mesh (the dry run) each leaf is laid out by its logical axes
+    return tree_map_axes(lambda axes, t: lay_out(t, *axes),
+                         cache_axes(cfg), cache)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -522,6 +563,7 @@ def decode_step(
     unused by the ssm stack. Raises for encoder-only configurations."""
     _no_decode(cfg, "decode_step")
     h = _embed(params, tokens, L.DTYPES[cfg.activation_dtype])[:, None]
+    h = constrain(h, "batch", "seq", "embed")
     if cfg.hybrid is not None:
         for i, bp in enumerate(params["blocks"]):
             h = _decode_block(cfg, bp, h, cache, i, pos, impl)

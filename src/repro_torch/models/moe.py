@@ -9,9 +9,9 @@ Each token picks its ``top_k`` experts from a softmax router; each
 whole buffer as one batched product, and each token sums its slots'
 outputs weighted by its renormalised gates. No Pallas kernel serves it in
 the reference (its products are ``jnp.einsum``), so the port is plain
-torch: ``torch.bmm`` for the expert products. The reference's
-``constrain`` is a no-op off a mesh and is dropped, as in
-:mod:`repro_torch.models.layers`.
+torch: ``torch.bmm`` for the expert products. It calls ``constrain``
+where the reference does (:mod:`repro_torch.parallel.sharding`: the
+identity off a mesh).
 
 Three places where torch's defaults would differ from the reference:
 
@@ -45,6 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamFactory
+from repro_torch.parallel.sharding import constrain
 
 Params = Any
 
@@ -53,13 +54,16 @@ def init_moe(cfg: ModelConfig, f: ParamFactory) -> Dict[str, torch.Tensor]:
     assert cfg.moe is not None
     m = cfg.moe
     d, ff, e = cfg.d_model, m.d_ff_expert, m.n_experts
-    p = {"router": f.normal((d, e), scale=d ** -0.5)}
+    up = ("expert", "embed", "expert_mlp")
+    down = ("expert", "expert_mlp", "embed")
+    p = {"router": f.normal((d, e), ("embed", "expert"), scale=d ** -0.5)}
     if cfg.mlp_act == "swiglu":
-        p.update(w_gate=f.normal((e, d, ff)), w_up=f.normal((e, d, ff)),
-                 w_down=f.normal((e, ff, d), scale=ff ** -0.5))
+        p.update(w_gate=f.normal((e, d, ff), up),
+                 w_up=f.normal((e, d, ff), up),
+                 w_down=f.normal((e, ff, d), down, scale=ff ** -0.5))
     else:
-        p.update(w_in=f.normal((e, d, ff)),
-                 w_out=f.normal((e, ff, d), scale=ff ** -0.5))
+        p.update(w_in=f.normal((e, d, ff), up),
+                 w_out=f.normal((e, ff, d), down, scale=ff ** -0.5))
     return p
 
 
@@ -103,9 +107,11 @@ def expert_ffn(cfg: ModelConfig, p: Params, buf: torch.Tensor
     """Every expert's FFN over its (capacity, d) rows of ``buf``."""
     if cfg.mlp_act == "swiglu":
         y = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+        y = constrain(y, "expert", "expert_cap", None)
         return torch.bmm(y, p["w_down"])
     # jax.nn.gelu's default is the tanh approximation
     y = F.gelu(torch.bmm(buf, p["w_in"]), approximate="tanh")
+    y = constrain(y, "expert", "expert_cap", None)
     return torch.bmm(y, p["w_out"])
 
 
@@ -176,7 +182,10 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor
     rows = m.n_experts * cap
     dest = torch.where(keep, eflat * cap + pos, rows)
     buf = Dispatch.apply(xf, dest, keep, rows, m.top_k)
-    out_buf = expert_ffn(cfg, p, buf[:-1].view(m.n_experts, cap, d))
+    buf = constrain(buf[:-1].view(m.n_experts, cap, d),
+                    "expert", "expert_cap", None)
+    out_buf = constrain(expert_ffn(cfg, p, buf),
+                        "expert", "expert_cap", None)
 
     # combine: each slot's row back, weighted by its renormalised gate;
     # src is the slot map's inverse (the spare row collects the dropped

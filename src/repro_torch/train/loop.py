@@ -13,8 +13,8 @@ ParamTree (trainable), "opt": {"m", "v", "count"}, "step"[, "ef"]}``
 with the moments (and the compression residual) as dicts ``{path:
 tensor}`` in :func:`~repro_torch.models.layers.tree_leaves` order.
 
-``train_state_shapes`` and ``train_state_axes`` raise: they serve only
-the dry-run of the launch-tooling slice (ROADMAP).
+``train_state_shapes`` and ``train_state_axes`` give the state's
+``meta`` tensors and logical axes without allocating (the dry run).
 
 ``TrainConfig.impl`` defaults to ``"kernel"``: the attention kernels B6
 (forward), B7/B8 (backward) and B9 (decode), and the Mamba-2 layers' SSD
@@ -40,10 +40,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as MODEL
 from repro_torch.optim.adamw import adamw_init, adamw_update
 from repro_torch.optim.compress import ef_state_init, error_feedback_step
-
-_DRY_RUN = ("serves only the launch-tooling slice's dry-run, which is not "
-            "ported yet (see ROADMAP.md)")
-
+from repro_torch.parallel.sharding import is_dtensor
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -54,7 +51,7 @@ class TrainConfig:
     grad_clip_norm: float = 1.0
     microbatches: int = 1
     remat: str = "none"            # none | full | dots | dots_no_batch
-    impl: str = "kernel"           # attention/SSD kernel impl: kernel | ref
+    impl: str = "kernel"           # kernel | ref | dist (decode only)
     grad_compression: bool = False  # error-feedback int8
     lr_schedule: Optional[Callable] = None
 
@@ -71,7 +68,15 @@ def cross_entropy_loss(logits: torch.Tensor,
     """Next-token xent; logits (b, s, v) any float dtype, labels (b, s)."""
     lf = logits.float()
     logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    if is_dtensor(lf):
+        # vocab-parallel (the dry run's logits are sharded on the vocab):
+        # each shard's masked sum, where a gather across shards has no
+        # DTensor rule
+        vocab = torch.arange(lf.shape[-1], device=lf.device)
+        gold = torch.where(labels.long()[..., None] == vocab, lf, 0.0)
+        gold = gold.sum(-1)
+    else:
+        gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     return (logz - gold).mean()
 
 
@@ -105,12 +110,37 @@ def train_state_init(cfg: ModelConfig,
     return state
 
 
-def train_state_shapes(cfg: ModelConfig, tc: TrainConfig):
-    raise NotImplementedError(f"train_state_shapes {_DRY_RUN}")
+def train_state_shapes(cfg: ModelConfig, tc: TrainConfig) -> Dict[str, Any]:
+    """The train state's layout with ``meta`` tensors as leaves, nothing
+    allocated: the weights as :func:`~repro_torch.models.model.
+    param_shapes` gives them, the moments (and the compression residual)
+    as float32 dicts ``{path: tensor}`` in ``tree_leaves`` order."""
+    params = MODEL.param_shapes(cfg)
+    meta = torch.device("meta")
+
+    def f32():
+        return {path: torch.empty(t.shape, dtype=torch.float32, device=meta)
+                for path, t in L.tree_leaves(params).items()}
+
+    scalar = torch.empty((), dtype=torch.int32, device=meta)
+    state = {"params": params,
+             "opt": {"m": f32(), "v": f32(), "count": scalar},
+             "step": scalar}
+    if tc.grad_compression:
+        state["ef"] = f32()
+    return state
 
 
-def train_state_axes(cfg: ModelConfig, tc: TrainConfig):
-    raise NotImplementedError(f"train_state_axes {_DRY_RUN}")
+def train_state_axes(cfg: ModelConfig, tc: TrainConfig) -> Dict[str, Any]:
+    """Logical-axis tree matching :func:`train_state_shapes`."""
+    axes = MODEL.param_axes(cfg)
+    by_path = L.tree_leaves(axes)
+    state = {"params": axes,
+             "opt": {"m": dict(by_path), "v": dict(by_path), "count": ()},
+             "step": ()}
+    if tc.grad_compression:
+        state["ef"] = dict(by_path)
+    return state
 
 
 # ---------------------------------------------------------------------------

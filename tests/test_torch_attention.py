@@ -27,7 +27,7 @@ on the kernel's tiles.
 3. **Oracles** — the port's ``ref.py`` functions equal the reference's.
 4. **Ops** — ``impl`` selection, ``kv_valid_len`` through the oracle,
    devices the kernels cannot run on refused (no fallback),
-   ``impl="dist"`` raising, argument checks. The backward kernels B7/B8
+   ``impl="dist"`` refusing to run off a mesh, argument checks. The backward kernels B7/B8
    are held in ``tests/test_torch_attention_bwd.py``.
 5. **On the card** (marked ``cuda``; they skip without one) — each CUDA
    kernel against its plain version on boundary inputs; B6's Hopper body
@@ -449,7 +449,9 @@ def test_gradients_refused_off_the_cpu():
 def test_unported_paths_raise():
     (_, q), (_, k), (_, v) = _inputs(10, "float32", (1, 8, 2, 16),
                                      (1, 8, 2, 16), (1, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match="dist"):
+    # the sequence-parallel decode is ported
+    # (tests/test_torch_dist_decode.py): off a mesh it refuses to run
+    with pytest.raises(ValueError, match="mesh"):
         DOPS.decode_attention(q[:, 0], k, v, torch.tensor([8]), impl="dist")
     # the backward kernels B7/B8 are ported: on the CPU their plain
     # versions give the gradients in the inputs' types

@@ -186,7 +186,7 @@ def test_constants_and_body():
 def _fake_decode_library(**override):
     """A stand-in for the built library with the C entry points ``_bind``
     reads: the constants the source defines."""
-    fns = dict(decode_attn=lambda *a: 0,
+    fns = dict(decode_attn=lambda *a: 0, decode_attn_lse=lambda *a: 0,
                decode_block_k=lambda: 32, decode_split=lambda: 128,
                decode_stages=lambda: 3, decode_max_group=lambda: 64)
     fns.update(override)

@@ -10,7 +10,7 @@
 2. **materialize** — seeded: one generator seed gives the same tensors,
    another different ones; token ids inside the vocabulary; the results
    feed ``forward`` of every family at the reduced config.
-3. **What waits** — ``input_axes`` (the sharding slice's) raises.
+3. **Axes** — ``input_axes`` is the reference's.
 """
 import jax
 import jax.numpy as jnp
@@ -147,6 +147,12 @@ def test_materialize_draws_a_cache_tree():
 
 
 def test_input_axes_waits_for_the_sharding_slice():
+    """The sharding slice has come: ``input_axes`` is the reference's, for
+    every reduced shape (``tests/test_torch_sharding.py`` holds the rest
+    of the axes trees)."""
+    rcfg = ref_reduced_config(ref_get_config("qwen3-8b"))
     pcfg = reduced_config(get_config("qwen3-8b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PIN.input_axes(pcfg, _port_shape(REDUCED_SHAPE_TRAIN))
+    for shape in (REDUCED_SHAPE_TRAIN, REDUCED_SHAPE_PREFILL,
+                  REDUCED_SHAPE_DECODE):
+        got = PIN.input_axes(pcfg, _port_shape(shape))
+        assert got == RIN.input_axes(rcfg, shape), shape.name

@@ -37,9 +37,9 @@ with numpy from a seed. Configurations, each at ``reduced_config``:
    the reference's layout.
 5. **MoE gradients** — the loss's gradients of the moe and hybrid
    configurations against the reference's ``jax.grad`` within 1e-4.
-6. **What waits** — the ``"dots"`` remat policies, the dry-run's
-   train-state and parameter trees, ``input_axes`` and the ``dist``
-   decode raise.
+6. **What came later** — the dry-run's train-state and parameter trees
+   and ``input_axes`` against ``init_params``; the ``dist`` decode off a
+   mesh raises.
 7. **``chip_smoke.py``'s serving phases** on narrow models, on the CPU.
 8. **On the card** (marked ``cuda``; skips without one) — prefill and
    decode through B6 and B9 equal the CPU run within 2e-4.
@@ -61,7 +61,8 @@ from repro_torch.configs import TRAIN_4K, get_config, reduced_config
 from repro_torch.models import layers as L
 from repro_torch.models import model as PM
 from repro_torch.models.convert import from_jax_params
-from repro_torch.models.inputs import input_axes
+from repro_torch.models.inputs import input_axes, input_specs
+from repro_torch.parallel import sharding as SH
 from repro_torch.train import loop as PLOOP
 from repro_torch.train.loop import (
     TrainConfig, make_prefill_step, make_serve_step, make_train_step,
@@ -462,28 +463,44 @@ def test_moe_gradients_match_reference(name):
 # 6. What waits for later slices
 # ---------------------------------------------------------------------------
 def test_unported_parts_raise(model):
-    """Every family builds, runs and trains on the CPU; what waits
-    raises, naming ROADMAP: the dry-run's trees (parameter shapes and
-    axes, cache axes, train-state shapes), ``input_axes``."""
-    _rcfg, pcfg, _rparams, _pparams = model
-    for fn in (PM.param_shapes, PM.param_axes, PM.cache_axes):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(pcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        input_axes(pcfg, TRAIN_4K)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_state_shapes(pcfg, TrainConfig())
+    """Every family builds, runs and trains on the CPU, and the dry run's
+    trees have come (``tests/test_torch_sharding.py`` holds them against
+    the reference's): the parameter shapes are ``init_params``'s on the
+    meta device, one axes tuple a dimension, for the cache too;
+    ``input_axes`` and the train state's shapes."""
+    _rcfg, pcfg, _rparams, pparams = model
+    shapes = PM.param_shapes(pcfg)
+    axes = PM.param_axes(pcfg)
+    leaves = L.tree_leaves(pparams)
+    shape_leaves = L.tree_leaves(L.ParamTree(shapes))
+    assert list(shape_leaves) == list(leaves)
+    for k, t in leaves.items():
+        assert shape_leaves[k].shape == t.shape, k
+        assert shape_leaves[k].device.type == "meta", k
+    assert SH.tree_map_axes(lambda ax, t: len(ax) == t.ndim, axes,
+                            shapes) == SH.tree_map_axes(
+        lambda ax, t: True, axes, shapes)
+    if not pcfg.is_encoder_only():
+        cache = PM.init_cache(pcfg, 1, 8, device="meta")
+        SH.tree_map_axes(lambda ax, t: len(ax) == t.ndim or pytest.fail(
+            str(ax)), PM.cache_axes(pcfg), cache)
+    assert set(input_axes(pcfg, TRAIN_4K)) == set(
+        input_specs(pcfg, TRAIN_4K))
+    state = train_state_shapes(pcfg, TrainConfig())
+    assert list(state["opt"]["m"]) == list(leaves)
 
 
 def test_training_and_dist_decode_raise(model):
-    """Training is ported (``tests/test_torch_training.py``); what waits
-    raises: the dry-run's train-state trees and the ``dist`` decode."""
+    """Training is ported (``tests/test_torch_training.py``), the
+    dry-run's train-state trees and the ``dist`` decode too
+    (``tests/test_torch_dist_decode.py``): off a mesh the ``dist`` decode
+    refuses to run."""
     _rcfg, pcfg, _rparams, pparams = model
     assert callable(make_train_step(pcfg, TrainConfig()))
     state = train_state_init(pcfg, 0, TrainConfig(), device="cpu")
     assert int(state["step"]) == 0
-    with pytest.raises(NotImplementedError, match="dry-run"):
-        train_state_shapes(pcfg, TrainConfig())
+    assert train_state_shapes(pcfg, TrainConfig())["step"].device.type \
+        == "meta"
     n = 4 + (pcfg.frontend.n_prefix if pcfg.family == "vlm" else 0)
     _, cache = PM.prefill(pcfg, pparams, _torch(_batch(7, pcfg, 1, n)),
                           max_len=n + 2)
@@ -491,7 +508,7 @@ def test_training_and_dist_decode_raise(model):
     if pcfg.is_encoder_only():
         _no_decode(pcfg, pparams, cache)
         return
-    with pytest.raises(NotImplementedError, match="dist"):
+    with pytest.raises(ValueError, match="mesh"):
         PM.decode_step(pcfg, pparams, cache,
                        torch.zeros(1, dtype=torch.int32), pos, impl="dist")
 

@@ -472,10 +472,17 @@ def test_train_state_init_and_conversion(model):
                carried["opt"]["m"] if name == "m" else carried["ef"])
         for k, t in _port_leaves(pcfg, tree).items():
             assert torch.equal(got[k].detach(), t), (name, k)
-    with pytest.raises(NotImplementedError, match="dry-run"):
-        PLOOP.train_state_shapes(pcfg, tc)
-    with pytest.raises(NotImplementedError, match="dry-run"):
-        PLOOP.train_state_axes(pcfg, tc)
+    # the dry run's trees: the state's layout on the meta device, and one
+    # axes tuple per leaf (tests/test_torch_sharding.py holds them against
+    # the reference's)
+    shapes = PLOOP.train_state_shapes(pcfg, tc)
+    axes = PLOOP.train_state_axes(pcfg, tc)
+    assert list(shapes["opt"]["m"]) == list(state["opt"]["m"])
+    assert list(axes["ef"]) == list(state["ef"])
+    for k, t in state["opt"]["m"].items():
+        assert shapes["opt"]["m"][k].shape == t.shape
+        assert shapes["opt"]["m"][k].device.type == "meta"
+        assert len(axes["opt"]["v"][k]) == t.ndim
 
 
 def test_tree_leaves_order_and_round_trip(model):
