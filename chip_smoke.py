@@ -34,7 +34,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    and 20,000 and 50,000 nodes, where each group's table moves from
    shared to device memory),
    each launched twice with the same bits and each (B2 aside) as 64
-   scenarios in one call equal to 64 single calls; then on a mid-run
+   scenarios in one call equal to 64 single calls; the torch mirrors of
+   Eq. 1-4 (``core.metrics``'s ``*_torch``) on the card against their
+   numpy twins in float64 (:func:`metrics_mirror_check`); then on a mid-run
    snapshot of the
    main-path scenario, where kernel and plain version are also timed on
    the card: by CUDA events, by device time (``_device_ms``) and by the
@@ -326,17 +328,24 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    - moe: moonshot-v1-16b-a3b cut to 4 of its 48 layers at full width
      (2.95 B parameters), 4 microbatches of 1 x 4,096 tokens, remat
      "full": 8 B6 (4 and 4 recomputed), 4 B7 and 4 B8 a call, on the
-     Hopper bodies, no group sum.
+     Hopper bodies, no group sum;
+   - ssm: mamba2-2.7b at full width and depth (64 layers, 2.70 B
+     parameters), 4 microbatches of 1 x 4,096 tokens, remat "full":
+     exactly 128 B10 launches a call (64 and 64 recomputed), every one
+     on its Hopper body (``ssd_tc``, ``ssd_prep``, ``ssd_state``,
+     ``ssd_out`` 128 each); its backward is the SSD oracle's autograd.
+   The moe and ssm paths run in child processes (``--family-train``).
    Gated for each: no plain-version call; the path's launch counts
    exactly those of its ``grad_fn`` calls; step 0's loss within
    ``TRAIN_LOSS_TOL`` of float32 autograd through the oracles on a
    float32 copy of the weights, microbatch 0's gradients within
-   ``FAMILY_GRAD_TOL`` of it (for moe layer by layer on the f32 stream,
-   tokens whose routing flips between bf16 and f32 left out, their share
-   within ``FAMILY_FLIP_TOL``; a probe zeroing B8's dq must fail it) and
-   the same bits twice; every loss finite, the AdamW count the number of
-   steps, every leaf changed but those bf16 cannot move
-   (``FROZEN_IN_BF16``) and the audio family's unreached embedding.
+   ``FAMILY_GRAD_TOL`` of it (for moe and ssm layer by layer on the f32
+   stream, for moe with the tokens whose routing flips between bf16 and
+   f32 left out, their share within ``FAMILY_FLIP_TOL``; a probe zeroing
+   B8's dq, for ssm SSDFunction's dx, must fail it) and the same bits
+   twice; every loss finite, the AdamW count the number of steps, every
+   leaf changed but those bf16 cannot move (``FROZEN_IN_BF16``, for ssm
+   also ``FAMILY_FROZEN``) and the audio family's unreached embedding.
 19. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -366,9 +375,9 @@ microseconds and device ms) through the port under SRC and through this
 checkout's, each in its own process, in turns parent, change, change,
 parent.
 ``--family-train NAME`` runs one family training path (phase 18) alone;
-the full run takes the moe path this way, in a child process whose
-allocator maps expandable segments (``family_train_child``). ``--train``
-runs the training phase (phase 12) alone, as the full run's child;
+the full run takes the moe and ssm paths this way, each in a child
+process whose allocator maps expandable segments
+(``family_train_child``). ``--train`` runs the training phase (phase 12) alone, as the full run's child;
 ``--runtime`` runs the runtime gates (phase 13) alone, as the full run's
 child; ``--dist`` the sequence-parallel decode (phase 14) alone, as the
 full run's child.
@@ -385,6 +394,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -1052,6 +1062,94 @@ REPLACES = {
 }
 
 
+# The torch mirrors of Eq. 1-4 (core.metrics' *_torch, on no path, as the
+# reference's jax mirrors) on the card against their numpy twins in
+# float64, METRICS_DRAWS draws over the ranges of the reference's property
+# tests (tests/test_metrics.py): the masks equal wherever the tested value
+# lies more than 1e-9 of itself from the boundary (the sums' order differs:
+# P(N^J)'s scatter-add on the card adds in no fixed order), the values
+# within METRICS_TOL relative.
+METRICS_DRAWS = 50
+METRICS_TOL = 1e-12
+
+
+def metrics_mirror_check(device="cuda"):
+    """Each Eq. 1-4 torch mirror on ``device`` against its numpy twin;
+    raises past METRICS_TOL or on a decisive mask that differs."""
+    from repro_torch.core import metrics as M
+
+    rng = np.random.default_rng(0)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float64,
+                               device=device)
+
+    def rel(got, want):
+        got, want = got.cpu().numpy(), np.asarray(want, dtype=np.float64)
+        if not np.array_equal(np.isnan(got), np.isnan(want)):
+            return float("inf")
+        live = ~np.isnan(want)
+        return float(np.max(np.abs(got[live] - want[live])
+                            / np.maximum(np.abs(want[live]), 1e-300),
+                            initial=0.0))
+
+    worst = {"P": 0.0, "delta": 0.0, "eq4": 0.0}
+    edge = {"spatial": 0, "temporal": 0}
+    for _ in range(METRICS_DRAWS):
+        n, tasks = int(rng.integers(3, 13)), int(rng.integers(1, 40))
+        prog, run = rng.uniform(0, 1, tasks), rng.uniform(0, 100, tasks)
+        run[rng.random(tasks) < 0.1] = 0.0
+        node = rng.integers(0, n, tasks)
+        want = M.node_progress_rate_np(prog, run, node, n)
+        got = M.node_progress_rate_torch(t(prog), t(run), torch.as_tensor(
+            node, device=device), n)
+        worst["P"] = max(worst["P"], rel(got, want))
+        k = min(int(rng.integers(2, 7)), n)
+        nh = (np.arange(n)[:, None] + (np.arange(k) - k // 2)[None]) % n
+        P = rng.uniform(0, 10, n)
+        P[rng.random(n) < 0.3] = np.nan
+        mask = M.spatial_slow_mask_torch(t(P), torch.as_tensor(
+            nh, device=device)).cpu().numpy()
+        Pn = P[nh]
+        valid = ~np.isnan(Pn)
+        cnt = np.maximum(valid.sum(1), 1)
+        with np.errstate(invalid="ignore"):
+            mean = np.nansum(Pn, 1) / cnt
+            var = np.nansum(np.where(valid, (Pn - mean[:, None]) ** 2, 0),
+                            1) / cnt
+            margin = np.abs(P - (mean - np.sqrt(var)))
+        # rows of fewer than 2 live neighbours never fire, whatever P
+        sure = (valid.sum(1) < 2) | ~(margin <= 1e-9 * (1 + np.abs(P)))
+        edge["spatial"] += int((~sure).sum())
+        if not np.array_equal(mask[sure],
+                              M.spatial_slow_mask_np(P, nh)[sure]):
+            raise RuntimeError(f"Eq. 1 mirror != numpy on P {P}, NH {nh}")
+        zn, zp = rng.uniform(0, 100, n), rng.uniform(0, 100, n)
+        dp = rng.uniform(0, 100, n)
+        dp[rng.random(n) < 0.3] = np.nan
+        m_np, d_np = M.temporal_slow_mask_np(zn, zp, 3.0, dp)
+        m_t, d_t = M.temporal_slow_mask_torch(t(zn), t(zp), 3.0, t(dp))
+        worst["delta"] = max(worst["delta"], rel(d_t, d_np))
+        with np.errstate(invalid="ignore"):
+            sure = ~(np.abs(d_np - 0.1 * dp) <= 1e-9 * (1 + np.abs(d_np)))
+        edge["temporal"] += int((~sure).sum())
+        if not np.array_equal(m_t.cpu().numpy()[sure], m_np[sure]):
+            raise RuntimeError(f"Eq. 3 mirror != numpy on {zn}, {zp}, {dp}")
+        hist = list(rng.uniform(0.1, 1000, int(rng.integers(1, 13))))
+        L = int(rng.integers(1, 9))
+        h = hist[-L:]
+        est = M.eq4_estimate_torch(t([np.nan] * (L - len(h)) + h), L)
+        worst["eq4"] = max(worst["eq4"], rel(est.reshape(1),
+                                             [M.eq4_estimate_np(hist, L)]))
+    torch.cuda.synchronize()
+    print(f"Eq. 1-4 torch mirrors on the card vs numpy, float64, "
+          f"{METRICS_DRAWS} draws: max relative error {worst} (limit "
+          f"{METRICS_TOL}); masks equal, rows within 1e-9 of the boundary "
+          f"left out {edge}", flush=True)
+    if not max(worst.values()) <= METRICS_TOL:
+        raise RuntimeError(f"Eq. 1-4 mirrors off numpy: {worst}")
+
+
 def kernel_phase(cap_state):
     from repro_torch.accel import kernels as K
     from repro_torch.accel import torch_backend as TB
@@ -1078,6 +1176,7 @@ def kernel_phase(cap_state):
     print(f"adversarial inputs: all kernels equal to their plain versions "
           f"({ADVERSARIAL_SEEDS} seeds)", flush=True)
     boundary_phase()
+    metrics_mirror_check()
 
     dev_in = kernel_inputs(cap_state, "cuda")
     cpu_in = kernel_inputs(cap_state, "cpu")
@@ -2129,25 +2228,54 @@ def batched_kernel_phase(sweep):
     return rows
 
 
+def device_kernels(prof) -> dict:
+    """{kernel name: (launches recorded, device ns)} of a finished
+    profile, read off the trace's raw events (kernels and copies on the
+    device): parsing them into the profiler's event tree
+    (``key_averages``) took 95 s for a Mamba2 training step's 300,000
+    kernels, and 22-31 s for the bino run and the training step
+    (PERF.md)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            n, ns = out.get(e.name(), (0, 0))
+            out[e.name()] = (n + 1, ns + e.duration_ns())
+    return out
+
+
+def device_us(kernels: dict, part: str = "") -> float:
+    """Device microseconds of the kernels whose name holds ``part``."""
+    return sum(ns for k, (_n, ns) in kernels.items() if part in k) / 1e3
+
+
+def print_kernels(kernels: dict, rows: int = 15) -> None:
+    """The ``rows`` kernels of most device time: ms, share, launches
+    recorded, name."""
+    total = device_us(kernels) or 1.0
+    print("  device ms    share  records  kernel")
+    for name, (n, ns) in sorted(kernels.items(),
+                                key=lambda x: -x[1][1])[:rows]:
+        print(f"  {ns / 1e6:9.3f} {ns / 1e3 / total:8.2%} {n:8d}  "
+              f"{name[:100]}")
+    sys.stdout.flush()
+
+
 def profile_bino() -> None:
     """Device time by kernel over one bino card run, and the device's
     busy share of its wall time (the sum of kernel and copy times, which
     do not overlap on one stream)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         sim, _l, _k, wall = scenario("bino", None)
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == cuda)
+    kernels = device_kernels(prof)
+    dev_us = device_us(kernels)
     print(f"profile bino: wall {wall:.6f} s (profiled), assess_wall "
           f"{sim.assess_wall:.6f} s, {sim.assess_ticks} ticks, device busy "
           f"{dev_us / 1e6:.6f} s = {dev_us / 1e6 / wall:.6f} of wall")
-    print(events.table(sort_by="self_device_time_total", row_limit=15,
-                       max_name_column_width=60), flush=True)
+    print_kernels(kernels)
 
 
 def _sub_kernels(what: str, fn, args, names, reps: int = 20) -> None:
@@ -2163,12 +2291,11 @@ def _sub_kernels(what: str, fn, args, names, reps: int = 20) -> None:
         for _ in range(reps):
             fn(*args)
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
     per = {}
-    for e in prof.key_averages():
-        hit = [n for n in names if n in e.key]
-        if e.device_type == cuda and hit and e.count:
-            per[hit[0]] = round(e.self_device_time_total / e.count, 3)
+    for key, (n, ns) in device_kernels(prof).items():
+        hit = [name for name in names if name in key]
+        if hit and n:
+            per[hit[0]] = round(ns / 1e3 / n, 3)
     print(f"{what}: device us per launch by kernel (profiler) "
           f"{json.dumps(per)}", flush=True)
 
@@ -2884,7 +3011,6 @@ def profile_serve(params, batch, prefill_step, serve_step=None,
         batch = {"tokens": batch}
     B = next(iter(batch.values())).shape[0]
     P = sum(t.shape[1] for t in batch.values())    # positions: all inputs
-    cuda = torch.autograd.DeviceType.CUDA
     state = {}
 
     def prefill():
@@ -2903,20 +3029,17 @@ def profile_serve(params, batch, prefill_step, serve_step=None,
     if serve_step is not None:
         phases.append((f"{steps} decode steps", decode))
     for what, fn in phases:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        events = prof.key_averages()
-        dev_us = sum(e.self_device_time_total for e in events
-                     if e.device_type == cuda)
+        kernels = device_kernels(prof)
+        dev_us = device_us(kernels)
         print(f"profile {label} {what}: wall {wall:.6f} s (profiled), "
               f"device busy {dev_us / 1e6:.6f} s = {dev_us / 1e6 / wall:.6f} "
               f"of wall")
-        print(events.table(sort_by="self_device_time_total", row_limit=12,
-                           max_name_column_width=60), flush=True)
+        print_kernels(kernels, 12)
     state.clear()
 
 
@@ -3612,7 +3735,6 @@ def profile_train(trainer, calls):
 
     from repro_torch.accel import kernels as K
 
-    cuda = torch.autograd.DeviceType.CUDA
     before = dict(K.launches)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3621,22 +3743,19 @@ def profile_train(trainer, calls):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n_calls = calls[0] - n0
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == cuda]
-    dev_us = sum(e.self_device_time_total for e in kernels)
+    kernels = device_kernels(prof)
+    dev_us = device_us(kernels)
     shares, recorded = {}, {}
     for b, (name, key) in TRAIN_ATTN_KERNELS.items():
-        mine = [e for e in kernels if name in e.key]
-        shares[b] = sum(e.self_device_time_total for e in mine) / dev_us
-        recorded[b] = (sum(e.count for e in mine),
-                       K.launches[key] - before[key])
+        shares[b] = device_us(kernels, name) / dev_us
+        recorded[b] = (sum(n for k, (n, _ns) in kernels.items()
+                           if name in k), K.launches[key] - before[key])
     print(f"profile train step: wall {wall:.6f} s (profiled), device busy "
           f"{dev_us / 1e6:.6f} s = {dev_us / 1e6 / wall:.6f} of wall; "
           f"{n_calls} grad_fn calls started in it, "
           f"{dev_us / 1e3 / max(n_calls, 1):.3f} ms of device time per call; "
           f"shares of device time {shares}; (records, launches) {recorded}")
-    print(events.table(sort_by="self_device_time_total", row_limit=20,
-                       max_name_column_width=60), flush=True)
+    print_kernels(kernels, 20)
     return reports
 
 
@@ -3715,16 +3834,19 @@ def run_until_fired(step, chaos, *, min_steps=CROSS_MIN_STEPS,
 
 
 def train_plain_calls():
-    """A counter of the calls of B6's, B7's and B8's plain versions and
-    of the attention oracle: none may run on a training path on the
-    card."""
+    """A counter of the calls of B6's, B7's, B8's and B10's plain versions
+    and of the attention oracle: none may run on a training path on the
+    card. (B10's backward is the SSD oracle's autograd by design, as in
+    the reference, so the SSD oracle is not counted.)"""
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention import ref as FREF
+    from repro_torch.kernels.ssd import ssd as SSD
 
     return _CountCalls([(FA, "flash_attention_plain"),
                         (FA, "flash_attention_dkv_plain"),
                         (FA, "flash_attention_dq_plain"),
-                        (FREF, "attention_reference")])
+                        (FREF, "attention_reference"),
+                        (SSD, "ssd_plain")])
 
 
 def sim_card(script, assess=None) -> dict:
@@ -5269,7 +5391,7 @@ def family_f32_check(tag, cfg, params, batch, ref) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Training paths of the audio, vlm and moe families
+# Training paths of the audio, vlm, moe and ssm families
 # ---------------------------------------------------------------------------
 # Each path trains one family through ``make_train_step`` (random bf16
 # weights from seed 0, TrainConfig() defaults but the microbatches and the
@@ -5291,31 +5413,47 @@ def family_f32_check(tag, cfg, params, batch, ref) -> None:
 #   B8 4 a grad_fn call, on the Hopper bodies, no group sum. bf16 weights
 #   5.9 GB, AdamW moments 23.6, gradients 5.9 and the float32 sums 11.8
 #   come to 47.2 GB before activations; at 6 layers (4.09 B) 65 GB.
+# - ssm: mamba2-2.7b at full width and depth (64 layers, d_model 2,560,
+#   80 heads of 64, d_state 128, chunk 256; 2,702,579,200 parameters),
+#   4 microbatches of 1 x 4,096 tokens, remat "full": B10 128 a grad_fn
+#   call (64 and 64 recomputed), every one on its Hopper body; its
+#   backward is the oracle's autograd (SSDFunction), no launch. bf16
+#   weights 5.4 GB, AdamW moments 21.6, gradients 5.4 and the float32
+#   sums 10.8 come to 43.2 GB before activations, and the out-of-place
+#   AdamW step holds up to 21.6 GB of new moments beside them.
 FAMILY_TRAIN_SEQ = 4096
 FAMILY_TRAIN_STEPS = 3
 FAMILY_TRAIN_SEED = 0
 MOE_TRAIN_LAYERS = 4
 # (microbatches, sequences per microbatch, remat) of each path
 FAMILY_TRAIN = {"audio": (2, 2, "none"), "vlm": (2, 2, "dots"),
-                "moe": (4, 1, "full")}
+                "moe": (4, 1, "full"), "ssm": (4, 1, "full")}
 # The gates. Step 0's loss within TRAIN_LOSS_TOL of float32 autograd
 # through the oracles (impl="ref", remat="full", on a float32 copy of the
 # weights); microbatch 0's gradients: the largest ||g - ref|| / ||ref||
 # over the leaves within FAMILY_GRAD_TOL, which the probe (B8's dq
-# replaced by zeros) must exceed; microbatch 0's gradients the same bits
-# twice, and for vlm the same bits under "dots" as under "none". For moe
-# the whole model's gradients are printed, not gated: a token whose bf16
+# replaced by zeros; for ssm SSDFunction's dx) must exceed; microbatch
+# 0's gradients the same bits twice, and for vlm the same bits under
+# "dots" as under "none". For moe the whole model's gradients are
+# printed, not gated: a token whose bf16
 # and f32 routers pick other experts sends its gradient through other
 # expert and router weights (0.33 of a leaf's norm for the moonshot cut,
 # PERF.md), so the gate runs layer by layer on the f32 stream with such
 # tokens left out (moe_layer_grad_checks), their share within
-# FAMILY_FLIP_TOL.
+# FAMILY_FLIP_TOL. For ssm too the gate runs layer by layer on the f32
+# stream (ssm_layer_grad_checks): random weights over 64 Mamba layers
+# carry bf16 rounding from layer to layer (the bf16 served logits are
+# 1.38-4.81 of their RMS from f32, PERF.md).
 # Measured on an H100 80GB HBM3 at 700 W (PERF.md; two runs, the same
 # bits): audio 0.0431 (wq of layer 46), vlm 0.0368 (wq of layer
 # 23), moe layer by layer 0.0123 (the final norm's scale; 2.37 % of
 # (token, layer) pairs flipped), each probe 1.0; each limit 2.2x or more
-# above its reading and 10x or more below the probe.
-FAMILY_GRAD_TOL = {"audio": 0.1, "vlm": 0.08, "moe": 0.03}
+# above its reading and 10x or more below the probe. ssm, layer by layer
+# (four runs, the same bits): 0.0348 (wC of layer 10), its probe
+# (SSDFunction's dx zeroed) 1.0, so 0.08 (2.3x above, 12.5x below); the
+# whole model's gradients, printed, not gated: 1.37 of a leaf's norm
+# (A_log of layer 12), their probe 1.57.
+FAMILY_GRAD_TOL = {"audio": 0.1, "vlm": 0.08, "moe": 0.03, "ssm": 0.08}
 # Leaves AdamW cannot move in bf16 (no float32 master copy, as in the
 # reference): a norm's scale starts at 1.0, where a step of lr 3e-4 is
 # below half of bf16's spacing (2^-8 below 1.0); the audio family's
@@ -5324,15 +5462,23 @@ FAMILY_GRAD_TOL = {"audio": 0.1, "vlm": 0.08, "moe": 0.03}
 # every other leaf, and give every leaf but the unreached one a nonzero
 # first moment.
 FROZEN_IN_BF16 = ("/scale",)
+# The same for the ssm family's Mamba layers, leaf by leaf: D and
+# gate_norm start at 1.0 (bf16's spacing 2^-8 below it, 2^-7 above), where
+# AdamW's first steps (lr 3e-4 times a unit step plus 0.1 of decay) are
+# below half the spacing. Every other Mamba leaf must move: dt_bias and
+# conv_b start at 0, and A_log's first entry at log 1 = 0.
+FAMILY_FROZEN = {"ssm": ("/mixer/D", "/mixer/gate_norm")}
 ATTN_KEYS = ("flash_fwd", "flash_fwd_tc", "flash_dkv", "flash_dkv_tc",
              "flash_dkv_group_sum", "flash_dq", "flash_dq_tc")
 
 
 def family_train_config(name: str):
     """The configuration of a family's training path: the serving path's
-    (audio, vlm) or moonshot cut to MOE_TRAIN_LAYERS layers (moe)."""
+    (audio, vlm, ssm) or moonshot cut to MOE_TRAIN_LAYERS layers (moe)."""
     from repro_torch.configs import get_config
 
+    if name == "ssm":
+        return _ssm_config()
     if name != "moe":
         return family_config(name)
     cfg = get_config(MOE_ARCH)
@@ -5360,22 +5506,68 @@ def family_train_batch(cfg, step: int, n_seq: int, seq: int, device):
     return {k: v.to(device) for k, v in out.items()}
 
 
-def train_launches(cfg, remat: str, on_card: bool) -> dict:
-    """B6-B8's launches in one grad_fn call of ``cfg`` under ``remat``:
-    every attention layer once forward and once backward, B6 once more
-    in the recompute of every policy but "none"; each on the body its
-    dtype and head_dim take; the group sum after each B7 launch of the
-    Hopper body with a group above 1. Zeros on the CPU."""
+def train_launches(cfg, remat: str, on_card: bool,
+                   seq: int = FAMILY_TRAIN_SEQ) -> dict:
+    """B6-B8's and B10's launches in one grad_fn call of ``cfg`` under
+    ``remat`` on sequences of ``seq`` positions: every attention layer
+    once forward and once backward, B6 once more in the recompute of
+    every policy but "none"; every Mamba layer's B10 once forward and
+    once more in the recompute (its backward is the oracle's autograd, no
+    launch); each on the body its dtype and shapes take; the group sum
+    after each B7 launch of the Hopper body with a group above 1. Zeros
+    on the CPU."""
     from repro_torch.accel import kernels as K
 
     n = cfg.n_attn_layers() if on_card else 0
+    m = cfg.n_mamba_layers() if on_card and cfg.ssm is not None else 0
     bf16, d = torch.bfloat16, cfg.resolved_head_dim()
-    fwd = n * (1 if remat == "none" else 2)
+    again = 1 if remat == "none" else 2
+    fwd, ssd = n * again, m * again
     tc_f, tc_b = int(K.flash_fwd_tc(bf16, d)), int(K.flash_bwd_tc(bf16, d))
+    tc_s = 0
+    if m:
+        s = cfg.ssm
+        tc_s = int(K.ssd_tc(bf16, s.head_dim, s.d_state, K.ssd_chunk(
+            bf16, s.head_dim, s.d_state, seq, s.chunk_size)))
     group = int(cfg.n_heads != cfg.n_kv_heads)
     return {"flash_fwd": fwd, "flash_fwd_tc": fwd * tc_f, "flash_dkv": n,
             "flash_dkv_tc": n * tc_b, "flash_dkv_group_sum": n * tc_b * group,
-            "flash_dq": n, "flash_dq_tc": n * tc_b}
+            "flash_dq": n, "flash_dq_tc": n * tc_b, "ssd": ssd,
+            **{k: ssd * tc_s for k in K.SSD_TC_KEYS[1:]}}
+
+
+# What each family's gradient probe zeroes (B8's dq where not named)
+PROBE_WHAT = {"ssm": "SSDFunction's dx zeroed"}
+
+
+@contextlib.contextmanager
+def grad_probe(cfg, on_card: bool):
+    """The gradient gates' probe while the ``with`` block runs: for the
+    ssm family SSDFunction's backward returns zeros for dx; for the
+    others B8's dq (its plain version's on the CPU) is zeros."""
+    from repro_torch.accel import kernels as K
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.ssd.ops import SSDFunction
+
+    if cfg.family == "ssm":
+        orig = SSDFunction.__dict__["backward"]
+
+        def zero_dx(ctx, dy):
+            dx, *rest = orig.__func__(ctx, dy)
+            return (torch.zeros_like(dx), *rest)
+        target, patch = (SSDFunction, "backward"), staticmethod(zero_dx)
+    else:
+        target = (K, "launch_flash_dq") if on_card else \
+            (FA, "flash_attention_dq_plain")
+        orig = getattr(*target)
+
+        def patch(q, *a, **kw):
+            return torch.zeros_like(q)
+    setattr(*target, patch)
+    try:
+        yield
+    finally:
+        setattr(*target, orig)
 
 
 def _grad_errors(got, want):
@@ -5403,13 +5595,13 @@ def family_train_checks(tag, cfg, params, batches, tc, device, plain):
     calls under ``plain`` (a :class:`_CountCalls`). Returns the readings
     and the launches the calls made."""
     from repro_torch.accel import kernels as K
-    from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.models import layers as L
     from repro_torch.models import model as PM
     from repro_torch.train.loop import (TrainConfig, cross_entropy_loss,
                                         make_grad_fn)
 
     on_card = torch.device(device).type == "cuda"
+    secs, t0 = {}, time.perf_counter()
     with torch.no_grad():
         ref_losses = []
         for b in batches:
@@ -5423,19 +5615,30 @@ def family_train_checks(tag, cfg, params, batches, tc, device, plain):
     p32 = L.tree_from_leaves(params, {k: v.detach().float() for k, v in
                                       L.tree_leaves(params).items()},
                              trainable=True)
-    gref, _m = make_grad_fn(cfg32, TrainConfig(impl="ref", remat="full"))(
-        p32, batches[0])
+    secs["reference losses"] = _lap(t0, device)
     layer_gate = None
-    if cfg.moe is not None:
+    if cfg.moe is not None or cfg.family == "ssm":
         # whole-model gradients differ where the bf16 and f32 routers pick
-        # other experts: the gate runs layer by layer on the f32 stream
-        errs, flips = moe_layer_grad_checks(cfg, params, p32, batches[0],
-                                            plain)
-        probe_errs, _f = moe_layer_grad_checks(cfg, params, p32, batches[0],
-                                               plain, probe=True)
+        # other experts (moe) and where bf16 rounding compounds over random
+        # layers (ssm): the gate runs layer by layer on the f32 stream,
+        # whose pass gives the whole model's reference gradients too
+        gate = moe_layer_grad_checks if cfg.moe is not None else \
+            ssm_layer_grad_checks
+        stream, gref = _f32_stream(cfg, p32, batches[0],
+                                   remat=cfg.moe is None)
+        secs["reference gradients"] = _lap(t0, device)
+        errs, probe_errs, flips = gate(cfg, params, p32, batches[0], plain,
+                                       stream)
+        del stream
         worst = max(errs, key=errs.get)
         layer_gate = {"err": errs[worst], "leaf": worst, "flips": flips,
                       "probe": max(probe_errs.values())}
+        secs["layer gate"] = _lap(t0, device)
+    else:
+        gref, _m = make_grad_fn(cfg32, TrainConfig(impl="ref",
+                                                   remat="full"))(
+            p32, batches[0])
+        secs["reference gradients"] = _lap(t0, device)
     del p32
     _free()
 
@@ -5445,7 +5648,7 @@ def family_train_checks(tag, cfg, params, batches, tc, device, plain):
     with plain:
         g1, _m = grad(params, batches[0])
         _sync(device)
-        one = {k: K.launches[k] - before[k] for k in ATTN_KEYS}
+        one = {k: K.launches[k] - before[k] for k in per_call}
         if one != per_call:
             raise RuntimeError(f"{tag}: one grad_fn call launched {one}, "
                                f"expected {per_call}")
@@ -5463,16 +5666,10 @@ def family_train_checks(tag, cfg, params, batches, tc, device, plain):
         del gn
         for k, v in train_launches(cfg, "none", on_card).items():
             made[k] += v
-    # the probe: B8's dq (or its plain version's, on the CPU) set to zeros
-    target = (K, "launch_flash_dq") if on_card else \
-        (FA, "flash_attention_dq_plain")
-    orig = getattr(*target)
-    setattr(*target, lambda q, *a, **kw: torch.zeros_like(q))
-    try:
-        with plain:
-            gp, _m = grad(params, batches[0])
-    finally:
-        setattr(*target, orig)
+    # the probe: B8's dq (or its plain version's, on the CPU) set to
+    # zeros; for ssm SSDFunction's dx
+    with grad_probe(cfg, on_card), plain:
+        gp, _m = grad(params, batches[0])
     probe = max(_grad_errors(gp, gref).values())
     del gp
     for k, v in per_call.items():
@@ -5484,53 +5681,46 @@ def family_train_checks(tag, cfg, params, batches, tc, device, plain):
            "nondeterministic": differ, "remat_differ": remat_differ,
            "per_call": per_call, "layer_gate": layer_gate}
     if layer_gate is not None:
-        # the layer gate and its probe: each layer once forward and once
-        # backward a run, B8's launches left out of the probe's
+        # the layer gate: each layer once forward, its backward twice (as
+        # it is and under the probe, which launches no B8); B10 forward only
         for k, v in train_launches(cfg, "none", on_card).items():
-            made[k] += v if k.startswith("flash_dq") else 2 * v
+            made[k] += 2 * v if k.startswith("flash_dkv") else v
     del g1, gref
     _free()
+    secs["kernels' gradients"] = _lap(t0, device)
+    print(f"{tag} checks: seconds to the end of each part {secs}",
+          flush=True)
     return out, made
 
 
-def moe_layer_grad_checks(cfg, params, p32, batch, plain, probe=False):
+def _lap(t0: float, device) -> float:
+    """Seconds since ``t0`` once the device's queue has run."""
+    _sync(device)
+    return round(time.perf_counter() - t0, 3)
+
+
+def moe_layer_grad_checks(cfg, params, p32, batch, plain, stream):
     """The MoE family's gradient gate, layer by layer on the f32 stream:
-    the f32 reference (``p32``, the oracles) runs microbatch ``batch``
-    whole and gives each layer's input h_i and the loss's gradient at its
-    output; then each bf16 layer of ``params`` (through the kernels) and
-    its f32 copy run on h_i, and each leaf's gradient of ``<out, dL/dout>
-    + aux`` is compared, with the tokens whose bf16 and f32 routers pick
-    or keep other experts left out of dL/dout on both sides (a flip makes
-    the two sides different functions of such a token); the head (final
-    norm, lm_head) on the last layer's f32 output and the embedding under
-    dL/dh_0 likewise; the bf16 side's attention under ``plain`` (a
-    :class:`_CountCalls`). ``probe``: B8's dq (its plain version's on the
-    CPU) replaced by zeros on the bf16 side. Returns ({leaf: ||g - ref|| /
-    ||ref||}, (tokens compared, tokens flipped))."""
-    from repro_torch.accel import kernels as K
-    from repro_torch.kernels.flash_attention import flash_attention as FA
+    the f32 reference (``p32``, the oracles) ran microbatch ``batch``
+    whole and gave each layer's input h_i and the loss's gradient at its
+    output (``stream``, :func:`_f32_stream`); then each bf16 layer of
+    ``params`` (through the kernels) and its f32 copy run on h_i, and each
+    leaf's gradient of ``<out, dL/dout> + aux`` is compared, with the
+    tokens whose bf16 and f32 routers pick or keep other experts left out
+    of dL/dout on both sides (a flip makes the two sides different
+    functions of such a token); the head (final norm, lm_head) on the last
+    layer's f32 output and the embedding under dL/dh_0 likewise
+    (:func:`_head_grad_errs`); the bf16 side's attention under ``plain``
+    (a :class:`_CountCalls`), its backward twice: as it is and under the
+    probe (:func:`grad_probe`: B8's dq zeroed). Returns ({leaf: ||g -
+    ref|| / ||ref||}, the same under the probe, (tokens compared, tokens
+    flipped))."""
     from repro_torch.models import layers as L
     from repro_torch.models import model as PM
-    from repro_torch.train.loop import cross_entropy_loss
 
-    f32, adt = torch.float32, L.DTYPES[cfg.activation_dtype]
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                activation_dtype="float32")
-    labels = batch["labels"]
-    with torch.enable_grad():
-        h = PM.embed_inputs(cfg32, p32, batch, f32)
-        positions = torch.arange(h.shape[1], device=h.device)
-        hs, aux = [h], 0.0
-        for i, lp in enumerate(p32["layers"]):
-            h, a = PM._layer(cfg32, lp, h, positions, "ref", None, i)
-            hs.append(h)
-            aux = aux + a
-        logits = PM._lm_head(cfg32, p32, L.apply_norm(
-            cfg32, p32["final_norm"], h))
-        loss = cross_entropy_loss(logits, labels) + aux
-        del logits
-        gs = torch.autograd.grad(loss, hs)
-    hs = [x.detach() for x in hs]
+    adt = L.DTYPES[cfg.activation_dtype]
+    hs, gs = stream
+    positions = torch.arange(hs[0].shape[1], device=hs[0].device)
 
     def layer(mixer, ln1, ln2, ffn, h, impl):
         x = L.apply_norm(cfg, ln1, h)
@@ -5541,64 +5731,168 @@ def moe_layer_grad_checks(cfg, params, p32, batch, plain, probe=False):
         f, a = PM.ffn(cfg, ffn, x2, True)
         return h + f, a, x2
 
-    def grads(tree, loss):
-        """{path: gradient} of ``loss`` over a dict of sub-trees and
-        tensors."""
-        leaves = {}
-        for name, sub in tree.items():
-            if isinstance(sub, torch.Tensor):
-                leaves[name] = sub
-            else:
-                leaves.update((f"{name}/{k}", t)
-                              for k, t in L.tree_leaves(sub).items())
-        return dict(zip(leaves, torch.autograd.grad(loss,
-                                                    list(leaves.values()))))
+    errs, probe_errs, flips = {}, {}, [0, 0]
+    for i, (where, _k, mixer, ln1, ln2, ffn, _m, _s) in enumerate(
+            _sublayers(cfg, params)):
+        sub = {"mixer": mixer, "ln1": ln1, "ln2": ln2, "ffn": ffn}
+        sub32 = {k: p32["layers"][i][k] for k in sub}
+        with torch.enable_grad():
+            with plain:
+                out, a, x2 = layer(mixer, ln1, ln2, ffn, hs[i].to(adt),
+                                   "kernel")
+            out32, a32, x2r = layer(sub32["mixer"], sub32["ln1"],
+                                    sub32["ln2"], sub32["ffn"], hs[i], "ref")
+            agree = _routing_agree(cfg, ffn, sub32["ffn"], x2.detach(),
+                                   x2r.detach())
+            flips[0] += agree.numel()
+            flips[1] += int((~agree).sum())
+            g = gs[i + 1] * agree.reshape(gs[i + 1].shape[:2])[..., None]
+            want = _tree_grads(sub32, (out32 * g).sum() + a32)
+            got, probed = _probed_grads(cfg, sub, (out.float() * g).sum()
+                                        + a, plain, hs[0].is_cuda)
+        for k in want:
+            errs[f"layers/{i}/{k}"] = _rel_norm(got[k], want[k])
+            probe_errs[f"layers/{i}/{k}"] = _rel_norm(probed[k], want[k])
+        del out, out32, got, probed, want
+    head = _head_grad_errs(cfg, params, p32, batch, hs, gs)
+    return {**errs, **head}, {**probe_errs, **head}, flips
 
-    target = (K, "launch_flash_dq") if h.is_cuda else \
-        (FA, "flash_attention_dq_plain")
-    orig = getattr(*target)
-    errs, flips = {}, [0, 0]
-    if probe:
-        setattr(*target, lambda q, *a, **kw: torch.zeros_like(q))
-    try:
-        for i, (where, _k, mixer, ln1, ln2, ffn, _m, _s) in enumerate(
-                _sublayers(cfg, params)):
-            sub = {"mixer": mixer, "ln1": ln1, "ln2": ln2, "ffn": ffn}
-            sub32 = {k: p32["layers"][i][k] for k in sub}
-            with torch.enable_grad():
-                with plain:
-                    out, a, x2 = layer(mixer, ln1, ln2, ffn,
-                                       hs[i].to(adt), "kernel")
-                out32, a32, x2r = layer(sub32["mixer"], sub32["ln1"],
-                                        sub32["ln2"], sub32["ffn"], hs[i],
-                                        "ref")
-                agree = _routing_agree(cfg, ffn, sub32["ffn"], x2.detach(),
-                                       x2r.detach())
-                flips[0] += agree.numel()
-                flips[1] += int((~agree).sum())
-                g = gs[i + 1] * agree.reshape(gs[i + 1].shape[:2])[..., None]
-                with plain:
-                    got = grads(sub, (out.float() * g).sum() + a)
-                want = grads(sub32, (out32 * g).sum() + a32)
-            errs.update((f"layers/{i}/{k}", _rel_norm(got[k], want[k]))
-                        for k in want)
-            del out, out32, got, want
-    finally:
-        setattr(*target, orig)
-    # the head on the last layer's f32 output, the embedding under dL/dh_0
+
+def _probed_grads(cfg, tree, loss, plain, on_card: bool):
+    """:func:`_tree_grads` of ``loss`` twice through one graph: as it is,
+    then under :func:`grad_probe`; each under ``plain``."""
+    with plain:
+        got = _tree_grads(tree, loss, retain_graph=True)
+        with grad_probe(cfg, on_card):
+            probed = _tree_grads(tree, loss)
+    return got, probed
+
+
+def _tree_grads(tree, loss, retain_graph: bool = False):
+    """{path: gradient} of ``loss`` over a dict of sub-trees and
+    tensors."""
+    from repro_torch.models import layers as L
+
+    leaves = {}
+    for name, sub in tree.items():
+        if isinstance(sub, torch.Tensor):
+            leaves[name] = sub
+        else:
+            leaves.update((f"{name}/{k}", t)
+                          for k, t in L.tree_leaves(sub).items())
+    return dict(zip(leaves, torch.autograd.grad(
+        loss, list(leaves.values()), retain_graph=retain_graph)))
+
+
+def _f32_stream(cfg, p32, batch, remat: bool = False):
+    """The f32 reference's residual stream of ``batch`` (``p32``, the
+    oracles): (each layer's input h_i and the last layer's output, the
+    loss's gradient at each (without the MoE aux loss's, which each layer
+    adds itself)), and the loss's gradient at each of ``p32``'s leaves
+    (the whole model's reference gradients, {path: gradient}). ``remat``:
+    each layer recomputed in the backward, so that only the stream stays
+    live."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as PM
+    from repro_torch.train.loop import cross_entropy_loss
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    with torch.enable_grad():
+        h = PM.embed_inputs(cfg32, p32, batch, torch.float32)
+        positions = torch.arange(h.shape[1], device=h.device)
+        hs, aux = [h], 0.0
+        for i, lp in enumerate(p32["layers"]):
+            if remat:
+                h, a = checkpoint(PM._layer, cfg32, lp, h, positions, "ref",
+                                  None, i, use_reentrant=False)
+            else:
+                h, a = PM._layer(cfg32, lp, h, positions, "ref", None, i)
+            hs.append(h)
+            if a is not None:
+                aux = aux + a
+        logits = PM._lm_head(cfg32, p32, L.apply_norm(
+            cfg32, p32["final_norm"], h))
+        loss = cross_entropy_loss(logits, batch["labels"]) + aux
+        del logits
+        leaves = L.tree_leaves(p32)
+        grads = torch.autograd.grad(loss, hs + list(leaves.values()))
+    n = len(hs)
+    return ([x.detach() for x in hs], grads[:n]), dict(zip(leaves,
+                                                           grads[n:]))
+
+
+def _head_grad_errs(cfg, params, p32, batch, hs, gs) -> dict:
+    """The layer gates' last leaves: the head (final norm, lm_head) of the
+    bf16 ``params`` and of ``p32`` on the last layer's f32 output ``hs[-1]``
+    under the loss, and an untied embedding under dL/dh_0 (``gs[0]``):
+    {leaf: ||g - ref|| / ||ref||}."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as PM
+    from repro_torch.train.loop import cross_entropy_loss
+
+    adt = L.DTYPES[cfg.activation_dtype]
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
     name = "embed" if cfg.tie_embeddings else "lm_head"
     got = []
     with torch.enable_grad():
         for p, c, x in ((params, cfg, hs[-1].to(adt)), (p32, cfg32, hs[-1])):
             logits = PM._lm_head(c, p, L.apply_norm(c, p["final_norm"], x))
-            got.append(grads({"final_norm": p["final_norm"], name: p[name]},
-                             cross_entropy_loss(logits, labels)))
+            got.append(_tree_grads(
+                {"final_norm": p["final_norm"], name: p[name]},
+                cross_entropy_loss(logits, batch["labels"])))
             del logits
             if not cfg.tie_embeddings:
-                got[-1].update(grads({"embed": p["embed"]}, (PM.embed_inputs(
-                    c, p, batch, x.dtype).float() * gs[0]).sum()))
-    errs.update((k, _rel_norm(got[0][k], w)) for k, w in got[1].items())
-    return errs, flips
+                got[-1].update(_tree_grads({"embed": p["embed"]}, (
+                    PM.embed_inputs(c, p, batch, x.dtype).float()
+                    * gs[0]).sum()))
+    return {k: _rel_norm(got[0][k], w) for k, w in got[1].items()}
+
+
+def ssm_layer_grad_checks(cfg, params, p32, batch, plain, stream):
+    """The ssm family's gradient gate, layer by layer on the f32 stream:
+    the f32 reference (``p32``, the oracles) ran microbatch ``batch``
+    whole and gave each layer's input h_i and the loss's gradient at its
+    output (``stream``, :func:`_f32_stream`); then each bf16 layer of
+    ``params`` (B10 forward, the oracle's backward) and its f32 copy run
+    on h_i, and each leaf's gradient of ``<out, dL/dout>`` is compared;
+    the head on the last layer's f32 output likewise
+    (:func:`_head_grad_errs`); the bf16 side under ``plain`` (a
+    :class:`_CountCalls`), its backward twice: as it is and under the
+    probe (:func:`grad_probe`: SSDFunction's dx zeroed). Returns ({leaf:
+    ||g - ref|| / ||ref||}, the same under the probe, None: no routing to
+    flip)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as PM
+
+    adt = L.DTYPES[cfg.activation_dtype]
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    hs, gs = stream
+    positions = torch.arange(hs[0].shape[1], device=hs[0].device)
+    errs, probe_errs = {}, {}
+    for i, (lp, lp32) in enumerate(zip(params["layers"], p32["layers"])):
+        sub = {"ln1": lp["ln1"], "mixer": lp["mixer"]}
+        sub32 = {k: lp32[k] for k in sub}
+        with torch.enable_grad():
+            with plain:
+                out, _a = PM._layer(cfg, lp, hs[i].to(adt), positions,
+                                    "kernel", None, i)
+            out32, _a = PM._layer(cfg32, lp32, hs[i], positions, "ref", None,
+                                  i)
+            want = _tree_grads(sub32, (out32 * gs[i + 1]).sum())
+            got, probed = _probed_grads(cfg, sub, (out.float()
+                                                   * gs[i + 1]).sum(),
+                                        plain, hs[0].is_cuda)
+        for k in want:
+            errs[f"layers/{i}/{k}"] = _rel_norm(got[k], want[k])
+            probe_errs[f"layers/{i}/{k}"] = _rel_norm(probed[k], want[k])
+        del out, out32, got, probed, want
+    head = _head_grad_errs(cfg, params, p32, batch, hs, gs)
+    return {**errs, **head}, {**probe_errs, **head}, None
 
 
 # The line a child process of family_train_child prints its launch
@@ -5690,26 +5984,36 @@ def _profile_train_step(tag, step_fn):
     returns (the step's result, its wall in seconds)."""
     from torch.profiler import ProfilerActivity, profile
 
-    cuda = torch.autograd.DeviceType.CUDA
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = step_fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == cuda]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    shares = {}
-    for name in ("flash_fwd", "flash_dkv", "flash_dq"):
-        mine = [e for e in kernels if name in e.key]
-        shares[name] = sum(e.self_device_time_total for e in mine) / dev_us
+    kernels = device_kernels(prof)
+    dev_us = device_us(kernels)
+    shares = {name: device_us(kernels, name) / dev_us
+              for name in ("flash_fwd", "flash_dkv", "flash_dq", "ssd")}
     print(f"profile {tag} step: wall {wall:.6f} s (profiled), device busy "
           f"{dev_us / 1e6:.6f} s = {dev_us / 1e6 / wall:.6f} of wall; "
           f"shares of device time B6 {shares['flash_fwd']:.4f}, B7 "
-          f"{shares['flash_dkv']:.4f}, B8 {shares['flash_dq']:.4f}")
-    print(events.table(sort_by="self_device_time_total", row_limit=15,
-                       max_name_column_width=60), flush=True)
+          f"{shares['flash_dkv']:.4f}, B8 {shares['flash_dq']:.4f}, B10 "
+          f"{shares['ssd']:.4f}")
+    print_kernels(kernels)
     return out, wall
+
+
+def _bf16_spacing(t) -> list:
+    """The distinct values of a leaf (up to 4) as (value, bf16's spacing
+    below it, above it)."""
+    out = []
+    for v in torch.unique(t.detach().float().cpu())[:4].tolist():
+        if v == 0:
+            out.append((v, 0.0, 0.0))
+            continue
+        m, e = np.frexp(abs(v))          # |v| = m 2^e, m in [0.5, 1)
+        up = 2.0 ** (int(e) - 8)         # bf16 keeps 8 significant bits
+        out.append((v, up / 2 if m == 0.5 else up, up))
+    return out
 
 
 def family_train_path(name: str, cfg=None, device="cuda",
@@ -5747,10 +6051,13 @@ def family_train_path(name: str, cfg=None, device="cuda",
                for s in range(1 + steps)]
     mbs = [{k: v[i * per_mb:(i + 1) * per_mb] for k, v in
             batches[0].items()} for i in range(n_mb)]
-    moe = cfg.moe
+    moe, ssm = cfg.moe, cfg.ssm
+    heads = (f"{ssm.n_heads(cfg.d_model)} heads of {ssm.head_dim}, d_state "
+             f"{ssm.d_state}, chunk {ssm.chunk_size}" if ssm else
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+             f"{cfg.resolved_head_dim()}")
     print(f"{tag}: {cfg.arch_id} {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-          f"{cfg.resolved_head_dim()}"
+          f"{cfg.d_model}, {heads}"
           + (f", {moe.n_experts} experts top-{moe.top_k} of width "
              f"{moe.d_ff_expert}" if moe else "")
           + f", vocab {cfg.vocab_size}, {n_params} parameters "
@@ -5795,18 +6102,19 @@ def family_train_path(name: str, cfg=None, device="cuda",
                 walls.append(wall)
                 mine = gc_pauses[n_gc:]
                 stalls.append({"gc": len(mine), "gc_longest_s": round(
-                    max((x for x, _gen in mine), default=0.0), 6), **{
+                    max((x for x, _gen in mine), default=0.0), 6),
+                    "gc_s": round(sum(x for x, _gen in mine), 6), **{
                     k: v - alloc[k]
                     for k, v in _alloc_counts(on_card).items()}})
                 losses.append(float(metrics["loss"]))
         finally:
             gc.callbacks.remove(gc_timer)
     peak = torch.cuda.max_memory_allocated() if on_card else None
-    step_counts = {k: K.launches[k] - before[k] for k in ATTN_KEYS}
+    step_counts = {k: K.launches[k] - before[k] for k in checks["per_call"]}
     want_steps = {k: v * n_mb * (1 + steps)
                   for k, v in checks["per_call"].items()}
     counts = dict(K.launches)
-    want = {k: made[k] + want_steps[k] for k in ATTN_KEYS}
+    want = {k: made[k] + want_steps[k] for k in want_steps}
     others = {k: c for k, c in counts.items() if k not in want and c}
     tokens = n_seq * seq
     print(f"{tag}: by timed step, the collector's pauses and the caching "
@@ -5820,7 +6128,7 @@ def family_train_path(name: str, cfg=None, device="cuda",
           f"parameters {param_bytes} bytes, optimizer state {opt_bytes} "
           f"bytes; launches a grad_fn call {checks['per_call']}, in the "
           f"steps {step_counts}, in the path "
-          f"{ {k: counts[k] for k in ATTN_KEYS} }; plain-version calls "
+          f"{ {k: counts[k] for k in want} }; plain-version calls "
           f"{plain.calls}", flush=True)
     if step_counts != want_steps or {k: counts[k] for k in want} != want \
             or others:
@@ -5834,20 +6142,24 @@ def family_train_path(name: str, cfg=None, device="cuda",
     # -- the gates --------------------------------------------------------
     loss_err = abs(losses[0] - ref_loss) / abs(ref_loss)
     gate = checks["layer_gate"]
+    what = PROBE_WHAT.get(name, "B8's dq zeroed")
     whole = (f"max ||g - ref|| / ||ref|| {checks['grad_err']} at "
              f"{checks['grad_worst_leaf']}")
     if gate is None:
         grad_err, probe_err = checks["grad_err"], checks["probe_err"]
-        whole += f" (limit {tol}); the probe (B8's dq zeroed) {probe_err}"
+        whole += f" (limit {tol}); the probe ({what}) {probe_err}"
     else:
+        flips = gate["flips"]
         grad_err, probe_err = gate["err"], gate["probe"]
-        whole += (f" (not gated: routing flips), the probe (B8's dq "
-                  f"zeroed) {checks['probe_err']}; layer by layer on the "
-                  f"f32 stream, flipped tokens left out: max ||g - ref|| / "
-                  f"||ref|| {grad_err} at {gate['leaf']} (limit {tol}); "
-                  f"the probe (B8's dq zeroed) {probe_err}; routing flips "
-                  f"{gate['flips'][1]} of {gate['flips'][0]} (token, layer) "
-                  f"pairs")
+        whole += (f" (not gated: "
+                  f"{'routing flips' if flips else 'bf16 drift over layers'}"
+                  f"), the probe ({what}) {checks['probe_err']}; layer by "
+                  f"layer on the f32 stream"
+                  f"{', flipped tokens left out' if flips else ''}: max "
+                  f"||g - ref|| / ||ref|| {grad_err} at {gate['leaf']} "
+                  f"(limit {tol}); the probe ({what}) {probe_err}"
+                  + (f"; routing flips {flips[1]} of {flips[0]} (token, "
+                     f"layer) pairs" if flips else ""))
     print(f"{tag} checks: step 0 loss {losses[0]!r} vs float32 through the "
           f"oracles {ref_loss!r} (microbatches {checks['ref_losses']}), "
           f"relative error {loss_err} (limit {TRAIN_LOSS_TOL}); microbatch "
@@ -5863,7 +6175,7 @@ def family_train_path(name: str, cfg=None, device="cuda",
     if not probe_err > tol:
         raise RuntimeError(f"{tag}: the probe ({probe_err}) passes {tol}: "
                            f"it is too loose")
-    if gate is not None and not gate["flips"][1] <= \
+    if gate is not None and gate["flips"] and not gate["flips"][1] <= \
             FAMILY_FLIP_TOL * gate["flips"][0]:
         raise RuntimeError(f"{tag}: routing flips {gate['flips']}")
     if checks["nondeterministic"]:
@@ -5879,11 +6191,19 @@ def family_train_path(name: str, cfg=None, device="cuda",
     same = [k for k in marks if after[k] == marks[k]]
     zero_m = [k for k, m in state["opt"]["m"].items() if not bool(m.any())]
     unreached = ["embed"] if cfg.family == "audio" else []
-    stuck = [k for k in same if not k.endswith(FROZEN_IN_BF16)
+    frozen = FROZEN_IN_BF16 + FAMILY_FROZEN.get(name, ())
+    stuck = [k for k in same if not k.endswith(frozen)
              and k not in unreached]
+    leaves, kinds = L.tree_leaves(state["params"]), {}
+    for k in same:
+        kinds.setdefault(re.sub(r"/\d+/", "/*/", k), []).append(k)
     print(f"{tag}: AdamW count {count} after {1 + steps} steps; leaves "
-          f"unchanged {same}; leaves with a zero first moment {zero_m}",
-          flush=True)
+          f"unchanged, by name with the layer as *: (how many, their "
+          f"values with bf16's spacing below and above) "
+          f"""{ {kind: (len(ks), _bf16_spacing(torch.cat(
+              [leaves[k].flatten() for k in ks])))
+              for kind, ks in kinds.items()} }; leaves with a zero """
+          f"first moment {zero_m}", flush=True)
     if count != 1 + steps or stuck or zero_m != unreached:
         raise RuntimeError(f"{tag}: AdamW count {count}, leaves that did "
                            f"not move {stuck}, zero moments {zero_m}")
@@ -6543,11 +6863,9 @@ def decode_wall() -> None:
             tok = logits.argmax(-1).to(torch.int32)
             pos = pos + 1
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.key_averages() if e.device_type == cuda]
-    dev = sum(e.self_device_time_total for e in events) / 1e3 / steps
-    b9 = sum(e.self_device_time_total for e in events
-             if "decode_" in e.key) / 1e3 / steps
+    kernels = device_kernels(prof)
+    dev = device_us(kernels) / 1e3 / steps
+    b9 = device_us(kernels, "decode_") / 1e3 / steps
     print(f"decode wall {sys.path[0]}: "
           f"{', '.join(f'{x:.3f}' for x in walls)} ms a step (three runs of "
           f"{SERVE_STEPS} steps); device time {dev:.3f} ms a step, B9 "
@@ -7426,6 +7744,7 @@ def main() -> int:
     family_train = {name: phase(f"{name} training", family_train_path, name)
                     for name in ("audio", "vlm")}
     family_train["moe"] = phase("moe training", family_train_child, "moe")
+    family_train["ssm"] = phase("ssm training", family_train_child, "ssm")
     launches["reap"] += predict["policy"]["reap"]
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -7448,6 +7767,10 @@ def main() -> int:
             counts["decode_combine"]
     # the family training paths' launches, each its own run
     for name, counts in family_train.items():
+        if name == "ssm":
+            rows["ssd"].update((f"ssm_train_{k}_launches", counts[k])
+                               for k in K.SSD_TC_KEYS)
+            continue
         for row, keys in (("flash_fwd", ("flash_fwd", "flash_fwd_tc")),
                           ("flash_dkv", ("flash_dkv", "flash_dkv_tc",
                                          "flash_dkv_group_sum")),

@@ -1,8 +1,13 @@
 """Eq. 1–4 of the paper, as vectorized, substrate-agnostic math.
 
-The numpy functions (``*_np``) serve the coordinator / simulator hot
-path, where a single assessment tick covers every node at once. The
-reference package's jax mirrors are not ported (ROADMAP).
+Two mirrored implementations are provided:
+
+- numpy (``*_np``) — the coordinator / simulator hot path, where a single
+  assessment tick covers every node at once;
+- torch (``*_torch``) — the same math on tensors of any device and
+  dtype, with the same NaN conventions and ``1e-9`` guards (the
+  reference's jax mirrors, which its property tests pin to the numpy
+  functions). Nothing on a path calls them, as in the reference.
 
 Notation follows §III.A:
   ρ(t)   task progress rate  = ζ(t)/τ_t
@@ -26,6 +31,10 @@ __all__ = [
     "temporal_slow_mask_np",
     "eq4_estimate_np",
     "eq4_estimate_weights",
+    "node_progress_rate_torch",
+    "spatial_slow_mask_torch",
+    "temporal_slow_mask_torch",
+    "eq4_estimate_torch",
 ]
 
 
@@ -141,3 +150,68 @@ def eq4_estimate_np(history: Sequence[float], L: int) -> Optional[float]:
     r = np.asarray(h[::-1], dtype=float)
     denom = float(np.sum(2.0 ** np.arange(1, Leff + 1)))
     return float(np.dot(w, r) / denom)
+
+
+# ---------------------------------------------------------------------------
+# Torch mirrors (torch imported lazily, as the reference imports jax)
+# ---------------------------------------------------------------------------
+def node_progress_rate_torch(progress, runtime, node_of_task, n_nodes: int):
+    """:func:`node_progress_rate_np` on tensors: sums and counts by a
+    scatter-add (``index_add_``; its order of addition on a card is not
+    fixed, as the reference's ``.at[].add`` is not)."""
+    import torch
+
+    rho = progress / torch.clamp(runtime, min=1e-9)
+    sums = rho.new_zeros(n_nodes).index_add_(0, node_of_task, rho)
+    counts = rho.new_zeros(n_nodes).index_add_(0, node_of_task,
+                                               torch.ones_like(rho))
+    return torch.where(counts > 0, sums / torch.clamp(counts, min=1.0),
+                       float("nan"))
+
+
+def spatial_slow_mask_torch(P, neighborhoods):
+    """:func:`spatial_slow_mask_np` on tensors (Eq. 1)."""
+    import torch
+
+    Pn = P[neighborhoods]
+    valid = ~torch.isnan(Pn)
+    cnt = torch.clamp(valid.sum(dim=1), min=1)
+    mean = torch.nansum(Pn, dim=1) / cnt
+    var = torch.nansum(torch.where(valid, (Pn - mean[:, None]) ** 2, 0.0),
+                       dim=1) / cnt
+    std = torch.sqrt(var)
+    ok = (valid.sum(dim=1) >= 2) & ~torch.isnan(P)
+    return ok & (P < (mean - std))
+
+
+def temporal_slow_mask_torch(zeta_now, zeta_prev, dt_now, delta_prev,
+                             threshold_slowdown: float = 0.1,
+                             min_prev_delta: float = 1e-9):
+    """:func:`temporal_slow_mask_np` on tensors (Eq. 2–3): (slow_mask,
+    delta_now); ``dt_now`` a number or a 0-d tensor."""
+    import torch
+
+    dt = torch.clamp(torch.as_tensor(dt_now, dtype=zeta_now.dtype,
+                                     device=zeta_now.device), min=1e-9)
+    delta_now = (zeta_now - zeta_prev) / dt
+    slow = (~torch.isnan(delta_prev)) \
+        & (delta_prev > min_prev_delta) \
+        & (delta_now < threshold_slowdown * delta_prev)
+    return slow, delta_now
+
+
+def eq4_estimate_torch(history, L: int):
+    """:func:`eq4_estimate_np` on a tensor: ``history`` (L,), most recent
+    LAST, NaN-padded at the front; a 0-d tensor, NaN for no history."""
+    import torch
+
+    r = history[-L:].flip(0)      # index j is the j-th most recent sample
+    v = ~torch.isnan(r)
+    leff = v.sum().to(history.dtype)  # the live window (< L early on)
+    j = torch.arange(L, dtype=history.dtype, device=history.device)
+    # weight 2^{Leff+1-k} = 2^{Leff-j}; denominator sum_{k=1..Leff} 2^k
+    w = torch.where(v, torch.pow(2.0, leff - j), 0.0)
+    denom = torch.pow(2.0, leff + 1) - 2.0
+    num = torch.sum(w * torch.where(v, r, 0.0))
+    return torch.where(leff > 0, num / torch.clamp(denom, min=1.0),
+                       float("nan"))

@@ -23,7 +23,10 @@ Three places where torch's defaults would differ from the reference:
   kept (expert, slot) is written once, so the result is the same bits on
   every run, where a scatter-add on the card would be atomic. Dropped
   rows, which add zeros in the reference, go to a spare row that is cut
-  off before the products;
+  off before the products. The slot map's inverse is written the same
+  way into a plain tensor; on DTensors (the dry run), which cannot write
+  a plain tensor in place through a DTensor index, it is written out of
+  place (``index_put``), and off a mesh the ops are those above;
 - the backward of that write and of the combine's gather would be float
   atomics on the card (``index_add_`` through ``repeat_interleave``,
   ``index_put_(accumulate=True)`` through the gather), so one
@@ -45,7 +48,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamFactory
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, is_dtensor
 
 Params = Any
 
@@ -193,7 +196,13 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor
     flat = torch.where(keep, dest, 0)
     src = torch.full((rows + 1,), t * m.top_k, dtype=torch.int64,
                      device=x.device)
-    src[dest] = torch.arange(t * m.top_k, device=x.device)
+    slots = torch.arange(t * m.top_k, device=x.device)
+    if is_dtensor(dest):
+        # a plain tensor cannot be written in place through a DTensor
+        # index: the out-of-place form, laid out by DTensor
+        src = src.index_put((dest,), slots)
+    else:
+        src[dest] = slots
     gathered = Combine.apply(out_buf.view(rows, d), flat, keep, src[:-1])
     gathered = gathered.reshape(t, m.top_k, d)
     out = (gathered * gate[..., None].to(x.dtype)).sum(dim=1)

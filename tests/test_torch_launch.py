@@ -14,7 +14,8 @@ reference's, on the CPU.
    port's argument bytes equal the reference's
    ``memory_analysis().argument_size_in_bytes`` for the same reduced
    config and mesh (the reference compiled in its own child on 8 host
-   devices); a cell that fails names its op; and the global FLOPs of a
+   devices); every cell runs to its end (the MoE slot map's inverse
+   takes its out-of-place form on DTensors); and the global FLOPs of a
    tiny dense prefill and decode equal a hand count of their matrix
    products.
 """
@@ -138,9 +139,7 @@ def test_constants_and_mesh_names():
 # ---------------------------------------------------------------------------
 # 4. The dry run, in child processes
 # ---------------------------------------------------------------------------
-# (family, architecture, shape kind); the cells whose step DTensor cannot
-# run yet (the MoE dispatch's index_put_ into a plain tensor) are checked
-# for the op they name and for their argument bytes
+# (family, architecture, shape kind)
 CELLS = [("dense", "qwen3-8b", "train"), ("moe", "phi3.5-moe-42b-a6.6b",
                                           "decode"),
          ("ssm", "mamba2-2.7b", "prefill"), ("hybrid",
@@ -260,14 +259,12 @@ def test_dry_run_cells_match_the_reference():
     port, ref = _children(PORT_CHILD, REF_CHILD)
     for fam, arch, kind in CELLS:
         assert port[fam]["args"] == ref[fam], (fam, port[fam], ref[fam])
-    for fam in ("dense", "ssm", "audio", "vlm"):
+    for fam, _arch, _kind in CELLS:
         rec = port[fam]
         assert "failed" not in rec, (fam, rec)
         assert rec["n"] == 8 and rec["flops"] > 0 and rec["coll"] > 0
         # each device runs at least its share of the step's math
         assert rec["flops_dev"] * rec["n"] >= rec["flops"]
-    for fam in ("moe", "hybrid"):
-        assert port[fam]["failed"] == "aten.index_put_.default"
     cfg = reduced_config(get_config("qwen3-8b"))
     for kind in ("prefill", "decode"):
         assert port["hand_" + kind] == _hand_count(cfg, 2, 16, kind), kind

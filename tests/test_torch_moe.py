@@ -23,9 +23,21 @@ the one-hot cumsum of ``moe.py:80-85``) on the same router output.
    layer within 2e-4 of each leaf's largest entry; computed twice, the
    same bits; and no op of the backward accumulates into an index
    (``index_add_``, ``index_put_(accumulate=True)``, ``scatter_add``,
-   ``scatter_reduce``: float atomics on the card).
+   ``scatter_reduce``: float atomics on the card);
+6. the DTensor form (the dry run's): on a one-rank gloo mesh, with the
+   weights and the input as DTensors laid out by the reference's rules,
+   ``moe_block`` of reduced moonshot and reduced jamba gives the plain
+   form's output, aux loss and gradients bit for bit (a child process:
+   the process group is global state).
 """
 import dataclasses
+import json
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -261,3 +273,92 @@ def test_moe_backward_is_a_gather_and_repeats(act):
         scale = max(float(np.abs(wnt).max()), 1e-30)
         np.testing.assert_allclose(g.numpy(), wnt, rtol=0, atol=TOL * scale,
                                    err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# 6. The DTensor form, on a one-rank gloo mesh (a child process)
+# ---------------------------------------------------------------------------
+ON_MESH = textwrap.dedent("""
+    import json, sys
+    import numpy as np, torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import mesh as MH
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as PMOE
+    from repro_torch.parallel import sharding as SH
+    dist.init_process_group("gloo", init_method=sys.argv[1], rank=0,
+                            world_size=1)
+    mesh = MH.make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    out = {}
+    for arch in ("moonshot-v1-16b-a3b", "jamba-1.5-large-398b"):
+        cfg = reduced_config(get_config(arch))
+        rng = np.random.default_rng(7)
+        axes = PMOE.init_moe(cfg, L.AxesFactory())
+        shapes = PMOE.init_moe(cfg, L.MetaFactory(torch.float32))
+        p = {k: torch.from_numpy(rng.standard_normal(tuple(v.shape))
+                                 .astype(np.float32) * 0.3)
+             for k, v in shapes.items()}
+        # 300 tokens leaning towards expert 0: more than its 128 slots
+        # queue for it, and the later ones are dropped
+        u = rng.standard_normal(cfg.d_model).astype(np.float32)
+        p["router"][:, 0] = torch.from_numpy(u)
+        x = torch.from_numpy((rng.standard_normal((3, 100, cfg.d_model))
+                              + u).astype(np.float32))
+        g = torch.from_numpy(rng.standard_normal(x.shape)
+                             .astype(np.float32))
+
+        def run(p, x, g):
+            leaves = [x] + [p[k] for k in sorted(p)]
+            o, aux = PMOE.moe_block(cfg, p, x)
+            grads = torch.autograd.grad((o * g).sum() + aux, leaves)
+            return o, aux, grads
+
+        plain = run({k: v.clone().requires_grad_() for k, v in p.items()},
+                    x.clone().requires_grad_(), g)
+        with SH.use_mesh(mesh):
+            pd = {k: distribute_tensor(
+                      v, mesh, SH.placements(SH.physical_spec(
+                          v.shape, axes[k], SH.PARAM_RULES, mesh), mesh)
+                  ).detach().requires_grad_() for k, v in p.items()}
+            xd = SH.lay_out(x, "batch", "seq", "embed"
+                            ).detach().requires_grad_()
+            gd = SH.lay_out(g, "batch", "seq", "embed")
+            with implicit_replication():
+                on_mesh = run(pd, xd, gd)
+        full = [t.full_tensor() if isinstance(t, DTensor) else t
+                for t in (on_mesh[0], on_mesh[1], *on_mesh[2])]
+        want = [plain[0], plain[1], *plain[2]]
+        _e, _pos, keep = PMOE.queue(cfg, PMOE.route(cfg, p, x.reshape(
+            -1, cfg.d_model))[2], PMOE.capacity(300, cfg))
+        out[arch] = {"dtensor": isinstance(on_mesh[0], DTensor),
+                     "dropped": int((~keep).sum()),
+                     "same": [bool(torch.equal(a.detach(), b.detach()))
+                              for a, b in zip(full, want)],
+                     "leaves": ["out", "aux", "x"] + sorted(p)}
+    dist.destroy_process_group()
+    print(json.dumps(out))
+""")
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def test_dtensor_form_gives_the_plain_forms_bits():
+    env = dict(os.environ,
+               PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", ON_MESH, f"tcp://localhost:{_free_port()}"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for arch, rec in got.items():
+        assert rec["dtensor"], arch          # the DTensor branch ran
+        assert rec["dropped"] > 0, arch
+        bad = [n for n, ok in zip(rec["leaves"], rec["same"]) if not ok]
+        assert not bad, (arch, bad)

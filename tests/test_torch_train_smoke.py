@@ -8,8 +8,10 @@ run. It runs in real time (the restart run waits out a 6 s timeout),
 about 20 s. A run that raises (a wedged step) re-raises with every host
 and heartbeat thread joined. The family training paths (audio, vlm, moe)
 at their reduced configurations: the checks, the launch bookkeeping and
-the steps, a few seconds each.
+the steps, a few seconds each; the ssm path on a narrow bf16 Mamba2, so
+that the leaves bf16 cannot move show.
 """
+import dataclasses
 import sys
 import threading
 from pathlib import Path
@@ -115,3 +117,32 @@ def test_chip_smoke_family_train_path_rehearses_on_cpu(chip_smoke, capsys,
     assert "AdamW count 3 after 3 steps" in out
     if name == "vlm":
         assert "leaves differing between 'dots' and 'none' {}" in out
+
+
+def test_chip_smoke_ssm_train_path_rehearses_on_cpu(chip_smoke, capsys):
+    """The ssm training path on the plain versions, on a narrow Mamba2 in
+    bf16 (3 layers, d_model 128, 8 heads of 32, d_state 32, chunk 16):
+    the layer-by-layer gate passes and its probe (SSDFunction's dx
+    zeroed) fails it, the same bits twice, B10's plain version called
+    and no launch counted, and exactly the norm scales, D and gate_norm
+    (all 1.0) left unmoved by bf16 AdamW."""
+    base = get_config("mamba2-2.7b")
+    cfg = dataclasses.replace(
+        base, n_layers=3, d_model=128, vocab_size=1000,
+        ssm=dataclasses.replace(base.ssm, head_dim=32, d_state=32,
+                                chunk_size=16))
+    counts = chip_smoke.family_train_path("ssm", cfg, device="cpu", steps=2,
+                                          seq=64)
+    assert not any(counts.values())
+    out = capsys.readouterr().out
+    assert "ssm train checks: step 0 loss" in out
+    assert "(not gated: bf16 drift over layers)" in out
+    assert "the probe (SSDFunction's dx zeroed) 1.0" in out
+    assert "leaves differing between two runs []" in out
+    assert "'repro_torch.kernels.ssd.ssd.ssd_plain': 0" not in out
+    assert "AdamW count 3 after 3 steps" in out
+    line = next(x for x in out.splitlines() if "leaves unchanged" in x)
+    for kind in ("final_norm/scale", "layers/*/ln1/scale",
+                 "layers/*/mixer/D", "layers/*/mixer/gate_norm"):
+        assert f"'{kind}': (" in line, kind
+    assert line.count("': (") == 4

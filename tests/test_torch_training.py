@@ -9,8 +9,9 @@ qwen3-8b (qk-norm, MQA at that size) and its GQA-4 variant (4 layers,
 d_model 128, 8 query heads over 2 KV heads, head_dim 32), and one of
 each other attention family: hubert-xlarge (audio frame features,
 non-causal, no decode), internvl2-2b (patch features ahead of the text,
-labels over every position) and moonshot-v1-16b-a3b (MoE every layer,
-its aux loss in the loss).
+labels over every position), moonshot-v1-16b-a3b (MoE every layer,
+its aux loss in the loss), mamba2-2.7b (the ssm stack) and one jamba
+block at narrow widths (hybrid: Mamba, attention and MoE layers).
 
 1. **Loss and gradients** — ``cross_entropy_loss``; the loss and every
    leaf's gradient of ``make_grad_fn`` (the port's attention through the
@@ -31,7 +32,12 @@ its aux loss in the loss).
    reference's, and all but 1 % within 1e-5; the first moments within
    1e-5 of their largest entry (under compression, a rare entry on a
    rounding boundary of its int8 grid may be one quantum apart).
-   The three families above take a 2-microbatch step too.
+   Four families above take a 2-microbatch step too, the ssm one also
+   under ``remat="full"``. The hybrid's loss and gradients are held to
+   the reference's (1.), not its step: its Mamba leaves' float32
+   gradients (A_log, conv_w, gate_norm) lie 1.1-1.9e-5 of the leaf's
+   largest entry from a float64 evaluation in the reference itself, above
+   the step's 1e-5 on the first moments.
 4. **Remat and state** — ``remat="full"``, ``"dots"`` and
    ``"dots_no_batch"`` give ``"none"``'s loss and gradients, and the
    reference's under the same policy; the products each ``"dots"``
@@ -69,6 +75,18 @@ def _gqa4(cfg):
                                n_kv_heads=2, head_dim=32, qk_norm=True)
 
 
+def _hybrid(cfg):
+    """One jamba block of 8 layers at narrow widths (the hybrid config of
+    ``tests/test_torch_families.py``): 4 experts, two SSM groups of
+    d_state 16, chunk 16."""
+    r = dataclasses.replace
+    return r(cfg, n_layers=8, d_model=128, n_heads=4, n_kv_heads=1,
+             d_ff=256, vocab_size=1000,
+             moe=r(cfg.moe, n_experts=4, d_ff_expert=256),
+             ssm=r(cfg.ssm, d_state=16, head_dim=16, n_groups=2,
+                   chunk_size=16))
+
+
 CONFIGS = {
     "qwen1.5-0.5b": ("qwen1.5-0.5b", None),
     "qwen3-8b-mqa": ("qwen3-8b", None),
@@ -76,8 +94,16 @@ CONFIGS = {
     "hubert-xlarge": ("hubert-xlarge", None),
     "internvl2-2b": ("internvl2-2b", None),
     "moonshot-v1-16b-a3b": ("moonshot-v1-16b-a3b", None),
+    "mamba2-2.7b": ("mamba2-2.7b", None),
+    "jamba-1.5-large-398b": ("jamba-1.5-large-398b", _hybrid),
 }
-FAMILIES = ("hubert-xlarge", "internvl2-2b", "moonshot-v1-16b-a3b")
+# the configurations of the per-model tests below (the ssm and hybrid
+# ones take only the family and gradient cases: each is a few times
+# slower than the others here)
+MODELS = ("qwen1.5-0.5b", "qwen3-8b-mqa", "qwen3-8b-gqa4", "hubert-xlarge",
+          "internvl2-2b", "moonshot-v1-16b-a3b")
+FAMILIES = ("hubert-xlarge", "internvl2-2b", "moonshot-v1-16b-a3b",
+            "mamba2-2.7b")
 
 
 def _configs(name):
@@ -89,14 +115,18 @@ def _configs(name):
     return rcfg, pcfg
 
 
-@pytest.fixture(scope="module", params=sorted(CONFIGS))
-def model(request):
+def _model(name):
     """(reference config, port config, reference params, port params)."""
-    rcfg, pcfg = _configs(request.param)
+    rcfg, pcfg = _configs(name)
     rparams = RM.init_params(rcfg, jax.random.PRNGKey(11))
     pparams = from_jax_params(pcfg, jax.tree.map(np.asarray, rparams),
                               device="cpu")
     return rcfg, pcfg, rparams, pparams
+
+
+@pytest.fixture(scope="module", params=sorted(MODELS))
+def model(request):
+    return _model(request.param)
 
 
 def _batch(seed, cfg, b, s):
@@ -170,6 +200,18 @@ def test_cross_entropy_matches_reference():
 
 @pytest.mark.parametrize("ref_impl", ["ref", "pallas"])
 def test_loss_and_gradients_match_reference(model, ref_impl):
+    _check_loss_and_gradients(model, ref_impl)
+
+
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_ssm_and_hybrid_loss_and_gradients_match_reference(name):
+    """As above for the ssm and hybrid families, against the reference's
+    oracles: the port's SSD through ``SSDFunction`` (B10's plain version
+    forward, the oracle's autograd backward) and through the oracle."""
+    _check_loss_and_gradients(_model(name), "ref")
+
+
+def _check_loss_and_gradients(model, ref_impl):
     rcfg, pcfg, rparams, pparams = model
     nb = _batch(1, pcfg, 2, 32)
     loss_fn = RLOOP.make_loss_fn(rcfg, RLOOP.TrainConfig(impl=ref_impl))
@@ -314,10 +356,23 @@ def test_train_step_matches_reference(microbatches, compression):
 def test_family_train_step_matches_reference(name):
     """One ``make_train_step`` of 2 microbatches (the audio and vlm
     families' ``feats`` split with their labels; the MoE aux loss in the
-    loss) from a carried reference state, against the reference's."""
+    loss; the ssm family's SSD through ``SSDFunction``, B10's plain
+    version forward and the oracle's autograd backward) from a carried
+    reference state, against the reference's."""
+    _check_family_step(name, "none")
+
+
+def test_ssm_train_step_under_full_remat_matches_reference():
+    """The same step of the ssm family with ``remat="full"`` on both
+    sides: each layer (B10's plain version with it) recomputed in the
+    backward."""
+    _check_family_step("mamba2-2.7b", "full")
+
+
+def _check_family_step(name, remat):
     rcfg, pcfg = _configs(name)
-    rtc = RLOOP.TrainConfig(microbatches=2, learning_rate=LR)
-    ptc = PLOOP.TrainConfig(microbatches=2, learning_rate=LR)
+    rtc = RLOOP.TrainConfig(microbatches=2, learning_rate=LR, remat=remat)
+    ptc = PLOOP.TrainConfig(microbatches=2, learning_rate=LR, remat=remat)
     rstate = RLOOP.train_state_init(rcfg, jax.random.PRNGKey(3), rtc)
     pstate = from_jax_train_state(
         pcfg, jax.tree.map(np.asarray, rstate), device="cpu")
