@@ -256,16 +256,17 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    path's layer (the jamba cut: 256 heads of 64, 8 groups, d_state 128,
    chunk 256, 4 x 2,048 tokens, bf16), launched twice byte-identical,
    within the same tolerances of its plain version.
-16. SSM serving path: Mamba2-2.7B at full width and depth (64 layers,
-   random bf16 weights from a seeded generator, about 2.70 B parameters)
-   serves 4 prompts of 2,048 token ids through ``make_prefill_step`` and
-   64 greedy steps of ``make_serve_step``: exactly 64 B10 launches in
-   the prefill, every one on the Hopper body (``ssd_tc``, ``ssd_prep``,
-   ``ssd_state``, ``ssd_out`` 64 each), none in decode, no plain-version
+16. SSM serving path: Mamba2-2.7B at full width cut to 16 of its 64
+   layers (random bf16 weights from a seeded generator, 0.77 B
+   parameters) serves 4 prompts of 2,048 token ids through
+   ``make_prefill_step`` and 64 greedy steps of ``make_serve_step``:
+   exactly 16 B10 launches in the prefill, every one on the Hopper body
+   (``ssd_tc``, ``ssd_prep``, ``ssd_state``, ``ssd_out`` 16 each), none
+   in decode, no plain-version
    call. The logits of the
    prefill and decode steps 1, 16, 64 and every layer's final state are
    reported against the port's f32 ``forward(impl="ref")`` (random
-   weights over 64 layers amplify bf16 rounding to about the logits'
+   weights over many layers amplify bf16 rounding towards the logits'
    RMS). Gated: the same entry points on an f32 copy of the weights, fed
    the same tokens, within ``SSM_SERVE_TOL`` of that reference (an fp8
    probe must fail it); and layer by layer on the reference's residual
@@ -287,10 +288,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    on the served stream (``family_replay``: every layer's cache after
    the last step, the prefill's and the checked steps' logits; every
    step's logits finite, their argmax the token fed next):
-   - moe: moonshot-v1-16b-a3b at full width and depth (28.06 B
-     parameters, 56.1 GB) serves 4 prompts of 2,048 tokens and 64 greedy
-     steps into a 4,096-slot cache: exactly 48 B6 launches, all
-     ``flash_fwd_tc``, and 3,072 B9 launches with their combines;
+   - moe: moonshot-v1-16b-a3b at full width cut to 16 of its 48 layers
+     (9.80 B parameters, 19.6 GB) serves 4 prompts of 2,048 tokens and
+     64 greedy steps into a 4,096-slot cache: exactly 16 B6 launches,
+     all ``flash_fwd_tc``, and 1,024 B9 launches with their combines;
    - hybrid: jamba-1.5-large cut to one block of 8 layers with 4 experts
      (16.26 B parameters, 32.5 GB), the same traffic: exactly 1 B6
      launch (``flash_fwd_tc``), 7 B10 launches in the prefill on the
@@ -309,8 +310,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      1, 16, 64 within ``SERVE_TOL`` of the f32 reference (an fp8 probe
      must fail it).
 18. Family training paths (``family_train_path``; each its own run, its
-   state freed before the next), ``make_train_step`` on random bf16
-   weights from seed 0, a warm-up step and 3 timed steps of 4 sequences
+   state freed before the next), ``make_train_step(..., donate=True)``
+   (the state updated in place, as the reference's step jitted with
+   ``donate_argnums``) on random bf16 weights from seed 0, a warm-up step and 3 timed steps of 4 sequences
    of 4,096 positions (step wall, tokens/s, peak memory, the bytes of
    parameters and optimizer state, each timed step's collector pauses
    and caching-allocator retries, device allocations and frees, and a
@@ -329,23 +331,36 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      (2.95 B parameters), 4 microbatches of 1 x 4,096 tokens, remat
      "full": 8 B6 (4 and 4 recomputed), 4 B7 and 4 B8 a call, on the
      Hopper bodies, no group sum;
-   - ssm: mamba2-2.7b at full width and depth (64 layers, 2.70 B
+   - ssm: the ssm serving path's cut (16 of 64 layers, 0.77 B
      parameters), 4 microbatches of 1 x 4,096 tokens, remat "full":
-     exactly 128 B10 launches a call (64 and 64 recomputed), every one
+     exactly 32 B10 launches a call (16 and 16 recomputed), every one
      on its Hopper body (``ssd_tc``, ``ssd_prep``, ``ssd_state``,
-     ``ssd_out`` 128 each); its backward is the SSD oracle's autograd.
-   The moe and ssm paths run in child processes (``--family-train``).
+     ``ssd_out`` 32 each); its backward is the SSD oracle's autograd.
+   - hybrid: jamba-1.5-large at full width cut to one block of 2 layers
+     (Mamba-2 with the dense FFN, then attention with 2 of its 16
+     experts, top-2; 3.46 B parameters), 4 microbatches of 1 x 4,096
+     tokens, remat "full": exactly 2 B10, 2 B6, 1 B7, 1 group sum and 1 B8 a call, all on the
+     Hopper bodies; the memory budget printed before the run. Then, in
+     the same child, the donated step against the out-of-place step on
+     moonshot cut to 1 layer at full width (``donated_step_check``): one
+     step each way from the same state, every weight, moment, the count
+     and the step the same bits, the donated state in its own storage.
+   The moe, ssm and hybrid paths run in child processes
+   (``--family-train``).
    Gated for each: no plain-version call; the path's launch counts
    exactly those of its ``grad_fn`` calls; step 0's loss within
    ``TRAIN_LOSS_TOL`` of float32 autograd through the oracles on a
    float32 copy of the weights, microbatch 0's gradients within
-   ``FAMILY_GRAD_TOL`` of it (for moe and ssm layer by layer on the f32
-   stream, for moe with the tokens whose routing flips between bf16 and
-   f32 left out, their share within ``FAMILY_FLIP_TOL``; a probe zeroing
-   B8's dq, for ssm SSDFunction's dx, must fail it) and the same bits
+   ``FAMILY_GRAD_TOL`` of it (for moe, ssm and hybrid layer by layer on
+   the f32 stream, whose loss must be forward's within
+   ``STREAM_LOSS_TOL``, for moe and hybrid with the tokens whose routing
+   flips between bf16 and f32 left out, their share within
+   ``FAMILY_FLIP_TOL``; a probe zeroing B8's dq, for ssm SSDFunction's
+   dx, must fail it) and the same bits
    twice; every loss finite, the AdamW count the number of steps, every
    leaf changed but those bf16 cannot move (``FROZEN_IN_BF16``, for ssm
-   also ``FAMILY_FROZEN``) and the audio family's unreached embedding.
+   and hybrid also ``FAMILY_FROZEN``) and the audio family's unreached
+   embedding.
 19. Print one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -374,10 +389,11 @@ alone: its water-fill and pricing walls, wall and ticks/s, and B5's host
 microseconds and device ms) through the port under SRC and through this
 checkout's, each in its own process, in turns parent, change, change,
 parent.
-``--family-train NAME`` runs one family training path (phase 18) alone;
-the full run takes the moe and ssm paths this way, each in a child
-process whose allocator maps expandable segments
-(``family_train_child``). ``--train`` runs the training phase (phase 12) alone, as the full run's child;
+``--family-train NAME`` runs one family training path (phase 18) alone
+(for hybrid also the donated step's check); the full run takes the moe,
+ssm and hybrid paths this way, each in a child process whose allocator
+maps expandable segments (``family_train_child``). ``--train`` runs the
+training phase (phase 12) alone, as the full run's child;
 ``--runtime`` runs the runtime gates (phase 13) alone, as the full run's
 child; ``--dist`` the sequence-parallel decode (phase 14) alone, as the
 full run's child.
@@ -4314,17 +4330,22 @@ def ssd_kernel_phase():
 # ---------------------------------------------------------------------------
 # Mamba2-2.7B (configs/mamba2_2_7b.py: 64 layers, d_model 2,560, 80 heads
 # of 64, d_state 128, one group, conv 4, chunk 256, vocab 50,280, tied
-# embeddings) at full width and depth, random bf16 weights from seed 0;
-# 4 prompts of 2,048 tokens, 64 greedy decode steps; logits checked after
-# the prefill and at these decode steps, and every layer's final state
-# after the prefill.
+# embeddings) at full width cut to its first SSM_LAYERS layers (772,184,320
+# parameters), random bf16 weights from seed 0; 4 prompts of 2,048 tokens,
+# 64 greedy decode steps; logits checked after the prefill and at these
+# decode steps, and every layer's final state after the prefill. The
+# depth (here and in the ssm training path) is cut for the whole run's
+# time only: at 64 layers the two paths took 180-210 s of it on a
+# host-bound machine (the SSD oracle's backward, 16 chunks a layer in
+# Python, and a layer-by-layer gate over every decode step).
 SSM_ARCH = "mamba2-2.7b"
+SSM_LAYERS = 16
 SSM_SEED = 0
 SSM_BATCH = 4
 SSM_PROMPT = 2048
 SSM_STEPS = 64
 SSM_CHECKS = (1, 16, 64)
-# Correctness. With random weights the 64-layer stack amplifies rounding
+# Correctness. With random weights the layer stack amplifies rounding
 # from layer to layer: the bf16 served logits and an f32 reference's
 # differ by about their RMS, and the bf16 prefill on the oracles as much
 # (PERF.md), so the bf16 run's end-to-end comparison is reported, not
@@ -4353,8 +4374,12 @@ SSM_STATE_TOL = 0.02
 
 
 def _ssm_config():
+    """Mamba2-2.7B at full width cut to its first SSM_LAYERS layers."""
     from repro_torch.configs import get_config
-    return get_config(SSM_ARCH)
+
+    cfg = get_config(SSM_ARCH)
+    return dataclasses.replace(cfg, arch_id=f"{cfg.arch_id}-{SSM_LAYERS}layers",
+                               n_layers=SSM_LAYERS)
 
 
 def _rel_norm(got, ref) -> float:
@@ -4670,10 +4695,12 @@ def ssm_serve_path(cfg=None, device="cuda"):
 # Four serving paths, one per family the dense and ssm paths leave out,
 # each at full width with random bf16 weights from seed 0 (generated on
 # the card), through the port's entry points:
-# - moe: moonshot-v1-16b-a3b at full width and depth (48 layers, d_model
-#   2,048, 16/16 heads of 128, 64 experts top-6 of width 1,408, vocab
-#   163,840; 28.06 B parameters, 56.1 GB): 4 prompts of 2,048 tokens,
-#   then 64 greedy steps into a 4,096-slot cache;
+# - moe: moonshot-v1-16b-a3b at full width (d_model 2,048, 16/16 heads of
+#   128, 64 experts top-6 of width 1,408, vocab 163,840) cut to its first
+#   MOE_SERVE_LAYERS of 48 layers (9.80 B parameters, 19.6 GB; at full
+#   depth 28.06 B and 56.1 GB, cut for the whole run's time only: the
+#   path took 60-80 s of it): 4 prompts of 2,048 tokens, then 64 greedy
+#   steps into a 4,096-slot cache;
 # - hybrid: jamba-1.5-large cut to one card (JAMBA_CUT): full width
 #   (d_model 8,192, 64/8 heads, d_ff 24,576, vocab 65,536, d_state 128,
 #   head_dim 64, 8 groups, chunk 256), one block of 8 layers (attention at
@@ -4692,6 +4719,7 @@ FAMILY_MAX_LEN = 4096
 FAMILY_STEPS = 64
 FAMILY_CHECKS = (1, 16, 64)
 MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_SERVE_LAYERS = 16
 HYBRID_ARCH = "jamba-1.5-large-398b"
 AUDIO_ARCH = "hubert-xlarge"
 VLM_ARCH = "internvl2-2b"
@@ -4732,13 +4760,17 @@ FAMILY_F32_TOL = 0.01
 
 
 def family_config(name: str):
-    """The full-width configuration of a family path (the hybrid one
-    cut to one card)."""
+    """The full-width configuration of a family path (the moe one cut to
+    MOE_SERVE_LAYERS layers, the hybrid one to one card)."""
     from repro_torch.configs import get_config
 
     arch = {"moe": MOE_ARCH, "hybrid": HYBRID_ARCH, "audio": AUDIO_ARCH,
             "vlm": VLM_ARCH}[name]
     cfg = get_config(arch)
+    if name == "moe":
+        cfg = dataclasses.replace(
+            cfg, arch_id=f"{cfg.arch_id}-{MOE_SERVE_LAYERS}layers",
+            n_layers=MOE_SERVE_LAYERS)
     if name == "hybrid":
         cfg = dataclasses.replace(
             cfg, arch_id=cfg.arch_id + "-1block-4experts",
@@ -5391,11 +5423,12 @@ def family_f32_check(tag, cfg, params, batch, ref) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Training paths of the audio, vlm, moe and ssm families
+# Training paths of the audio, vlm, moe, ssm and hybrid families
 # ---------------------------------------------------------------------------
-# Each path trains one family through ``make_train_step`` (random bf16
-# weights from seed 0, TrainConfig() defaults but the microbatches and the
-# remat policy): one warm-up step, then FAMILY_TRAIN_STEPS timed steps of
+# Each path trains one family through ``make_train_step(..., donate=True)``
+# (the state updated in place, as the reference's step jitted with
+# ``donate_argnums``; random bf16 weights from seed 0, TrainConfig()
+# defaults but the microbatches and the remat policy): one warm-up step, then FAMILY_TRAIN_STEPS timed steps of
 # 4 sequences of train_4k's 4,096 positions (configs/base.py:269-285).
 # - audio: hubert-xlarge at full width and depth, 2 microbatches of 2 x
 #   4,096 frames of 512 features, labels over its 504 entries, no remat;
@@ -5413,21 +5446,32 @@ def family_f32_check(tag, cfg, params, batch, ref) -> None:
 #   B8 4 a grad_fn call, on the Hopper bodies, no group sum. bf16 weights
 #   5.9 GB, AdamW moments 23.6, gradients 5.9 and the float32 sums 11.8
 #   come to 47.2 GB before activations; at 6 layers (4.09 B) 65 GB.
-# - ssm: mamba2-2.7b at full width and depth (64 layers, d_model 2,560,
-#   80 heads of 64, d_state 128, chunk 256; 2,702,579,200 parameters),
-#   4 microbatches of 1 x 4,096 tokens, remat "full": B10 128 a grad_fn
-#   call (64 and 64 recomputed), every one on its Hopper body; its
-#   backward is the oracle's autograd (SSDFunction), no launch. bf16
-#   weights 5.4 GB, AdamW moments 21.6, gradients 5.4 and the float32
-#   sums 10.8 come to 43.2 GB before activations, and the out-of-place
-#   AdamW step holds up to 21.6 GB of new moments beside them.
+# - ssm: the ssm serving path's Mamba2-2.7B cut (_ssm_config: full width,
+#   16 of its 64 layers, 772,184,320 parameters), 4 microbatches of 1 x
+#   4,096 tokens, remat "full": B10 32 a grad_fn call (16 and 16
+#   recomputed), every one on its Hopper body; its backward is the
+#   oracle's autograd (SSDFunction), no launch. bf16 weights 1.5 GB,
+#   AdamW moments 6.2, gradients 1.5 and the float32 sums 3.1 come to
+#   12.4 GB before activations.
+# - hybrid: jamba-1.5-large at full width (hybrid_train_config), one
+#   block of 2 layers (a Mamba-2 layer with the dense FFN, then attention
+#   with 2 of the 16 experts, top-2), 4 microbatches of 1 x 4,096 tokens,
+#   remat "full": B10 2 and B6 2 (one of each in the recompute), B7, B8 and the group
+#   sum 1 a grad_fn call, on the Hopper bodies. Its backward is
+#   attention's kernels and the SSD oracle's autograd in one pass.
 FAMILY_TRAIN_SEQ = 4096
 FAMILY_TRAIN_STEPS = 3
 FAMILY_TRAIN_SEED = 0
 MOE_TRAIN_LAYERS = 4
 # (microbatches, sequences per microbatch, remat) of each path
 FAMILY_TRAIN = {"audio": (2, 2, "none"), "vlm": (2, 2, "dots"),
-                "moe": (4, 1, "full"), "ssm": (4, 1, "full")}
+                "moe": (4, 1, "full"), "ssm": (4, 1, "full"),
+                "hybrid": (4, 1, "full")}
+# The f32 stream of the layer gates (its layers one by one, a hybrid
+# block's too) against forward's f32 cross entropy on the same weights
+# (cast layer by layer there, whole here): the same operations on the
+# same values, so the same loss within float32's rounding.
+STREAM_LOSS_TOL = 1e-6
 # The gates. Step 0's loss within TRAIN_LOSS_TOL of float32 autograd
 # through the oracles (impl="ref", remat="full", on a float32 copy of the
 # weights); microbatch 0's gradients: the largest ||g - ref|| / ||ref||
@@ -5452,8 +5496,12 @@ FAMILY_TRAIN = {"audio": (2, 2, "none"), "vlm": (2, 2, "dots"),
 # (four runs, the same bits): 0.0348 (wC of layer 10), its probe
 # (SSDFunction's dx zeroed) 1.0, so 0.08 (2.3x above, 12.5x below); the
 # whole model's gradients, printed, not gated: 1.37 of a leaf's norm
-# (A_log of layer 12), their probe 1.57.
-FAMILY_GRAD_TOL = {"audio": 0.1, "vlm": 0.08, "moe": 0.03, "ssm": 0.08}
+# (A_log of layer 12), their probe 1.57. hybrid, layer by layer (the
+# first full-width run): 0.0150 (the MoE's w_gate), no routing flip (2
+# experts, top-2), its probe (B8's dq zeroed) 1.0, so 0.04 (2.7x above,
+# 25x below); the whole model's 0.0289, printed, not gated.
+FAMILY_GRAD_TOL = {"audio": 0.1, "vlm": 0.08, "moe": 0.03, "ssm": 0.08,
+                   "hybrid": 0.04}
 # Leaves AdamW cannot move in bf16 (no float32 master copy, as in the
 # reference): a norm's scale starts at 1.0, where a step of lr 3e-4 is
 # below half of bf16's spacing (2^-8 below 1.0); the audio family's
@@ -5467,24 +5515,69 @@ FROZEN_IN_BF16 = ("/scale",)
 # AdamW's first steps (lr 3e-4 times a unit step plus 0.1 of decay) are
 # below half the spacing. Every other Mamba leaf must move: dt_bias and
 # conv_b start at 0, and A_log's first entry at log 1 = 0.
-FAMILY_FROZEN = {"ssm": ("/mixer/D", "/mixer/gate_norm")}
+FAMILY_FROZEN = {"ssm": ("/mixer/D", "/mixer/gate_norm"),
+                 "hybrid": ("/D", "/gate_norm")}
 ATTN_KEYS = ("flash_fwd", "flash_fwd_tc", "flash_dkv", "flash_dkv_tc",
              "flash_dkv_group_sum", "flash_dq", "flash_dq_tc")
 
 
 def family_train_config(name: str):
     """The configuration of a family's training path: the serving path's
-    (audio, vlm, ssm) or moonshot cut to MOE_TRAIN_LAYERS layers (moe)."""
+    (audio, vlm, ssm), moonshot cut to MOE_TRAIN_LAYERS layers (moe) or
+    the jamba cut of :func:`hybrid_train_config` (hybrid)."""
     from repro_torch.configs import get_config
 
     if name == "ssm":
         return _ssm_config()
+    if name == "hybrid":
+        return hybrid_train_config()
     if name != "moe":
         return family_config(name)
     cfg = get_config(MOE_ARCH)
     return dataclasses.replace(
         cfg, arch_id=f"{cfg.arch_id}-{MOE_TRAIN_LAYERS}layers",
         n_layers=MOE_TRAIN_LAYERS)
+
+
+def step_budget(cfg, n_params: int, param_bytes: int, n_mb: int,
+                mb_tokens: int) -> dict:
+    """The bytes a donated training step holds, predicted: the weights,
+    the float32 AdamW moments, one microbatch's gradients (the weights'
+    type), the float32 microbatch sums (more than one microbatch) and a
+    microbatch's float32 logits three times over (the cross entropy's
+    input, its softmax and their gradient). The peak is the backward's
+    (state, sums, gradients and logits); activations under remat are
+    not counted."""
+    moments = 8 * n_params
+    sums = 4 * n_params if n_mb > 1 else 0
+    logits = 3 * 4 * mb_tokens * cfg.vocab_size
+    out = {"weights": param_bytes, "moments": moments,
+           "gradients": param_bytes, "sums": sums, "logits": logits}
+    out["predicted peak"] = (param_bytes + moments + sums + param_bytes
+                             + logits)
+    return out
+
+
+def hybrid_train_config():
+    """jamba-1.5-large at full width (d_model 8,192, 64/8 heads of 128,
+    d_ff 24,576, vocab 65,536; Mamba-2 d_state 128, head_dim 64, 8 groups,
+    chunk 256) cut to one block of 2 layers (block_len 2, attn_index 1):
+    a Mamba-2 layer with the dense FFN, then attention with a MoE of 2 of
+    its 16 experts, top-2 kept; 3,458,370,304 parameters. In bf16 with
+    AdamW a step holds 16 B a parameter (weights 2, gradients 2, the
+    float32 microbatch sums 4, the moments 8): 55.3 GB, which fits the
+    card only donated (the out-of-place AdamW holds the old and the new
+    moments together, 27.7 GB more). The 1:7 interleave does not fit: 8
+    layers with 2 experts are 11.42 B parameters (183 GB), the first 5
+    layers (the shortest prefix that keeps layer 4's attention) 7.14 B
+    (114 GB)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(HYBRID_ARCH)
+    r = dataclasses.replace
+    return r(cfg, arch_id=f"{cfg.arch_id}-2layers", n_layers=2,
+             moe=r(cfg.moe, n_experts=2, top_k=2),
+             hybrid=r(cfg.hybrid, block_len=2, attn_index=1))
 
 
 def family_train_batch(cfg, step: int, n_seq: int, seq: int, device):
@@ -5624,9 +5717,17 @@ def family_train_checks(tag, cfg, params, batches, tc, device, plain):
         # whose pass gives the whole model's reference gradients too
         gate = moe_layer_grad_checks if cfg.moe is not None else \
             ssm_layer_grad_checks
-        stream, gref = _f32_stream(cfg, p32, batches[0],
-                                   remat=cfg.moe is None)
+        stream, gref, xent = _f32_stream(
+            cfg, p32, batches[0],
+            remat=cfg.moe is None or cfg.hybrid is not None)
         secs["reference gradients"] = _lap(t0, device)
+        # the stream's layers are the model's: its loss is forward's
+        stream_err = abs(xent - ref_losses[0]) / abs(ref_losses[0])
+        print(f"{tag} checks: the f32 stream's loss {xent!r} vs forward's "
+              f"{ref_losses[0]!r}, relative {stream_err}", flush=True)
+        if not stream_err <= STREAM_LOSS_TOL:
+            raise RuntimeError(f"{tag}: the f32 stream's loss is off "
+                               f"forward's by {stream_err}")
         errs, probe_errs, flips = gate(cfg, params, p32, batches[0], plain,
                                        stream)
         del stream
@@ -5699,60 +5800,86 @@ def _lap(t0: float, device) -> float:
     return round(time.perf_counter() - t0, 3)
 
 
-def moe_layer_grad_checks(cfg, params, p32, batch, plain, stream):
-    """The MoE family's gradient gate, layer by layer on the f32 stream:
-    the f32 reference (``p32``, the oracles) ran microbatch ``batch``
-    whole and gave each layer's input h_i and the loss's gradient at its
-    output (``stream``, :func:`_f32_stream`); then each bf16 layer of
-    ``params`` (through the kernels) and its f32 copy run on h_i, and each
-    leaf's gradient of ``<out, dL/dout> + aux`` is compared, with the
-    tokens whose bf16 and f32 routers pick or keep other experts left out
-    of dL/dout on both sides (a flip makes the two sides different
-    functions of such a token); the head (final norm, lm_head) on the last
-    layer's f32 output and the embedding under dL/dh_0 likewise
-    (:func:`_head_grad_errs`); the bf16 side's attention under ``plain``
-    (a :class:`_CountCalls`), its backward twice: as it is and under the
-    probe (:func:`grad_probe`: B8's dq zeroed). Returns ({leaf: ||g -
-    ref|| / ||ref||}, the same under the probe, (tokens compared, tokens
-    flipped))."""
+def _sublayer(cfg, layer, h, positions, impl):
+    """One layer of a stack, an entry of :func:`_sublayers`, on ``h``:
+    the mixer (attention or Mamba-2) and the FFN slot, each behind its
+    norm and on the residual, as ``models.model._layer`` and ``_block``
+    run them. Returns (its output, the MoE aux loss or None, the FFN
+    slot's normalised input)."""
     from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
     from repro_torch.models import model as PM
 
-    adt = L.DTYPES[cfg.activation_dtype]
-    hs, gs = stream
-    positions = torch.arange(hs[0].shape[1], device=hs[0].device)
-
-    def layer(mixer, ln1, ln2, ffn, h, impl):
-        x = L.apply_norm(cfg, ln1, h)
+    _where, kind, mixer, ln1, ln2, ffn, moe, _slot = layer
+    x = L.apply_norm(cfg, ln1, h)
+    if kind == "attn":
         out, _ = L.attention_block(cfg, mixer, x, positions=positions,
                                    impl=impl)
-        h = h + out
-        x2 = L.apply_norm(cfg, ln2, h)
-        f, a = PM.ffn(cfg, ffn, x2, True)
-        return h + f, a, x2
+    else:
+        out, _ = M.mamba_block(cfg, mixer, x, impl=impl)
+    h = h + out
+    x2 = L.apply_norm(cfg, ln2, h)
+    f, a = PM.ffn(cfg, ffn, x2, moe)
+    return h + f, a, x2
 
+
+def _gate_key(cfg, i: int, where: str) -> str:
+    """A layer's label in the gates' readings: ``layers/<i>`` as in the
+    weights' paths, ``block <b> layer <j>`` in a hybrid block."""
+    return where if cfg.hybrid is not None else f"layers/{i}"
+
+
+def moe_layer_grad_checks(cfg, params, p32, batch, plain, stream):
+    """The gradient gate of a family with a MoE (moe, hybrid), layer by
+    layer on the f32 stream: the f32 reference (``p32``, the oracles)
+    ran microbatch ``batch`` whole and gave each layer's input h_i and
+    the loss's gradient at its output (``stream``, :func:`_f32_stream`);
+    then each bf16 layer of ``params`` (through the kernels) and its f32
+    copy run on h_i (:func:`_sublayer`; a hybrid block's layers one by
+    one), and each leaf's gradient of ``<out, dL/dout> + aux`` is
+    compared, with the tokens whose bf16 and f32 routers pick or keep
+    other experts left out of dL/dout on both sides in a MoE layer (a
+    flip makes the two sides different functions of such a token); the
+    head (final norm, lm_head) on the last layer's f32 output and the
+    embedding under dL/dh_0 likewise (:func:`_head_grad_errs`); the bf16
+    side under ``plain`` (a :class:`_CountCalls`), its backward twice:
+    as it is and under the probe (:func:`grad_probe`: B8's dq zeroed).
+    Returns ({leaf: ||g - ref|| / ||ref||}, the same under the probe,
+    (tokens compared, tokens flipped))."""
+    from repro_torch.models import layers as L
+
+    adt = L.DTYPES[cfg.activation_dtype]
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    hs, gs = stream
+    positions = torch.arange(hs[0].shape[1], device=hs[0].device)
     errs, probe_errs, flips = {}, {}, [0, 0]
-    for i, (where, _k, mixer, ln1, ln2, ffn, _m, _s) in enumerate(
-            _sublayers(cfg, params)):
-        sub = {"mixer": mixer, "ln1": ln1, "ln2": ln2, "ffn": ffn}
-        sub32 = {k: p32["layers"][i][k] for k in sub}
+    for i, (layer, layer32) in enumerate(zip(_sublayers(cfg, params),
+                                             _sublayers(cfg32, p32))):
+        names = ("mixer", "ln1", "ln2", "ffn")
+        sub = dict(zip(names, layer[2:6]))
+        sub32 = dict(zip(names, layer32[2:6]))
         with torch.enable_grad():
             with plain:
-                out, a, x2 = layer(mixer, ln1, ln2, ffn, hs[i].to(adt),
-                                   "kernel")
-            out32, a32, x2r = layer(sub32["mixer"], sub32["ln1"],
-                                    sub32["ln2"], sub32["ffn"], hs[i], "ref")
-            agree = _routing_agree(cfg, ffn, sub32["ffn"], x2.detach(),
-                                   x2r.detach())
-            flips[0] += agree.numel()
-            flips[1] += int((~agree).sum())
-            g = gs[i + 1] * agree.reshape(gs[i + 1].shape[:2])[..., None]
-            want = _tree_grads(sub32, (out32 * g).sum() + a32)
+                out, a, x2 = _sublayer(cfg, layer, hs[i].to(adt), positions,
+                                       "kernel")
+            out32, a32, x2r = _sublayer(cfg32, layer32, hs[i], positions,
+                                        "ref")
+            g = gs[i + 1]
+            if layer[6]:
+                agree = _routing_agree(cfg, sub["ffn"], sub32["ffn"],
+                                       x2.detach(), x2r.detach())
+                flips[0] += agree.numel()
+                flips[1] += int((~agree).sum())
+                g = g * agree.reshape(g.shape[:2])[..., None]
+            aux, aux32 = (a, a32) if layer[6] else (0.0, 0.0)
+            want = _tree_grads(sub32, (out32 * g).sum() + aux32)
             got, probed = _probed_grads(cfg, sub, (out.float() * g).sum()
-                                        + a, plain, hs[0].is_cuda)
+                                        + aux, plain, hs[0].is_cuda)
+        key = _gate_key(cfg, i, layer[0])
         for k in want:
-            errs[f"layers/{i}/{k}"] = _rel_norm(got[k], want[k])
-            probe_errs[f"layers/{i}/{k}"] = _rel_norm(probed[k], want[k])
+            errs[f"{key}/{k}"] = _rel_norm(got[k], want[k])
+            probe_errs[f"{key}/{k}"] = _rel_norm(probed[k], want[k])
         del out, out32, got, probed, want
     head = _head_grad_errs(cfg, params, p32, batch, hs, gs)
     return {**errs, **head}, {**probe_errs, **head}, flips
@@ -5786,12 +5913,13 @@ def _tree_grads(tree, loss, retain_graph: bool = False):
 
 def _f32_stream(cfg, p32, batch, remat: bool = False):
     """The f32 reference's residual stream of ``batch`` (``p32``, the
-    oracles): (each layer's input h_i and the last layer's output, the
-    loss's gradient at each (without the MoE aux loss's, which each layer
-    adds itself)), and the loss's gradient at each of ``p32``'s leaves
-    (the whole model's reference gradients, {path: gradient}). ``remat``:
-    each layer recomputed in the backward, so that only the stream stays
-    live."""
+    oracles; a hybrid block layer by layer, :func:`_sublayer`): (each
+    layer's input h_i and the last layer's output, the loss's gradient at
+    each (without the MoE aux loss's, which each layer adds itself)), the
+    loss's gradient at each of ``p32``'s leaves (the whole model's
+    reference gradients, {path: gradient}) and the cross entropy (the
+    loss without the aux). ``remat``: each layer recomputed in the
+    backward, so that only the stream stays live."""
     from torch.utils.checkpoint import checkpoint
 
     from repro_torch.models import layers as L
@@ -5803,25 +5931,33 @@ def _f32_stream(cfg, p32, batch, remat: bool = False):
     with torch.enable_grad():
         h = PM.embed_inputs(cfg32, p32, batch, torch.float32)
         positions = torch.arange(h.shape[1], device=h.device)
+        if cfg.hybrid is not None:
+            def run(layer, h):
+                return _sublayer(cfg32, layer, h, positions, "ref")[:2]
+            layers = _sublayers(cfg32, p32)
+        else:
+            def run(lp, h):
+                return PM._layer(cfg32, lp, h, positions, "ref", None, 0)
+            layers = p32["layers"]
         hs, aux = [h], 0.0
-        for i, lp in enumerate(p32["layers"]):
+        for layer in layers:
             if remat:
-                h, a = checkpoint(PM._layer, cfg32, lp, h, positions, "ref",
-                                  None, i, use_reentrant=False)
+                h, a = checkpoint(run, layer, h, use_reentrant=False)
             else:
-                h, a = PM._layer(cfg32, lp, h, positions, "ref", None, i)
+                h, a = run(layer, h)
             hs.append(h)
             if a is not None:
                 aux = aux + a
         logits = PM._lm_head(cfg32, p32, L.apply_norm(
             cfg32, p32["final_norm"], h))
-        loss = cross_entropy_loss(logits, batch["labels"]) + aux
+        xent = cross_entropy_loss(logits, batch["labels"])
         del logits
         leaves = L.tree_leaves(p32)
-        grads = torch.autograd.grad(loss, hs + list(leaves.values()))
+        grads = torch.autograd.grad(xent + aux,
+                                    hs + list(leaves.values()))
     n = len(hs)
-    return ([x.detach() for x in hs], grads[:n]), dict(zip(leaves,
-                                                           grads[n:]))
+    return (([x.detach() for x in hs], grads[:n]),
+            dict(zip(leaves, grads[n:])), float(xent.detach()))
 
 
 def _head_grad_errs(cfg, params, p32, batch, hs, gs) -> dict:
@@ -5903,11 +6039,10 @@ FAMILY_TRAIN_COUNTS = "family train counts "
 def family_train_child(name: str) -> dict:
     """:func:`family_train_path` of ``name`` in a child process
     (``chip_smoke.py --family-train NAME``) whose caching allocator maps
-    expandable segments: the moonshot cut's AdamW step holds the old and
-    the new moments (2 x 23.6 GB) beside the float32 sums and the
-    weights, 75.6 GB at its peak on an H100 80GB (PERF.md), and blocks of
-    fixed sizes left gigabytes reserved but unusable there (an
-    out-of-memory error at 72.95 GB allocated). The allocator's setting is read
+    expandable segments: the jamba cut's step held 64.8 GB at its peak
+    on an H100 80GB, and the moonshot cut's out-of-place step 75.6 GB
+    (PERF.md), where blocks of fixed sizes left gigabytes reserved but
+    unusable (an out-of-memory error at 72.95 GB allocated). The allocator's setting is read
     when a process first touches the card, so only a new process can
     take it; this one keeps the allocator every earlier phase ran
     with. Its output is echoed here; returns its launch counts."""
@@ -6019,12 +6154,14 @@ def _bf16_spacing(t) -> list:
 def family_train_path(name: str, cfg=None, device="cuda",
                       steps: int = FAMILY_TRAIN_STEPS,
                       seq: int = FAMILY_TRAIN_SEQ):
-    """One family's training path (``name`` audio, vlm or moe) at the
-    width of :func:`family_train_config` (or ``cfg``) on ``device`` (a
-    CPU run rehearses it on the plain versions, with no launch to count):
-    the checks on the initial weights (:func:`family_train_checks`),
-    then the optimizer state, a warm-up step and ``steps`` timed steps of
-    ``make_train_step``. Returns the launch counts of the path."""
+    """One family's training path (``name`` audio, vlm, moe, ssm or
+    hybrid) at the width of :func:`family_train_config` (or ``cfg``) on
+    ``device`` (a CPU run rehearses it on the plain versions, with no
+    launch to count): the checks on the initial weights
+    (:func:`family_train_checks`), then the memory budget
+    (:func:`step_budget`), the optimizer state, a warm-up step and
+    ``steps`` timed steps of the donated ``make_train_step``. Returns
+    the launch counts of the path."""
     from repro_torch.accel import kernels as K
     from repro_torch.models import layers as L
     from repro_torch.models import model as PM
@@ -6052,10 +6189,12 @@ def family_train_path(name: str, cfg=None, device="cuda",
     mbs = [{k: v[i * per_mb:(i + 1) * per_mb] for k, v in
             batches[0].items()} for i in range(n_mb)]
     moe, ssm = cfg.moe, cfg.ssm
-    heads = (f"{ssm.n_heads(cfg.d_model)} heads of {ssm.head_dim}, d_state "
-             f"{ssm.d_state}, chunk {ssm.chunk_size}" if ssm else
-             f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
-             f"{cfg.resolved_head_dim()}")
+    heads = ", ".join(
+        ([f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim()}"] if cfg.n_attn_layers() else [])
+        + ([f"{ssm.n_heads(cfg.d_model)} SSD heads of {ssm.head_dim}, "
+            f"d_state {ssm.d_state}, {ssm.n_groups} groups, chunk "
+            f"{ssm.chunk_size}"] if ssm else []))
     print(f"{tag}: {cfg.arch_id} {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {heads}"
           + (f", {moe.n_experts} experts top-{moe.top_k} of width "
@@ -6063,6 +6202,9 @@ def family_train_path(name: str, cfg=None, device="cuda",
           + f", vocab {cfg.vocab_size}, {n_params} parameters "
           f"({param_bytes} bytes); {n_mb} microbatches of {per_mb} x {seq} "
           f"positions a step, remat {remat!r}", flush=True)
+    budget = step_budget(cfg, n_params, param_bytes, n_mb, per_mb * seq)
+    print(f"{tag}: memory budget of a donated step, bytes: {budget}",
+          flush=True)
 
     plain = train_plain_calls()
     # -- the checks on the initial weights (before the optimizer state) --
@@ -6077,7 +6219,7 @@ def family_train_path(name: str, cfg=None, device="cuda",
         tuple(state["opt"]["v"].values())) + _nbytes(state["opt"]["count"])
     marks = _leaf_marks(params)
     del params
-    step_fn = make_train_step(cfg, tc)
+    step_fn = make_train_step(cfg, tc, donate=True)
     before = dict(K.launches)
     with plain:
         state, metrics = step_fn(state, batches[0])
@@ -6124,7 +6266,8 @@ def family_train_path(name: str, cfg=None, device="cuda",
           f"profiled), mean of the unprofiled "
           f"{np.mean(walls[:-1] if len(walls) > 1 else walls):.6f} s "
           f"({tokens / np.mean(walls[:-1] if len(walls) > 1 else walls):.1f}"
-          f" tokens/s); losses {losses}; peak device memory {peak} bytes; "
+          f" tokens/s); losses {losses}; peak device memory {peak} bytes "
+          f"(predicted {budget['predicted peak']}); "
           f"parameters {param_bytes} bytes, optimizer state {opt_bytes} "
           f"bytes; launches a grad_fn call {checks['per_call']}, in the "
           f"steps {step_counts}, in the path "
@@ -6210,6 +6353,106 @@ def family_train_path(name: str, cfg=None, device="cuda",
     del state, metrics, batches, mbs
     _free()
     return counts
+
+
+# The donated step's check: moonshot cut to DONATE_LAYERS layer at full
+# width (1,241,651,200 parameters; its state 12.4 GB, held three times:
+# the state, its twin and the out-of-place step's new state), 2
+# microbatches of 1 x 4,096 tokens, remat "full".
+DONATE_LAYERS = 1
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor of a train state by name: the weights, the moments,
+    the count and the step."""
+    from repro_torch.models import layers as L
+
+    out = {f"params/{k}": t for k, t in L.tree_leaves(state["params"]).items()}
+    for name in ("m", "v"):
+        out.update((f"{name}/{k}", t) for k, t in state["opt"][name].items())
+    out["count"], out["step"] = state["opt"]["count"], state["step"]
+    return out
+
+
+def donated_step_check(cfg=None, device="cuda", seq=FAMILY_TRAIN_SEQ):
+    """``make_train_step(..., donate=True)`` against the out-of-place step
+    on the card (on the CPU, a rehearsal on the plain versions): from one
+    state a step old (its moments not zero), one step each way on the
+    same batch; the donated step returns the state it was given, every
+    tensor in its own storage, and every weight, moment, the count and
+    the step equal the out-of-place step's (``torch.equal``), as do the
+    metrics. The attention runs on its Hopper bodies and no plain version
+    is called, so that an update the card fused or contracted differently
+    in place would show. Raises on a difference."""
+    from repro_torch.accel import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.train.loop import (TrainConfig, make_train_step,
+                                        train_state_init)
+
+    on_card = torch.device(device).type == "cuda"
+    if cfg is None:
+        base = get_config(MOE_ARCH)
+        cfg = dataclasses.replace(
+            base, arch_id=f"{base.arch_id}-{DONATE_LAYERS}layer",
+            n_layers=DONATE_LAYERS)
+    tag = "donated step"
+    tc = TrainConfig(microbatches=2, remat="full")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(FAMILY_TRAIN_SEED)
+    plain = train_plain_calls()
+    before = dict(K.launches)
+    with plain:
+        state = train_state_init(cfg, gen, tc, device=device)
+        batches = [family_train_batch(cfg, s, 2, seq, device)
+                   for s in range(2)]
+        step = make_train_step(cfg, tc)
+        state, _m = step(state, batches[0])
+        twin = dict(state)
+        twin["params"] = L.tree_from_leaves(
+            state["params"], {k: t.detach().clone() for k, t in
+                              L.tree_leaves(state["params"]).items()},
+            trainable=True)
+        twin["opt"] = {"m": {k: t.clone() for k, t in
+                             state["opt"]["m"].items()},
+                       "v": {k: t.clone() for k, t in
+                             state["opt"]["v"].items()},
+                       "count": state["opt"]["count"].clone()}
+        twin["step"] = state["step"].clone()
+        ptrs = {k: t.data_ptr() for k, t in _state_tensors(twin).items()}
+        new, metrics = step(state, batches[1])
+        got, got_metrics = make_train_step(cfg, tc, donate=True)(
+            twin, batches[1])
+        _sync(device)
+    made = {k: K.launches[k] - before.get(k, 0) for k in K.launches}
+    per_call = train_launches(cfg, tc.remat, on_card, seq)
+    want = {k: v * 2 * 3 for k, v in per_call.items()}
+    mine = _state_tensors(got)
+    theirs = _state_tensors(new)
+    moved = [k for k, t in mine.items() if t.data_ptr() != ptrs[k]]
+    differ = [k for k, t in theirs.items() if not torch.equal(mine[k], t)]
+    differ += [k for k, v in metrics.items()
+               if not torch.equal(got_metrics[k], v)]
+    n_params = sum(t.numel() for t in got["params"].parameters())
+    print(f"{tag}: {cfg.arch_id} ({n_params} parameters), 2 microbatches "
+          f"of 1 x {seq} tokens, remat 'full': the donated step "
+          f"{'returned' if got is twin else 'did not return'} the state it "
+          f"was given; tensors not in their own storage "
+          f"{moved}; tensors and metrics differing from the out-of-place "
+          f"step's {differ} (of {len(theirs)} tensors: weights, moments, "
+          f"count, step); grad_norm {float(metrics['grad_norm'])!r}; "
+          f"launches {({k: made[k] for k in per_call})} (expected {want}); "
+          f"plain-version calls {plain.calls}", flush=True)
+    if got is not twin or moved or differ:
+        raise RuntimeError(f"{tag}: not the out-of-place step in place: "
+                           f"moved {moved}, differ {differ}")
+    if {k: made[k] for k in per_call} != want:
+        raise RuntimeError(f"{tag}: launches {made}, expected {want}")
+    if on_card and any(plain.calls.values()):
+        raise RuntimeError(f"{tag}: plain versions called on the card: "
+                           f"{plain.calls}")
+    del state, twin, new, got, batches
+    _free()
 
 
 # ---------------------------------------------------------------------------
@@ -7645,6 +7888,8 @@ def main() -> int:
         for name in K.build():
             K.library(name)
         counts = family_train_path(sys.argv[2])
+        if sys.argv[2] == "hybrid":
+            donated_step_check()
         print(FAMILY_TRAIN_COUNTS + json.dumps(counts), flush=True)
         return 0
     if sys.argv[1:2] == ["--train"]:
@@ -7745,6 +7990,8 @@ def main() -> int:
                     for name in ("audio", "vlm")}
     family_train["moe"] = phase("moe training", family_train_child, "moe")
     family_train["ssm"] = phase("ssm training", family_train_child, "ssm")
+    family_train["hybrid"] = phase("hybrid training", family_train_child,
+                                   "hybrid")
     launches["reap"] += predict["policy"]["reap"]
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -7767,9 +8014,10 @@ def main() -> int:
             counts["decode_combine"]
     # the family training paths' launches, each its own run
     for name, counts in family_train.items():
-        if name == "ssm":
-            rows["ssd"].update((f"ssm_train_{k}_launches", counts[k])
+        if name in ("ssm", "hybrid"):
+            rows["ssd"].update((f"{name}_train_{k}_launches", counts[k])
                                for k in K.SSD_TC_KEYS)
+        if name == "ssm":
             continue
         for row, keys in (("flash_fwd", ("flash_fwd", "flash_fwd_tc")),
                           ("flash_dkv", ("flash_dkv", "flash_dkv_tc",

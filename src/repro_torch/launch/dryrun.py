@@ -33,9 +33,12 @@ What a record holds (the reference's keys):
   all-gather) as in the reference's ``collect_collectives``;
   ``bytes_by_op``, ``counts``, ``total_bytes``;
 - ``memory``: ``argument_bytes`` (the local shards of the step's
-  arguments), ``output_bytes`` (of its outputs; tensors updated in place,
-  the decode cache, also count in ``alias_bytes``), ``temp_bytes``: the
-  peak of the bytes the step's own ops held live beyond its arguments
+  arguments), ``output_bytes`` (of its outputs; the donated arguments,
+  updated in place and returned, the train state and the decode cache,
+  also count in ``alias_bytes``, as the reference's ``donate_argnums``
+  makes XLA count them), ``temp_bytes``: the peak of the bytes the
+  step's own ops held live beyond its arguments (a write into a donated
+  argument allocates nothing)
   (``torch.distributed._tools.mem_tracker.MemTracker`` is not used: it
   needs modules; the local ops' outputs are tracked by storage instead),
   ``code_bytes`` 0 (nothing is compiled);
@@ -114,11 +117,13 @@ def _tensors(x):
             yield from _tensors(y)
 
 
-def _local_counter():
+def _local_counter(donated=()):
     """A dispatch mode over the ranks' local ops (DTensor runs first and
     desugars each op into local ops and collectives, which the mode then
     sees, as ``CommDebugMode`` does): FLOPs, bytes accessed, collective
-    bytes and the live bytes of the outputs the step creates."""
+    bytes and the live bytes of the outputs the step creates. The local
+    storage of every tensor of ``donated`` (the arguments updated in
+    place) counts as held already: a write into it allocates nothing."""
     from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils.flop_counter import flop_registry
@@ -132,7 +137,9 @@ def _local_counter():
             self.coll_counts: Dict[str, int] = {}
             self.live = 0
             self.peak = 0
-            self._seen = weakref.WeakSet()
+            self._seen = weakref.WeakSet(
+                (t.to_local() if isinstance(t, DTensor) else t
+                 ).untyped_storage() for t in _tensors(donated))
 
         def _track(self, out):
             for t in _tensors(out):
@@ -205,14 +212,16 @@ def build_cell(cfg, shape, mesh, tc: TrainConfig):
     come from the ACTIVE context (``run_cell``'s ``use_mesh`` may override
     them: the perf harness drives exactly that)."""
     param_rules, act_rules = SH._current_rules()
+    # Donation, as the reference's: the train state and the decode KV
+    # cache are updated in place, and count in ``alias_bytes``.
     if shape.kind == "train":
-        fn = make_train_step(cfg, tc)
+        fn = make_train_step(cfg, tc, donate=True)
         state = distribute(train_state_shapes(cfg, tc),
                            train_state_axes(cfg, tc), mesh, param_rules)
         state["params"] = L.ParamTree(state["params"], trainable=True)
         batch = distribute(input_specs(cfg, shape), input_axes(cfg, shape),
                            mesh, act_rules)
-        return fn, (state, batch), ()
+        return fn, (state, batch), (0,)
     if param_rules is SH.PARAM_RULES:
         # serving default: no FSDP re-gathers per token
         param_rules = SH.SERVE_PARAM_RULES
@@ -294,11 +303,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         fn, args, in_place = build_cell(cfg, shape, mesh, tc)
         t_build = time.time() - t0
         arg_bytes = local_bytes(args)
+        donated = [args[i] for i in in_place]
         # twice, the second counted: the first fills DTensor's caches
         # (sharding propagation, redistribution plans, the buffers they
-        # keep), which would count in its peak and its ops
+        # keep), which would count in its peak and its ops. A donated
+        # state is updated by both runs: on ``meta`` tensors there are no
+        # values to change, only the same shapes and layouts
         for _ in range(2):
-            counter, last = _local_counter(), _op_tracker()
+            counter, last = _local_counter(donated), _op_tracker()
             gc.collect()
             gc.disable()   # frees by reference count only: the same peak
             try:           # on every run (a collection's timing varies)
@@ -315,7 +327,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                 gc.enable()
         t_run = time.time() - t0 - t_build
     out_bytes = local_bytes(out)
-    alias = local_bytes([args[i] for i in in_place])
+    alias = local_bytes(donated)
     n_total, n_active = cfg.param_counts()
     coll = counter.coll_bytes
     record.update({

@@ -43,21 +43,33 @@ def ef_int8_decompress(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def error_feedback_step(grads: Tree, ef_state: Tree
-                        ) -> Tuple[Dict[str, torch.Tensor],
-                                   Dict[str, torch.Tensor]]:
-    """Returns (compressed-then-decompressed grads, new ef_state)."""
-    corrected = {k: g.float() + ef_state[k] for k, g in grads.items()}
+def error_feedback_step_(grads: Tree, ef_state: Tree
+                         ) -> Dict[str, torch.Tensor]:
+    """The corrected gradients are summed into ``ef_state`` and the new
+    residual left there. Returns the compressed-then-decompressed
+    grads."""
+    for k, g in grads.items():
+        ef_state[k].add_(g.float())
     peaks: Dict[str, torch.Tensor] = {}
-    for k, c in corrected.items():
+    for k in grads:
         stacked = _LAYER.sub("layers/", k)
-        m = c.abs().max()
+        m = ef_state[k].abs().max()
         peaks[stacked] = m if stacked not in peaks else \
             torch.maximum(peaks[stacked], m)
-    new_g, new_e = {}, {}
-    for k, c in corrected.items():
+    new_g = {}
+    for k in grads:
+        c = ef_state[k]
         q, s = ef_int8_compress(c, peaks[_LAYER.sub("layers/", k)])
         deq = ef_int8_decompress(q, s)
         new_g[k] = deq.to(grads[k].dtype)
-        new_e[k] = c - deq
-    return new_g, new_e
+        c.sub_(deq)
+    return new_g
+
+
+def error_feedback_step(grads: Tree, ef_state: Tree
+                        ) -> Tuple[Dict[str, torch.Tensor],
+                                   Dict[str, torch.Tensor]]:
+    """Returns (compressed-then-decompressed grads, new ef_state):
+    :func:`error_feedback_step_` on a copy of ``ef_state``."""
+    new_e = {k: t.clone() for k, t in ef_state.items()}
+    return error_feedback_step_(grads, new_e), new_e

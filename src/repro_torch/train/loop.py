@@ -38,8 +38,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import model as MODEL
-from repro_torch.optim.adamw import adamw_init, adamw_update
-from repro_torch.optim.compress import ef_state_init, error_feedback_step
+from repro_torch.optim.adamw import adamw_init, adamw_update, adamw_update_
+from repro_torch.optim.compress import (ef_state_init, error_feedback_step,
+                                        error_feedback_step_)
 from repro_torch.parallel.sharding import is_dtensor
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +168,14 @@ def make_grad_fn(cfg: ModelConfig, tc: TrainConfig):
     return grad_fn
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig):
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, donate: bool = False):
+    """``train_step(state, batch) -> (state, metrics)``. Out of place by
+    default: the state given is left as it was. ``donate``: the state
+    given is the one returned, its weights, moments, count, step (and
+    compression residual) overwritten in their own storage with the same
+    bits (:func:`~repro_torch.optim.adamw.adamw_update_`), the
+    counterpart of the reference's step jitted with ``donate_argnums=
+    (0,)``: no second copy of the state is held."""
     grad_fn = make_grad_fn(cfg, tc)
     n = tc.microbatches
 
@@ -203,21 +211,29 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         else:
             grads, metrics = grad_fn(params, batch)
 
+        opt_kw = dict(lr=tc.lr(), b1=tc.b1, b2=tc.b2,
+                      weight_decay=tc.weight_decay,
+                      grad_clip_norm=tc.grad_clip_norm)
+        metrics = dict(metrics)
+        if donate:
+            if tc.grad_compression:
+                grads = error_feedback_step_(grads, state["ef"])
+            metrics.update(adamw_update_(grads, state["opt"],
+                                         L.tree_leaves(params), **opt_kw))
+            state["step"].add_(1)
+            return state, metrics
+
         new_state = dict(state)
         if tc.grad_compression:
             grads, new_ef = error_feedback_step(grads, state["ef"])
             new_state["ef"] = new_ef
 
         new_leaves, new_opt, opt_metrics = adamw_update(
-            grads, state["opt"], L.tree_leaves(params),
-            lr=tc.lr(), b1=tc.b1, b2=tc.b2,
-            weight_decay=tc.weight_decay,
-            grad_clip_norm=tc.grad_clip_norm)
+            grads, state["opt"], L.tree_leaves(params), **opt_kw)
         new_state["params"] = L.tree_from_leaves(params, new_leaves,
                                                  trainable=True)
         new_state["opt"] = new_opt
         new_state["step"] = state["step"] + 1
-        metrics = dict(metrics)
         metrics.update(opt_metrics)
         return new_state, metrics
 

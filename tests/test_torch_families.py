@@ -110,13 +110,19 @@ def test_family_replay_catches_a_served_cache_fault(name, monkeypatch):
 
 
 def test_family_configs_at_full_width():
-    """The card's configurations: moonshot, hubert and internvl2 as the
-    registry has them; jamba cut to one block of 8 layers with 4 experts
-    (16.26 B parameters, 32.5 GB in bf16), every width kept."""
+    """The card's configurations: hubert and internvl2 as the registry
+    has them; moonshot cut to its first 16 layers (9.80 B parameters) and
+    jamba to one block of 8 layers with 4 experts (16.26 B parameters,
+    32.5 GB in bf16), every width kept."""
     cs = _chip_smoke()
-    for name, arch in (("moe", "moonshot-v1-16b-a3b"),
-                       ("audio", "hubert-xlarge"), ("vlm", "internvl2-2b")):
+    for name, arch in (("audio", "hubert-xlarge"), ("vlm", "internvl2-2b")):
         assert cs.family_config(name) == get_config(arch)
+    moe = cs.family_config("moe")
+    assert moe.n_layers == cs.MOE_SERVE_LAYERS == 16
+    assert dataclasses.replace(
+        moe, arch_id="moonshot-v1-16b-a3b",
+        n_layers=48) == get_config("moonshot-v1-16b-a3b")
+    assert round(moe.param_counts()[0] / 1e9, 2) == 9.80
     full = get_config("jamba-1.5-large-398b")
     cut = cs.family_config("hybrid")
     assert cut.n_layers == cut.hybrid.block_len == 8

@@ -158,6 +158,8 @@ PORT_CHILD = textwrap.dedent("""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun as DR, mesh as MH
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train.loop import TrainConfig
     cells, shapes = json.loads(sys.argv[1]), json.loads(sys.argv[2])
     MH.fake_world(8)
     mesh = MH.make_mesh((2, 4), ("data", "model"), device_type="cpu")
@@ -169,7 +171,15 @@ PORT_CHILD = textwrap.dedent("""
         try:
             rec = DR.run_cell(arch, name, False, mesh=mesh, cfg=cfg,
                               shape=shape, save=False)
+            with SH.use_mesh(mesh):
+                _fn, args, donated = DR.build_cell(
+                    cfg, shape, mesh, TrainConfig(remat="full", impl="ref"))
             out[fam] = {"args": rec["memory"]["argument_bytes"],
+                        "alias": rec["memory"]["alias_bytes"],
+                        "donated": DR.local_bytes([args[i]
+                                                   for i in donated]),
+                        "state": DR.local_bytes(args[0])
+                        if kind == "train" else None,
                         "flops": rec["flops_global"],
                         "flops_dev": rec["flops_per_device"],
                         "coll": rec["collectives"]["total_bytes"],
@@ -216,7 +226,8 @@ REF_CHILD = textwrap.dedent("""
                               donate_argnums=donate,
                               keep_unused=True).lower(*args)
         mem = lowered.compile().memory_analysis()
-        out[fam] = mem.argument_size_in_bytes
+        out[fam] = {"args": mem.argument_size_in_bytes,
+                    "alias": mem.alias_size_in_bytes}
     print(json.dumps(out))
 """)
 
@@ -258,7 +269,19 @@ def test_dry_run_cells_match_the_reference():
 
     port, ref = _children(PORT_CHILD, REF_CHILD)
     for fam, arch, kind in CELLS:
-        assert port[fam]["args"] == ref[fam], (fam, port[fam], ref[fam])
+        assert port[fam]["args"] == ref[fam]["args"], (fam, port[fam],
+                                                       ref[fam])
+    for fam, _arch, kind in CELLS:
+        # the donated arguments alias: a train cell's whole state, as the
+        # reference's (XLA aliases each of its buffers to the new state),
+        # a decode cell's cache, a prefill cell's nothing
+        rec = port[fam]
+        assert rec["alias"] == rec["donated"], (fam, rec)
+        if kind == "train":
+            assert rec["alias"] == rec["state"] == ref[fam]["alias"] > 0, (
+                fam, rec, ref[fam])
+        elif kind == "prefill":
+            assert rec["alias"] == ref[fam]["alias"] == 0, (fam, rec)
     for fam, _arch, _kind in CELLS:
         rec = port[fam]
         assert "failed" not in rec, (fam, rec)

@@ -9,7 +9,9 @@ about 20 s. A run that raises (a wedged step) re-raises with every host
 and heartbeat thread joined. The family training paths (audio, vlm, moe)
 at their reduced configurations: the checks, the launch bookkeeping and
 the steps, a few seconds each; the ssm path on a narrow bf16 Mamba2, so
-that the leaves bf16 cannot move show.
+that the leaves bf16 cannot move show; the hybrid path on the card's
+jamba cut at narrow widths, and the donated step's check on a narrow
+one-layer moonshot.
 """
 import dataclasses
 import sys
@@ -146,3 +148,61 @@ def test_chip_smoke_ssm_train_path_rehearses_on_cpu(chip_smoke, capsys):
                  "layers/*/mixer/D", "layers/*/mixer/gate_norm"):
         assert f"'{kind}': (" in line, kind
     assert line.count("': (") == 4
+
+
+def _narrow_hybrid(chip_smoke):
+    """The card's jamba cut (one block of 2 layers, 2 experts top-2) at
+    narrow widths in bf16: d_model 128, 4/1 heads of 32, d_ff 256, vocab
+    1,000, SSD head_dim 32, d_state 32, 2 groups, chunk 16."""
+    cfg = chip_smoke.hybrid_train_config()
+    r = dataclasses.replace
+    return r(cfg, d_model=128, n_heads=4, n_kv_heads=1, head_dim=32,
+             d_ff=256, vocab_size=1000,
+             moe=r(cfg.moe, d_ff_expert=256),
+             ssm=r(cfg.ssm, head_dim=32, d_state=32, n_groups=2,
+                   chunk_size=16))
+
+
+def test_chip_smoke_hybrid_train_path_rehearses_on_cpu(chip_smoke, capsys):
+    """The hybrid training path on the plain versions, on the card's
+    2-layer jamba cut at narrow widths in bf16, donated: the f32 stream
+    (the block layer by layer) gives forward's loss, the layer-by-layer
+    gate passes and its probe (B8's dq zeroed) fails it, the same bits
+    twice, B6-B8's and B10's plain versions called and no launch counted,
+    the memory budget printed, and exactly the norm scales, D and
+    gate_norm (all 1.0) left unmoved by bf16 AdamW."""
+    cfg = _narrow_hybrid(chip_smoke)
+    counts = chip_smoke.family_train_path("hybrid", cfg, device="cpu",
+                                          steps=2, seq=64)
+    assert not any(counts.values())
+    out = capsys.readouterr().out
+    assert "hybrid train: memory budget of a donated step" in out
+    assert "hybrid train checks: the f32 stream's loss" in out
+    assert "hybrid train checks: step 0 loss" in out
+    assert "layer by layer on the f32 stream, flipped tokens left out" \
+        in out
+    assert "the probe (B8's dq zeroed) 1.0" in out
+    assert "leaves differing between two runs []" in out
+    for plain in ("flash_attention_plain", "flash_attention_dkv_plain",
+                  "flash_attention_dq_plain", "ssd_plain"):
+        assert f"{plain}': 0" not in out, plain
+    assert "AdamW count 3 after 3 steps" in out
+    line = next(x for x in out.splitlines() if "leaves unchanged" in x)
+    for kind in ("final_norm/scale", "blocks/*/lns/*/ln1/scale",
+                 "blocks/*/lns/*/ln2/scale", "blocks/*/mamba/*/D",
+                 "blocks/*/mamba/*/gate_norm"):
+        assert f"'{kind}': (" in line, kind
+    assert line.count("': (") == 5
+
+
+def test_chip_smoke_donated_step_check_rehearses_on_cpu(chip_smoke, capsys):
+    """The donated step's check on a narrow one-layer moonshot on the
+    plain versions: the state given is the one returned, in its own
+    storage, with the out-of-place step's bits."""
+    base = reduced_config(get_config("moonshot-v1-16b-a3b"))
+    cfg = dataclasses.replace(base, n_layers=1)
+    chip_smoke.donated_step_check(cfg, device="cpu", seq=32)
+    out = capsys.readouterr().out
+    assert "the donated step returned the state it was given; tensors " \
+        "not in their own storage []; tensors and metrics differing " \
+        "from the out-of-place step's []" in out

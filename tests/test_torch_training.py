@@ -29,15 +29,17 @@ block at narrow widths (hybrid: Mamba, attention and MoE layers).
    compression off and on, from a carried reference state. Adam's first
    step is about ``lr · g/|g|``, so a gradient within rounding of zero
    may take either sign: every weight is within 2.5·lr of the
-   reference's, and all but 1 % within 1e-5; the first moments within
-   1e-5 of their largest entry (under compression, a rare entry on a
-   rounding boundary of its int8 grid may be one quantum apart).
-   Four families above take a 2-microbatch step too, the ssm one also
-   under ``remat="full"``. The hybrid's loss and gradients are held to
-   the reference's (1.), not its step: its Mamba leaves' float32
-   gradients (A_log, conv_w, gate_norm) lie 1.1-1.9e-5 of the leaf's
-   largest entry from a float64 evaluation in the reference itself, above
-   the step's 1e-5 on the first moments.
+   reference's, and all but 1 % within 1e-5. The first moments are held
+   to a float64 evaluation of the port's plain path, within 1e-5 of the
+   leaf's largest entry or 1.5 times the reference's own distance to it,
+   whichever is larger: two float32 evaluations of a Mamba leaf lie up
+   to 1.9e-5 apart, on either side of float64 (under compression, a
+   rare entry on a rounding boundary of its int8 grid may be one
+   quantum from the reference's). The other families take a
+   2-microbatch step too, the ssm one also under ``remat="full"``, the
+   hybrid as one 8-layer block and as the card's 2-layer cut. The
+   donated step (``donate=True``) gives the out-of-place step's bits in
+   the given state's storage.
 4. **Remat and state** — ``remat="full"``, ``"dots"`` and
    ``"dots_no_batch"`` give ``"none"``'s loss and gradients, and the
    reference's under the same policy; the products each ``"dots"``
@@ -69,6 +71,17 @@ from repro_torch.optim import schedule as PSCHED
 from repro_torch.train import loop as PLOOP
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the models are tiny, and a step of the narrow
+    hybrid took 30 times longer on 8 threads than on one when other
+    processes held the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _gqa4(cfg):
     return dataclasses.replace(cfg, arch_id="qwen3-8b-gqa4-smoke",
                                n_layers=4, d_model=128, n_heads=8,
@@ -87,6 +100,17 @@ def _hybrid(cfg):
                    chunk_size=16))
 
 
+def _hybrid2(cfg):
+    """The card's jamba cut at the same narrow widths: one block of 2
+    layers, a Mamba-2 layer with the dense FFN, then attention with a
+    2-expert top-2 MoE."""
+    r = dataclasses.replace
+    cfg = _hybrid(cfg)
+    return r(cfg, arch_id=f"{cfg.arch_id}-2layers", n_layers=2,
+             moe=r(cfg.moe, n_experts=2, top_k=2),
+             hybrid=r(cfg.hybrid, block_len=2, attn_index=1))
+
+
 CONFIGS = {
     "qwen1.5-0.5b": ("qwen1.5-0.5b", None),
     "qwen3-8b-mqa": ("qwen3-8b", None),
@@ -96,6 +120,7 @@ CONFIGS = {
     "moonshot-v1-16b-a3b": ("moonshot-v1-16b-a3b", None),
     "mamba2-2.7b": ("mamba2-2.7b", None),
     "jamba-1.5-large-398b": ("jamba-1.5-large-398b", _hybrid),
+    "jamba-2layers": ("jamba-1.5-large-398b", _hybrid2),
 }
 # the configurations of the per-model tests below (the ssm and hybrid
 # ones take only the family and gradient cases: each is a few times
@@ -103,7 +128,7 @@ CONFIGS = {
 MODELS = ("qwen1.5-0.5b", "qwen3-8b-mqa", "qwen3-8b-gqa4", "hubert-xlarge",
           "internvl2-2b", "moonshot-v1-16b-a3b")
 FAMILIES = ("hubert-xlarge", "internvl2-2b", "moonshot-v1-16b-a3b",
-            "mamba2-2.7b")
+            "mamba2-2.7b", "jamba-1.5-large-398b", "jamba-2layers")
 
 
 def _configs(name):
@@ -349,15 +374,16 @@ def test_train_step_matches_reference(microbatches, compression):
     nb = _batch(4, pcfg, 4, 24)
     rnew, rmet = jax.jit(RLOOP.make_train_step(rcfg, rtc))(rstate, _jax(nb))
     pnew, pmet = PLOOP.make_train_step(pcfg, ptc)(pstate, _torch(nb))
-    _check_step(pcfg, rstate, pstate, rnew, rmet, pnew, pmet, compression)
+    _check_step(pcfg, ptc, rstate, pstate, nb, rnew, rmet, pnew, pmet)
 
 
 @pytest.mark.parametrize("name", FAMILIES)
 def test_family_train_step_matches_reference(name):
     """One ``make_train_step`` of 2 microbatches (the audio and vlm
     families' ``feats`` split with their labels; the MoE aux loss in the
-    loss; the ssm family's SSD through ``SSDFunction``, B10's plain
-    version forward and the oracle's autograd backward) from a carried
+    loss; the ssm and hybrid families' SSD through ``SSDFunction``, B10's
+    plain version forward and the oracle's autograd backward; the hybrid
+    as one 8-layer block and as the card's 2-layer cut) from a carried
     reference state, against the reference's."""
     _check_family_step(name, "none")
 
@@ -381,10 +407,183 @@ def _check_family_step(name, remat):
     pnew, pmet = PLOOP.make_train_step(pcfg, ptc)(pstate, _torch(nb))
     np.testing.assert_allclose(float(pmet["moe_aux"]),
                                float(rmet["moe_aux"]), rtol=2e-4)
-    _check_step(pcfg, rstate, pstate, rnew, rmet, pnew, pmet, False)
+    _check_step(pcfg, ptc, rstate, pstate, nb, rnew, rmet, pnew, pmet)
 
 
-def _check_step(pcfg, rstate, pstate, rnew, rmet, pnew, pmet, compression):
+def _state_tensors(state):
+    """Every tensor of a train state by name: the weights, the moments,
+    the compression residual, the count and the step."""
+    out = {f"params/{k}": t for k, t in L.tree_leaves(state["params"]).items()}
+    for name in ("m", "v"):
+        out.update((f"{name}/{k}", t) for k, t in state["opt"][name].items())
+    out.update((f"ef/{k}", t) for k, t in state.get("ef", {}).items())
+    out["count"], out["step"] = state["opt"]["count"], state["step"]
+    return out
+
+
+def _clone_state(state):
+    state = dict(state)
+    leaves = {k: t.detach().clone()
+              for k, t in L.tree_leaves(state["params"]).items()}
+    state["params"] = L.tree_from_leaves(state["params"], leaves,
+                                         trainable=True)
+    state["opt"] = {"m": {k: t.clone() for k, t in state["opt"]["m"].items()},
+                    "v": {k: t.clone() for k, t in state["opt"]["v"].items()},
+                    "count": state["opt"]["count"].clone()}
+    if "ef" in state:
+        state["ef"] = {k: t.clone() for k, t in state["ef"].items()}
+    state["step"] = state["step"].clone()
+    return state
+
+
+@pytest.mark.parametrize("name,compression", [
+    ("qwen1.5-0.5b", False), ("qwen1.5-0.5b", True),
+    ("moonshot-v1-16b-a3b", False), ("mamba2-2.7b", False),
+    ("jamba-1.5-large-398b", False), ("jamba-2layers", False)])
+def test_donated_step_equals_out_of_place(name, compression):
+    """``make_train_step(..., donate=True)`` from a state one step old
+    (moments, residual and count not zero): the state it returns is the
+    one it was given, every tensor in its own storage, with the
+    out-of-place step's bits and metrics; the out-of-place step leaves
+    its carried state as it was."""
+    _rcfg, pcfg = _configs(name)
+    tc = PLOOP.TrainConfig(microbatches=2, grad_compression=compression,
+                           learning_rate=LR)
+    step = PLOOP.make_train_step(pcfg, tc)
+    batches = [_torch(_batch(seed, pcfg, 4, 24)) for seed in (5, 6)]
+    state, _m = step(PLOOP.train_state_init(pcfg, 7, tc, device="cpu"),
+                     batches[0])
+    before = {k: t.clone() for k, t in _state_tensors(state).items()}
+    donated = _clone_state(state)
+    ptrs = {k: t.data_ptr() for k, t in _state_tensors(donated).items()}
+
+    new, metrics = step(state, batches[1])
+    got, got_metrics = PLOOP.make_train_step(pcfg, tc, donate=True)(
+        donated, batches[1])
+    assert got is donated
+    tensors = _state_tensors(got)
+    assert {k: t.data_ptr() for k, t in tensors.items()} == ptrs
+    want = _state_tensors(new)
+    assert list(tensors) == list(want)
+    for k, t in want.items():
+        assert t.dtype == tensors[k].dtype and torch.equal(tensors[k], t), k
+        assert not torch.equal(t, before[k]) or k.endswith("/scale") \
+            or "ef/" in k or float(t.abs().max()) == 0, k
+    assert int(got["step"]) == int(got["opt"]["count"]) == 2
+    assert set(got_metrics) == set(metrics)
+    for k, v in metrics.items():
+        assert torch.equal(got_metrics[k], v), k
+    for k, t in _state_tensors(state).items():      # out of place
+        assert torch.equal(t, before[k]), k
+
+
+# The first moments' bar: each leaf of the port's within max(M_TOL of the
+# leaf's largest entry, M_SLACK x the reference's own distance) of a
+# float64 evaluation (:func:`_float64_step`). Two float32 evaluations
+# may lie on either side of float64: the Mamba leaves' A_log of both
+# packages are 6.5e-6 to 9.7e-6 of the leaf's largest entry from it, in
+# opposite directions, so port and reference differ by up to 1.99e-5
+# depending on the host's rounding. Where the reference lies within
+# M_TOL / M_SLACK (6.7e-6) of float64 the bar is M_TOL.
+M_TOL = 1e-5
+M_SLACK = 1.5
+# The float64 evaluation is checked against the reference within
+# M_ORACLE_TOL of each leaf's largest entry, so neither a wrong oracle
+# nor a fault shared by the port's float32 and float64 paths can widen
+# the bar past M_SLACK x M_ORACLE_TOL (4.5e-5). The reference's largest
+# distances to float64 over every case here, as fractions of the leaf's
+# largest entry: the hybrid block's A_log 1.92e-5, mamba2's 1.15e-5
+# (remat "full"), the 2-layer cut's 6.66e-6, moonshot's 4.44e-6, every
+# dense case below 1.8e-6.
+M_ORACLE_TOL = 3e-5
+_NARROW = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _widen(x):
+    return torch.float64 if x in _NARROW else x
+
+
+class _Float64(torch.utils._python_dispatch.TorchDispatchMode):
+    """Every op asked for a narrower floating type (``x.float()``,
+    ``torch.zeros(..., dtype=torch.float32)``, the float32 casts of the
+    norms and the SSD oracle) gets float64; a constant made as a float32
+    tensor (AdamW's learning rate) is lifted as float64."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        args, kwargs = torch.utils._pytree.tree_map(
+            _widen, (args, kwargs or {}))
+        if func in (torch.ops.aten.lift_fresh.default,
+                    torch.ops.aten.lift_fresh_copy.default) \
+                and args[0].dtype in _NARROW:
+            args = (args[0].to(torch.float64),)
+        return func(*args, **kwargs)
+
+
+class _FloatTypes(torch.utils._python_dispatch.TorchDispatchMode):
+    """The floating types of every op's outputs, as the dispatcher sees
+    them (under :class:`_Float64`: after it)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor) and t.is_floating_point():
+                self.seen.add((t.dtype, str(func)))
+        return out
+
+
+def _float64_step(pcfg, ptc, rstate, nb):
+    """The port's plain train step (``impl="ref"``) on the CPU in
+    float64: the reference's carried state and the batch as float64, and
+    every op in float64 (:class:`_Float64`). Returns (the new state, the
+    floating types the forward and backward produced)."""
+    state = from_jax_train_state(pcfg, jax.tree.map(np.asarray, rstate),
+                                 device="cpu")
+    leaves = {k: t.detach().double()
+              for k, t in L.tree_leaves(state["params"]).items()}
+    state["params"] = L.tree_from_leaves(state["params"], leaves,
+                                         trainable=True)
+    for name in ("m", "v"):
+        state["opt"][name] = {k: t.double()
+                              for k, t in state["opt"][name].items()}
+    batch = {k: t.double() if t.is_floating_point() else t
+             for k, t in _torch(nb).items()}
+    tc = dataclasses.replace(ptc, impl="ref", remat="none")
+    types = _FloatTypes()
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        with types, _Float64():
+            new, _metrics = PLOOP.make_train_step(pcfg, tc)(state, batch)
+    finally:
+        torch.set_default_dtype(default)
+    return new, types.seen
+
+
+def _moment_errors(m_got, m_f64, m_ref):
+    """{leaf: (max |got - f64|, the bar, max |ref - f64|, peak)}."""
+    out = {}
+    for k, w in m_f64.items():
+        w = w.numpy()
+        peak = float(np.abs(w).max())
+        ref_err = float(np.abs(m_ref[k].double().numpy() - w).max())
+        err = float(np.abs(m_got[k].double().numpy() - w).max())
+        out[k] = (err, max(M_TOL * peak, M_SLACK * ref_err), ref_err, peak)
+    return out
+
+
+def _check_moments(m_got, m_f64, m_ref):
+    assert list(m_got) == list(m_f64) == list(m_ref)
+    for k, (err, bar, ref_err, peak) in _moment_errors(
+            m_got, m_f64, m_ref).items():
+        assert ref_err <= M_ORACLE_TOL * peak, (k, ref_err, peak)
+        assert err <= bar, (k, err, bar, peak)
+
+
+def _check_step(pcfg, ptc, rstate, pstate, nb, rnew, rmet, pnew, pmet):
     """The port's step (``pnew``, ``pmet``) against the reference's."""
     np.testing.assert_allclose(float(pmet["loss"]), float(rmet["loss"]),
                                rtol=2e-4)
@@ -400,8 +599,20 @@ def _check_step(pcfg, rstate, pstate, rnew, rmet, pnew, pmet, compression):
     assert (diff > 1e-5).mean() < 0.01, (diff > 1e-5).mean()
     m_got = pnew["opt"]["m"]
     m_want = _port_leaves(pcfg, rnew["opt"]["m"])
-    if not compression:
-        _close_leaves(m_got, m_want, 1e-5)
+    if not ptc.grad_compression:
+        new64, types = _float64_step(pcfg, ptc, rstate, nb)
+        assert {t for t, _op in types} == {torch.float64}, sorted(
+            (str(t), op) for t, op in types if t != torch.float64)[:5]
+        m_f64 = new64["opt"]["m"]
+        _check_moments(m_got, m_f64, m_want)
+        probe = [k for k in m_got if k.endswith("A_log")]
+        if probe:
+            # the probe: the port's A_log gradients scaled by 1 + 1e-3
+            # (at a fixed clip, its first moments) must fail the bar
+            scaled = dict(m_got)
+            scaled.update({k: m_got[k] * (1 + 1e-3) for k in probe})
+            with pytest.raises(AssertionError):
+                _check_moments(scaled, m_f64, m_want)
     else:
         # A gradient entry within rounding of a .5 step of its int8 grid
         # may round either way: one quantum, max|m| / 127 (the largest
@@ -416,6 +627,10 @@ def _check_step(pcfg, rstate, pstate, rnew, rmet, pnew, pmet, compression):
                                  device="cpu")
     for k, t in L.tree_leaves(again["params"]).items():
         assert torch.equal(L.tree_leaves(pstate["params"])[k], t)
+    for name in ("m", "v"):
+        for k, t in again["opt"][name].items():
+            assert torch.equal(pstate["opt"][name][k], t), (name, k)
+    assert int(pstate["step"]) == int(pstate["opt"]["count"]) == 0
 
 
 # ---------------------------------------------------------------------------
