@@ -113,7 +113,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    edges ±1 and at the cache size; for B6's Hopper body sq, sk of 127,
    128 and 129, a q_offset off its 128-row tile, a window crossing a
    tile; for B9's split-KV body valid lengths at its 128-key split edges
-   ±1, a ragged last split, groups of 48 and 64, head_dim 16; B6 at
+   ±1, a ragged last split, groups of 48 and 64, head_dim 16; B6 and B9
+   at the quickstart twins' head_dim 16 layouts (groups 1, 2 and 4, 2 x
+   32 tokens, a 64-slot cache) and B6 at train_lm ``--full``'s; B6 at
    head_dim 80, causal and not, on its Hopper body in bf16 and its SIMT
    body in f32; B9 at head_dim 80 at split and tile edges), within the
    tolerances of ``tests/test_kernels.py`` (bf16 2e-2, f32 2e-5; lse
@@ -153,11 +155,12 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 11. Attention backward: B7 (dK, dV) and B8 (dQ) against
    their plain versions on the card in bf16 and f32 on boundary inputs
    (causal or not, windows, sq < sk, ragged tiles, groups 1, 4 and 8,
-   head_dim 32, 64, 80 and 128; bf16 2e-2, f32 2e-5), each launched twice
+   head_dim 16, 32, 64, 80 and 128, the examples' layouts among them;
+   bf16 2e-2, f32 2e-5), each launched twice
    with byte-identical results and counted on the body its inputs take
    (``flash_dkv_tc``/``flash_dq_tc`` for bf16 at head_dim 64/80/128, one
    ``flash_dkv_group_sum`` per such B7 launch with a group above 1; f32
-   at every head_dim and bf16 at 32 on the SIMT bodies), the
+   at every head_dim and bf16 at 16 and 32 on the SIMT bodies), the
    f32 gradient of the op against autograd of the oracle (1e-3); then at
    Qwen1.5-0.5B's layer shape (no group sum), Qwen3-8B's head layout
    (one group sum per B7 launch) and hubert-xlarge's training layer (b 2,
@@ -170,6 +173,30 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    yardstick only) by CUDA events and by device time, and the port's
    whole backward (``bwd_delta``, B7, B8) beside that yardstick by device
    time.
+11a. The ``examples/`` drivers, in a fresh child process (``--examples
+   CKPT``, CKPT the predictor phase's card-trained checkpoint, kept until
+   this phase ends), each through its ``main(argv)`` with its output
+   captured and the launch counts read around each run: cluster_sim_torch
+   on the card against ``--device cpu --assess-backend numpy`` (flat with
+   ``--trace``, topo, fair on 4 racks, ``--sweep 64 --policy predictor
+   --model CKPT``): every line the same but the walls, the two traces
+   the same bytes, B1–B4 (and the sweep's batched B1/B3/B4) launched;
+   train_lm_torch ``--full --steps 4`` (Qwen1.5-0.5B at full width) with
+   and without ``--freeze-host h02@2``: the crash injected and recovered,
+   every step's loss the fault-free run's, B6–B8 on their Hopper bodies
+   and B1, B2, B4 launched; the reduced config checkpointed every 2 steps
+   over 4 steps and resumed for 2, the losses an uninterrupted run's;
+   serve_torch under the pinned crash (2 s horizon, 6 steps): exit code
+   0, events fired, the scorecard printed, the chaos-free run's losses;
+   quickstart_torch for one architecture of each family: a finite loss,
+   B6–B8 where there is attention, B9 in each decode, B10 for ssm and
+   hybrid; outside the counted runs, its train and decode steps from one
+   set of float32 weights and inputs on the card and on the CPU, the
+   loss, gradient norm and logits within 1e-4 (relative). No plain
+   version runs in a driver; each driver's wall is printed. The shapes
+   these drivers give B6–B10 (head_dim 16, B10's chunk 16, train_lm
+   ``--full``'s 2 x 64 tokens) are among phases 9, 11 and 15's boundary
+   cases.
 12. Training path, in a fresh child process (``--train``; its output
    echoed, its launch counts returned on one line, a non-zero exit fails
    the run; the child freezes what each run builds before its steps, so
@@ -193,10 +220,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    same script (reported, not gated: real clock, four hosts on one
    card). The last resumed step is profiled (device time by kernel, busy share, device
    time per ``grad_fn`` call, B6/B7/B8's shares).
-13. Runtime gates, in a fresh child process (``--runtime``), each in
-   the shape of the reference's benchmark, reduced Qwen1.5-0.5B (4
-   layers, float32: B6–B8 on their SIMT bodies) on 4 hosts x 4
-   microbatches of 2 x 32 tokens, B1–B4 on the bino ticks: (a) sim ≡
+13. Runtime gates, in a fresh child process (``--runtime cuda 8
+   scorecard recovery``), each in the shape of the reference's
+   benchmark, reduced Qwen1.5-0.5B (4 layers, float32: B6–B8 on
+   their SIMT bodies) on 4 hosts x 4 microbatches of 2 x 32 tokens, B1–B4 on the bino ticks: (a) sim ≡
    runtime (``benchmarks/fig_scorecard.py``): for both of its scripts the
    port's simulator and the port's ``TrainerRuntime`` on the card, on an
    auto-advancing ``FakeClock``, run until every scripted step has fired
@@ -206,13 +233,15 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    detections those of the metrics plane, every scripted step fired;
    (b) recovery (``benchmarks/perf_runtime.py``): real clock, compute
    delay 0.08 s, 2 warm-up steps, then the crash released and 8
-   measured steps: bino's recovery (its slowest step's excess over the
-   fault-free p50) below gang restart's, both runs' final parameters the
-   fault-free run's bytes. Each world of (a) launches B1–B4 and B6–B8,
-   the three runs of (b) together B1, B2, B4 and B6–B8 (they never reach
-   B3), and none runs a plain version.
+   measured steps, each run's objects frozen out of the collector's
+   walks during its steps: bino's recovery (its slowest step's excess
+   over the fault-free p50) below gang restart's, both runs' final
+   parameters the fault-free run's bytes. Each world of (a) launches
+   B1–B4 and B6–B8, the three runs of (b) together B1, B2, B4 and B6–B8
+   (they never reach B3), and none runs a plain version.
    Prints the worlds' steps, virtual seconds, cores and TTDs, p50/p99
-   step latency, both recoveries, step walls and ``mb_executed``.
+   step latency, both recoveries, step walls, ``mb_executed`` and the
+   collections during each recovery run's steps.
 14. The sequence-parallel decode (``impl="dist"``), in a fresh child
    process (``--dist``) that spawns ``DIST_WORLD`` = 4 rank processes on
    the one card, joined over gloo (:func:`dist_path`): (b) in the child,
@@ -242,7 +271,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    state, in bf16 and f32, on boundary inputs (the shapes of
    ``tests/test_kernels.py``, s < chunk, ragged tails, 1, 2 and 8 groups,
    head_dim 16 to 128 with d_state 128, A near 0 and decays that
-   underflow; then the Hopper body's 64-row tiles, chunks of 64 to 256
+   underflow, the quickstart twins' chunk 16 with head_dim and d_state 16
+   and 1 or 2 groups; then the Hopper body's 64-row tiles, chunks of 64 to 256
    and sequences shorter than a tile (``SSD_TC_CASES``), the float32 side
    of the longest also against the plain walk in float64 (printed, not
    gated); y 2e-2 from bf16, 2e-4 in f32, the state 2e-4), each case
@@ -394,9 +424,13 @@ parent.
 ssm and hybrid paths this way, each in a child process whose allocator
 maps expandable segments (``family_train_child``). ``--train`` runs the
 training phase (phase 12) alone, as the full run's child;
-``--runtime`` runs the runtime gates (phase 13) alone, as the full run's
-child; ``--dist`` the sequence-parallel decode (phase 14) alone, as the
-full run's child.
+``--runtime DEVICE N_MEAS GATE...`` runs the runtime gates named
+(``scorecard``, ``recovery``; phase 13) alone, as the full run's child
+(``runtime_child``; on the CPU too: the CPU test of the recovery gate
+takes the same entry, ``--runtime cpu 4 recovery``); ``--examples
+CKPT`` the examples phase (11a) alone, as the full run's child;
+``--dist`` the sequence-parallel decode (phase 14) alone, as the full
+run's child.
 ``--train-context [RUNS]`` runs every phase before the training phase,
 then the training phase RUNS times (3 by default), each in its child:
 this process's and the child's tracked objects and forced-collection
@@ -408,6 +442,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
@@ -415,6 +450,7 @@ import subprocess
 import sys
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -1397,7 +1433,7 @@ ASSESS_KEYS = ("spatial", "spatial_jobs", "temporal", "temporal_jobs",
 
 
 def predictor_path(device="cuda", workdir=None, corpus_runs=None,
-                   **sizes):
+                   keep=None, **sizes):
     """The predictor path on ``device``: the default corpus generated with
     the card's backend and with numpy (byte-identical files), training on
     ``device`` and on the CPU, the card-trained policy at the main path's
@@ -1409,8 +1445,10 @@ def predictor_path(device="cuda", workdir=None, corpus_runs=None,
     into the weights). ``corpus_runs`` replaces the default corpus's run
     list. Files go to a temporary
     directory under ``workdir`` (default: the repository's git-ignored
-    ``build/``), removed at the end. Returns the card runs' launch counts
-    and B4's timing on the predictor run's snapshot."""
+    ``build/``), removed at the end; ``keep`` (a path) keeps a copy of the
+    400-step checkpoint trained on ``device`` there. Returns the card
+    runs' launch counts and B4's timing on the predictor run's
+    snapshot."""
     import shutil
     import tempfile
 
@@ -1418,12 +1456,14 @@ def predictor_path(device="cuda", workdir=None, corpus_runs=None,
     root.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="predict_", dir=root))
     try:
-        return _predictor_runs(device, tmp, corpus_runs, sizes)
+        return _predictor_runs(device, tmp, corpus_runs, sizes, keep)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _predictor_runs(device, tmp, corpus_runs, sizes):
+def _predictor_runs(device, tmp, corpus_runs, sizes, keep=None):
+    import shutil
+
     from collections import Counter
 
     from repro_torch.accel import kernels as K
@@ -1506,6 +1546,9 @@ def _predictor_runs(device, tmp, corpus_runs, sizes):
 
     trained(PREDICT_TRAIN_STEPS_SHORT, PREDICT_TRAIN_TOL_SHORT)
     ckpt = trained(400, PREDICT_TRAIN_TOL)
+    if keep is not None:
+        shutil.rmtree(keep, ignore_errors=True)
+        shutil.copytree(ckpt, keep)
 
     # -- the trained policy at the main path's scale ---------------------
     got = {}
@@ -2342,6 +2385,15 @@ FLASH_CASES = [
     (2, 64, 64, 4, 4, 80, False, 0),       # exactly one tile
     (1, 100, 200, 8, 2, 80, True, 0),      # causal, GQA-4, q_offset 100
     (1, 129, 129, 4, 4, 80, True, 0),      # causal, one row past a tile
+    # the examples' shapes: train_lm_torch --full (Qwen1.5-0.5B, 2 x 64
+    # tokens), then quickstart_torch's reduced twins (2 x 32 tokens, 4
+    # query heads of 16: qwen1.5 and moonshot, jamba, internvl2, hubert)
+    (2, 64, 64, 16, 16, 64, True, 0),      # train_lm --full
+    (2, 32, 32, 4, 4, 16, True, 0),        # group 1
+    (2, 32, 32, 4, 1, 16, True, 0),        # a group of 4
+    (2, 32, 32, 4, 2, 16, True, 0),        # a group of 2
+    (2, 32, 32, 4, 4, 16, False, 0),       # the encoder's, not causal
+    (1, 100, 130, 4, 1, 16, True, 0),      # head_dim 16 past a 64-row tile
 ]
 DECODE_CASES = [
     (5, 300, 4, 4, 64, (1, 63, 64, 65, 300)),     # group 1, tile edges
@@ -2357,6 +2409,10 @@ DECODE_CASES = [
     # head_dim 80: 10 (bf16) or 20 (f32) 16-byte chunks a row
     (4, 800, 16, 16, 80, (127, 128, 129, 257)),   # split edges, group 1
     (3, 300, 16, 8, 80, (1, 32, 300)),            # tile edges, group 2
+    # quickstart_torch's decode step: a 64-slot cache, groups 1, 2 and 4
+    (2, 64, 4, 4, 16, (1, 64)),
+    (2, 64, 4, 2, 16, (1, 33)),
+    (2, 64, 4, 1, 16, (1, 2)),
 ]
 FLASH_SOURCE = "src/repro_torch/accel/csrc/flash_attention_sm90.cuh"
 # Qwen1.5-0.5B's attention layer, the training path's B6 shape: (b, s,
@@ -2613,7 +2669,8 @@ def attention_kernel_phase():
     torch.cuda.synchronize()
     print(f"attention boundary inputs: B6 ({len(FLASH_CASES)} cases, each "
           f"launched twice with byte-identical results, bf16 at head_dim "
-          f"64/80/128 on the Hopper body) and B9 ({len(DECODE_CASES)} cases, "
+          f"64/80/128 on the Hopper body, head_dim 16 and f32 on the SIMT "
+          f"body) and B9 ({len(DECODE_CASES)} cases, "
           f"the split kernel and its combine launched once a call, each "
           f"call twice with byte-identical results) within tolerance of "
           f"their plain versions in float32 and bf16", flush=True)
@@ -3064,8 +3121,9 @@ def profile_serve(params, batch, prefill_step, serve_step=None,
 # ---------------------------------------------------------------------------
 # Boundary inputs: (b, sq, sk, hq, hkv, d, causal, window); every query row
 # keeps at least one key. In bf16 every case at head_dim 64/80/128 runs the
-# Hopper bodies (the GQA group above 1 through the group sum), the case at
-# head_dim 32 the SIMT bodies; in f32 every case runs the SIMT bodies.
+# Hopper bodies (the GQA group above 1 through the group sum), the cases at
+# head_dim 16 and 32 the SIMT bodies; in f32 every case runs the SIMT
+# bodies.
 BWD_CASES = [
     (1, 100, 300, 4, 1, 64, True, 0),      # sq < sk, ragged, a group of 4
     (2, 130, 130, 8, 8, 128, True, 0),     # group 1, sq = sk off the tile
@@ -3081,6 +3139,13 @@ BWD_CASES = [
     (1, 200, 200, 8, 4, 80, True, 64),     # a window, a group of 2
     (1, 64, 192, 4, 4, 80, False, 40),     # a window without the band
     (1, 200, 300, 16, 2, 80, True, 64),    # a group of 8, sq off the tile
+    # the examples' shapes, as in FLASH_CASES
+    (2, 64, 64, 16, 16, 64, True, 0),      # train_lm --full
+    (2, 32, 32, 4, 4, 16, True, 0),        # group 1
+    (2, 32, 32, 4, 1, 16, True, 0),        # a group of 4
+    (2, 32, 32, 4, 2, 16, True, 0),        # a group of 2
+    (2, 32, 32, 4, 4, 16, False, 0),       # the encoder's, not causal
+    (1, 100, 130, 4, 1, 16, True, 0),      # head_dim 16 past a 64-row tile
 ]
 # The f32 kernels against autograd of the oracle (tests/test_kernels.py:
 # 83-90): 1e-3.
@@ -3815,8 +3880,11 @@ RUNTIME_KEYS = ("spatial", "temporal", "late", "reap", "flash_fwd",
 # The recovery gate's runs: bino reaches B3 only through ``winning``, and
 # these runs never called it on the card (0 launches of B3 in all three).
 RECOVERY_KEYS = tuple(k for k in RUNTIME_KEYS if k != "late")
-# The line the runtime gates' child process prints its launch counts on.
+# The lines the runtime gates' child process and the recovery gate's
+# child print their launch counts on.
 RUNTIME_COUNTS = "runtime counts "
+# The gates in the order the card's run takes them (``runtime_child``).
+RUNTIME_GATES = ("scorecard", "recovery")
 
 
 def fired_steps(chaos) -> int:
@@ -3999,9 +4067,14 @@ def scorecard_gate(device="cuda", assess=None, sim_assess=None,
 def _recovery_run(policy, script, device, assess, n_meas):
     """perf_runtime's ``_measure``: ``RECOVERY_WARMUP`` fault-free steps,
     then the script released (``defer_arm``) and ``n_meas`` measured
-    steps, on the real clock. Returns the measured walls, the metrics
-    plane's counters, the final parameters' bytes, the scripted steps
-    fired and the launches."""
+    steps, on the real clock. Every object alive once the runtime is
+    built moves to the collector's permanent generation before the steps
+    (``gc.freeze()``) and back after them, so that no collection during
+    the steps walks the process's heap (ROADMAP.md, C3, C7). Returns the
+    measured walls, the metrics plane's counters (with the collections
+    during the steps: their number and the longest pause in seconds),
+    the final parameters' bytes, the scripted steps fired and the
+    launches."""
     from repro_torch import obs as O
     from repro_torch.accel import kernels as K
     from repro_torch.configs import get_config, reduced_config
@@ -4024,16 +4097,27 @@ def _recovery_run(policy, script, device, assess, n_meas):
     t = TrainerRuntime(reduced_config(get_config(RUNTIME_ARCH)),
                        TrainConfig(), rt, seq_len=RUNTIME_SEQ,
                        per_shard_batch=2, seed=0, chaos=chaos, device=device)
-    with plain, _hosts_joined(t):
-        reports = t.run(RECOVERY_WARMUP)
-        if chaos is not None:
-            chaos.release()
-        reports += t.run(n_meas)
-        snap = t.coord.metrics.snapshot()
-        final = _param_bytes(t.state["params"]).clone()
+    pauses = []
+    on_gc = _gc_timer(pauses)
+    gc.freeze()
+    gc.callbacks.append(on_gc)
+    try:
+        with plain, _hosts_joined(t):
+            reports = t.run(RECOVERY_WARMUP)
+            if chaos is not None:
+                chaos.release()
+            reports += t.run(n_meas)
+            snap = t.coord.metrics.snapshot()
+            final = _param_bytes(t.state["params"]).clone()
+    finally:
+        gc.callbacks.remove(on_gc)
+        gc.unfreeze()
     counters = {k: int(snap.get(k, 0)) for k in (
         "recoveries", "detections", "expiry_declares", "restarts", "wedges",
         "mb_executed", "resends")}
+    counters["collections"] = len(pauses)
+    counters["longest_collection_s"] = round(max(
+        (s for s, _g in pauses), default=0.0), 6)
     counters["mb_needed"] = sum(r.mb_needed for r in reports)
     fired = fired_steps(chaos) if chaos is not None else 0
     return ([r.wall_s for r in reports[RECOVERY_WARMUP:]], counters, final,
@@ -4101,25 +4185,651 @@ def recovery_gate(device="cuda", assess=None, n_meas=RECOVERY_STEPS
     return total
 
 
-def runtime_gates(device="cuda", assess=None, sim_assess=None) -> dict:
-    """The sim ≡ runtime gate, then the recovery gate, each a phase;
-    returns each one's launches."""
+def runtime_child(device="cuda", gates=RUNTIME_GATES,
+                  n_meas=RECOVERY_STEPS) -> dict:
+    """The runtime gates named in ``gates`` (:data:`RUNTIME_GATES`), in
+    order, in a fresh child process (``chip_smoke.py --runtime DEVICE
+    N_MEAS GATE...``), each assessing on ``TorchBackend(device)``: the
+    recovery gate times steps on the real clock, where a collection that
+    walks a large heap (this process's phases, or a test worker's
+    earlier files) pauses the hosts (ROADMAP.md, C3, C7). The card's
+    full run takes both gates and the CPU test of the recovery gate the
+    same entry with that gate alone. The child's output is echoed here;
+    returns {gate: its launch counts}, and raises with the child's last
+    lines if it exits non-zero."""
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return run_child([sys.executable, str(Path(__file__).resolve()),
+                      "--runtime", device, str(n_meas), *gates],
+                     RUNTIME_COUNTS, "runtime gates")
+
+
+def runtime_main(device: str, n_meas: str, *gates: str) -> int:
+    """The child of :func:`runtime_child`: on the CPU one intra-op thread
+    (four host threads share a tiny model), on the card the kernels
+    built first; each gate a phase; prints {gate: launch counts} on a
+    :data:`RUNTIME_COUNTS` line."""
+    from repro_torch.accel import kernels as K
+    from repro_torch.accel.torch_backend import TorchBackend
+
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(1)
+    else:
+        for name in K.build():
+            K.library(name)
+    backend = TorchBackend(device)
     phase = _phase_clock()
-    return {"scorecard": phase("sim ≡ runtime", scorecard_gate, device,
-                               assess, sim_assess),
-            "recovery": phase("recovery", recovery_gate, device, assess)}
+    run = {"scorecard": ("sim ≡ runtime", scorecard_gate, (device, backend)),
+           "recovery": ("recovery", recovery_gate,
+                        (device, backend, int(n_meas)))}
+    counts = {gate: phase(run[gate][0], run[gate][1], *run[gate][2])
+              for gate in gates}
+    print(RUNTIME_COUNTS + json.dumps(counts), flush=True)
+    return 0
 
 
-def runtime_child() -> dict:
-    """:func:`runtime_gates` in a fresh child process (``chip_smoke.py
-    --runtime``), as the training phase runs (:func:`train_child`): the
-    recovery gate times steps on the real clock, where a collection of
-    this process's objects would pause the hosts. Returns its launch
-    counts; raises if it exits non-zero."""
+# ---------------------------------------------------------------------------
+# The examples/ drivers (examples/*_torch.py), each through its main(argv)
+# ---------------------------------------------------------------------------
+EXAMPLES_DIR = ROOT / "examples"
+# The line the examples phase's child process prints its launch counts on.
+EXAMPLES_COUNTS = "examples counts "
+EXAMPLES_SWEEP = 64
+# cluster_sim_torch's runs on the card, each against a --device cpu
+# --assess-backend numpy run of the same flags: (label, flags, launch keys
+# that must be nonzero). The flat run's flight-recorder trace is written
+# by both; "{ckpt}" is the predictor phase's card-trained checkpoint.
+B1_B4 = ("spatial", "temporal", "late", "reap")
+EXAMPLES_CLUSTER = (
+    ("flat", ("--trace", "{trace}"), B1_B4),
+    ("topo", ("--net", "topo"), B1_B4),
+    # the driver's default batch engine re-solves the fair network's
+    # shares incrementally on the host: only the kernel drain (the fair
+    # path's) takes the bulk solver, B5 and the water-fill
+    ("fair", ("--net", "fair", "--racks", "4"), B1_B4),
+    ("sweep, predictor", ("--sweep", "{sweep}", "--policy", "predictor",
+                          "--model", "{ckpt}"),
+     B1_B4 + ("spatial_sweep", "late_sweep", "reap_sweep")),
+)
+# Qwen1.5-0.5B's steps at full width take 5–10 s each on the card, a
+# cost of the host's dispatch of about 4,000 kernels a grad_fn call
+# (``--train-lm-profile``; PERF.md), so 4 steps, the crash in the third,
+# keep the phase short.
+EXAMPLES_TRAIN_STEPS = 4
+EXAMPLES_TRAIN_CRASH = "h02@2"
+# The checkpointed run's steps, then the resumed run's (reduced config).
+EXAMPLES_CKPT_STEPS = (4, 2)
+# The pinned "crash" script fires 0.2 of the horizon after arming: at the
+# default 20 s horizon the port's steps end before it fires (the
+# reference's first step holds jax's compile; ROADMAP.md, C4), so the
+# phase passes a 2 s horizon and 6 steps.
+EXAMPLES_SERVE = ("--chaos", "crash", "--horizon", "2", "--steps", "6")
+# One architecture of each family.
+EXAMPLES_QUICKSTART = ("qwen1.5-0.5b", "moonshot-v1-16b-a3b", "mamba2-2.7b",
+                       "jamba-1.5-large-398b", "hubert-xlarge",
+                       "internvl2-2b")
+# quickstart's steps on the card against the CPU from the same float32
+# weights and inputs: the loss, the gradient norm and the decode logits
+# within 1e-4 of the CPU's (relative to its largest entry).
+QUICKSTART_TOL = 1e-4
+ATTN_TRAIN_KEYS = ("flash_fwd", "flash_dkv", "flash_dq")
+_PROFILE_ROW = re.compile(r"^(\s*(?:numpy|torch)\s+\d+)\s+[\d.]+ms\s+\d+"
+                          r"(\s+\d+)$")
+_STEP_LINE = re.compile(r"^step\s+(\d+)\s+loss\s+(\S+)\s+wall\s")
+
+
+def example_module(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib
+
+    sys.path.insert(0, str(EXAMPLES_DIR))
+    try:
+        return importlib.import_module(name)
+    finally:
+        sys.path.remove(str(EXAMPLES_DIR))
+
+
+def example_plain_calls():
+    """A counter of every plain version the drivers could reach (B1–B5,
+    the water-fill's eager rounds, B6–B10) and the attention oracles."""
+    from repro_torch.accel import bulk as B
+    from repro_torch.accel import torch_backend as TB
+    from repro_torch.kernels.decode_attention import decode_attention as DA
+
+    plain = train_plain_calls()
+    plain.targets += [(TB, name) for name in ("spatial_ref", "temporal_ref",
+                                              "late_ref", "reap_ref")]
+    plain.targets += [(B, "waterfill_ref"), (B, "price_ref"),
+                      (DA, "decode_attention_plain")]
+    return plain
+
+
+def run_example(name: str, argv, device="cuda", echo=False) -> dict:
+    """``examples/<name>_torch.py``'s ``main(argv + ["--device",
+    device])`` in this process, its standard output captured (and
+    printed after it, with ``echo``), the launch counts set to 0 just
+    before and read just after. Returns its exit code, output, wall,
+    nonzero launches and plain-version calls."""
+    from repro_torch.accel import kernels as K
+
+    mod = example_module(f"{name}_torch")
+    argv = [str(a) for a in argv] + ["--device", device]
+    plain = example_plain_calls()
+    buf = io.StringIO()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with plain, contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in K.launches.items() if v}
+    calls = {k: v for k, v in plain.calls.items() if v}
+    print(f"examples {name}_torch {' '.join(argv)}: rc {rc}, wall "
+          f"{wall:.3f} s; launches {launches}; plain-version calls "
+          f"{calls}", flush=True)
+    if echo:
+        print("".join(f"  | {line}\n" for line in
+                      buf.getvalue().splitlines()), end="", flush=True)
+    return {"rc": rc, "out": buf.getvalue(), "wall": wall,
+            "launches": launches, "plain": calls}
+
+
+def _example_ok(what: str, run: dict, keys, on_card: bool) -> None:
+    """Raises unless ``run`` exited 0 and, on the card, launched each of
+    ``keys`` and called no plain version."""
+    if run["rc"] != 0:
+        raise RuntimeError(f"examples {what}: exit code {run['rc']}:\n"
+                           f"{run['out']}")
+    if on_card:
+        missing = [k for k in keys if not run["launches"].get(k)]
+        if missing or run["plain"]:
+            raise RuntimeError(f"examples {what}: kernels never launched "
+                               f"{missing}, plain-version calls "
+                               f"{run['plain']}")
+
+
+def mask_walls(text: str) -> list:
+    """cluster_sim's lines with the wall-clock fields masked: the
+    assessment profile's wall and ticks/s, the sweep's ms line and the
+    trace's path."""
+    out = []
+    for line in text.splitlines():
+        line = _PROFILE_ROW.sub(r"\1 <assess wall> <ticks/s>\2", line)
+        if line.startswith("  serial numpy "):
+            line = "  serial numpy <walls>"
+        if line.startswith("  wrote ") and " — open in " in line:
+            line = "  wrote <path> — open in " + line.split(" — open in ")[1]
+        out.append(line)
+    return out
+
+
+def same_cluster_lines(what: str, got: str, want: str) -> None:
+    """Raises unless cluster_sim's output ``got`` (assessing on torch) is
+    ``want``'s (on numpy) line for line, the wall-clock fields masked. The
+    torch run's profile adds a row for its own backend below numpy's;
+    its ticks and actions must be those of the numpy row."""
+    a, b = mask_walls(got), mask_walls(want)
+    rows = [i for i, line in enumerate(a)
+            if line.lstrip().startswith("torch ") and "<assess wall>" in line]
+    for i in rows:
+        if a[i].replace("torch", "numpy", 1) != a[i - 1]:
+            raise RuntimeError(f"examples {what}: the torch profile row "
+                               f"{a[i]!r} against numpy's {a[i - 1]!r}")
+    a = [line for i, line in enumerate(a) if i not in rows]
+    if a != b:
+        at = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                  min(len(a), len(b)))
+        raise RuntimeError(f"examples {what}: line {at} differs "
+                           f"({len(a)} against {len(b)} lines): "
+                           f"{a[at] if at < len(a) else None!r} against "
+                           f"{b[at] if at < len(b) else None!r}")
+
+
+def step_losses(text: str) -> dict:
+    """{step: the loss as printed} of train_lm's or serve's step lines."""
+    return {int(m.group(1)): m.group(2)
+            for m in map(_STEP_LINE.match, text.splitlines()) if m}
+
+
+def examples_cluster_sim(device="cuda", ckpt=None, workdir=None) -> dict:
+    """cluster_sim_torch on ``device`` (torch) against ``--device cpu
+    --assess-backend numpy``, for each of :data:`EXAMPLES_CLUSTER` (the
+    predictor run only with ``ckpt``): the same lines but the wall-clock
+    fields, the flat run's trace files the same bytes. Returns the
+    launches summed over the runs on ``device``."""
+    import shutil
+    import tempfile
+
+    on_card = torch.device(device).type == "cuda"
+    root = Path(workdir or ROOT / "build")
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="examples_", dir=root))
+    total = Counter()
+    try:
+        for label, flags, keys in EXAMPLES_CLUSTER:
+            if "{ckpt}" in flags and ckpt is None:
+                continue
+            runs = {}
+            for side, dev, extra in (
+                    ("run", device, ()),
+                    ("ref", "cpu", ("--assess-backend", "numpy"))):
+                argv = [f.format(trace=tmp / f"trace_{side}.json",
+                                 sweep=EXAMPLES_SWEEP, ckpt=ckpt)
+                        for f in flags]
+                runs[side] = run_example("cluster_sim", [*argv, *extra],
+                                         dev)
+            card = runs["run"]
+            _example_ok(f"cluster_sim {label}", card, keys, on_card)
+            same_cluster_lines(f"cluster_sim {label}", card["out"],
+                               runs["ref"]["out"])
+            if "{trace}" in flags:
+                a, b = (tmp / f"trace_{s}.json" for s in ("run", "ref"))
+                if a.read_bytes() != b.read_bytes():
+                    raise RuntimeError(f"examples cluster_sim {label}: the "
+                                       f"trace files differ")
+            total.update(card["launches"])
+            print(f"examples cluster_sim {label}: {device} ≡ cpu numpy, "
+                  f"{len(card['out'].splitlines())} lines; walls "
+                  f"{card['wall']:.3f} s ({device}) and "
+                  f"{runs['ref']['wall']:.3f} s (cpu, numpy)", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(total)
+
+
+def examples_train_lm(device="cuda", full=True, workdir=None) -> dict:
+    """train_lm_torch on ``device``: ``--steps 4 --freeze-host h02@2``
+    (``--full``: Qwen1.5-0.5B at full width) must print every step's loss
+    as the fault-free run of the same flags does (the runtime's
+    exactly-once contract), with the crash injected and a recovery shown;
+    on the card B6–B8 launched on their Hopper bodies (at full width),
+    B1, B2 and B4 on the bino ticks, no plain call. Then the reduced
+    config with ``--checkpoint-dir`` every 2 steps: 4 steps, and a second
+    run of 2 must resume from the newest checkpoint (steps 4 and 5), the
+    6 losses those of an uninterrupted 6-step run. Returns the launches
+    summed over the runs."""
+    import shutil
+    import tempfile
+
+    on_card = torch.device(device).type == "cuda"
+    keys = ATTN_TRAIN_KEYS + ("spatial", "temporal", "reap")
+    steps = ["--steps", EXAMPLES_TRAIN_STEPS] + (["--full"] if full
+                                                 else [])
+    clean = run_example("train_lm", steps, device, echo=True)
+    crash = run_example("train_lm", steps + ["--freeze-host",
+                                             EXAMPLES_TRAIN_CRASH], device,
+                        echo=True)
+    total = Counter()
+    for what, run in (("fault-free", clean), ("crash", crash)):
+        _example_ok(f"train_lm {what}", run, keys, on_card)
+        if on_card and full:
+            bodies = {k: (run["launches"].get(k, 0),
+                          run["launches"].get(k + "_tc", 0))
+                      for k in ATTN_TRAIN_KEYS}
+            if any(a != b for a, b in bodies.values()) or \
+                    run["launches"].get("flash_dkv_group_sum"):
+                raise RuntimeError(f"examples train_lm {what}: launches "
+                                   f"off the Hopper bodies {bodies}, "
+                                   f"{run['launches']}")
+        total.update(run["launches"])
+    host, at = EXAMPLES_TRAIN_CRASH.split("@")
+    want = step_losses(clean["out"])
+    if len(want) != EXAMPLES_TRAIN_STEPS:
+        raise RuntimeError(f"examples train_lm: {len(want)} step lines")
+    if f"injecting crash of {host} during step {at}" not in crash["out"] \
+            or "recovery: " not in crash["out"]:
+        raise RuntimeError(f"examples train_lm: no crash or no recovery:\n"
+                           f"{crash['out']}")
+    if step_losses(crash["out"]) != want:
+        raise RuntimeError(f"examples train_lm: the crash run's losses "
+                           f"{step_losses(crash['out'])} against the "
+                           f"fault-free run's {want}")
+    print(f"examples train_lm{' --full' if full else ''}: the crash run's "
+          f"losses equal the fault-free run's {want}; walls "
+          f"{clean['wall']:.3f} s, {crash['wall']:.3f} s", flush=True)
+
+    root = Path(workdir or ROOT / "build")
+    root.mkdir(parents=True, exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix="examples_ckpt_", dir=root))
+    try:
+        kw = ["--checkpoint-dir", ckpt, "--checkpoint-every", 2]
+        first, then = EXAMPLES_CKPT_STEPS
+        runs = [run_example("train_lm", ["--steps", n, *kw], device)
+                for n in (first, then)]
+        whole = run_example("train_lm", ["--steps", first + then], device)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for what, run in zip(("checkpointed", "resumed", "uninterrupted"),
+                         (*runs, whole)):
+        _example_ok(f"train_lm {what}", run, keys, on_card)
+        total.update(run["launches"])
+    got = [step_losses(run["out"]) for run in runs]
+    if sorted(got[0]) != list(range(first)) or \
+            sorted(got[1]) != list(range(first, first + then)):
+        raise RuntimeError(f"examples train_lm: the checkpointed run's "
+                           f"steps {sorted(got[0])}, the resumed run's "
+                           f"{sorted(got[1])}")
+    if {**got[0], **got[1]} != step_losses(whole["out"]):
+        raise RuntimeError(f"examples train_lm: checkpointed and resumed "
+                           f"losses {got} against "
+                           f"{step_losses(whole['out'])}")
+    print(f"examples train_lm: resumed from the checkpoint at step "
+          f"{first}; losses equal to an uninterrupted run's", flush=True)
+    return dict(total)
+
+
+def examples_serve(device="cuda", workdir=None) -> dict:
+    """serve_torch on ``device`` under :data:`EXAMPLES_SERVE` with a
+    trace, against the same steps without ``--chaos``: exit code 0, the
+    scripted events fired, the scorecard printed, the same losses; on the
+    card B6–B8 and B1, B2, B4 launched, no plain call. Returns the
+    launches summed over both runs."""
+    import shutil
+    import tempfile
+
+    on_card = torch.device(device).type == "cuda"
+    keys = ATTN_TRAIN_KEYS + ("spatial", "temporal", "reap")
+    root = Path(workdir or ROOT / "build")
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="examples_serve_", dir=root))
+    try:
+        chaos = run_example("serve", [*EXAMPLES_SERVE, "--trace",
+                                      tmp / "serve.json"], device,
+                            echo=True)
+        traced = (tmp / "serve.json").is_file()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = EXAMPLES_SERVE[EXAMPLES_SERVE.index("--steps"):][:2]
+    clean = run_example("serve", steps, device)
+    total = Counter()
+    for what, run in (("chaos", chaos), ("chaos-free", clean)):
+        _example_ok(f"serve {what}", run, keys, on_card)
+        total.update(run["launches"])
+    out = chaos["out"]
+    if "events_fired" not in out or "no events fired" in out or \
+            "\nscorecard: " not in out or not traced:
+        raise RuntimeError(f"examples serve: no event fired, no scorecard "
+                           f"or no trace:\n{out}")
+    if step_losses(out) != step_losses(clean["out"]):
+        raise RuntimeError(f"examples serve: losses {step_losses(out)} "
+                           f"against the chaos-free run's "
+                           f"{step_losses(clean['out'])}")
+    print(f"examples serve: chaos run rc 0, losses equal to the chaos-free "
+          f"run's; walls {chaos['wall']:.3f} s, {clean['wall']:.3f} s",
+          flush=True)
+    return dict(total)
+
+
+def _tree_to(tree, device):
+    """Every tensor of a nest of dicts, lists and tuples on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.detach().to(device) if torch.is_tensor(tree) else tree
+
+
+def quickstart_twin_errors(arch: str, device="cuda") -> dict:
+    """quickstart's train step and decode step of ``arch``'s reduced twin
+    from one set of weights and inputs, made on the CPU from the
+    driver's seed (the driver draws them on its own device, whose
+    generator gives other numbers: its printed loss on the card is not
+    the CPU run's), run on the CPU and on ``device``: returns the
+    relative errors of the loss, the gradient norm and the decode
+    step's logits (max |Δ| over max |cpu|). float32 throughout, TF32
+    off while it runs."""
+    from repro_torch.configs import (REDUCED_SHAPE_TRAIN, get_config,
+                                     reduced_config)
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as MODEL
+    from repro_torch.models.inputs import input_specs, materialize
+    from repro_torch.train.loop import (TrainConfig, make_serve_step,
+                                        make_train_step, train_state_init)
+
+    cfg = reduced_config(get_config(arch))
+    tc = TrainConfig()
+    state = train_state_init(cfg, 0, tc, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    batch = materialize(input_specs(cfg, REDUCED_SHAPE_TRAIN), gen,
+                        cfg.vocab_size)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for dev in ("cpu", device):
+            params = L.tree_from_leaves(state["params"], _tree_to(
+                L.tree_leaves(state["params"]), dev), trainable=True)
+            st = {"params": params,
+                  **{k: _tree_to(v, dev) for k, v in state.items()
+                     if k != "params"}}
+            st, metrics = make_train_step(cfg, tc)(st, _tree_to(batch, dev))
+            got = {"loss": metrics["loss"].reshape(1),
+                   "grad_norm": metrics["grad_norm"].reshape(1)}
+            if not cfg.is_encoder_only():
+                cache = MODEL.init_cache(cfg, batch=2, max_len=64,
+                                         device=dev)
+                got["logits"], _c = make_serve_step(cfg, tc)(
+                    st["params"], cache,
+                    torch.tensor([1, 2], dtype=torch.int32, device=dev),
+                    torch.zeros((2,), dtype=torch.int32, device=dev))
+            out[dev] = {k: v.detach().float().cpu() for k, v in got.items()}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    ref, run = out["cpu"], out[device]
+    return {k: float((run[k] - ref[k]).abs().max()
+                     / ref[k].abs().max().clamp_min(1e-30)) for k in ref}
+
+
+def quickstart_twin_check(arch: str, device="cuda") -> dict:
+    """:func:`quickstart_twin_errors` held to :data:`QUICKSTART_TOL`;
+    returns the errors, raises where one is above it or not finite."""
+    errs = quickstart_twin_errors(arch, device)
+    bad = {k: e for k, e in errs.items() if not e <= QUICKSTART_TOL}
+    if bad:
+        raise RuntimeError(f"examples quickstart {arch}: {device} against "
+                           f"the CPU from the same weights, relative "
+                           f"errors {errs} (tolerance {QUICKSTART_TOL})")
+    return errs
+
+
+def examples_quickstart(device="cuda") -> dict:
+    """quickstart_torch on ``device`` for each of
+    :data:`EXAMPLES_QUICKSTART`: exit code 0, a finite loss, ``ok`` last;
+    on the card B6–B8 where the model has attention, B9 in its decode
+    step, B10 where it has Mamba-2 layers, no plain call; then, outside
+    the counted run, the same steps from the same weights on the card
+    and on the CPU (:func:`quickstart_twin_check`). Returns the launches
+    summed over the driver's runs."""
+    from repro_torch.configs import get_config
+
+    on_card = torch.device(device).type == "cuda"
+    total = Counter()
+    for arch in EXAMPLES_QUICKSTART:
+        cfg = get_config(arch)
+        keys = ()
+        if cfg.n_heads:
+            keys += ATTN_TRAIN_KEYS
+            if not cfg.is_encoder_only():
+                keys += ("decode",)
+        if cfg.ssm is not None:
+            keys += ("ssd",)
+        run = run_example("quickstart", ["--arch", arch], device)
+        _example_ok(f"quickstart {arch}", run, keys, on_card)
+        loss = re.search(r"train step: loss=(\S+) ", run["out"])
+        if loss is None or not np.isfinite(float(loss.group(1))) or \
+                run["out"].splitlines()[-1] != "ok":
+            raise RuntimeError(f"examples quickstart {arch}:\n{run['out']}")
+        if on_card:
+            errs = quickstart_twin_check(arch, device)
+            print(f"examples quickstart {arch}: the card against the CPU "
+                  f"from the same weights, relative errors {errs}",
+                  flush=True)
+        total.update(run["launches"])
+    return dict(total)
+
+
+def examples_phase(device="cuda", ckpt=None, full=True) -> dict:
+    """The four drivers, each through its ``main(argv)`` (``full``: train
+    at full width): returns each one's launches and prints their
+    walls."""
+    walls = {}
+    out = {}
+    for name, fn, args in (
+            ("cluster_sim", examples_cluster_sim, (device, ckpt)),
+            ("train_lm", examples_train_lm, (device, full)),
+            ("serve", examples_serve, (device,)),
+            ("quickstart", examples_quickstart, (device,))):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        walls[name] = round(time.perf_counter() - t0, 3)
+    print(f"examples walls (s, each driver's runs with their checks): "
+          f"{walls}", flush=True)
+    return out
+
+
+def examples_child(ckpt) -> dict:
+    """:func:`examples_phase` on the card in a fresh child process
+    (``chip_smoke.py --examples CKPT``), as the runtime gates run: its
+    drivers' real-clock steps see no collection of this process's
+    objects. Returns each driver's launch counts; raises if it exits
+    non-zero."""
     gc.collect()
     torch.cuda.empty_cache()
     return run_child([sys.executable, str(Path(__file__).resolve()),
-                      "--runtime"], RUNTIME_COUNTS, "runtime")
+                      "--examples", str(ckpt)], EXAMPLES_COUNTS, "examples")
+
+
+class StackSampler:
+    """Samples every thread's Python stack each ``period`` seconds from a
+    thread of its own, until :meth:`stop`. Each sample of a thread is
+    tallied under the thread's kind (``host`` inside a host's
+    ``_execute``, ``heartbeat``, ``coordinator`` for the main thread,
+    else ``other``) and its innermost frame in this repository's
+    ``src/repro_torch`` or ``examples`` (file, function, line): a thread
+    inside a torch call shows the repository's line that made it,
+    whether it holds the GIL or waits for it or for the device."""
+
+    def __init__(self, period: float = 0.005):
+        self.period = period
+        self.counts = Counter()
+        self.samples = Counter()
+        self._stop = threading.Event()
+        self._main = threading.main_thread().ident
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="stack-sampler")
+        self._thread.start()
+
+    def _kind(self, ident, frame) -> str:
+        if ident == self._main:
+            return "coordinator"
+        names = set()
+        while frame is not None:
+            names.add(frame.f_code.co_name)
+            frame = frame.f_back
+        return ("host" if "_execute" in names else
+                "heartbeat" if "_hb_loop" in names else "other")
+
+    def _loop(self) -> None:
+        roots = (str(ROOT / "src" / "repro_torch"), str(EXAMPLES_DIR))
+        me = threading.get_ident()
+        while not self._stop.wait(self.period):
+            for ident, frame in sys._current_frames().items():
+                if ident == me:
+                    continue
+                kind = self._kind(ident, frame)
+                self.samples[kind] += 1
+                f = frame
+                while f is not None and \
+                        not f.f_code.co_filename.startswith(roots):
+                    f = f.f_back
+                where = ("outside the repository" if f is None else
+                         f"{Path(f.f_code.co_filename).name}:"
+                         f"{f.f_code.co_name}:{f.f_lineno}")
+                self.counts[(kind, where)] += 1
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+    def report(self, rows: int = 8) -> None:
+        """Each kind's samples and its ``rows`` commonest frames, as
+        shares of that kind's samples."""
+        for kind, n in self.samples.most_common():
+            top = sorted(((c, w) for (k, w), c in self.counts.items()
+                          if k == kind), reverse=True)[:rows]
+            print(f"  {kind}: {n} samples; " + "; ".join(
+                f"{w} {c / n:.1%}" for c, w in top), flush=True)
+
+
+TRAIN_LM_SWITCH_S = 5e-4
+
+
+def train_lm_profile(steps: int = 2) -> None:
+    """train_lm_torch ``--full``'s trainer (the driver's own
+    ``make_trainer``), its kernels built first: ``steps`` warm steps,
+    then one step profiled on the device (kernels and copies) while a
+    :class:`StackSampler` samples the host threads. Prints the step's
+    wall, the device's busy share, the kernels recorded per ``grad_fn``
+    call and per microsecond of wall, the kernels of most device time
+    and where each kind of host thread spent its samples. Then, as a
+    test of where the wall goes, ``steps`` more steps with the
+    interpreter's thread switch interval at :data:`TRAIN_LM_SWITCH_S`
+    (the default is 5 ms: a thread that waits for the GIL, such as
+    autograd's device thread entering a Python ``backward``, may wait
+    that long for each hand-over) and ``steps`` at the default again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.accel import kernels as K
+
+    for name in K.build():
+        K.library(name)
+    mod = example_module("train_lm_torch")
+    trainer = mod.make_trainer(mod.parse_args(["--full"]))
+    calls = _host_calls(trainer)
+    default = sys.getswitchinterval()
+    try:
+        for r in trainer.run(steps):
+            print(f"train_lm profile warm step {r.step}: wall "
+                  f"{r.wall_s:.6f} s, mb {r.mb_executed}/{r.mb_needed}",
+                  flush=True)
+        torch.cuda.synchronize()
+        n0 = calls[0]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sampler = StackSampler()
+            t0 = time.perf_counter()
+            rep = trainer.run(1)[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            sampler.stop()
+        n_calls = calls[0] - n0
+        walls = {}
+        for label, interval in (("switch", TRAIN_LM_SWITCH_S),
+                                ("default", default)):
+            sys.setswitchinterval(interval)
+            walls[f"{label} {interval}"] = [
+                round(r.wall_s, 6) for r in trainer.run(steps)]
+    finally:
+        sys.setswitchinterval(default)
+        trainer.shutdown()
+    kernels = device_kernels(prof)
+    dev_us = device_us(kernels)
+    records = sum(n for n, _ns in kernels.values())
+    print(f"train_lm profile step {rep.step}: wall {wall:.6f} s (profiled; "
+          f"the report's {rep.wall_s:.6f} s), mb {rep.mb_executed}/"
+          f"{rep.mb_needed}, {n_calls} grad_fn calls; device busy "
+          f"{dev_us / 1e6:.6f} s = {dev_us / 1e6 / wall:.6f} of wall; "
+          f"{records} kernels and copies recorded, "
+          f"{records / max(n_calls, 1):.1f} a grad_fn call, "
+          f"{wall * 1e6 / max(records, 1):.3f} µs of wall each", flush=True)
+    print_kernels(kernels, 10)
+    sampler.report()
+    print(f"train_lm step walls (s) by thread switch interval: {walls}",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4140,6 +4850,11 @@ SSD_CASES = [
     (1, 200, 16, 32, 8, 64, 64, "mixed"),      # 8 groups, ragged
     (2, 520, 8, 64, 1, 128, 256, "underflow"),
     (1, 77, 4, 128, 1, 128, 32, "mixed"),      # p 128, ragged
+    # quickstart_torch's reduced twins: 8 heads of 16, d_state 16, chunk
+    # 16 (mamba2 one group, jamba two), and a ragged tail over 4 chunks
+    (2, 32, 8, 16, 1, 16, 16, "mixed"),
+    (2, 32, 8, 16, 2, 16, 16, "mixed"),
+    (1, 50, 8, 16, 2, 16, 16, "mixed"),
 ]
 # The Hopper body's edges (bf16 takes it, float32 the SIMT body): its
 # 64-row tiles, chunks of 64 to 256, p and n 64 or 128, and sequences of
@@ -6057,18 +6772,23 @@ def family_train_child(name: str) -> dict:
 
 
 def run_child(cmd, marker: str, what: str, env=None):
-    """Run ``cmd`` in a child process, echo its output here line by line,
-    and return the JSON that follows ``marker`` on a line of its own;
-    raises if the child exits non-zero or prints no such line."""
-    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, text=True)
+    """Run ``cmd`` in a child process, echo its output (standard error
+    merged in) here line by line, and return the JSON that follows
+    ``marker`` on a line of its own; raises with the child's last lines
+    if it exits non-zero or prints no such line."""
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
     got = None
+    lines = []
     for line in proc.stdout:
         print(line, end="", flush=True)
+        lines.append(line)
         if line.startswith(marker):
             got = json.loads(line[len(marker):])
     if proc.wait() or got is None:
         raise RuntimeError(f"{what}: the child process exited with "
-                           f"{proc.returncode}")
+                           f"{proc.returncode}; its last lines:\n"
+                           + "".join(lines[-40:]))
     return got
 
 
@@ -7720,14 +8440,15 @@ def _phase_clock():
     return phase
 
 
-def _phases_before_training(phase):
+def _phases_before_training(phase, keep=None):
     """Every phase that runs before the training phase, in order: (kernel
     rows, main-path launches, the predictor's counts, the sweep's and the
-    serving path's launches)."""
+    serving path's launches). ``keep``: where the predictor phase keeps
+    its card-trained checkpoint."""
     cap_state = capture_snapshot()
     rows = phase("kernels", kernel_phase, cap_state)
     launches = phase("main path", main_path)
-    predict = phase("predictor", predictor_path)
+    predict = phase("predictor", predictor_path, "cuda", None, None, keep)
     fair_launches, fair = phase("fair path", fair_path)
     launches["price"] = fair_launches["price"]
     launches["waterfill"] = fair_launches["waterfill"]
@@ -7866,6 +8587,8 @@ def bulk_parent(src: str) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--runtime"]:
+        return runtime_main(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -7874,7 +8597,8 @@ def main() -> int:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
     modes = {"--decode-wall": decode_wall, "--sim-wall": sim_wall,
-             "--train-wall": train_wall, "--bulk-wall": bulk_wall}
+             "--train-wall": train_wall, "--bulk-wall": bulk_wall,
+             "--train-lm-profile": train_lm_profile}
     if sys.argv[1:2] and sys.argv[1] in modes:
         if len(sys.argv) > 2:
             sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
@@ -7912,14 +8636,14 @@ def main() -> int:
             K.library(name)
         print(DIST_COUNTS + json.dumps(dist_path()), flush=True)
         return 0
-    if sys.argv[1:2] == ["--runtime"]:
+    if sys.argv[1:2] == ["--examples"]:
         from repro_torch.accel import kernels as K
 
         print(f"card: {smi}", flush=True)
         for name in K.build():
             K.library(name)
-        counts = runtime_gates()
-        print(RUNTIME_COUNTS + json.dumps(counts), flush=True)
+        counts = examples_phase("cuda", sys.argv[2])
+        print(EXAMPLES_COUNTS + json.dumps(counts), flush=True)
         return 0
     if sys.argv[1:2] == ["--bulk-parent"]:
         print(f"card: {smi}", flush=True)
@@ -7954,8 +8678,14 @@ def main() -> int:
     print_resource_usage(libs)
 
     phase = _phase_clock()
+    ckpt = ROOT / "build" / "examples_predictor_ckpt"
     rows, launches, predict, sweep_launches, serve_launches = \
-        _phases_before_training(phase)
+        _phases_before_training(phase, ckpt)
+    try:
+        examples = phase("examples", examples_child, ckpt)
+    finally:
+        import shutil
+        shutil.rmtree(ckpt, ignore_errors=True)
     train_launches = phase("training", train_child)
     launches.update((k, train_launches[k]) for k in ("flash_dkv",
                                                      "flash_dq"))
@@ -8033,6 +8763,11 @@ def main() -> int:
     for name in ("spatial", "temporal", "late", "reap"):
         rows[name]["predictor_corpus_launches"] = predict["corpus"][name]
         rows[name]["fig_predictor_launches"] = predict["fig"][name]
+    # the examples/ drivers' launches, each driver's runs on the card
+    for driver, counts in examples.items():
+        for name, row in rows.items():
+            if name in counts:
+                row[f"examples_{driver}_launches"] = counts[name]
     rows["reap"].update(
         predictor_policy_launches=predict["policy"]["reap"],
         **{f"predictor_{k}": v for k, v in predict["reap_timing"].items()})

@@ -2,8 +2,10 @@
 reference package.
 
 1. **Stands alone** — ``repro_torch`` imports with jax made unimportable
-   and loads no module of the reference package; no file of the port and
-   not ``chip_smoke.py`` imports either; ``chip_smoke.py`` refuses to run
+   and loads no module of the reference package; no file of the port,
+   not ``chip_smoke.py`` and not the ``examples/*_torch.py`` drivers
+   imports either, and each driver imports with jax made unimportable;
+   ``chip_smoke.py`` refuses to run
    without a card or outside a checkout.
 2. **Registry** — ``get_backend(None)`` and ``get_bulk_backend(None)``
    are torch on the card and raise without one; ``"numpy"`` and
@@ -102,12 +104,39 @@ def test_port_imports_without_jax_or_reference():
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)", re.M)
 
 
+EXAMPLES = sorted(p.relative_to(ROOT)
+                  for p in (ROOT / "examples").glob("*_torch.py"))
+
+
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT) for p in PORT.rglob("*.py")]
-    + [Path("chip_smoke.py")]), ids=str)
+    + [Path("chip_smoke.py")] + EXAMPLES), ids=str)
 def test_no_jax_or_reference_import(path):
     text = (ROOT / path).read_text()
     assert not _IMPORT.findall(text), path
+
+
+_DRIVER_ALONE = """
+import sys
+sys.modules["jax"] = None
+sys.path.insert(0, "../examples")
+import {name}
+ref = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+assert not ref, ref
+assert "jax" not in [m for m, v in sys.modules.items() if v is not None]
+print("alone")
+"""
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=str)
+def test_example_imports_without_jax_or_reference(path):
+    """Each ``examples/*_torch.py`` driver imports with jax made
+    unimportable and loads no module of the reference package."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _DRIVER_ALONE.format(name=path.stem)],
+        cwd=ROOT / "src", capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "alone"
 
 
 def _smoke(cwd):

@@ -7,7 +7,8 @@
 2. The sim ≡ runtime gate (``scorecard_gate``, fig_scorecard's) with
    assessment on ``TorchBackend("cpu")`` at the reference gate's sizes:
    it holds for both scripts; a script that never fires makes it raise.
-3. The recovery gate (``recovery_gate``, perf_runtime's) on the CPU, its
+3. The recovery gate (``recovery_gate``, perf_runtime's) on the CPU, in
+   a child process through the card's entry (``runtime_child``), its
    constants those of ``benchmarks/perf_runtime.py``: bino recovers
    before gang restart, both runs end on the fault-free run's bytes.
 4. The gates' constants against the reference's benchmarks and tests.
@@ -112,9 +113,16 @@ def test_scorecard_gate_raises_when_a_script_never_fires(chip_smoke,
 # ---------------------------------------------------------------------------
 # 3. The recovery gate
 # ---------------------------------------------------------------------------
-def test_recovery_gate_on_cpu(chip_smoke, one_thread, capsys):
-    total = chip_smoke.recovery_gate("cpu", TorchBackend("cpu"), n_meas=4)
-    assert not any(total.values())
+def test_recovery_gate_on_cpu(chip_smoke, capsys):
+    """The gate through the entry the card's run takes: a fresh child
+    process that freezes each run's objects during its steps
+    (``runtime_child``), on ``TorchBackend("cpu")``. In this test's
+    process the real-clock steps shared their collections with the
+    worker's earlier files (ROADMAP.md, C7); a failure carries the
+    child's lines, so it names its raise."""
+    total = chip_smoke.runtime_child("cpu", ("recovery",), n_meas=4)
+    assert list(total) == ["recovery"]
+    assert not any(total["recovery"].values())
     out = capsys.readouterr().out
     assert out.count("byte-identical to the fault-free run") == 2
     assert "recovery gate: bino " in out
